@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's 512x512 frame spends its time, on one GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 scripts/profile_torch_frame.py [--frames N] [--out result.json]
+
+Builds the bench frame of chip_smoke.py (full SD1.5 widths, random bf16
+weights, 4-step LCM, cfg 2.0, OverlapCorresponder, 512x512), runs one warm
+frame, then N frames under CUDA-event stage timers and one frame under
+torch.profiler. Prints and writes:
+  * per-stage time per frame (raster + G-buffer, pack, VAE encode, the UNet
+    evaluations, VAE decode, the rest; means) from CUDA events around the
+    stages — stream time between the events, so it includes the device's
+    idle gaps while the host enqueues that stage;
+  * host wall time per frame (median and max), and the device busy share:
+    one profiled frame's summed kernel time over the unprofiled median wall
+    time;
+  * the kernels with the most device time, by name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--out", default=None, help="also write the result as JSON here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import subprocess
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+    import chip_smoke
+    from stable_renderer_tpu_torch.data.sprite import EnvPrompt, Sprite
+    from stable_renderer_tpu_torch.engine import frame_program, render_exec
+    from stable_renderer_tpu_torch.engine.mesh import Mesh
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
+    from stable_renderer_tpu_torch.ops.gbuffer import DrawUniforms
+    from stable_renderer_tpu_torch.ops.postprocess import PostProcessParams
+    from stable_renderer_tpu_torch.workflow.config import RenderConfig
+
+    dev = torch.device("cuda", 0)
+    cfg = RenderConfig(prompt="a ball", steps=4, cfg_scale=2.0, sampler="lcm",
+                       scheduler="sgm_uniform")
+    pipe = DiffusionPipeline.from_random(cfg, tiny=False, device=dev)
+    corr = OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
+    bg = torch.randn((1, 512, 512, 4), generator=torch.Generator(device=dev).manual_seed(7),
+                     device=dev)
+    sphere = Mesh.Sphere(1.0, 48)
+    sigs = ((DrawUniforms(sprite_id=1, material_id=1), (512, 512), None, None),)
+    sprites, env = {1: Sprite(spriteID=1, prompt="a shiny ball")}, (EnvPrompt("a ball"),)
+
+    # CUDA-event timers around the stages (events on the current stream)
+    spans = defaultdict(list)
+    active = {"on": False}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            if not active["on"]:
+                return fn(*a, **kw)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            with torch.profiler.record_function(name):
+                out = fn(*a, **kw)
+            e.record()
+            spans[name].append((s, e))
+            return out
+        return wrapper
+
+    frame_program._draw_pass = timed("raster+gbuffer", render_exec._draw_pass)
+    frame_program._pack_arrays = timed("pack", render_exec._pack_arrays)
+    pipe.vae.encode = timed("vae_encode", pipe.vae.encode)
+    pipe.vae.decode = timed("vae_decode", pipe.vae.decode)
+    pipe.unet.apply = timed("unet_eval", pipe.unet.apply)
+
+    def frame(i):
+        mv, proj = chip_smoke.bench_matrices(i)
+        draws = (dict(buffers=render_exec.mesh_device_buffers(sphere, dev), mv=mv, diffuse=None,
+                      noise=None, corrmap=None),)
+        _, ctx, nctx, _, _ = pipe.prepare_conditioning(sprites, env, 1)
+        key = torch.Generator(device=dev).manual_seed(cfg.seed + i)
+        out = frame_program.frame_step(
+            pipe, corr, (), sigs, 512, 512, True, False, PostProcessParams(), (), True, draws,
+            proj, bg, None, ctx, nctx, pipe.scheduler_sigmas(), key, *pipe.compute_params())
+        return out[0].cpu()
+
+    frame(0)
+    torch.cuda.synchronize()
+    active["on"] = True
+    walls, totals = [], []
+    for i in range(args.frames):
+        fs, fe = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        fs.record()
+        frame(1 + i)
+        fe.record()
+        fe.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        totals.append(fs.elapsed_time(fe))
+    active["on"] = False
+    per_frame = {k: sum(s.elapsed_time(e) for s, e in v) / args.frames for k, v in spans.items()}
+    per_frame["rest (CLIP cache hit, sampler math, defer/post, uint8, readback)"] = (
+        statistics.mean(totals) - sum(per_frame.values()))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frame(1 + args.frames)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    device_us = 0.0
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0.0)
+        if dt > 0 and ev.device_type.name == "CUDA":
+            kernels.append((dt / 1e3, ev.count, ev.key))
+            device_us += dt
+    kernels.sort(reverse=True)
+    result = {
+        "card": card,
+        "frames": args.frames,
+        "wall_ms_median": statistics.median(walls),
+        "wall_ms_max": max(walls),
+        "event_ms_mean": statistics.mean(totals),
+        "stage_ms_per_frame": per_frame,
+        "unet_evals_per_frame": len(spans["unet_eval"]) / args.frames,
+        "profiled_frame_wall_ms": prof_wall,
+        "profiled_device_ms": device_us / 1e3,
+        # kernel time of one frame over the frame's wall time without the
+        # profiler (the profiled frame's own wall time includes its overhead)
+        "device_busy_share": device_us / 1e3 / statistics.median(walls),
+        "top_kernels_ms": [{"ms": round(ms, 3), "calls": n, "name": k[:120]}
+                           for ms, n, k in kernels[:25]],
+    }
+    print(json.dumps(result, indent=1))
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

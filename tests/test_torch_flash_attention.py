@@ -1,0 +1,91 @@
+"""K1, flash attention: the port's module (ops/flash_attention.py) against the
+JAX package's Pallas kernel in interpret mode and its routing, plus the
+wrapper's device contract. The CUDA kernel itself is compared with the plain
+version on the card (tests/test_torch_cuda.py and chip_smoke.py)."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stable_renderer_tpu.ops.flash_attention as jfa
+from stable_renderer_tpu_torch.ops import flash_attention as tfa
+
+torch.set_num_threads(1)
+TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    """Run the JAX Pallas kernel in interpreter mode on the CPU (as
+    tests/test_flash_attention.py does)."""
+    orig = jfa.pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs.setdefault("interpret", True)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jfa.pl, "pallas_call", patched)
+
+
+def _qkv(rng, bh, lq, lk, d):
+    return (rng.standard_normal((bh, lq, d)).astype(np.float32),
+            rng.standard_normal((bh, lk, d)).astype(np.float32),
+            rng.standard_normal((bh, lk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("lq,lk,d", [(256, 256, 64), (256, 77, 64), (130, 333, 40)])
+def test_plain_matches_jax_flash(interpret_mode, rng, lq, lk, d):
+    q, k, v = _qkv(rng, 2, lq, lk, d)
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              block_q=128, block_k=128)
+    out = tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert tfa.flash_attention.launches == 0  # CPU tensors never launch the kernel
+
+
+@pytest.mark.parametrize("lk", [64, 2048])
+def test_routing_matches_attention_pallas(interpret_mode, rng, lk):
+    """Both sides of the lk >= 2048 routing rule, one small head."""
+    b, lq, heads, d = 1, 16, 1, 8
+    q = rng.standard_normal((b, lq, heads * d)).astype(np.float32)
+    k = rng.standard_normal((b, lk, heads * d)).astype(np.float32)
+    v = rng.standard_normal((b, lk, heads * d)).astype(np.float32)
+    ref = jfa.attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads)
+    out = tfa.attention_pallas(*(torch.from_numpy(a) for a in (q, k, v)), heads)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert tfa.FLASH_MIN_KV_LEN == 2048
+
+
+def test_routing_sends_long_kv_to_the_wrapper(monkeypatch, rng):
+    calls = []
+    monkeypatch.setattr(tfa, "flash_attention",
+                        lambda q, k, v: calls.append(q.shape) or tfa.flash_attention_reference(q, k, v))
+    q = torch.from_numpy(rng.standard_normal((2, 8, 3 * 4)).astype(np.float32))
+    for lk, want in ((2047, 0), (2048, 1)):
+        kv = torch.from_numpy(rng.standard_normal((2, lk, 3 * 4)).astype(np.float32))
+        tfa.attention_pallas(q, kv, kv, heads=3)
+        assert len(calls) == want
+    assert calls[0] == (6, 8, 4)  # merged (batch * heads, L, D)
+
+
+def test_wrapper_rejects_non_cuda_devices():
+    q = torch.empty((2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="not CUDA"):
+        tfa.flash_attention(q, q, q)
+
+
+def test_plain_matches_jax_einsum_bf16_inputs(rng):
+    """bf16 inputs: f32 logits and softmax, weights rounded to v's dtype —
+    the JAX plain path's numerics (layers.attention)."""
+    from stable_renderer_tpu.models.layers import attention as jattn
+
+    b, l, heads, d = 1, 32, 2, 16
+    q, k, v = (rng.standard_normal((b, l, heads * d)).astype(np.float32) for _ in range(3))
+    ref = jattn(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), heads)
+    out = tfa.attention_pallas(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)), heads)
+    # both round the softmax weights and the output to bf16 (2^-8 relative)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=2e-2, rtol=2e-2)

@@ -1,0 +1,241 @@
+"""K2, the tile rasterizer, and the raster / G-buffer chain around it: the port
+(ops/raster.py, ops/raster_kernel.py, ops/gbuffer.py, ops/postprocess.py,
+ops/transforms.py) against the JAX package on the same inputs. The JAX Pallas
+kernel runs in interpret mode, as tests/test_raster_pallas.py runs it; the
+CUDA kernel is compared with the plain version on the card
+(tests/test_torch_cuda.py and chip_smoke.py)."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import stable_renderer_tpu.ops.raster_pallas as jrp
+from stable_renderer_tpu.engine.mesh import Mesh as JMesh
+from stable_renderer_tpu.ops import gbuffer as jg
+from stable_renderer_tpu.ops import postprocess as jpost
+from stable_renderer_tpu.ops import raster as jr
+from stable_renderer_tpu.ops import transforms as jt
+from stable_renderer_tpu_torch.engine.mesh import Mesh
+from stable_renderer_tpu_torch.ops import gbuffer as tg
+from stable_renderer_tpu_torch.ops import postprocess as tpost
+from stable_renderer_tpu_torch.ops import raster as tr
+from stable_renderer_tpu_torch.ops import raster_kernel as trk
+from stable_renderer_tpu_torch.ops import transforms as tt
+
+torch.set_num_threads(1)
+TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    orig = jrp.pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs.setdefault("interpret", True)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jrp.pl, "pallas_call", patched)
+
+
+def _scene(segments=12):
+    """Sphere seen by the bench camera; the same float32 clip positions feed
+    both packages."""
+    mesh = JMesh.Sphere(1.0, segments)
+    view = jt.look_at(jnp.asarray([0.0, 0.5, 3.0]), jnp.zeros(3), jnp.asarray([0.0, 1.0, 0.0]))
+    proj = jt.perspective(45.0, 1.0, 0.1, 100.0)
+    clip, vpos, vnrm = jr.vertex_stage(jnp.asarray(mesh.positions), jnp.asarray(mesh.normals),
+                                       view, proj)
+    return mesh, *(np.array(a) for a in (view, proj, clip, vpos, vnrm))
+
+
+def _agree(out, ref, z_atol=1e-4):
+    """The bars of tests/test_raster_pallas.py:38-50."""
+    out_cov, ref_cov = np.asarray(out.tri_id) >= 0, np.asarray(ref.tri_id) >= 0
+    assert (ref_cov != out_cov).mean() < 0.005
+    both = ref_cov & out_cov
+    np.testing.assert_allclose(np.asarray(out.z)[both], np.asarray(ref.z)[both], atol=z_atol)
+    same_tri = (np.asarray(out.tri_id) == np.asarray(ref.tri_id))[both]
+    assert same_tri.mean() > 0.98
+    np.testing.assert_allclose(np.asarray(out.bary)[both].sum(-1), 1.0, atol=1e-4)
+    b_match = np.isclose(np.asarray(out.bary)[both], np.asarray(ref.bary)[both], atol=1e-3).all(-1)
+    assert b_match[same_tri].mean() > 0.98
+
+
+def test_transforms_match_jax():
+    np.testing.assert_allclose(
+        tt.look_at([0.0, 0.5, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]).numpy(),
+        np.asarray(jt.look_at(jnp.asarray([0.0, 0.5, 3.0]), jnp.zeros(3),
+                              jnp.asarray([0.0, 1.0, 0.0]))), **TOL)
+    np.testing.assert_allclose(tt.perspective(45.0, 1.0, 0.1, 100.0).numpy(),
+                               np.asarray(jt.perspective(45.0, 1.0, 0.1, 100.0)), **TOL)
+    q = tt.quat_from_euler([10.0, 20.0, 30.0])
+    np.testing.assert_allclose(q.numpy(), np.asarray(jt.quat_from_euler(jnp.asarray([10.0, 20.0, 30.0]))), **TOL)
+    np.testing.assert_allclose(tt.trs([1.0, 2.0, 3.0], q, [2.0, 2.0, 2.0]).numpy(),
+                               np.asarray(jt.trs(jnp.asarray([1.0, 2.0, 3.0]), jnp.asarray(q.numpy()),
+                                                 jnp.asarray([2.0, 2.0, 2.0]))), **TOL)
+    np.testing.assert_allclose(tt.orthographic(2.0, 1.5, 0.1, 50.0).numpy(),
+                               np.asarray(jt.orthographic(2.0, 1.5, 0.1, 50.0)), **TOL)
+    rng = np.random.default_rng(0)
+    q2 = rng.standard_normal(4).astype(np.float32)
+    pts = rng.standard_normal((5, 3)).astype(np.float32)
+    m = tt.trs([0.5, -1.0, 2.0], q, [1.0, 2.0, 0.5]).numpy()
+    m[3] = [0.01, 0.02, -0.03, 1.0]  # a projective row, so transform_points divides by w
+    for name, args in (("quat_mul", (q.numpy(), q2)), ("quat_rotate", (q.numpy(), pts)),
+                       ("normal_matrix", (m,)), ("transform_points", (m, pts)),
+                       ("transform_dirs", (m, pts))):
+        np.testing.assert_allclose(
+            getattr(tt, name)(*(torch.from_numpy(np.asarray(a)) for a in args)).numpy(),
+            np.asarray(getattr(jt, name)(*(jnp.asarray(a) for a in args))), err_msg=name, **TOL)
+
+
+def test_vertex_stage_matches_jax():
+    mesh, view, proj, clip, vpos, vnrm = _scene()
+    c, p, n = tr.vertex_stage(torch.from_numpy(mesh.positions), torch.from_numpy(mesh.normals),
+                              torch.from_numpy(view), torch.from_numpy(proj))
+    for a, b in ((c, clip), (p, vpos), (n, vnrm)):
+        np.testing.assert_allclose(a.numpy(), b, **TOL)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_triangle_setup_matches_jax(cull):
+    mesh, _, _, clip, _, _ = _scene()
+    ref = jrp.triangle_setup(jnp.asarray(clip), jnp.asarray(mesh.tris), 64, 64, cull_backface=cull)
+    out = trk.triangle_setup(torch.from_numpy(clip), torch.from_numpy(mesh.tris), 64, 64,
+                             cull_backface=cull)
+    assert out.shape == (mesh.tris.shape[0], trk.N_COLS)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3, rtol=1e-5)
+    np.testing.assert_array_equal(out[:, 19].numpy(), np.asarray(ref[:, 19]))
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_plain_matches_jax_rasterize(cull):
+    """The plain version is a port of the XLA rasterizer: exact ids."""
+    mesh, _, _, clip, _, _ = _scene()
+    ref = jr.rasterize(jnp.asarray(clip), jnp.asarray(mesh.tris), 64, 64, cull_backface=cull)
+    out = tr.rasterize(torch.from_numpy(clip), torch.from_numpy(mesh.tris), 64, 64,
+                       cull_backface=cull)
+    np.testing.assert_array_equal(out.tri_id.numpy(), np.asarray(ref.tri_id))
+    np.testing.assert_allclose(out.z.numpy(), np.asarray(ref.z), **TOL)
+    np.testing.assert_allclose(out.bary.numpy(), np.asarray(ref.bary), **TOL)
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_plain_matches_jax_pallas_kernel(interpret_mode, cull):
+    mesh, _, _, clip, _, _ = _scene()
+    ref = jrp.rasterize_pallas(jnp.asarray(clip), jnp.asarray(mesh.tris), 64, 64, tile=32,
+                               cull_backface=cull)
+    out = trk.rasterize_kernel(torch.from_numpy(clip), torch.from_numpy(mesh.tris), 64, 64,
+                               cull_backface=cull)
+    _agree(out, ref)
+    assert trk.rasterize_kernel.launches == 0  # CPU tensors take the plain version
+
+
+def test_behind_camera_culled():
+    clip = torch.tensor([[-4, -4, 0, -1.0], [4, -4, 0, 1.0], [0, 6, 0, 1.0]])
+    vis = tr.rasterize_auto(clip, torch.tensor([[0, 1, 2]], dtype=torch.int32), 32, 32)
+    assert int((vis.tri_id >= 0).sum()) == 0
+
+
+def test_ztest_lowest_depth_wins():
+    near = [[-4, -4, -0.5, 1.0], [4, -4, -0.5, 1.0], [0, 6, -0.5, 1.0]]
+    far = [[-4, -4, 0.5, 1.0], [4, -4, 0.5, 1.0], [0, 6, 0.5, 1.0]]
+    clip = torch.tensor(far + near)
+    tris = torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32)
+    vis = tr.rasterize_auto(clip, tris, 32, 32)
+    assert int(vis.tri_id[16, 16]) == 1
+    np.testing.assert_allclose(float(vis.z[16, 16]), 0.25, atol=1e-5)
+    # equal depths: the lower triangle index wins
+    vis = tr.rasterize_auto(torch.tensor(near + near), tris, 32, 32)
+    assert int(vis.tri_id[16, 16]) == 0
+
+
+def test_kernel_wrapper_rejects_non_cuda_devices():
+    clip = torch.empty((3, 4), device="meta")
+    with pytest.raises(ValueError):
+        trk.rasterize_kernel(clip, torch.zeros((1, 3), dtype=torch.int32, device="meta"), 8, 8)
+
+
+@pytest.mark.parametrize("render_mode", [jg.RENDER_MODE_NORMAL, jg.RENDER_MODE_BAKING])
+def test_shade_and_compose_match_jax(render_mode):
+    mesh, view, proj, clip, vpos, vnrm = _scene()
+    jvis = jr.rasterize(jnp.asarray(clip), jnp.asarray(mesh.tris), 64, 64, cull_backface=True)
+    tvis = tr.VisibilityBuffer(*(torch.from_numpy(np.array(a)) for a in jvis))
+    noise_tex = np.random.default_rng(1).standard_normal((16, 16, 4)).astype(np.float32)
+    args = (mesh.tris, vpos, vnrm, mesh.uvs, mesh.colors, mesh.vertex_ids)
+    ju = jg.DrawUniforms(sprite_id=2, material_id=5, render_mode=render_mode)
+    tu = tg.DrawUniforms(sprite_id=2, material_id=5, render_mode=render_mode)
+    jgb = jg.shade_draw(jvis, *(jnp.asarray(a) for a in args), ju, noise_tex=jnp.asarray(noise_tex))
+    tgb = tg.shade_draw(tvis, *(torch.from_numpy(np.array(a)) for a in args), tu,
+                        noise_tex=torch.from_numpy(noise_tex))
+    for name, a, b in zip(jgb._fields, tgb, jgb):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+    # compose over a previous half-transparent draw
+    rng = np.random.default_rng(2)
+    prev = [rng.random(np.asarray(f).shape).astype(np.asarray(f).dtype) for f in jgb]
+    prev[1] = np.asarray(jgb.id)[::-1].copy()
+    prev[0][..., 3] = 0.5
+    zbuf = rng.random((64, 64)).astype(np.float32)
+    jout, jz = jg.compose_draw(jg.GBuffer(*map(jnp.asarray, prev)), jnp.asarray(zbuf), jgb, jvis,
+                               render_mode)
+    from stable_renderer_tpu_torch.data.framebuffers import GBuffer
+
+    tout, tz = tg.compose_draw(GBuffer(*(torch.from_numpy(p) for p in prev)),
+                               torch.from_numpy(zbuf), tgb, tvis, render_mode)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), **TOL)
+    for name, a, b in zip(jout._fields, tout, jout):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **TOL)
+
+
+def test_view_angle_bins_and_canny_match_jax():
+    n = np.random.default_rng(3).standard_normal((500, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    np.testing.assert_array_equal(tg.view_angle_map_index(torch.from_numpy(n), 3).numpy(),
+                                  np.asarray(jg.view_angle_map_index(jnp.asarray(n), 3)))
+    np.testing.assert_array_equal(tg.canny_from_normal(torch.from_numpy(n)).numpy(),
+                                  np.asarray(jg.canny_from_normal(jnp.asarray(n))))
+
+
+@pytest.mark.parametrize("baking", [False, True])
+def test_defer_and_post_process_match_jax(baking):
+    rng = np.random.default_rng(4)
+    color = rng.random((16, 16, 4)).astype(np.float32)
+    ids = rng.integers(0, 3000, (16, 16, 4)).astype(np.int32)
+    ids[::3, :, 2] = 2048
+    np.testing.assert_allclose(
+        tpost.defer_render(torch.from_numpy(color), torch.from_numpy(ids), is_baking=baking).numpy(),
+        np.asarray(jpost.defer_render(jnp.asarray(color), jnp.asarray(ids), is_baking=baking)), **TOL)
+    kw = dict(enable_gamma=True, enable_hdr=True, gamma=2.2, exposure=1.3, saturation=0.7,
+              brightness=1.1, contrast=1.2)
+    np.testing.assert_allclose(
+        tpost.post_process(torch.from_numpy(color), tpost.PostProcessParams(**kw)).numpy(),
+        np.asarray(jpost.post_process(jnp.asarray(color), jpost.PostProcessParams(**kw))), **TOL)
+
+
+def test_mesh_buffers_follow_their_mesh():
+    """A mesh dropped after its upload never hands its buffers to a new mesh
+    that happens to get the same id (the cache is keyed by id)."""
+    import gc
+
+    from stable_renderer_tpu_torch.engine.render_exec import mesh_device_buffers
+
+    for segments in (2, 3, 4, 5, 6):
+        mesh = Mesh.Plane(1.0, segments)
+        bufs = mesh_device_buffers(mesh)
+        assert bufs["positions"].shape[0] == (segments + 1) ** 2
+        np.testing.assert_array_equal(bufs["tris"].numpy(), mesh.tris)
+        del mesh, bufs
+        gc.collect()
+
+
+def test_mesh_matches_jax():
+    for name, args in (("Sphere", (1.0, 12)), ("Plane", (2.0, 3)), ("Cube", (1.5,))):
+        a, b = getattr(Mesh, name)(*args), getattr(JMesh, name)(*args)
+        for field in ("positions", "normals", "uvs", "colors", "tris", "vertex_ids", "tangents",
+                      "bitangents", "tri_material"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)
+        assert (a.vertex_count, a.triangle_count) == (b.vertex_count, b.triangle_count)
+        for lo_hi_a, lo_hi_b in zip(a.bounds, b.bounds):
+            np.testing.assert_array_equal(lo_hi_a, lo_hi_b)
