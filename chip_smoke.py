@@ -16,6 +16,22 @@ Phases, one line each; any failure exits non-zero:
   6. frame    — the bench frame at full SD1.5 widths (random bf16 weights),
                 1 warm + 4 timed frames of frame_step at 512x512, with the
                 kernels' launch counts checked.
+  7. K3       — the fused 3x3 conv kernel vs its plain version at the frame's
+                shapes: bf16, bf16 with the GroupNorm+SiLU prologue, int8.
+  8. K4       — the fused GroupNorm kernel vs its plain version (with SiLU).
+  9. int8     — the calibrated int8 frame: RenderConfig(int8_conv=True) ->
+                from_random -> quantize_convs, 1 warm + 4 timed 512x512
+                frames; K1, K2 and K3 launch counts checked; the decoded image
+                against phase 6's bf16 frame at the same inputs, and one UNet
+                evaluation against the bf16 UNet.
+ 10. switches — one bf16 frame with the float K3 switch and the K4 switch on;
+                launch counts checked; the image against phase 6's frame.
+Every kernel line carries its time (K3 and K4: device time of one call, from
+a CUDA-graph replay that leaves out the host's launch cost, with the per-call
+event time beside it as ms_with_host), its plain version's time, the least time
+the card could take for the same work (the larger of bytes over 3.35 TB/s and
+operations over the H100's peak for their type, 700 W data sheet) and, where
+one PyTorch call computes the same function, that call's time.
 The last lines are the kernels' JSON summary, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -35,6 +51,23 @@ K1_CALLS_PER_FRAME = 22  # 5 level-0 self-attentions x 4 steps + VAE encode + de
 K1_BF16_TOL = 1e-2  # bf16 output rounding (2^-8 relative) + the plain path's bf16 softmax weights
 K1_F32_TOL = 1e-4   # f32: summation order only
 REF_TOL = 2e-3      # tiny f32 frame, GPU kernels vs CPU plain path (order of f32 sums)
+# K3 and K4 launches a frame, counted on the meta device by
+# tests/test_torch_conv_kernel.py: int8 4 x 22 (UNet) + 20 (encode) + 31 (decode);
+# with both switches, K3 4 x 11 + 20 + 29 and K4 4 x 43 + 2 + 1
+K3_INT8_CALLS_PER_FRAME = 139
+K3_SWITCHED_CALLS_PER_FRAME = 93
+K4_SWITCHED_CALLS_PER_FRAME = 175
+BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative
+K3_BF16_ATOL = 1e-3    # near zero, where the bf16 step is tiny: f32 sum order
+K4_ATOL = 1e-5
+INT8_UNET_COS_BAR = 0.99  # int8 vs bf16, one UNet evaluation (the JAX package's bar, tests/test_quant.py:193)
+INT8_FRAME_COS_FLOOR = 0.9  # int8 vs bf16 decoded frame: random weights push the frame's
+# activations past their calibrated ranges (PERF.md, section 5), so the frame gets a floor only
+SWITCH_MEAN_BAR = 0.02  # switched vs unswitched frame, mean abs on [0, 1] pixels
+SWITCH_MAX_BAR = 0.25   # ... and max abs
+# NVIDIA H100 SXM data sheet (700 W): dense tensor-core and FMA peaks, HBM rate
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -60,6 +93,44 @@ def cuda_ms(fn, repeats: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, repeats: int = 20) -> float:
+    """Milliseconds of one call of ``fn`` on the device: the call is captured
+    once in a CUDA graph and the graph replayed ``repeats`` times between two
+    events, so the host's cost of launching (Python, ctypes, allocation) is
+    left out. For calls whose kernels are short next to that cost."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture, as graphs need
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(repeats):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / repeats
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def bench_matrices(frame: int):
     """Bench scene (bench.py:229-236): camera at (0, 0.5, 3) looking at the
     origin, fov 45, near 0.1, far 100; the ball turned 4 degrees per frame
@@ -76,6 +147,7 @@ def bench_matrices(frame: int):
 
 def main() -> None:
     import torch
+    import torch.nn.functional as F
 
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -140,11 +212,17 @@ def main() -> None:
             k1_err = max(k1_err, err)
             row["ms"] = cuda_ms(lambda: flash_attention(q, k, v), 10)
             row["plain_ms"] = cuda_ms(lambda: flash_attention_reference(q, k, v), 10)
+            # (1, BH, L, D): the fused SDPA backends take 4-D inputs
+            qb, kb, vb = q[None], k[None], v[None]
+            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb), 10)
+            row["bound_ms"], row["bound_by"] = bound(nbytes(q, k, v, out),
+                                                     4.0 * bh * lq * lk * d, "bf16")
         k1["shapes"].append(row)
         print(f"[3 K1] {row} (tol {tol:g})", flush=True)
         del q, k, v, out, ref
     main_shape = k1["shapes"][0]
-    k1.update(max_abs_err=k1_err, ms=main_shape["ms"], plain_ms=main_shape["plain_ms"])
+    k1.update(max_abs_err=k1_err, **{k: main_shape[k] for k in
+                                     ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
     # --- 4. K2 ---------------------------------------------------------------
     from stable_renderer_tpu_torch.engine.mesh import Mesh
@@ -170,6 +248,16 @@ def main() -> None:
             and bary_ok.float().mean() > 0.98 and z_err < 1e-4):
         fail(f"K2 disagrees: coverage differs on {cov_diff:.4%}, same tri "
              f"{same_tri.float().mean():.4f}, bary {bary_ok.float().mean():.4f}, z err {z_err:.2e}")
+    # K2's work: the function reads clip and tris and writes z, tri_id and
+    # bary; its operations are the pixel-triangle tests inside each
+    # triangle's screen bounding box (~10 f32 operations each)
+    ndc = clip[:, :2] / clip[:, 3:4]
+    pxy = (ndc * 0.5 + 0.5) * SIZE
+    tri_xy = pxy[bufs["tris"].long()]  # (T, 3, 2)
+    lo = tri_xy.amin(1).floor().clamp(0, SIZE)
+    hi = tri_xy.amax(1).ceil().clamp(0, SIZE)
+    pairs = ((hi - lo).clamp(min=0).prod(-1)).sum().item()
+    k2_bound = bound(nbytes(clip, bufs["tris"], vis.z, vis.tri_id, vis.bary), 10.0 * pairs, "f32")
     k2 = {"name": "rasterize_kernel", "route": "cuda",
           "source": "stable_renderer_tpu_torch/csrc/raster_tile.cu",
           "replaces": "stable_renderer_tpu/ops/raster_pallas.py:99",
@@ -178,6 +266,7 @@ def main() -> None:
                                                  cull_backface=True), 20),
           "plain_ms": cuda_ms(lambda: rasterize(clip, bufs["tris"], SIZE, SIZE,
                                                 cull_backface=True), 5, warmup=1),
+          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
           "coverage_diff": cov_diff, "same_tri": same_tri.float().mean().item(),
           "bary_agree": bary_ok.float().mean().item()}
     print(f"[4 K2] {k2} ({bufs['tris'].shape[0]} triangles)", flush=True)
@@ -253,6 +342,8 @@ def main() -> None:
         displays.append(host)
         if not torch.isfinite(images).all():
             fail(f"frame {f}: non-finite decoded image")
+        if f == 0:
+            bf16_images = images.float().clone()
     k1["launches"], k2["launches"] = flash_attention.launches, rasterize_kernel.launches
     n_frames = 1 + FRAMES_TIMED
     if k1["launches"] != K1_CALLS_PER_FRAME * n_frames or k2["launches"] != n_frames:
@@ -270,10 +361,200 @@ def main() -> None:
           f"{n_frames} frames; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}", flush=True)
 
-    print(json.dumps({"kernels": [k1, k2], "frame_ms": ms, "card": card}))
+    # --- 7. K3 ----------------------------------------------------------------
+    from stable_renderer_tpu_torch.ops.conv_kernel import conv3x3_kernel, conv3x3_kernel_reference
+
+    k3 = {"name": "conv3x3_kernel", "route": "cuda",
+          "source": "stable_renderer_tpu_torch/csrc/conv3x3.cu",
+          "replaces": "stable_renderer_tpu/ops/conv_pallas.py:86", "shapes": []}
+    k3_cases = [((2, 64, 64, 320, 320), "bf16"), ((1, 512, 512, 128, 128), "bf16+prologue"),
+                ((2, 64, 64, 960, 320), "int8"), ((2, 32, 32, 640, 640), "int8"),
+                ((1, 512, 512, 128, 128), "int8")]
+    for (n, h, w, cin, cout), mode in k3_cases:
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+        wf = torch.randn((3, 3, cin, cout), generator=gen, device=dev) / (3.0 * cin ** 0.5)
+        b = (torch.randn((cout,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        kw = {}
+        if mode == "int8":
+            ws = wf.abs().amax((0, 1, 2)) / 127.0
+            wk = torch.clamp(torch.round(wf / ws), -127, 127).to(torch.int8)
+            kw.update(a_scale=(x.float().abs().amax() / 127.0).reshape(()), w_scale=ws)
+        else:
+            wk = wf.to(torch.bfloat16)
+        if mode == "bf16+prologue":
+            kw.update(pre_scale=torch.rand((n, cin), generator=gen, device=dev) + 0.5,
+                      pre_shift=torch.randn((n, cin), generator=gen, device=dev) * 0.5,
+                      pre_act="silu")
+        out = conv3x3_kernel(x, wk, b, **kw)
+        torch.cuda.synchronize()
+        ref = conv3x3_kernel_reference(x, wk, b, **kw)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if mode == "int8":
+            ok, bar = err == 0.0, "exact"  # same int8 values, exact int32 sums, same dequant
+        else:
+            ok = bool((diff <= BF16_STEP * ref.float().abs() + K3_BF16_ATOL).all())
+            bar = f"|d| <= 2^-7 |ref| + {K3_BF16_ATOL:g}"
+        if not (ok and math.isfinite(err)):
+            fail(f"K3 {mode} {(n, h, w, cin, cout)}: max abs err {err:.3e} (bar: {bar})")
+        row = {"shape": f"{n}x{h}x{w}x{cin}->{cout} {mode}", "max_abs_err": err, "bar": bar,
+               "ms": graph_ms(lambda: conv3x3_kernel(x, wk, b, **kw)),
+               "plain_ms": graph_ms(lambda: conv3x3_kernel_reference(x, wk, b, **kw), 5),
+               "library_ms": None,
+               "ms_with_host": cuda_ms(lambda: conv3x3_kernel(x, wk, b, **kw), 20)}
+        if mode != "int8":  # cuDNN's conv, channels_last bf16 (the prologue not included)
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            row["library_ms"] = graph_ms(lambda: F.conv2d(x_cl, w_cl, b, padding=1))
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes(x, wk, b, out, kw.get("pre_scale"), kw.get("pre_shift")),
+            2.0 * n * h * w * cout * 9 * cin, "int8" if mode == "int8" else "bf16")
+        k3["shapes"].append(row)
+        print(f"[7 K3] {row}", flush=True)
+        del x, wk, out, ref, diff
+    main_shape = next(r for r in k3["shapes"] if r["shape"].startswith("2x64x64x960"))
+    k3.update(max_abs_err=max(r["max_abs_err"] for r in k3["shapes"]),
+              **{k: main_shape[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")})
+
+    # --- 8. K4 ----------------------------------------------------------------
+    from stable_renderer_tpu_torch.ops.group_norm_kernel import (
+        group_norm_kernel,
+        group_norm_kernel_reference,
+    )
+
+    k4 = {"name": "group_norm_kernel", "route": "cuda",
+          "source": "stable_renderer_tpu_torch/csrc/group_norm.cu",
+          "replaces": "stable_renderer_tpu/ops/group_norm_pallas.py:54", "shapes": []}
+    for shape in ((2, 1024, 640), (2, 256, 1920), (1, 4096, 512)):
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(torch.bfloat16)
+        w = torch.randn((shape[2],), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn((shape[2],), generator=gen, device=dev).to(torch.bfloat16)
+        out = group_norm_kernel(x, w, b, groups=32, act="silu")
+        torch.cuda.synchronize()
+        ref = group_norm_kernel_reference(x, w, b, groups=32, act="silu")
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if not (math.isfinite(err) and (diff <= BF16_STEP * ref.float().abs() + K4_ATOL).all()):
+            fail(f"K4 {shape}: max abs err {err:.3e} (bar |d| <= 2^-7 |ref| + {K4_ATOL:g})")
+        x_nc = x.transpose(1, 2)  # (N, C, S) view for F.group_norm
+        row = {"shape": f"{shape} bf16 silu", "max_abs_err": err,
+               "ms": graph_ms(lambda: group_norm_kernel(x, w, b, groups=32, act="silu")),
+               "plain_ms": graph_ms(lambda: group_norm_kernel_reference(x, w, b, 32, 1e-6,
+                                                                         "silu")),
+               "library_ms": graph_ms(lambda: F.silu(F.group_norm(x_nc, 32, w, b, 1e-6))),
+               "ms_with_host": cuda_ms(lambda: group_norm_kernel(x, w, b, groups=32,
+                                                                 act="silu"), 20)}
+        row["bound_ms"], row["bound_by"] = bound(nbytes(x, w, b, out), 10.0 * x.numel(), "f32")
+        k4["shapes"].append(row)
+        print(f"[8 K4] {row}", flush=True)
+    k4.update(max_abs_err=max(r["max_abs_err"] for r in k4["shapes"]),
+              **{k: k4["shapes"][0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by")})
+
+    # --- 9. the calibrated int8 frame -----------------------------------------
+    from dataclasses import replace as dc_replace
+
+    from stable_renderer_tpu_torch.models import layers
+
+    t0 = time.perf_counter()
+    pipe_i8 = DiffusionPipeline.from_random(dc_replace(cfg, int8_conv=True), tiny=False,
+                                            device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_int8 = sum(_count_int8(t) for t in (pipe_i8.unet_params, pipe_i8.vae_params))
+    corr_i8 = OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = rasterize_kernel.launches = 0
+    conv3x3_kernel.launches = group_norm_kernel.launches = 0
+    times = []
+    for f in range(1 + FRAMES_TIMED):
+        t0 = time.perf_counter()
+        disp, gbuf, pack, images, _, _ = run_frame(pipe_i8, SIZE, f, corr_i8, bg)
+        host = disp.cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(images).all() or host.shape != (SIZE, SIZE, 4):
+            fail(f"int8 frame {f}: non-finite image or display {tuple(host.shape)}")
+        if f == 0:
+            i8_images = images.float().clone()
+    counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
+              group_norm_kernel.launches)
+    want = (K1_CALLS_PER_FRAME * n_frames, n_frames, K3_INT8_CALLS_PER_FRAME * n_frames, 0)
+    if counts != want:
+        fail(f"int8 frames: launches K1, K2, K3, K4 = {counts}, want {want}")
+    k3["launches"] = counts[2]
+    a, b_ = i8_images.flatten(), bf16_images.flatten()
+    cos = (a @ b_ / (a.norm() * b_.norm())).item()
+    ac, bc = a - a.mean(), b_ - b_.mean()
+    corr_c = (ac @ bc / (ac.norm() * bc.norm())).item()
+    if not cos > INT8_FRAME_COS_FLOOR:
+        fail(f"int8 frame vs bf16 frame: cosine {cos:.6f} <= {INT8_FRAME_COS_FLOOR}")
+    # the JAX package's fidelity bar is on one UNet evaluation of the same input
+    g9 = torch.Generator(device=dev).manual_seed(11)
+    xu = torch.randn((2, SIZE // 8, SIZE // 8, 4), generator=g9, device=dev).to(torch.bfloat16)
+    tu = torch.full((2,), 999.0, device=dev)
+    _, ctx9, nctx9, _, _ = pipe.prepare_conditioning(sprites, env, 1)
+    cu = torch.cat([ctx9, nctx9]).to(torch.bfloat16)
+    with torch.no_grad():
+        ub = pipe.unet.apply(pipe.unet_params, xu, tu, cu).float().flatten()
+        uq = pipe_i8.unet.apply(pipe_i8.unet_params, xu, tu, cu).float().flatten()
+    ucos = (ub @ uq / (ub.norm() * uq.norm())).item()
+    if not ucos > INT8_UNET_COS_BAR:
+        fail(f"int8 vs bf16 UNet evaluation: cosine {ucos:.6f} <= {INT8_UNET_COS_BAR}")
+    ms_i8 = statistics.median(times[1:])
+    print(f"[9 int8] {SIZE}x{SIZE} SD1.5 widths, calibrated int8 convs ({n_int8} int8 conv "
+          f"leaves): from_random with quantize_convs {setup_s:.2f} s (set-up); median "
+          f"{ms_i8:.1f} ms/frame ({1e3 / ms_i8:.2f} fps) over {FRAMES_TIMED} frames, warm frame "
+          f"{times[0]:.1f} ms; launches K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]} in "
+          f"{n_frames} frames; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"decoded frame 0 vs bf16: cosine {cos:.6f} (floor {INT8_FRAME_COS_FLOOR}), centred "
+          f"{corr_c:.4f}, max abs diff {(a - b_).abs().max().item():.4f}; one UNet evaluation "
+          f"vs bf16: cosine {ucos:.6f} (bar > {INT8_UNET_COS_BAR}) | {card}", flush=True)
+    del pipe_i8
+
+    # --- 10. the bf16 frame with the K3 and K4 switches on ---------------------
+    from stable_renderer_tpu_torch.ops.conv_kernel import use_pallas_conv
+
+    use_pallas_conv(True)
+    layers._group_norm_pallas_on = True
+    flash_attention.launches = rasterize_kernel.launches = 0
+    conv3x3_kernel.launches = group_norm_kernel.launches = 0
+    t0 = time.perf_counter()
+    _, _, _, sw_images, _, _ = run_frame(pipe, SIZE, 0, OverlapCorresponder(
+        vertex_segments=4096, update_corrmap=False), bg)
+    torch.cuda.synchronize()
+    sw_ms = (time.perf_counter() - t0) * 1e3
+    use_pallas_conv(False)
+    layers._group_norm_pallas_on = False
+    counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
+              group_norm_kernel.launches)
+    want = (K1_CALLS_PER_FRAME, 1, K3_SWITCHED_CALLS_PER_FRAME, K4_SWITCHED_CALLS_PER_FRAME)
+    if counts != want:
+        fail(f"switched frame: launches K1, K2, K3, K4 = {counts}, want {want}")
+    k4["launches"] = counts[3]
+    k3["launches_switched_frame"] = counts[2]
+    d = (sw_images.float() - bf16_images).abs()
+    if not (torch.isfinite(sw_images).all() and d.mean().item() < SWITCH_MEAN_BAR
+            and d.max().item() < SWITCH_MAX_BAR):
+        fail(f"switched frame vs phase 6: mean abs {d.mean().item():.4f} (bar {SWITCH_MEAN_BAR}), "
+             f"max {d.max().item():.4f} (bar {SWITCH_MAX_BAR})")
+    print(f"[10 switches] bf16 frame with use_pallas_conv(True) and _group_norm_pallas_on: "
+          f"{sw_ms:.1f} ms (one frame, after warm-up of the unswitched path); launches K1 "
+          f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]}, K4 {counts[3]}; vs phase 6 frame 0: "
+          f"mean abs {d.mean().item():.5f} (bar {SWITCH_MEAN_BAR}), max abs "
+          f"{d.max().item():.4f} (bar {SWITCH_MAX_BAR}) | {card}", flush=True)
+
+    print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
+
+
+def _count_int8(tree) -> int:
+    if isinstance(tree, dict):
+        return int("weight_q" in tree) + sum(_count_int8(v) for v in tree.values())
+    return 0
 
 
 def _to_cpu(tree):

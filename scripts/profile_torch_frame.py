@@ -3,10 +3,12 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--frames N] [--out result.json]
+    python3 scripts/profile_torch_frame.py [--frames N] [--int8] [--out result.json]
 
 Builds the bench frame of chip_smoke.py (full SD1.5 widths, random bf16
-weights, 4-step LCM, cfg 2.0, OverlapCorresponder, 512x512), runs one warm
+weights, 4-step LCM, cfg 2.0, OverlapCorresponder, 512x512; with --int8 the
+calibrated int8 convs of RenderConfig(int8_conv=True), whose 3x3 convs run on
+the K3 kernel), runs one warm
 frame, then N frames under CUDA-event stage timers and one frame under
 torch.profiler. Prints and writes:
   * per-stage time per frame (raster + G-buffer, pack, VAE encode, the UNet
@@ -16,7 +18,10 @@ torch.profiler. Prints and writes:
   * host wall time per frame (median and max), and the device busy share:
     one profiled frame's summed kernel time over the unprofiled median wall
     time;
-  * the kernels with the most device time, by name.
+  * the kernels with the most device time, by name;
+  * with --int8, from one more frame: how many int8 conv calls met an input
+    beyond their calibrated range (max|x| > 127.5 * a_scale, so that values
+    clip at +-127), and the largest ratio of max|x| to the calibrated max.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--int8", action="store_true",
+                    help="the calibrated int8 frame (RenderConfig(int8_conv=True))")
     ap.add_argument("--out", default=None, help="also write the result as JSON here")
     args = ap.parse_args()
 
@@ -61,8 +68,11 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     cfg = RenderConfig(prompt="a ball", steps=4, cfg_scale=2.0, sampler="lcm",
-                       scheduler="sgm_uniform")
+                       scheduler="sgm_uniform", int8_conv=args.int8)
+    t0 = time.perf_counter()
     pipe = DiffusionPipeline.from_random(cfg, tiny=False, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     corr = OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
     bg = torch.randn((1, 512, 512, 4), generator=torch.Generator(device=dev).manual_seed(7),
                      device=dev)
@@ -139,8 +149,36 @@ def main() -> None:
             kernels.append((dt / 1e3, ev.count, ev.key))
             device_us += dt
     kernels.sort(reverse=True)
+    clipping = None
+    if args.int8:
+        from stable_renderer_tpu_torch.models import layers, quant
+
+        seen = []
+        k3, conv_q = layers.conv3x3_kernel, quant.conv2d_q
+
+        def ratio(x, a_scale):
+            seen.append((x.float().abs().amax() / (127.5 * a_scale.float())).item())
+
+        def k3_rec(x, w, bias=None, **kw):
+            if kw.get("a_scale") is not None:
+                ratio(x, kw["a_scale"])
+            return k3(x, w, bias, **kw)
+
+        def conv_q_rec(p, x, stride=1, padding=0):
+            if "a_scale" in p:
+                ratio(x, p["a_scale"])
+            return conv_q(p, x, stride=stride, padding=padding)
+
+        layers.conv3x3_kernel, quant.conv2d_q = k3_rec, conv_q_rec
+        frame(2 + args.frames)
+        layers.conv3x3_kernel, quant.conv2d_q = k3, conv_q
+        clipping = {"int8_conv_calls": len(seen), "calls_clipping": sum(r > 1 for r in seen),
+                    "max_ratio_to_calibrated": max(seen)}
+    conv_kernel_ms = sum(ms for ms, _, k in kernels if "conv3x3_igemm" in k)
     result = {
         "card": card,
+        "mode": "int8" if args.int8 else "bf16",
+        "from_random_s": setup_s,
         "frames": args.frames,
         "wall_ms_median": statistics.median(walls),
         "wall_ms_max": max(walls),
@@ -152,6 +190,8 @@ def main() -> None:
         # kernel time of one frame over the frame's wall time without the
         # profiler (the profiled frame's own wall time includes its overhead)
         "device_busy_share": device_us / 1e3 / statistics.median(walls),
+        "k3_kernel_ms_per_frame": conv_kernel_ms,
+        "int8_clipping": clipping,
         "top_kernels_ms": [{"ms": round(ms, 3), "calls": n, "name": k[:120]}
                            for ms, n, k in kernels[:25]],
     }

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from stable_renderer_tpu_torch.data.framebuffers import GBuffer
+from stable_renderer_tpu_torch.device import resolve_device
 from stable_renderer_tpu_torch.engine.render_exec import _draw_pass, _pack_arrays
 from stable_renderer_tpu_torch.ops.postprocess import defer_render, post_process
 
@@ -102,13 +103,15 @@ def display_to_uint8(display: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(display, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
-def draw_call_inputs(draw_calls, view, device="cpu") -> Tuple[tuple, tuple]:
+def draw_call_inputs(draw_calls, view, device=None) -> Tuple[tuple, tuple]:
     """Split a sorted draw-call list into (draws, sigs) for frame_step. Each
     draw call carries ``mesh``, ``model_matrix``, ``uniforms`` and optional
     ``diffuse`` / ``noise`` textures, ``corrmap`` and ``shader``. The
-    model-view product is host math on the (4, 4) ``view``."""
+    model-view product is host math on the (4, 4) ``view``; mesh buffers go
+    to ``device`` (default: the card)."""
     from stable_renderer_tpu_torch.engine.render_exec import mesh_device_buffers
 
+    device = resolve_device(device)
     view = np.asarray(view, np.float32)
     draws, sigs = [], []
     for dc in draw_calls:

@@ -8,9 +8,10 @@ counterpart of the JAX package's jitted ``_jit_render``: PyTorch runs it
 eagerly, with model params passed in as arguments.
 
 Ported so far: the SD1.5 family from random weights, plain (non-scene)
-conditioning and the sequential program. Checkpoint loading, ControlNets,
-scene conditioning, TAESD, int8 and the stream program raise until their
-slices are ported.
+conditioning, the sequential program and the calibrated int8 conv path
+(``quantize_convs``). Checkpoint loading, ControlNets, scene conditioning,
+TAESD and the stream program raise until their slices are ported. The
+pipeline's tensors live on the card unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from stable_renderer_tpu_torch.data.engine_data import EngineData
+from stable_renderer_tpu_torch.device import resolve_device
 from stable_renderer_tpu_torch.models.clip import (
     SD15_CLIP_CONFIG,
     TINY_CLIP_CONFIG,
@@ -47,14 +49,13 @@ class DiffusionPipeline:
     clip_params: dict
     config: RenderConfig = field(default_factory=RenderConfig)
     model_sampling: ModelSampling = field(default_factory=ModelSampling)
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: Optional[torch.device] = None  # None: the card
 
     def __post_init__(self) -> None:
         cfg = self.config
-        if cfg.int8_conv or cfg.stream_pipeline or cfg.realtime_taesd or cfg.controlnets:
-            raise NotImplementedError("int8, stream, TAESD and ControlNet configs are not "
-                                      "ported yet")
-        self.device = torch.device(self.device)
+        if cfg.stream_pipeline or cfg.realtime_taesd or cfg.controlnets:
+            raise NotImplementedError("stream, TAESD and ControlNet configs are not ported yet")
+        self.device = resolve_device(self.device)
         self._cond_cache: dict = {}
         self._prep_cond_cache: dict = {}
         self._sigma_cache: Optional[Tuple[tuple, torch.Tensor]] = None
@@ -69,11 +70,13 @@ class DiffusionPipeline:
         seed: int = 0,
         dtype: Optional[torch.dtype] = None,
         family: str = "sd15",
-        device="cpu",
+        device=None,
     ) -> "DiffusionPipeline":
         """Random-weight pipeline: tiny f32 for tests, full-width bf16 SD1.5
         UNet and VAE otherwise (the CLIP tower stays f32). Weights are drawn
-        on ``device`` from a generator seeded with ``seed``."""
+        on ``device`` (default: the card) from a generator seeded with
+        ``seed``. ``config.int8_conv`` quantizes the conv trees
+        (``quantize_convs``)."""
         if family != "sd15":
             raise NotImplementedError(f"family {family!r} is not ported yet")
         ucfg = TINY_UNET_CONFIG if tiny else SD15_UNET_CONFIG
@@ -83,19 +86,68 @@ class DiffusionPipeline:
             ccfg = replace(ccfg, hidden_size=ucfg.context_dim)
         if dtype is None:
             dtype = torch.float32 if tiny else torch.bfloat16
-        device = torch.device(device)
+        device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         unet, vae, clip = UNetModel(ucfg), VAE(vcfg), CLIPTextModel(ccfg)
         config = config or RenderConfig()
         ms = ModelSampling(prediction=config.prediction or (
             "lcm" if config.sampler == "lcm" else "eps"))
-        return cls(
+        pipe = cls(
             unet=unet, vae=vae, clip=clip, tokenizer=Tokenizer(ccfg),
             unet_params=unet.init(gen, dtype=dtype, device=device),
             vae_params=vae.init(gen, dtype=dtype, device=device),
             clip_params=clip.init(gen, dtype=torch.float32, device=device),
             config=config, model_sampling=ms, device=device,
         )
+        if config.int8_conv:
+            pipe.quantize_convs()
+        return pipe
+
+    def quantize_convs(self, render_size: Tuple[int, int] = (512, 512)) -> "DiffusionPipeline":
+        """Apply the int8 conv path (models/quant.py) to the UNet and VAE
+        trees, as ``RenderConfig(int8_conv=True)`` asks.
+
+        Static per-conv activation scales come from one eager run per model at
+        the render resolution: for the UNet, a latent at each of the
+        schedule's sigmas (but the last) times the cfg pair of conditionings;
+        for the VAE, a decode of random latents and an ``encode_moments`` of
+        random pixels. Convs whose calibrated input is below 32 x 32 pixels
+        stay in the float type, as do the first and last convs
+        (``quant.DEFAULT_SKIP_RE``). The random inputs come from a generator
+        seeded with 7 on the pipeline's device, as the JAX package's key."""
+        import numpy as np
+
+        from stable_renderer_tpu_torch.models.quant import calibrate_act_scales, quantize_tree
+
+        dt = torch.bfloat16
+        ucfg = self.unet.config
+        # calibrate at the render resolution, so the recorded spatial sizes
+        # (the min_pixels gate) are what the frame's convs see
+        rh, rw = int(render_size[0]), int(render_size[1])
+        lh, lw = max(rh // 8, 8), max(rw // 8, 8)
+        gen = torch.Generator(device=self.device).manual_seed(7)
+        sig = np.asarray(self.scheduler_sigmas())
+        s = max(int(sig.shape[0]) - 1, 1)
+        b = 2 * s  # cfg pair at every schedule sigma
+        x = torch.randn((b, lh, lw, ucfg.in_channels), generator=gen, device=self.device).to(dt)
+        t = torch.as_tensor(np.tile(self.model_sampling.timestep(sig[:s]), 2),
+                            dtype=torch.float32, device=self.device)
+        # the cfg batch is [cond rows | uncond rows]: calibrate the same split
+        cp, cn = self.encode_prompts([self.config.prompt], [self.config.negative_prompt])
+        ctx = torch.cat([cp[:1].expand((s,) + cp.shape[1:]),
+                         cn[:1].expand((s,) + cn.shape[1:])], 0).to(dt)
+        scales_u = calibrate_act_scales(lambda p, *a: self.unet.apply(p, *a),
+                                        self.unet_params, x, t, ctx)
+        z = torch.randn((1, lh, lw, 4), generator=gen, device=self.device).to(dt)
+        px = torch.tanh(torch.randn((1, rh, rw, 3), generator=gen, device=self.device).to(dt))
+
+        def _vae_both(p, z, px):
+            return self.vae.decode(p, z), self.vae.encode_moments(p, px)
+
+        scales_v = calibrate_act_scales(_vae_both, self.vae_params, z, px)
+        self.unet_params = quantize_tree(self.unet_params, scales_u, min_pixels=32 * 32)
+        self.vae_params = quantize_tree(self.vae_params, scales_v, min_pixels=32 * 32)
+        return self
 
     # --- conditioning ---------------------------------------------------------
 
@@ -230,7 +282,7 @@ class DiffusionPipeline:
         if sprite_ids or hints or cn_params or y_cond is not None or y_uncond is not None:
             raise NotImplementedError("scene conditioning, ControlNet hints and ADM vectors "
                                       "are not ported yet")
-        vae_dtype = vae_params["quant_conv"]["weight"].dtype
+        vae_dtype = vae_params["quant_conv"]["weight"].dtype  # kept out of int8 by the skip list
         latent = self.vae.encode(vae_params, (color * 2.0 - 1.0).to(vae_dtype)).float()
         lh, lw = latent.shape[1], latent.shape[2]
         if noise_maps is not None:

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from stable_renderer_tpu_torch.data.framebuffers import GBuffer
+from stable_renderer_tpu_torch.device import resolve_device
 from stable_renderer_tpu_torch.engine.mesh import Mesh
 from stable_renderer_tpu_torch.ops.gbuffer import compose_draw, shade_draw
 from stable_renderer_tpu_torch.ops.math import adain, downsample_mean
@@ -22,11 +23,13 @@ from stable_renderer_tpu_torch.ops.raster import rasterize_auto, vertex_stage
 _mesh_cache: dict = {}
 
 
-def mesh_device_buffers(mesh: Mesh, device="cpu") -> dict:
-    """(positions/normals/uvs/colors/vertex_ids/tris) as tensors on ``device``,
-    uploaded once per (mesh, device). The cache holds the mesh itself, so its
-    id cannot be reused by another mesh while the entry lives."""
-    key = (id(mesh), str(torch.device(device)))
+def mesh_device_buffers(mesh: Mesh, device=None) -> dict:
+    """(positions/normals/uvs/colors/vertex_ids/tris) as tensors on ``device``
+    (default: the card), uploaded once per (mesh, device). The cache holds the
+    mesh itself, so its id cannot be reused by another mesh while the entry
+    lives."""
+    device = resolve_device(device)
+    key = (id(mesh), str(device))
     hit = _mesh_cache.get(key)
     if hit is None:
         bufs = {name: torch.as_tensor(getattr(mesh, name)).to(device)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the build
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the build
 takes seconds). The library lives in ``build/kernels/`` at the repository
 root, named by a hash of the sources and flags, so an edit to a kernel
 rebuilds it and an unchanged tree reuses the last build.
@@ -28,7 +29,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -66,16 +67,32 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+    try:
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+            if verbose:
+                print(log)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
@@ -94,6 +111,16 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = i32
             lib.sr_raster_tile.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, ptr]
             lib.sr_raster_tile.restype = i32
+            # x, weights (cout, 3, 3, cs), bias, bias kind, pre_scale, pre_shift,
+            # a_scale, w_scale, out, act scratch, n, h, w, cin, cout, cs, int8,
+            # x f32, out f32, act silu, pre, pre silu, stream
+            lib.sr_conv3x3.argtypes = [ptr, ptr, ptr, i32, *[ptr] * 6, *[i32] * 12, ptr]
+            lib.sr_conv3x3.restype = i32
+            # x, weight, bias, wb bf16, y, part, scale, shift, n, s, c, groups, chunks,
+            # rows, eps, silu, x f32, stream
+            lib.sr_group_norm.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr,
+                                          *[i32] * 6, f32, i32, i32, ptr]
+            lib.sr_group_norm.restype = i32
             lib.sr_cuda_error_string.argtypes = [i32]
             lib.sr_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -2,10 +2,10 @@
 
 Counterpart of stable_renderer_tpu/workflow/config.py, field for field: one
 frozen config selects one render program (sampler, scheduler, steps, cfg,
-denoise, prompts, corresponder-related knobs). The port's first slice runs
-the sequential path; the stream, int8, TAESD and ControlNet knobs are carried
-so configs round-trip, and the port raises where it meets one it does not run
-yet.
+denoise, prompts, corresponder-related knobs). The port runs the sequential
+path, in bf16 or with the calibrated int8 convs (``int8_conv``); the stream,
+TAESD and ControlNet knobs are carried so configs round-trip, and the port
+raises where it meets one it does not run yet.
 """
 
 from __future__ import annotations
@@ -50,7 +50,8 @@ class RenderConfig:
     # lag-1 broadcast-KV correspondence inside the stream pipeline at these
     # transformer indices; None = off
     stream_kv_layers: Optional[Tuple[int, ...]] = None
-    # calibrated int8 conv path
+    # calibrated int8 conv path: DiffusionPipeline.from_random quantizes the
+    # UNet and VAE conv trees (quantize_convs); their 3x3 convs run on K3
     int8_conv: bool = False
     scene_conditioning: bool = True  # per-sprite masked conditioning (SceneTextEncode)
     keep_background: bool = False  # inpaint mode: denoise only AI-object pixels

@@ -1,0 +1,313 @@
+"""K3, the fused 3x3 conv: the port's plain version against the JAX package's
+Pallas kernel (interpret mode), its routing in ``models.layers``, and the
+number of K3 and K4 launches of the SD1.5 frame.
+
+The CUDA kernel itself is held to the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py phase 7).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import stable_renderer_tpu.ops.conv_pallas as jcp
+from stable_renderer_tpu.models import layers as jlayers
+from stable_renderer_tpu_torch.models import layers as tlayers
+from stable_renderer_tpu_torch.ops import conv_kernel as tck
+
+torch.set_num_threads(1)
+
+F32_TOL = dict(atol=2e-5, rtol=1e-4)  # f32 summation order (tests/test_conv_pallas.py)
+# int8: the quantized values and int32 sums are equal; what is left is the f32
+# dequantization and bias add (one rounding each) and the SiLU's exp
+INT8_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    orig = pl.pallas_call
+    monkeypatch.setattr(jcp.pl, "pallas_call", functools.partial(orig, interpret=True))
+
+
+def _data(n, h, w_img, ci, co, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, h, w_img, ci)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, ci, co)) * 0.05).astype(np.float32)
+    b = rng.normal(size=(co,)).astype(np.float32)
+    return x, w, b
+
+
+def _int8(w, x):
+    ws = (np.abs(w).max(axis=(0, 1, 2)) / 127.0).astype(np.float32)
+    wq = np.round(w / ws).clip(-127, 127).astype(np.int8)
+    a_s = np.float32(np.abs(x).max() / 127.0)
+    return wq, ws, a_s
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("mode", ["plain", "epilogue_silu", "prologue_silu", "int8",
+                                  "int8_prologue", "int8_silu"])
+def test_reference_matches_pallas(mode):
+    n = 2 if "prologue" in mode else 1
+    x, w, b = _data(n, 8, 8, 128, 128)
+    kw, tkw = {}, {}
+    if "prologue" in mode:
+        rng = np.random.default_rng(1)
+        ps = rng.normal(size=(n, 128)).astype(np.float32)
+        pb = rng.normal(size=(n, 128)).astype(np.float32)
+        kw.update(pre_scale=jnp.asarray(ps), pre_shift=jnp.asarray(pb), pre_act="silu")
+        tkw.update(pre_scale=_t(ps), pre_shift=_t(pb), pre_act="silu")
+    if "silu" in mode and "prologue" not in mode:
+        kw["act"] = tkw["act"] = "silu"
+    tol = F32_TOL
+    wj, wt = jnp.asarray(w), _t(w)
+    if mode.startswith("int8"):
+        wq, ws, a_s = _int8(w, x)
+        wj, wt = jnp.asarray(wq), _t(wq)
+        kw.update(a_scale=float(a_s), w_scale=jnp.asarray(ws))
+        tkw.update(a_scale=torch.tensor(a_s), w_scale=_t(ws))
+        tol = INT8_TOL
+    ref = np.asarray(jcp.conv3x3_pallas(jnp.asarray(x), wj, jnp.asarray(b), block_h=4, **kw))
+    out = tck.conv3x3_kernel(_t(x), wt, _t(b), **tkw)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, **tol)
+    if mode == "int8":  # a conv of the dequantized weights agrees to the quant error only
+        fl = np.asarray(jcp.conv3x3_reference(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+        assert np.linalg.norm(out.numpy() - fl) / np.linalg.norm(fl) < 0.03
+
+
+def test_reference_matches_pallas_multi_block():
+    x, w, b = _data(2, 16, 8, 256, 128)
+    ref = np.asarray(jcp.conv3x3_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                        block_h=4, block_co=128))
+    out = tck.conv3x3_kernel(_t(x), _t(w), _t(b))
+    np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
+
+
+@pytest.mark.parametrize("prologue", [False, True])
+def test_zero_edge_rows(prologue):
+    """tests/test_conv_pallas.py:92-103: all-ones input and weights give 9, 6
+    and 4 x Cin at interior, edge and corner pixels. With the prologue
+    (scale 1, shift 0.5, SiLU) the halo must still be zero: silu(0.5) != 0."""
+    ci = 128
+    x = np.ones((1, 4, 8, ci), np.float32)
+    w = np.ones((3, 3, ci, 128), np.float32)
+    kw, tkw = {}, {}
+    v = 1.0
+    if prologue:
+        ps, pb = np.ones((1, ci), np.float32), np.full((1, ci), 0.5, np.float32)
+        kw = dict(pre_scale=jnp.asarray(ps), pre_shift=jnp.asarray(pb), pre_act="silu")
+        tkw = dict(pre_scale=_t(ps), pre_shift=_t(pb), pre_act="silu")
+        v = 1.5 / (1.0 + np.exp(-1.5))
+    ref = np.asarray(jcp.conv3x3_pallas(jnp.asarray(x), jnp.asarray(w), block_h=2, **kw))
+    out = tck.conv3x3_kernel(_t(x), _t(w), **tkw).numpy()
+    np.testing.assert_allclose(out, ref, **F32_TOL)
+    for (yy, xx), taps in (((1, 4), 9), ((0, 4), 6), ((3, 4), 6), ((0, 0), 4)):
+        assert out[0, yy, xx, 0] == pytest.approx(taps * ci * v, rel=1e-5)
+
+
+def test_int8_quantizes_by_reciprocal():
+    """The kernel quantizes x * (1 / a_scale); conv2d_q divides. At a value
+    where the two round differently the plain version follows the kernel."""
+    a_s = torch.tensor(np.float32(0.3))
+    x = torch.zeros((1, 1, 1, 8))
+    x[0, 0, 0, 0] = float(np.nextafter(np.float32(0.75), np.float32(1)))  # just above 2.5 steps
+    assert torch.round(x[0, 0, 0, 0] * torch.reciprocal(a_s)) == 3  # the kernel's rule
+    assert torch.round(x[0, 0, 0, 0] / a_s) == 2  # conv2d_q's rule
+    w = torch.zeros((3, 3, 8, 8), dtype=torch.int8)
+    w[1, 1, 0, 0] = 1
+    out = tck.conv3x3_kernel(x, w, a_scale=a_s, w_scale=torch.ones(8))
+    assert out[0, 0, 0, 0].item() == pytest.approx(3 * a_s.item(), rel=1e-6)
+
+
+def test_wrapper_rejects_non_cuda_devices():
+    x = torch.empty((1, 8, 8, 128), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tck.conv3x3_kernel(x, torch.empty((3, 3, 128, 128), device="meta"))
+
+
+# --- routing ------------------------------------------------------------------
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    orig = getattr(module, name)
+
+    def spy(x, *a, **kw):
+        calls.append((tuple(x.shape), "pre_scale" in kw and kw["pre_scale"] is not None))
+        return orig(x, *a, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_int8_routing_matches_jax(monkeypatch):
+    """1x32x32x128 with the JAX switch on: the int8 3x3 conv (>= 32^2) goes
+    to K3 in both packages, the stride-2 and 1x1 int8 convs and the float conv
+    below 64^2 do not; outputs agree."""
+    from stable_renderer_tpu.models import quant as jquant
+
+    from stable_renderer_tpu_torch.convert import params_from_numpy
+
+    monkeypatch.setattr(jlayers, "_conv_pallas_on", True)
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", False)  # restored at teardown
+    tck.use_pallas_conv(True)
+    assert tlayers._conv_pallas_on
+    jcalls = _spy(monkeypatch, jcp, "conv3x3_pallas")
+    tcalls = _spy(monkeypatch, tlayers, "conv3x3_kernel")
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(1, 32, 32, 128)).astype(np.float32)
+    conv = {"weight": (rng.normal(size=(128, 128, 3, 3)) * 0.03).astype(np.float32),
+            "bias": rng.normal(size=(128,)).astype(np.float32)}
+    one = {"weight": (rng.normal(size=(128, 128, 1, 1)) * 0.1).astype(np.float32)}
+    a = float(np.abs(x).max())
+    jq = {k: jquant.quantize_conv_params({kk: jnp.asarray(v) for kk, v in p.items()}, a_scale=a)
+          for k, p in (("conv", conv), ("one", one))}
+    tq = {k: params_from_numpy({kk: np.asarray(v) for kk, v in p.items()}, "cpu")
+          for k, p in jq.items()}
+    cases = [("conv", dict(padding=1)), ("conv", dict(stride=2, padding=1)), ("one", {})]
+    for name, kw in cases:
+        ref = np.asarray(jlayers.conv2d(jq[name], jnp.asarray(x), **kw))
+        out = tlayers.conv2d(tq[name], _t(x), **kw)
+        np.testing.assert_allclose(out.numpy(), ref, **INT8_TOL)
+    jw = {"w_hwio": jnp.transpose(jnp.asarray(conv["weight"]), (2, 3, 1, 0)),
+          "bias": jnp.asarray(conv["bias"])}
+    ref = np.asarray(jlayers.conv2d(jw, jnp.asarray(x), padding=1))
+    out = tlayers.conv2d({k: _t(v) for k, v in conv.items()}, _t(x), padding=1)
+    np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
+    assert jcalls == tcalls == [((1, 32, 32, 128), False)]
+
+
+def test_float_routing_matches_jax(monkeypatch):
+    """1x64x64x128 with the switch on: conv2d and norm_act_conv (prologue)
+    take K3 in both packages and agree."""
+    monkeypatch.setattr(jlayers, "_conv_pallas_on", True)
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    jcalls = _spy(monkeypatch, jcp, "conv3x3_pallas")
+    tcalls = _spy(monkeypatch, tlayers, "conv3x3_kernel")
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(1, 64, 64, 128)).astype(np.float32)
+    w = (rng.normal(size=(128, 128, 3, 3)) * 0.03).astype(np.float32)
+    b = rng.normal(size=(128,)).astype(np.float32)
+    norm = {"weight": rng.normal(size=(128,)).astype(np.float32),
+            "bias": rng.normal(size=(128,)).astype(np.float32)}
+    jconv = {"w_hwio": jnp.transpose(jnp.asarray(w), (2, 3, 1, 0)), "bias": jnp.asarray(b)}
+    tconv = {"weight": _t(w), "bias": _t(b)}
+    jnorm, tnorm = {k: jnp.asarray(v) for k, v in norm.items()}, {k: _t(v) for k, v in norm.items()}
+    ref = np.asarray(jlayers.conv2d(jconv, jnp.asarray(x), padding=1))
+    out = tlayers.conv2d(tconv, _t(x), padding=1)
+    np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
+    ref = np.asarray(jlayers.norm_act_conv(jnorm, jconv, jnp.asarray(x), eps=1e-5))
+    out = tlayers.norm_act_conv(tnorm, tconv, _t(x), eps=1e-5)
+    np.testing.assert_allclose(out.numpy(), ref, **F32_TOL)
+    assert jcalls == tcalls == [((1, 64, 64, 128), False), ((1, 64, 64, 128), True)]
+    # the HWIO view is made once per weight tensor
+    assert tlayers._hwio(tconv["weight"], torch.float32) is tlayers._hwio(tconv["weight"],
+                                                                          torch.float32)
+
+
+# --- launches of the SD1.5 frame, counted on the meta device ------------------
+
+
+def _count_frame_launches(monkeypatch, int8: bool):
+    """Run the full-width SD1.5 UNet (batch 2 at 64x64) and VAE (encode and
+    decode at 512x512) on the meta device, with K1, K3 and K4 stubbed to
+    shape-only functions, and count the K3 and K4 calls. The counts depend on
+    shapes alone, so this is what one 512x512 frame launches per UNet
+    evaluation and per VAE pass."""
+    from stable_renderer_tpu_torch.models import quant as tquant
+    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, UNetModel
+    from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, VAE
+    from stable_renderer_tpu_torch.ops import flash_attention as tfa
+
+    counts = {"k3": 0, "k4": 0}
+
+    def k3(x, w, bias=None, **kw):
+        counts["k3"] += 1
+        return torch.empty(x.shape[:3] + (w.shape[-1],), dtype=x.dtype, device=x.device)
+
+    def k4(x, *a, **kw):
+        counts["k4"] += 1
+        return torch.empty_like(x)
+
+    def int_conv(q, w_q, stride=1, padding=0):
+        n, h, w, _ = q.shape
+        kh = w_q.shape[0]
+        ho, wo = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kh) // stride + 1
+        return torch.empty((n, ho, wo, w_q.shape[-1]), dtype=torch.int32, device=q.device)
+
+    monkeypatch.setattr(tlayers, "conv3x3_kernel", k3)
+    monkeypatch.setattr(tlayers, "group_norm_kernel", k4)
+    monkeypatch.setattr(tquant, "int_conv", int_conv)
+    monkeypatch.setattr(tfa, "flash_attention", lambda q, k, v: torch.empty_like(q))
+    meta, dt = torch.device("meta"), torch.bfloat16
+    unet, vae = UNetModel(SD15_UNET_CONFIG), VAE(SD15_VAE_CONFIG)
+    up, vp = unet.init(dtype=dt, device=meta), vae.init(dtype=dt, device=meta)
+    x = torch.empty((2, 64, 64, 4), dtype=dt, device=meta)
+    t = torch.empty((2,), device=meta)
+    ctx = torch.empty((2, 77, 768), dtype=dt, device=meta)
+    z = torch.empty((1, 64, 64, 4), dtype=dt, device=meta)
+    px = torch.empty((1, 512, 512, 3), dtype=dt, device=meta)
+    if int8:  # quantize_convs' policy, with the spatial sizes a calibration records
+        def pixels(apply_fn, params, *args):
+            tquant._CAL.__init__()
+            tquant._register_paths(params, "", tquant._CAL.paths)
+            tquant._CAL.active = True
+            try:
+                apply_fn(params, *args)
+            finally:
+                tquant._CAL.active = False
+            return {path: (1.0, tquant._CAL.pixels[i]) for i, path in tquant._CAL.paths.items()
+                    if i in tquant._CAL.pixels}
+
+        su = pixels(lambda p, *a: unet.apply(p, *a), up, x, t, ctx)
+        sv = pixels(lambda p, z_, px_: (vae.decode(p, z_), vae.encode_moments(p, px_)), vp, z, px)
+        up = tquant.quantize_tree(up, su, min_pixels=32 * 32)
+        vp = tquant.quantize_tree(vp, sv, min_pixels=32 * 32)
+    out = {}
+    for name, fn in (("unet", lambda: unet.apply(up, x, t, ctx)),
+                     ("encode", lambda: vae.encode(vp, px)), ("decode", lambda: vae.decode(vp, z))):
+        counts.update(k3=0, k4=0)
+        fn()
+        out[name] = dict(counts)
+    return out
+
+
+def test_int8_frame_k3_launches(monkeypatch):
+    """The int8 frame: 22 K3 calls per UNet evaluation (the 3x3 convs at 64^2
+    and 32^2; 16^2 and 8^2 stay in the float type under min_pixels), 20 in
+    the VAE encode and 31 in the decode: 4 x 22 + 20 + 31 = 139 a frame
+    (chip_smoke.py K3_INT8_CALLS_PER_FRAME). K4 is off. On the meta device
+    the switch stands in for the card, where int8 routing needs no switch; no
+    float conv of this frame passes the float gate."""
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    c = _count_frame_launches(monkeypatch, int8=True)
+    assert c == {"unet": {"k3": 22, "k4": 0}, "encode": {"k3": 20, "k4": 0},
+                 "decode": {"k3": 31, "k4": 0}}
+
+
+def test_switched_frame_k3_k4_launches(monkeypatch):
+    """The bf16 frame with both switches on: K3 under the float gate (>= 64^2,
+    >= 128 channels, not 256^2 with cin >= 512), K4 where C % 128 == 0 and
+    S * C <= 2^21 and the norm is not fused into K3's prologue.
+    K3 4 x 11 + 20 + 29 = 93 and K4 4 x 43 + 2 + 1 = 175 a frame
+    (chip_smoke.py K3_SWITCHED_CALLS_PER_FRAME, K4_SWITCHED_CALLS_PER_FRAME)."""
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    monkeypatch.setattr(tlayers, "_group_norm_pallas_on", True)
+    c = _count_frame_launches(monkeypatch, int8=False)
+    assert c == {"unet": {"k3": 11, "k4": 43}, "encode": {"k3": 20, "k4": 2},
+                 "decode": {"k3": 29, "k4": 1}}
+
+
+def test_bf16_frame_launches_no_kernel_by_default(monkeypatch):
+    c = _count_frame_launches(monkeypatch, int8=False)
+    assert all(v == {"k3": 0, "k4": 0} for v in c.values())

@@ -85,3 +85,136 @@ def test_raster_kernel_matches_plain(cuda_device, size):
     assert same.float().mean().item() > 0.98
     bary = torch.isclose(out.bary[both], ref.bary[both], atol=1e-3).all(-1)[same]
     assert bary.float().mean().item() > 0.98
+
+
+# --- K3: the fused 3x3 conv ---------------------------------------------------
+
+BF16_RTOL = 2.0 ** -7  # one bf16 step of the output: both round the same f32 sum once
+
+
+def _conv_case(dev, n, h, w, cin, cout, *, int8=False, pre=False, x_dtype=torch.bfloat16,
+               seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=g, device=dev).to(x_dtype)
+    wf = torch.randn((3, 3, cin, cout), generator=g, device=dev) / (3.0 * cin ** 0.5)
+    b = torch.randn((cout,), generator=g, device=dev).to(torch.bfloat16)
+    kw = {}
+    if pre:
+        kw.update(pre_scale=torch.rand((n, cin), generator=g, device=dev) + 0.5,
+                  pre_shift=torch.randn((n, cin), generator=g, device=dev) * 0.5, pre_act="silu")
+    if int8:
+        ws = wf.abs().amax((0, 1, 2)) / 127.0
+        w_k = torch.clamp(torch.round(wf / ws), -127, 127).to(torch.int8)
+        kw.update(a_scale=(x.float().abs().amax() / 127.0).reshape(()), w_scale=ws)
+    else:
+        w_k = wf.to(torch.bfloat16)
+    return x, w_k, b, kw
+
+
+def _check_conv(x, w_k, b, kw, act=None, out_dtype=None):
+    from stable_renderer_tpu_torch.ops import conv_kernel as tck
+
+    before = tck.conv3x3_kernel.launches
+    out = tck.conv3x3_kernel(x, w_k, b, act=act, out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    assert tck.conv3x3_kernel.launches == before + 1
+    ref = tck.conv3x3_kernel_reference(x, w_k, b, act=act, out_dtype=out_dtype, **kw)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    return (out.float() - ref.float()).abs(), ref.float().abs()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 320, 320), (1, 16, 24, 136, 72),
+                                   (1, 10, 13, 128, 128), (2, 32, 32, 1920, 640)])
+@pytest.mark.parametrize("pre,act", [(False, None), (False, "silu"), (True, None)])
+def test_conv3x3_bf16_matches_plain(cuda_device, shape, pre, act):
+    """Float mode: f32 sums of bf16 products in another order, one bf16
+    rounding of the output: within one bf16 step (+1e-3 near zero)."""
+    torch.backends.cudnn.allow_tf32 = False
+    x, w_k, b, kw = _conv_case(cuda_device, *shape, pre=pre)
+    err, mag = _check_conv(x, w_k, b, kw, act=act)
+    assert (err <= BF16_RTOL * mag + 1e-3).all(), err.max().item()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 960, 320), (2, 32, 32, 640, 640),
+                                   (1, 96, 80, 128, 128), (1, 9, 11, 200, 56)])
+@pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, None),
+                                               (torch.float32, None),
+                                               (torch.bfloat16, torch.float32)])
+def test_conv3x3_int8_matches_plain_exactly(cuda_device, shape, x_dtype, out_dtype):
+    """Int8 mode without the prologue: the same quantized values, exact int32
+    sums and the same f32 dequantization: bit for bit."""
+    x, w_k, b, kw = _conv_case(cuda_device, *shape, int8=True, x_dtype=x_dtype)
+    err, _ = _check_conv(x, w_k, b, kw, out_dtype=out_dtype)
+    assert err.max().item() == 0.0
+
+
+def test_conv3x3_int8_silu_and_prologue(cuda_device):
+    """The SiLU epilogue's exp may differ in the last f32 bit (one bf16 step
+    at most after the cast); with the prologue an input within an ulp of a .5
+    quantization boundary may round to the neighbouring int8 value, which
+    moves an output by a_scale * w_scale * |w_q| <= a_scale * max(w_scale) *
+    127 per such input."""
+    x, w_k, b, kw = _conv_case(cuda_device, 2, 32, 32, 640, 640, int8=True)
+    err, mag = _check_conv(x, w_k, b, kw, act="silu")
+    assert (err <= BF16_RTOL * mag).all(), err.max().item()
+    x, w_k, b, kw = _conv_case(cuda_device, 1, 64, 64, 512, 512, int8=True, pre=True)
+    err, mag = _check_conv(x, w_k, b, kw)
+    step = (kw["a_scale"] * kw["w_scale"].max() * 127).item()
+    assert (err <= BF16_RTOL * mag + 2 * step).all(), (err.max().item(), step)
+    assert (err > BF16_RTOL * mag).float().mean().item() < 1e-3
+
+
+def test_int8_convs_route_to_k3_on_the_card(cuda_device):
+    """On a CUDA tensor an int8 3x3 conv that passes the gate takes K3 with
+    the switch off; a stride-2 or 1x1 int8 conv takes conv2d_q (_int_mm),
+    which is exact against the CPU's int32 sums."""
+    from stable_renderer_tpu_torch.models import layers as tl
+    from stable_renderer_tpu_torch.models import quant as tq
+    from stable_renderer_tpu_torch.ops import conv_kernel as tck
+
+    assert not tl._conv_pallas_on
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((2, 32, 32, 320), generator=g, device=cuda_device).to(torch.bfloat16)
+    for k, stride, pad, routed in ((3, 1, 1, True), (3, 2, 1, False), (1, 1, 0, False),
+                                   (3, 2, 0, False)):
+        p = tq.quantize_conv_params(
+            {"weight": torch.randn((320, 320, k, k), generator=g, device=cuda_device) * 0.02,
+             "bias": torch.zeros(320, device=cuda_device, dtype=torch.bfloat16)},
+            a_scale=x.float().abs().amax().item())
+        before = tck.conv3x3_kernel.launches
+        out = tl.conv2d(p, x, stride=stride, padding=pad)
+        torch.cuda.synchronize()
+        assert tck.conv3x3_kernel.launches == before + int(routed)
+        q = torch.clamp(torch.round(x.float() / p["a_scale"]), -127, 127).to(torch.int8)
+        acc = tq.int_conv(q, p["weight_q"], stride=stride, padding=pad)
+        ref = tq.int_conv(q.cpu(), p["weight_q"].cpu(), stride=stride, padding=pad)
+        assert torch.equal(acc.cpu(), ref)
+        assert torch.isfinite(out.float()).all()
+
+
+# --- K4: the fused GroupNorm ----------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,groups,dtype", [((2, 1024, 640), 32, torch.bfloat16),
+                                               ((2, 256, 1920), 32, torch.bfloat16),
+                                               ((1, 4096, 512), 32, torch.bfloat16),
+                                               ((1, 17, 256), 32, torch.float32),
+                                               ((3, 8, 128), 4, torch.float32)])
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, dtype, act):
+    """Statistics summed in another order (f32), then one rounding to the
+    output type: within one bf16 step in bf16, 1e-5 in f32."""
+    from stable_renderer_tpu_torch.ops import group_norm_kernel as tgn
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 1.5 + 0.3).to(dtype)
+    w = torch.randn((shape[2],), generator=g, device=cuda_device).to(dtype)
+    b = torch.randn((shape[2],), generator=g, device=cuda_device).to(dtype)
+    before = tgn.group_norm_kernel.launches
+    out = tgn.group_norm_kernel(x, w, b, groups=groups, act=act)
+    torch.cuda.synchronize()
+    assert tgn.group_norm_kernel.launches == before + 1
+    ref = tgn.group_norm_kernel_reference(x, w, b, groups=groups, act=act)
+    err = (out.float() - ref.float()).abs()
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+    assert (err <= rtol * ref.float().abs() + 1e-5).all(), err.max().item()

@@ -223,7 +223,7 @@ def test_mesh_buffers_follow_their_mesh():
 
     for segments in (2, 3, 4, 5, 6):
         mesh = Mesh.Plane(1.0, segments)
-        bufs = mesh_device_buffers(mesh)
+        bufs = mesh_device_buffers(mesh, "cpu")
         assert bufs["positions"].shape[0] == (segments + 1) ** 2
         np.testing.assert_array_equal(bufs["tris"].numpy(), mesh.tris)
         del mesh, bufs
