@@ -8,7 +8,9 @@ Phases, one line each; any failure exits non-zero:
                 print the TF32 switches (both off: f32 stays f32).
   2. build    — compile the CUDA kernels in csrc/ into build/kernels/.
   3. K1       — flash attention kernel vs its plain version at the frame's
-                shapes (bf16), one ragged K/V length, and f32 checks.
+                shapes (bf16), one ragged K/V length, f32 checks, and
+                attention_pallas on the UNet's fused-QKV chunk views (read in
+                place) and on an unaligned view (copied by the wrapper).
   4. K2       — tile rasterizer vs its plain version at 512x512 on the bench
                 sphere.
   5. reference — a tiny pipeline's 128x128 frame on the GPU (both kernels) vs
@@ -26,12 +28,13 @@ Phases, one line each; any failure exits non-zero:
                 evaluation against the bf16 UNet.
  10. switches — one bf16 frame with the float K3 switch and the K4 switch on;
                 launch counts checked; the image against phase 6's frame.
-Every kernel line carries its time (K3 and K4: device time of one call, from
-a CUDA-graph replay that leaves out the host's launch cost, with the per-call
-event time beside it as ms_with_host), its plain version's time, the least time
-the card could take for the same work (the larger of bytes over 3.35 TB/s and
-operations over the H100's peak for their type, 700 W data sheet) and, where
-one PyTorch call computes the same function, that call's time.
+Every kernel line carries its time (K1 in bf16, K3 and K4: device time of
+one call, from a CUDA-graph replay that leaves out the host's launch cost,
+with the per-call event time beside it as ms_with_host), its plain version's
+time, the least time the card could take for the same work (the larger of
+bytes over 3.35 TB/s and operations over the H100's peak for their type, 700
+W data sheet; for K1 also its exponentials over the MUFU pipes' rate) and,
+where one PyTorch call computes the same function, that call's time.
 The last lines are the kernels' JSON summary, the nvidia-smi line and
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -68,6 +71,10 @@ SWITCH_MAX_BAR = 0.25   # ... and max abs
 # NVIDIA H100 SXM data sheet (700 W): dense tensor-core and FMA peaks, HBM rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
+# exponentials: 16 ex2 a clock on each SM's MUFU pipes x 132 SMs x 1.83 GHz,
+# the clock at which the data sheet's 989 TFLOP/s holds (132 SMs x 4 tensor
+# cores x 1024 bf16 operations a clock): ~3.9 T exponentials a second
+EXP_PER_S = 16 * 132 * 1.83e9
 
 
 def fail(msg: str) -> None:
@@ -125,6 +132,40 @@ def bound(nbytes: float, ops: float, kind: str):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(bh: int, lq: int, lk: int, d: int):
+    """(ms, "bytes" | "operations"): K1's least time in bf16, the largest of
+    its bytes (q, k, v read once, the output written once), its MMA
+    operations (4 bh lq lk d at the tensor cores' peak) and its exponentials
+    (bh lq lk on the MUFU pipes, EXP_PER_S)."""
+    t_bytes, _ = bound(2.0 * bh * d * (2 * lq + 2 * lk), 0.0, "bf16")
+    t_ops = 4.0 * bh * lq * lk * d / PEAK_OPS["bf16"] * 1e3
+    t_exp = bh * lq * lk / EXP_PER_S * 1e3
+    t = max(t_bytes, t_ops, t_exp)
+    return (t, "bytes") if t == t_bytes else (t, "operations")
+
+
+def _k1_case(row: dict, dt, tol: float, kernel, plain, library, k1b) -> float:
+    """Run one K1 case: the kernel against its plain version (fails past
+    tol), then for bf16 its device time by graph replay (ms), per call with
+    the host's launch cost (ms_with_host), the plain version's and the
+    library call's (SDPA) times and the bound. Fills row; returns the error."""
+    import torch
+
+    out = kernel()
+    torch.cuda.synchronize()
+    err = (out.float() - plain().float()).abs().max().item()
+    if not math.isfinite(err) or err > tol:
+        fail(f"K1 {row['shape']}: max abs err {err:.3e} > {tol:g}")
+    row["max_abs_err"] = err
+    if dt == torch.bfloat16:
+        row["ms"] = graph_ms(kernel)
+        row["ms_with_host"] = cuda_ms(kernel, 20)
+        row["plain_ms"] = cuda_ms(plain, 10)
+        row["library_ms"] = graph_ms(library)
+        row["bound_ms"], row["bound_by"] = k1b
+    return err
 
 
 def nbytes(*ts) -> int:
@@ -200,29 +241,44 @@ def main() -> None:
         q = torch.randn((bh, lq, d), generator=gen, device=dev).to(dt)
         k = torch.randn((bh, lk, d), generator=gen, device=dev).to(dt)
         v = torch.randn((bh, lk, d), generator=gen, device=dev).to(dt)
-        out = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = flash_attention_reference(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        if not math.isfinite(err) or err > tol:
-            fail(f"K1 {dt} (bh={bh}, lq={lq}, lk={lk}, d={d}): max abs err {err:.3e} > {tol:g}")
-        row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')}",
-               "max_abs_err": err}
+        row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')}"}
+        # (1, BH, L, D): the fused SDPA backends take 4-D inputs
+        qb, kb, vb = q[None], k[None], v[None]
+        err = _k1_case(row, dt, tol, lambda: flash_attention(q, k, v),
+                       lambda: flash_attention_reference(q, k, v),
+                       lambda: F.scaled_dot_product_attention(qb, kb, vb), k1_bound(bh, lq, lk, d))
         if dt == torch.bfloat16:
             k1_err = max(k1_err, err)
-            row["ms"] = cuda_ms(lambda: flash_attention(q, k, v), 10)
-            row["plain_ms"] = cuda_ms(lambda: flash_attention_reference(q, k, v), 10)
-            # (1, BH, L, D): the fused SDPA backends take 4-D inputs
-            qb, kb, vb = q[None], k[None], v[None]
-            row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb), 10)
-            row["bound_ms"], row["bound_by"] = bound(nbytes(q, k, v, out),
-                                                     4.0 * bh * lq * lk * d, "bf16")
         k1["shapes"].append(row)
         print(f"[3 K1] {row} (tol {tol:g})", flush=True)
-        del q, k, v, out, ref
+        del q, k, v, qb, kb, vb
+    # attention_pallas on (B, L, H*D): the UNet's fused-QKV chunks, read in
+    # place; and a view whose rows are 321 elements apart, which the wrapper
+    # copies (16-byte row copies need rows 8 elements apart)
+    from stable_renderer_tpu_torch.ops.flash_attention import attention_pallas, needs_copy
+
+    b, l, heads, d = 2, 4096, 8, 40
+    qkv = torch.randn((b, l, 3 * heads * d), generator=gen, device=dev).to(torch.bfloat16)
+    unaligned = torch.randn((3, b, l, heads * d + 1), generator=gen, device=dev).to(torch.bfloat16)
+    for label, (q, k, v) in (("fused-QKV view", qkv.chunk(3, dim=-1)),
+                             ("unaligned view, copied", unaligned[..., 1:])):
+        qh = q.unflatten(-1, (heads, d))
+        copied = needs_copy(qh.shape, qh.stride(), qh.data_ptr())
+        if copied != label.endswith("copied"):
+            fail(f"K1 {label}: needs_copy is {copied}")
+        split = [t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v)]
+        row = {"shape": f"attention_pallas b={b} l={l} heads={heads} d={d} bf16 {label}"}
+        _k1_case(row, torch.bfloat16, K1_BF16_TOL, lambda: attention_pallas(q, k, v, heads),
+                 lambda: flash_attention_reference(*split).transpose(1, 2).reshape(b, l, heads * d),
+                 lambda: F.scaled_dot_product_attention(*split), k1_bound(b * heads, l, l, d))
+        k1_err = max(k1_err, row["max_abs_err"])
+        k1["shapes"].append(row)
+        print(f"[3 K1] {row} (tol {K1_BF16_TOL:g})", flush=True)
+    del qkv, unaligned, q, k, v, qh, split
     main_shape = k1["shapes"][0]
     k1.update(max_abs_err=k1_err, **{k: main_shape[k] for k in
-                                     ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                                     ("ms", "ms_with_host", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by")})
 
     # --- 4. K2 ---------------------------------------------------------------
     from stable_renderer_tpu_torch.engine.mesh import Mesh

@@ -18,7 +18,10 @@ torch.profiler. Prints and writes:
   * host wall time per frame (median and max), and the device busy share:
     one profiled frame's summed kernel time over the unprofiled median wall
     time;
-  * the kernels with the most device time, by name;
+  * the kernels with the most device time, by name; the device operations
+    (kernels, copies, sets) the profiled frame launched, and among them the
+    layout-copy kernels (names with "copy"); K1's kernels (names with
+    "flash_") in time and launches;
   * with --int8, from one more frame: how many int8 conv calls met an input
     beyond their calibrated range (max|x| > 127.5 * a_scale, so that values
     clip at +-127), and the largest ratio of max|x| to the calibrated max.
@@ -148,6 +151,7 @@ def main() -> None:
         if dt > 0 and ev.device_type.name == "CUDA":
             kernels.append((dt / 1e3, ev.count, ev.key))
             device_us += dt
+    k1 = [(ms, n) for ms, n, k in kernels if "flash_" in k]
     kernels.sort(reverse=True)
     clipping = None
     if args.int8:
@@ -191,6 +195,10 @@ def main() -> None:
         # profiler (the profiled frame's own wall time includes its overhead)
         "device_busy_share": device_us / 1e3 / statistics.median(walls),
         "k3_kernel_ms_per_frame": conv_kernel_ms,
+        "k1_kernel_ms_per_frame": sum(ms for ms, _ in k1),
+        "k1_kernels_per_frame": sum(n for _, n in k1),
+        "device_ops_per_frame": sum(n for _, n, _ in kernels),
+        "copy_kernels_per_frame": sum(n for _, n, k in kernels if "copy" in k.lower()),
         "int8_clipping": clipping,
         "top_kernels_ms": [{"ms": round(ms, 3), "calls": n, "name": k[:120]}
                            for ms, n, k in kernels[:25]],

@@ -105,10 +105,20 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            for name in ("sr_flash_attention_bf16", "sr_flash_attention_f32"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
-                fn.restype = i32
+            # q, k, v, out, scratch, strides (12 int64), batch, heads, lq, lk, d,
+            # scale, tile variant, stream
+            lib.sr_flash_attention_bf16.argtypes = [ptr, ptr, ptr, ptr, ptr,
+                                                    ctypes.POINTER(ctypes.c_longlong),
+                                                    *[i32] * 5, f32, i32, ptr]
+            lib.sr_flash_attention_bf16.restype = i32
+            lib.sr_flash_attention_bf16_scratch.argtypes = [i32] * 5
+            lib.sr_flash_attention_bf16_scratch.restype = ctypes.c_longlong
+            lib.sr_flash_attention_bf16_default.argtypes = [i32]
+            lib.sr_flash_attention_bf16_default.restype = i32
+            lib.sr_flash_attention_bf16_variant.argtypes = [i32]
+            lib.sr_flash_attention_bf16_variant.restype = ctypes.c_char_p
+            lib.sr_flash_attention_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
+            lib.sr_flash_attention_f32.restype = i32
             lib.sr_raster_tile.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, ptr]
             lib.sr_raster_tile.restype = i32
             # x, weights (cout, 3, 3, cs), bias, bias kind, pre_scale, pre_shift,

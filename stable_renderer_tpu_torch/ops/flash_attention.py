@@ -1,9 +1,19 @@
 """Flash attention: the K1 kernel's wrapper, its plain version and its routing.
 
-Counterpart of stable_renderer_tpu/ops/flash_attention.py. The kernel is
+Counterpart of stable_renderer_tpu/ops/flash_attention.py. The kernels are in
 ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a); see its header for the
-design. ``flash_attention`` launches it for CUDA tensors and uses the plain
-einsum-softmax ``flash_attention_reference`` only for CPU tensors.
+design. Routes, by dtype, for CUDA tensors:
+
+* bf16: the tensor-core kernels (d <= 64: wgmma with K and V by TMA;
+  d > 64: mma.sync with cp.async). They read q, k and v as strided
+  (B, L, H, D) views and write (B, L, H*D), so ``attention_pallas`` hands
+  them the UNet's fused-QKV chunks without a layout copy. A view whose rows
+  the kernels cannot read with 16-byte copies is made contiguous first
+  (``needs_copy``).
+* f32: the SIMT kernel (f32 FMA pipes) over contiguous (BH, L, D).
+
+CPU tensors take the plain einsum-softmax ``flash_attention_reference``.
+Nothing on the card falls back: an input the kernels do not take raises.
 
 ``attention_pallas`` keeps the JAX package's routing rule: attention whose
 K/V sequence is shorter than 2048 goes to the plain path (short
@@ -13,12 +23,15 @@ the kernel.
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import Optional
 
 import torch
 
 FLASH_MIN_KV_LEN = 2048  # ops/flash_attention.py:165 routing threshold
 MAX_HEAD_DIM = 512
+ALIGN_ELEMS = 8  # 16 bytes of bf16: the granule of the kernels' row copies (cp.async, TMA)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -30,18 +43,39 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     return torch.matmul(w, v)
 
 
+def needs_copy(shape, strides, data_ptr: int, elem_bytes: int = 2) -> bool:
+    """Whether a (B, L, H, D) view must be made contiguous before the bf16
+    kernel reads it. The kernel needs a unit d stride. When d is a multiple
+    of 8 it moves rows in 16-byte pieces (cp.async, TMA), so every stride of
+    a dimension longer than 1 must be a multiple of 8 elements and the base
+    16-byte aligned; otherwise (d not a multiple of 8) it reads element by
+    element and any unit-stride view will do."""
+    d = shape[-1]
+    if d > 1 and strides[-1] != 1:
+        return True
+    if d % ALIGN_ELEMS:
+        return False
+    return (data_ptr % (ALIGN_ELEMS * elem_bytes) != 0
+            or any(s % ALIGN_ELEMS for n, s in zip(shape[:-1], strides[:-1]) if n > 1))
+
+
+def _kernel_strides(t: torch.Tensor) -> list:
+    """Element strides of batch, sequence and head of a (B, L, H, D) view, 0
+    for a dimension of size 1 (never indexed past 0)."""
+    return [s if n > 1 else 0 for n, s in zip(t.shape[:3], t.stride()[:3])]
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """q (B, Lq, H, D), k and v (B, Lk, H, D) on one CUDA device, one dtype."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, not CUDA")
         if t.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"flash_attention: {name} dtype {t.dtype} (bf16 or f32 only)")
-        if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous (BH, L, D) tensor")
     if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v differ in dtype or device")
-    bh, _, d = q.shape
-    if k.shape[0] != bh or v.shape != k.shape or k.shape[2] != d:
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} do not match")
     if not 1 <= d <= MAX_HEAD_DIM:
@@ -50,22 +84,59 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: empty sequence")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Non-causal attention over a merged batch-head axis: (BH, Lq, D) x
-    (BH, Lk, D) -> (BH, Lq, D). CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
-    _check(q, k, v)
+def _launch_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 variant: int = -1) -> torch.Tensor:
+    """The bf16 tensor-core kernel on (B, L, H, D) views -> (B, Lq, H*D)."""
     from stable_renderer_tpu_torch.kernels import _build
 
+    q, k, v = (t.contiguous() if needs_copy(t.shape, t.stride(), t.data_ptr()) else t
+               for t in (q, k, v))
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    lib = _build.load_library()
+    scratch_bytes = lib.sr_flash_attention_bf16_scratch(b * h, lq, lk, d, variant)
+    if scratch_bytes < 0:
+        raise ValueError(f"flash_attention: tile variant {variant} does not take head dim {d}")
+    out = torch.empty((b, lq, h * d), dtype=q.dtype, device=q.device)
+    scratch: Optional[torch.Tensor] = None
+    if scratch_bytes:
+        scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=q.device)
+    strides = (ctypes.c_longlong * 12)(*_kernel_strides(q), *_kernel_strides(k),
+                                       *_kernel_strides(v),
+                                       *_kernel_strides(out.view(b, lq, h, d)))
+    with torch.cuda.device(q.device):
+        rc = lib.sr_flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), strides, b, h, lq, lk, d,
+            1.0 / math.sqrt(d), variant, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention over a merged batch-head axis: (BH, Lq, D) x
+    (BH, Lk, D) -> (BH, Lq, D). CUDA tensors launch a kernel (bf16: the
+    tensor-core kernel, which takes strided views; f32: the SIMT kernel, on
+    contiguous copies); CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 3:
+            raise ValueError(f"flash_attention: {name} must be a (BH, L, D) tensor")
+    _check(q[:, :, None], k[:, :, None], v[:, :, None])
+    bh, lq, d = q.shape
+    if q.dtype == torch.bfloat16:
+        return _launch_bf16(q[:, :, None], k[:, :, None], v[:, :, None])
+    from stable_renderer_tpu_torch.kernels import _build
+
+    q, k, v = (t.contiguous() for t in (q, k, v))
     lib = _build.load_library()
     out = torch.empty_like(q)
-    bh, lq, d = q.shape
-    fn = lib.sr_flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.sr_flash_attention_f32
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, lq,
-                k.shape[1], d, 1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+        rc = lib.sr_flash_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        bh, lq, k.shape[1], d, 1.0 / math.sqrt(d),
+                                        torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return out
@@ -81,11 +152,17 @@ def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
 
 def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
     """Packed multi-head attention (B, L, H*D) with the kernel routing rule:
-    K/V length >= 2048 goes to ``flash_attention``; shorter to the plain
-    einsum-softmax (where the logits tensor is small)."""
+    K/V length >= 2048 goes to the kernel; shorter to the plain einsum-softmax
+    (where the logits tensor is small). On the card, bf16 reads q, k and v as
+    they lie (the UNet's are column chunks of one fused QKV product) and
+    writes (B, L, H*D) without a layout copy."""
     b, lq, hd = q.shape
     d = hd // heads
     lk = k.shape[1]
+    if lk >= FLASH_MIN_KV_LEN and q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        qh, kh, vh = (t.unflatten(-1, (heads, d)) for t in (q, k, v))
+        _check(qh, kh, vh)
+        return _launch_bf16(qh, kh, vh)
     qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
     if lk < FLASH_MIN_KV_LEN:
         out = flash_attention_reference(qh, kh, vh)

@@ -28,10 +28,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+K1_BF16_TOL = 1e-2  # output rounding (2^-8 relative) + the bf16 softmax weights of both sides
+
+
 @pytest.mark.parametrize("shape,dtype,tol", [
     ((16, 4096, 4096, 40), torch.bfloat16, 1e-2),   # UNet level-0 self-attention
     ((1, 4096, 4096, 512), torch.bfloat16, 1e-2),   # VAE mid-block attention
     ((4, 300, 2100, 40), torch.bfloat16, 1e-2),     # ragged q and K/V tiles
+    ((2, 2049, 2049, 64), torch.bfloat16, 1e-2),
+    ((3, 77, 2049, 80), torch.bfloat16, 1e-2),      # the wide kernel at d = 80
+    ((1, 300, 2100, 512), torch.bfloat16, 1e-2),    # ragged, split K/V
+    ((4, 1, 2100, 40), torch.bfloat16, 1e-2),       # lq = 1
+    ((2, 1, 2049, 512), torch.bfloat16, 1e-2),
+    ((3, 200, 300, 20), torch.bfloat16, 1e-2),      # d not a multiple of 8: element loads
+    ((2, 65, 129, 1), torch.bfloat16, 1e-2),
+    ((2, 100, 150, 100), torch.bfloat16, 1e-2),
     ((3, 77, 2049, 80), torch.float32, 1e-4),
     ((2, 130, 333, 512), torch.float32, 1e-4),
 ])
@@ -47,8 +58,92 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, tol):
     out = tfa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
     ref = tfa.flash_attention_reference(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("shape", [(2, 130, 20, 40), (1, 70, 33, 512)])
+def test_flash_attention_short_kv_matches_plain(cuda_device, shape):
+    """K/V shorter than one 64-row tile. With 20-33 keys an output is the
+    mean of a few values of v and reaches |out| ~ 2, where one bf16 step is
+    0.0156; v is scaled by 1/4 so that the outputs stay below 1, where the
+    1e-2 bar of the other cases (one or two bf16 steps) applies."""
+    bh, lq, lk, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((bh, lq, d), generator=g, device=cuda_device).bfloat16()
+    k = torch.randn((bh, lk, d), generator=g, device=cuda_device).bfloat16()
+    v = (0.25 * torch.randn((bh, lk, d), generator=g, device=cuda_device)).bfloat16()
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    ref = tfa.flash_attention_reference(q, k, v)
+    assert ref.float().abs().max().item() < 1.0
+    assert (out.float() - ref.float()).abs().max().item() < K1_BF16_TOL
+
+
+def _plain_packed(q, k, v, heads):
+    b, lq, hd = q.shape
+    d = hd // heads
+    qh, kh, vh = (t.reshape(t.shape[0], t.shape[1], heads, d).transpose(1, 2) for t in (q, k, v))
+    return tfa.flash_attention_reference(qh, kh, vh).transpose(1, 2).reshape(b, lq, hd)
+
+
+@pytest.mark.parametrize("b,l,heads,d", [(2, 4096, 8, 40), (1, 2100, 2, 64), (2, 2049, 3, 80)])
+def test_attention_pallas_reads_fused_qkv_views(cuda_device, b, l, heads, d):
+    """The UNet's q, k and v: column chunks of one (B, L, 3*H*D) product,
+    read in place (no copy) and written as (B, L, H*D)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn((b, l, 3 * heads * d), generator=g, device=cuda_device).bfloat16()
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert not any(tfa.needs_copy(t.unflatten(-1, (heads, d)).shape,
+                                  t.unflatten(-1, (heads, d)).stride(), t.data_ptr())
+                   for t in (q, k, v))
+    before = tfa.flash_attention.launches
+    out = tfa.attention_pallas(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert out.shape == (b, l, heads * d) and out.is_contiguous()
+    err = (out.float() - _plain_packed(q, k, v, heads).float()).abs().max().item()
+    assert err < K1_BF16_TOL
+
+
+def test_attention_pallas_copies_an_unaligned_view(cuda_device):
+    """Rows 321 elements apart cannot move by 16-byte copies: the wrapper
+    makes the view contiguous and the kernel still runs."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    base = torch.randn((3, 2, 2100, 321), generator=g, device=cuda_device).bfloat16()
+    q, k, v = base[..., 1:]
+    qh = q.unflatten(-1, (8, 40))
+    assert tfa.needs_copy(qh.shape, qh.stride(), qh.data_ptr())
+    before = tfa.flash_attention.launches
+    out = tfa.attention_pallas(q, k, v, 8)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert (out.float() - _plain_packed(q, k, v, 8).float()).abs().max().item() < K1_BF16_TOL
+
+
+def test_flash_attention_tile_variants_match_plain(cuda_device):
+    """Every compiled tile variant (scripts/sweep_torch_attention.py times
+    them) at its head dim, on ragged lengths."""
+    from stable_renderer_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    i = 0
+    while lib.sr_flash_attention_bf16_variant(i) is not None:
+        name = lib.sr_flash_attention_bf16_variant(i).decode()
+        bh, d = (3, 40) if name.startswith("small") else (1, 512)
+        q = torch.randn((bh, 1100, 1, d), generator=g, device=cuda_device).bfloat16()
+        k = torch.randn((bh, 2100, 1, d), generator=g, device=cuda_device).bfloat16()
+        v = torch.randn((bh, 2100, 1, d), generator=g, device=cuda_device).bfloat16()
+        out = tfa._launch_bf16(q, k, v, variant=i).view(bh, 1100, d)
+        ref = tfa.flash_attention_reference(q[:, :, 0], k[:, :, 0], v[:, :, 0])
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err < K1_BF16_TOL, (name, err)
+        i += 1
+    assert i >= 6
 
 
 def test_flash_attention_rejects_unsupported_inputs(cuda_device):
@@ -58,6 +153,12 @@ def test_flash_attention_rejects_unsupported_inputs(cuda_device):
     q = torch.zeros((2, 8, 520), device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, q, q)
+    q = torch.zeros((2, 8, 520), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 1, 40), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="variant"):
+        tfa._launch_bf16(q, q, q, variant=99)
 
 
 @pytest.mark.parametrize("size", [(512, 512), (200, 136)])

@@ -89,3 +89,54 @@ def test_plain_matches_jax_einsum_bf16_inputs(rng):
     # both round the softmax weights and the output to bf16 (2^-8 relative)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("lk", [64, 2048])
+def test_attention_pallas_on_fused_qkv_chunks(interpret_mode, rng, lk):
+    """The UNet's self-attention operands: column chunks of one fused QKV
+    product (row stride 3 H D), as the port's layers.attention receives
+    them, against the JAX package's attention_pallas on the same values."""
+    b, heads, d = 2, 2, 8
+    qkv = rng.standard_normal((b, lk, 3 * heads * d)).astype(np.float32)
+    q, k, v = torch.from_numpy(qkv).chunk(3, dim=-1)
+    assert q.stride() == (lk * 3 * heads * d, 3 * heads * d, 1)
+    jq, jk, jv = (jnp.asarray(a) for a in np.split(qkv, 3, axis=-1))
+    ref = jfa.attention_pallas(jq, jk, jv, heads)
+    out = tfa.attention_pallas(q, k, v, heads)
+    assert out.shape == (b, lk, heads * d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("shape,strides,offset,copy", [
+    # the UNet's fused-QKV chunk at 512x512: (2, 4096, 8, 40) rows 960 apart
+    ((2, 4096, 8, 40), (4096 * 960, 960, 40, 1), 320, False),
+    ((1, 4096, 1, 512), (4096 * 512, 512, 512, 1), 0, False),  # the VAE's q
+    ((2, 77, 8, 40), (77 * 321, 321, 40, 1), 1, True),    # rows 321 apart
+    ((2, 77, 8, 40), (77 * 320, 320, 40, 1), 1, True),    # base 2 bytes off 16
+    ((2, 77, 8, 40), (77 * 640, 1, 77, 640), 0, True),    # d not the unit stride
+    ((2, 77, 1, 40), (77 * 40, 40, 3, 1), 0, False),      # a head stride of size 1 is never used
+    ((1, 1, 8, 40), (8 * 44, 7, 44, 1), 0, True),         # head stride 44
+    ((3, 50, 2, 20), (50 * 41, 41, 20, 1), 1, False),     # d = 20: element loads take any view
+    ((2, 9, 1, 1), (9, 1, 9, 5), 0, False),               # d = 1: its stride is never used
+])
+def test_needs_copy(shape, strides, offset, copy):
+    """The bf16 kernel reads a (B, L, H, D) view in place when its rows can
+    move by 16-byte copies (d, every stride of a dimension longer than 1
+    and the base a multiple of 8 elements), or when d is not a multiple of
+    8 (it then reads element by element); otherwise the wrapper copies."""
+    assert tfa.needs_copy(shape, strides, 0x1000 + 2 * offset) == copy
+
+
+def test_needs_copy_matches_views_the_wrapper_builds():
+    """attention_pallas splits (B, L, H*D) into (B, L, H, D) with unflatten:
+    a chunk of a fused product stays a view, with the chunk's strides."""
+    qkv = torch.zeros((2, 64, 3 * 8 * 40), dtype=torch.bfloat16)
+    for i, t in enumerate(qkv.chunk(3, dim=-1)):
+        v = t.unflatten(-1, (8, 40))
+        assert v.data_ptr() == qkv.data_ptr() + i * 320 * 2
+        assert v.stride() == (64 * 960, 960, 40, 1)
+        assert not tfa.needs_copy(v.shape, v.stride(), v.data_ptr())
+    odd = torch.zeros((2, 64, 8 * 40 + 1), dtype=torch.bfloat16)[..., 1:].unflatten(-1, (8, 40))
+    assert tfa.needs_copy(odd.shape, odd.stride(), odd.data_ptr())
+    assert not tfa.needs_copy(odd.contiguous().shape, odd.contiguous().stride(),
+                              odd.contiguous().data_ptr())
