@@ -6,7 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, one line each; any failure exits non-zero:
   1. device   — require CUDA, print the card's name and power limit, set and
                 print the TF32 switches (both off: f32 stays f32).
-  2. build    — compile the CUDA kernels in csrc/ into build/kernels/.
+  2. build    — compile the CUDA kernels in csrc/ into build/kernels/ with
+                ptxas's report (-Xptxas -v), which must name K3's kernels
+                and show no serialized wgmma (C7510-C7515) in any kernel.
   3. K1       — flash attention kernel vs its plain version at the frame's
                 shapes (bf16), one ragged K/V length, f32 checks, and
                 attention_pallas on the UNet's fused-QKV chunk views (read in
@@ -18,8 +20,10 @@ Phases, one line each; any failure exits non-zero:
   6. frame    — the bench frame at full SD1.5 widths (random bf16 weights),
                 1 warm + 4 timed frames of frame_step at 512x512, with the
                 kernels' launch counts checked.
-  7. K3       — the fused 3x3 conv kernel vs its plain version at the frame's
-                shapes: bf16, bf16 with the GroupNorm+SiLU prologue, int8.
+  7. K3       — the fused 3x3 conv kernel vs its plain version at every shape
+                class of the int8 frame (int8, bit for bit) and of the
+                switched frame (bf16, with the GroupNorm+SiLU prologue where
+                the frame has it); nine of them timed (K3_TIMED_SHAPES).
   8. K4       — the fused GroupNorm kernel vs its plain version (with SiLU).
   9. int8     — the calibrated int8 frame: RenderConfig(int8_conv=True) ->
                 from_random -> quantize_convs, 1 warm + 4 timed 512x512
@@ -59,6 +63,37 @@ REF_TOL = 2e-3      # tiny f32 frame, GPU kernels vs CPU plain path (order of f3
 # with both switches, K3 4 x 11 + 20 + 29 and K4 4 x 43 + 2 + 1
 K3_INT8_CALLS_PER_FRAME = 139
 K3_SWITCHED_CALLS_PER_FRAME = 93
+# K3's shape classes, (N, H, W, Cin, Cout) -> launches a frame, tallied on the
+# meta device by the same tests: the int8 frame's 20 classes, and the switched
+# frame's 12 (key + True: with the GroupNorm+SiLU prologue)
+K3_INT8_FRAME_SHAPES = {
+    (1, 128, 128, 512, 512): 10, (1, 512, 512, 128, 128): 9, (1, 256, 256, 256, 256): 8,
+    (2, 64, 64, 320, 320): 28, (2, 32, 32, 640, 640): 24, (1, 64, 64, 512, 512): 18,
+    (1, 256, 256, 512, 512): 1, (1, 512, 512, 256, 256): 1, (2, 64, 64, 640, 320): 8,
+    (2, 64, 64, 640, 640): 4, (2, 32, 32, 1280, 1280): 4, (2, 64, 64, 960, 320): 4,
+    (2, 32, 32, 1920, 640): 4, (2, 32, 32, 1280, 640): 4, (2, 32, 32, 960, 640): 4,
+    (1, 256, 256, 512, 256): 1, (1, 512, 512, 256, 128): 1, (1, 256, 256, 128, 256): 1,
+    (1, 128, 128, 256, 512): 1, (2, 32, 32, 320, 640): 4,
+}
+# the K3 rows phase 7 times (the int8 frame's largest classes by launches x
+# bound, and bf16 yardsticks against cuDNN), as scripts/sweep_torch_conv.py
+# --picked-only times them
+K3_TIMED_SHAPES = [
+    ((2, 64, 64, 320, 320), "bf16"), ((1, 512, 512, 128, 128), "bf16+prologue"),
+    ((2, 64, 64, 960, 320), "int8"), ((2, 32, 32, 640, 640), "int8"),
+    ((1, 512, 512, 128, 128), "int8"), ((1, 128, 128, 512, 512), "int8"),
+    ((1, 256, 256, 256, 256), "int8"), ((2, 32, 32, 640, 640), "bf16"),
+    ((1, 64, 64, 512, 512), "int8"),
+]
+K3_SWITCHED_FRAME_SHAPES = {
+    (1, 64, 64, 512, 512, True): 18, (1, 128, 128, 256, 512, True): 1,
+    (1, 128, 128, 512, 512, False): 1, (1, 128, 128, 512, 512, True): 9,
+    (1, 256, 256, 128, 256, True): 1, (1, 256, 256, 256, 256, True): 8,
+    (1, 512, 512, 128, 128, True): 9, (1, 512, 512, 256, 128, True): 1,
+    (1, 512, 512, 256, 256, False): 1, (2, 64, 64, 320, 320, True): 28,
+    (2, 64, 64, 640, 320, True): 8, (2, 64, 64, 640, 640, False): 4,
+    (2, 64, 64, 960, 320, True): 4,
+}
 K4_SWITCHED_CALLS_PER_FRAME = 175
 BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative
 K3_BF16_ATOL = 1e-3    # near zero, where the bf16 step is tiny: f32 sum order
@@ -216,8 +251,17 @@ def main() -> None:
     t0 = time.perf_counter()
     lib_path = _build.build(verbose=True)
     _build.load_library()
+    report = _build.ptxas_log or ""
+    k3_kernels = [ln for ln in report.splitlines()
+                  if "Compiling entry function" in ln and "conv3x3_wgmma" in ln]
+    serialized = _build.serialized_wgmma(report)
+    if not k3_kernels:
+        fail("ptxas's report (-Xptxas -v) names no conv3x3_wgmma kernel")
+    if serialized:
+        fail(f"ptxas serialized wgmma in {len(serialized)} lines: {serialized[0]}")
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped: cached'})", flush=True)
+          f"(nvcc {'ran' if _build.build_seconds is not None else 'skipped: cached'}); "
+          f"ptxas -v: {len(k3_kernels)} conv3x3_wgmma kernels, no serialized wgmma", flush=True)
 
     from stable_renderer_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -418,14 +462,21 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}", flush=True)
 
     # --- 7. K3 ----------------------------------------------------------------
-    from stable_renderer_tpu_torch.ops.conv_kernel import conv3x3_kernel, conv3x3_kernel_reference
+    from stable_renderer_tpu_torch.ops.conv_kernel import (
+        conv3x3_kernel,
+        conv3x3_kernel_reference,
+        conv_tiles,
+    )
 
     k3 = {"name": "conv3x3_kernel", "route": "cuda",
           "source": "stable_renderer_tpu_torch/csrc/conv3x3.cu",
           "replaces": "stable_renderer_tpu/ops/conv_pallas.py:86", "shapes": []}
-    k3_cases = [((2, 64, 64, 320, 320), "bf16"), ((1, 512, 512, 128, 128), "bf16+prologue"),
-                ((2, 64, 64, 960, 320), "int8"), ((2, 32, 32, 640, 640), "int8"),
-                ((1, 512, 512, 128, 128), "int8")]
+    # every shape class the int8 and switched frames launch, checked; the
+    # K3_TIMED_SHAPES rows also timed
+    k3_cases = [(s, "int8") for s in K3_INT8_FRAME_SHAPES]
+    k3_cases += [(k[:5], "bf16+prologue" if k[5] else "bf16") for k in K3_SWITCHED_FRAME_SHAPES]
+    k3_cases += [c for c in K3_TIMED_SHAPES if c not in k3_cases]
+    k3_checked = 0
     for (n, h, w, cin, cout), mode in k3_cases:
         x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
         wf = torch.randn((3, 3, cin, cout), generator=gen, device=dev) / (3.0 * cin ** 0.5)
@@ -451,9 +502,17 @@ def main() -> None:
         else:
             ok = bool((diff <= BF16_STEP * ref.float().abs() + K3_BF16_ATOL).all())
             bar = f"|d| <= 2^-7 |ref| + {K3_BF16_ATOL:g}"
+        shape = f"{n}x{h}x{w}x{cin}->{cout} {mode}"
         if not (ok and math.isfinite(err)):
-            fail(f"K3 {mode} {(n, h, w, cin, cout)}: max abs err {err:.3e} (bar: {bar})")
-        row = {"shape": f"{n}x{h}x{w}x{cin}->{cout} {mode}", "max_abs_err": err, "bar": bar,
+            fail(f"K3 {shape}: max abs err {err:.3e} (bar: {bar})")
+        k3_checked += 1
+        k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), err)
+        if ((n, h, w, cin, cout), mode) not in K3_TIMED_SHAPES:
+            del x, wk, out, ref, diff
+            continue
+        t = conv_tiles(n, h, w, cin, cout, mode == "int8")
+        row = {"shape": shape, "max_abs_err": err, "bar": bar,
+               "tiles": f"bn {t.bn} rows {t.rows}",
                "ms": graph_ms(lambda: conv3x3_kernel(x, wk, b, **kw)),
                "plain_ms": graph_ms(lambda: conv3x3_kernel_reference(x, wk, b, **kw), 5),
                "library_ms": None,
@@ -468,10 +527,13 @@ def main() -> None:
         k3["shapes"].append(row)
         print(f"[7 K3] {row}", flush=True)
         del x, wk, out, ref, diff
+    print(f"[7 K3] {k3_checked} shape classes checked against the plain version (int8 exact, "
+          f"bf16 |d| <= 2^-7 |ref| + {K3_BF16_ATOL:g}): max abs err {k3['max_abs_err']:.3e}",
+          flush=True)
+    k3["checked_shape_classes"] = k3_checked
     main_shape = next(r for r in k3["shapes"] if r["shape"].startswith("2x64x64x960"))
-    k3.update(max_abs_err=max(r["max_abs_err"] for r in k3["shapes"]),
-              **{k: main_shape[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "bound_by")})
+    k3.update(**{k: main_shape[k] for k in ("ms", "ms_with_host", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")})
 
     # --- 8. K4 ----------------------------------------------------------------
     from stable_renderer_tpu_torch.ops.group_norm_kernel import (

@@ -21,7 +21,8 @@ torch.profiler. Prints and writes:
   * the kernels with the most device time, by name; the device operations
     (kernels, copies, sets) the profiled frame launched, and among them the
     layout-copy kernels (names with "copy"); K1's kernels (names with
-    "flash_") in time and launches;
+    "flash_") in time and launches; K3's kernels, the GEMM and the prep pass
+    apart (every kernel of csrc/conv3x3.cu), in time and launches;
   * with --int8, from one more frame: how many int8 conv calls met an input
     beyond their calibrated range (max|x| > 127.5 * a_scale, so that values
     clip at +-127), and the largest ratio of max|x| to the calibrated max.
@@ -178,7 +179,11 @@ def main() -> None:
         layers.conv3x3_kernel, quant.conv2d_q = k3, conv_q
         clipping = {"int8_conv_calls": len(seen), "calls_clipping": sum(r > 1 for r in seen),
                     "max_ratio_to_calibrated": max(seen)}
-    conv_kernel_ms = sum(ms for ms, _, k in kernels if "conv3x3_igemm" in k)
+    # every kernel csrc/conv3x3.cu launches: the GEMM (conv3x3_wgmma; an
+    # older tree's conv3x3_igemm) and the prep pass of int8 mode and the
+    # prologue (prep_act)
+    k3_gemm = [(ms, n) for ms, n, k in kernels if "conv3x3_wgmma" in k or "conv3x3_igemm" in k]
+    k3_prep = [(ms, n) for ms, n, k in kernels if "prep_act" in k]
     result = {
         "card": card,
         "mode": "int8" if args.int8 else "bf16",
@@ -194,7 +199,11 @@ def main() -> None:
         # kernel time of one frame over the frame's wall time without the
         # profiler (the profiled frame's own wall time includes its overhead)
         "device_busy_share": device_us / 1e3 / statistics.median(walls),
-        "k3_kernel_ms_per_frame": conv_kernel_ms,
+        "k3_kernel_ms_per_frame": sum(ms for ms, _ in k3_gemm + k3_prep),
+        "k3_gemm_ms_per_frame": sum(ms for ms, _ in k3_gemm),
+        "k3_prep_ms_per_frame": sum(ms for ms, _ in k3_prep),
+        "k3_kernels_per_frame": {"gemm": sum(n for _, n in k3_gemm),
+                                 "prep": sum(n for _, n in k3_prep)},
         "k1_kernel_ms_per_frame": sum(ms for ms, _ in k1),
         "k1_kernels_per_frame": sum(n for _, n in k1),
         "device_ops_per_frame": sum(n for _, n, _ in kernels),

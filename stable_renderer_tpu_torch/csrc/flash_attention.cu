@@ -67,7 +67,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace sr;
 
 using bf16 = __nv_bfloat16;
 
@@ -102,12 +106,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -178,109 +176,8 @@ __device__ __forceinline__ void store_pair(bf16* row, int col, int d, float a, f
   }
 }
 
-// ---- wgmma (sm_90a): 64 x N x 16 products of a warpgroup, A from registers ----
-// d: this thread's N / 2 f32 accumulators (the m16n8 C layout, 4 for every 8
-// columns; warp w of the warpgroup holds rows 16w..16w+15); a: the m16n8k16 A
-// fragment of this warp's 16 rows; desc: B in shared memory; TB = 1 for an
-// MN-major (transposed) B; acc = 0 overwrites d, 1 accumulates into it.
-template <int N>
-struct WgmmaRS;
-
-template <>
-struct WgmmaRS<16> {
-  template <int TB>
-  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7 "
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
-  }
-};
-
-template <>
-struct WgmmaRS<32> {
-  template <int TB>
-  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15 "
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
-  }
-};
-
-template <>
-struct WgmmaRS<40> {
-  template <int TB>
-  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19 "
-        "}, {%20, %21, %22, %23}, %24, p, 1, 1, %26;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
-  }
-};
-
-template <>
-struct WgmmaRS<48> {
-  template <int TB>
-  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23 "
-        "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
-  }
-};
-
-template <>
-struct WgmmaRS<64> {
-  template <int TB>
-  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
-                                             int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31 "
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
-  }
-};
-
-// The same with A in shared memory too (desc_a, K-major): S = Q.K^T.
+// wgmma with A in shared memory too (desc_a, K-major): S = Q.K^T. (WgmmaRS,
+// A from registers, is in hopper.cuh.)
 template <int N>
 struct WgmmaSS;
 
@@ -332,37 +229,6 @@ struct WgmmaSS<128> {
   }
 };
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// a wgmma's accumulators: keep the compiler from moving their uses across
-// its issue and its wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-// what cp.async and plain stores wrote to shared memory, made visible to
-// wgmma's reads (the async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor, no swizzle: start address, LBO (bytes
-// between 8 x 16-byte core matrices along K), SBO (along M or N)
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
 // Rows [r0, r0 + ROWS) of a (L, d) slab in wgmma's no-swizzle layout, zero
 // past `valid` rows and past column d: the 8 columns 8c..8c+7 of all rows are
 // one [ROWS][16 bytes] block, so the 16-byte chunk (row r, chunk c) is at byte
@@ -386,45 +252,6 @@ __device__ __forceinline__ void load_chunks(uint8_t* s, const bf16* base, long l
           (r < valid && col < d) ? base[(long long)(r0 + r) * ls + col] : __float2bfloat16(0.f);
     }
   }
-}
-
-// mbarriers in shared memory: the K/V ring's "landed" and "free" signals
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-// named barriers 1.. between two warpgroups: one waits (sync), one signals
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// one TMA box (8 columns x 64 rows of one batch and head) into shared memory,
-// completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
-                                         int head, int batch, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-         "r"(head), "r"(batch), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // ---- d <= 64 on wgmma: P in registers, the softmax of S(j + 1) during P.V(j) ----
@@ -859,16 +686,6 @@ flash_merge(const Args a, int bh_total, int dk) {
   }
 }
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
-}
-
 // ---- f32 route: the SIMT kernel ------------------------------------------------
 // Contiguous (BH, L, D) f32. Every block owns one (bh, BQ-row) query tile,
 // streams K and V through shared memory in BK-row tiles and keeps the
@@ -1069,25 +886,6 @@ int launch_wide(Args a, int bh, int force_splits, void* scratch, cudaStream_t s)
   if (e != cudaSuccess || a.splits == 1) return (int)e;
   flash_merge<<<bh * a.lq, 128, 0, s>>>(a, bh, DK);
   return (int)cudaGetLastError();
-}
-
-using TmapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up at run time (no link to libcuda)
-TmapEncode tmap_encode() {
-  static const TmapEncode fn = []() -> TmapEncode {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<TmapEncode>(p);
-  }();
-  return fn;
 }
 
 // K or V, a (batch, len, heads, d) view with 16-byte rows, as a 4-d TMA map

@@ -8,7 +8,9 @@ The CUDA kernel itself is held to the plain version on the card
 
 from __future__ import annotations
 
+import collections
 import functools
+from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
@@ -218,21 +220,24 @@ def test_float_routing_matches_jax(monkeypatch):
 # --- launches of the SD1.5 frame, counted on the meta device ------------------
 
 
-def _count_frame_launches(monkeypatch, int8: bool):
+def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None):
     """Run the full-width SD1.5 UNet (batch 2 at 64x64) and VAE (encode and
     decode at 512x512) on the meta device, with K1, K3 and K4 stubbed to
     shape-only functions, and count the K3 and K4 calls. The counts depend on
     shapes alone, so this is what one 512x512 frame launches per UNet
-    evaluation and per VAE pass."""
+    evaluation and per VAE pass. ``shapes``, if given, gets each pass's K3
+    calls by (N, H, W, Cin, Cout, prologue)."""
     from stable_renderer_tpu_torch.models import quant as tquant
     from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, UNetModel
     from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, VAE
     from stable_renderer_tpu_torch.ops import flash_attention as tfa
 
     counts = {"k3": 0, "k4": 0}
+    calls = collections.Counter()
 
     def k3(x, w, bias=None, **kw):
         counts["k3"] += 1
+        calls[tuple(x.shape) + (w.shape[-1], kw.get("pre_scale") is not None)] += 1
         return torch.empty(x.shape[:3] + (w.shape[-1],), dtype=x.dtype, device=x.device)
 
     def k4(x, *a, **kw):
@@ -277,8 +282,11 @@ def _count_frame_launches(monkeypatch, int8: bool):
     for name, fn in (("unet", lambda: unet.apply(up, x, t, ctx)),
                      ("encode", lambda: vae.encode(vp, px)), ("decode", lambda: vae.decode(vp, z))):
         counts.update(k3=0, k4=0)
+        calls.clear()
         fn()
         out[name] = dict(counts)
+        if shapes is not None:
+            shapes[name] = collections.Counter(calls)
     return out
 
 
@@ -311,3 +319,124 @@ def test_switched_frame_k3_k4_launches(monkeypatch):
 def test_bf16_frame_launches_no_kernel_by_default(monkeypatch):
     c = _count_frame_launches(monkeypatch, int8=False)
     assert all(v == {"k3": 0, "k4": 0} for v in c.values())
+
+
+# --- K3's shape classes and its tile picker -------------------------------------
+
+
+def _frame_tally(shapes: dict) -> collections.Counter:
+    """Launches a frame by shape class: 4 UNet evaluations, one encode, one
+    decode."""
+    tally = collections.Counter()
+    for name, times in (("unet", 4), ("encode", 1), ("decode", 1)):
+        for key, count in shapes[name].items():
+            tally[key] += times * count
+    return tally
+
+
+def test_int8_frame_k3_shape_classes(monkeypatch):
+    """The int8 frame's 139 K3 launches fall in 20 shape classes, none with
+    the prologue: chip_smoke.K3_INT8_FRAME_SHAPES, which phase 7 and the card
+    tests check one by one."""
+    import chip_smoke
+
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    shapes = {}
+    _count_frame_launches(monkeypatch, int8=True, shapes=shapes)
+    tally = _frame_tally(shapes)
+    assert {k[:5]: v for k, v in tally.items()} == chip_smoke.K3_INT8_FRAME_SHAPES
+    assert not any(k[5] for k in tally)
+    assert len(tally) == 20 and sum(tally.values()) == chip_smoke.K3_INT8_CALLS_PER_FRAME == 139
+
+
+def test_switched_frame_k3_shape_classes(monkeypatch):
+    """The switched bf16 frame's 93 K3 launches: 12 shape classes, most of
+    them with the GroupNorm+SiLU prologue."""
+    import chip_smoke
+
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    monkeypatch.setattr(tlayers, "_group_norm_pallas_on", True)
+    shapes = {}
+    _count_frame_launches(monkeypatch, int8=False, shapes=shapes)
+    tally = _frame_tally(shapes)
+    assert dict(tally) == chip_smoke.K3_SWITCHED_FRAME_SHAPES
+    assert len({k[:5] for k in tally}) == 12
+    assert sum(tally.values()) == chip_smoke.K3_SWITCHED_CALLS_PER_FRAME == 93
+
+
+def _picker_cases():
+    import chip_smoke
+
+    cases = [(s, True) for s in chip_smoke.K3_INT8_FRAME_SHAPES]
+    cases += [(s, False) for s in sorted({k[:5] for k in chip_smoke.K3_SWITCHED_FRAME_SHAPES})]
+    # ragged edges: H and W not multiples of the tile, Cout not a multiple of BN
+    cases += [((1, 16, 24, 136, 72), True), ((1, 16, 24, 136, 72), False),
+              ((1, 33, 47, 8, 8), True), ((1, 10, 13, 128, 136), True),
+              ((1, 10, 13, 128, 136), False), ((1, 9, 11, 200, 56), True)]
+    return cases
+
+
+@pytest.mark.parametrize("shape,int8", _picker_cases())
+def test_tile_picker(shape, int8):
+    """What conv_tiles picks fits the card and the instructions: shared memory
+    within a block's 232,448 bytes, an N tile that wgmma takes in the mode
+    (a multiple of 8 up to 256; of 16 above 32 for s8) and that the kernel
+    was compiled for, 16-byte TMA strides, and a grid whose blocks cover
+    every output, with no block past the last output channel."""
+    n, h, w, cin, cout = shape
+    t = tck.conv_tiles(n, h, w, cin, cout, int8)
+    assert (t.bn, t.nwg, t.mb, t.smem) in tck.TILE_CONFIGS
+    assert t.smem <= 232_448
+    assert t.bn % 8 == 0 and t.bn <= 256 and not (int8 and t.bn > 32 and t.bn % 16)
+    eb = 1 if int8 else 2
+    assert t.cs >= cin and (t.cs * eb) % 16 == 0 and (9 * t.cs * eb) % 16 == 0
+    assert t.cs == (-(-cin // 16) * 16 if int8 else cin)
+    assert t.rows == 4 * t.nwg * t.mb and t.threads == 128 * (t.nwg + 1)
+    tiles_y, tiles_x = -(-h // t.rows), -(-w // tck.TILE_W)
+    assert t.grid[0] == n * tiles_y * tiles_x
+    assert tiles_y * t.rows >= h and tiles_x * tck.TILE_W >= w
+    assert t.grid[1] * t.bn >= cout > (t.grid[1] - 1) * t.bn
+    # the patch box, (rows + 2) x 18 pixels of 128 bytes, and the weight box,
+    # 128 bytes x BN rows: every TMA box dimension at most 256
+    assert t.rows + 2 <= 256 and tck.TILE_W + 2 <= 256 and t.bn <= 256
+
+
+def test_tile_configs_match_the_kernel_table():
+    """TILE_CONFIGS is csrc/conv3x3.cu's kConfigs (shared memory included,
+    which the .cu asserts at compile time), in order, and run_gemm launches
+    every entry."""
+    import re
+
+    src = (tck.__file__.rsplit("/ops/", 1)[0] + "/csrc/conv3x3.cu")
+    text = open(src).read()
+    table = text[text.index("kConfigs[] = {"):text.index("};", text.index("kConfigs[] = {"))]
+    assert tuple(tuple(map(int, m)) for m in
+                 re.findall(r"\{(\d+), (\d+), (\d+), (\d+)\}", table)) == \
+        tuple((bn, nwg, mb, smem) for bn, nwg, mb, smem in tck.TILE_CONFIGS)
+    cases = re.findall(r"case (\d+): return launch_gemm<INT8, (\d+)>", text)
+    assert [(int(i), int(c)) for i, c in cases] == [(i, i) for i in range(len(tck.TILE_CONFIGS))]
+
+
+@pytest.mark.parametrize("shape,int8", [((2, 64, 64, 320, 320), False),
+                                        ((1, 512, 512, 128, 128), True),
+                                        ((1, 512, 512, 128, 128), False)])
+def test_tile_candidates_fill_the_shared_memory_budget(shape, int8):
+    """Every compiled tile shape is a candidate, each within a block's
+    232,448 bytes of shared memory, and the picker takes one of them."""
+    cands = tck.tile_candidates(*shape, int8)
+    assert [(t.bn, t.nwg, t.mb, t.smem) for t in cands] == list(tck.TILE_CONFIGS)
+    for t in cands:
+        assert t.smem <= 232_448
+    assert tck.conv_tiles(*shape, int8) in cands
+
+
+@pytest.mark.parametrize("shape,int8,want", [
+    ((2, 64, 64, 320, 320), False, (160, 2, 1)),   # Cout 320 in two 160-wide tiles
+    ((2, 32, 32, 640, 640), True, (128, 2, 1)),    # 80 tiles: the smaller tile fills more SMs
+    ((1, 512, 512, 128, 128), True, (128, 2, 2)),  # 1024 tiles: 256 pixels a tile halve B's traffic
+])
+def test_tile_picker_choices(shape, int8, want):
+    """The picks that the sweep on the card found fastest at three frame
+    shapes (PERF.md)."""
+    t = tck.conv_tiles(*shape, int8)
+    assert (t.bn, t.nwg, t.mb) == want

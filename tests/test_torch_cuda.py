@@ -11,6 +11,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+import chip_smoke
 from stable_renderer_tpu_torch.engine.mesh import Mesh
 from stable_renderer_tpu_torch.ops import flash_attention as tfa
 from stable_renderer_tpu_torch.ops import raster as tr
@@ -224,8 +225,20 @@ def _check_conv(x, w_k, b, kw, act=None, out_dtype=None):
     return (out.float() - ref.float()).abs(), ref.float().abs()
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 320, 320), (1, 16, 24, 136, 72),
-                                   (1, 10, 13, 128, 128), (2, 32, 32, 1920, 640)])
+# the shape classes of the frame (chip_smoke.py), and ragged edges: H and W
+# not multiples of the tile, Cout not a multiple of the N tile, Cin not a
+# multiple of a 128-byte K chunk
+K3_BF16_SHAPES = sorted({k[:5] for k in chip_smoke.K3_SWITCHED_FRAME_SHAPES}) + [
+    (1, 16, 24, 136, 72), (1, 10, 13, 128, 128), (2, 32, 32, 1920, 640), (1, 10, 13, 128, 136)]
+# int8 with f32 input or output too (the f32 epilogue is a path of its own)
+K3_INT8_TYPE_SHAPES = [(2, 64, 64, 960, 320), (2, 32, 32, 640, 640), (1, 96, 80, 128, 128),
+                       (1, 9, 11, 200, 56)]
+K3_INT8_SHAPES = [s for s in sorted(chip_smoke.K3_INT8_FRAME_SHAPES)
+                  if s not in K3_INT8_TYPE_SHAPES] + [
+    (1, 33, 47, 8, 8), (1, 10, 13, 128, 136), (1, 16, 24, 136, 72)]
+
+
+@pytest.mark.parametrize("shape", K3_BF16_SHAPES)
 @pytest.mark.parametrize("pre,act", [(False, None), (False, "silu"), (True, None)])
 def test_conv3x3_bf16_matches_plain(cuda_device, shape, pre, act):
     """Float mode: f32 sums of bf16 products in another order, one bf16
@@ -236,8 +249,7 @@ def test_conv3x3_bf16_matches_plain(cuda_device, shape, pre, act):
     assert (err <= BF16_RTOL * mag + 1e-3).all(), err.max().item()
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 960, 320), (2, 32, 32, 640, 640),
-                                   (1, 96, 80, 128, 128), (1, 9, 11, 200, 56)])
+@pytest.mark.parametrize("shape", K3_INT8_TYPE_SHAPES)
 @pytest.mark.parametrize("x_dtype,out_dtype", [(torch.bfloat16, None),
                                                (torch.float32, None),
                                                (torch.bfloat16, torch.float32)])
@@ -247,6 +259,55 @@ def test_conv3x3_int8_matches_plain_exactly(cuda_device, shape, x_dtype, out_dty
     x, w_k, b, kw = _conv_case(cuda_device, *shape, int8=True, x_dtype=x_dtype)
     err, _ = _check_conv(x, w_k, b, kw, out_dtype=out_dtype)
     assert err.max().item() == 0.0
+
+
+@pytest.mark.parametrize("shape", K3_INT8_SHAPES)
+def test_conv3x3_int8_frame_shapes_match_plain_exactly(cuda_device, shape):
+    """Int8 mode at the frame's other int8 shape classes and at ragged ones:
+    bit for bit."""
+    x, w_k, b, kw = _conv_case(cuda_device, *shape, int8=True)
+    err, _ = _check_conv(x, w_k, b, kw)
+    assert err.max().item() == 0.0
+
+
+@pytest.mark.parametrize("shape,int8,out_dtype", [
+    ((1, 33, 47, 136, 72), True, None), ((1, 33, 47, 136, 72), True, torch.float32),
+    ((1, 33, 47, 136, 72), False, None), ((1, 33, 47, 136, 72), False, torch.float32),
+    ((2, 20, 36, 64, 320), True, None), ((2, 20, 36, 64, 320), True, torch.float32),
+    ((2, 20, 36, 64, 320), False, None), ((2, 20, 36, 64, 320), False, torch.float32),
+    ((1, 512, 512, 128, 128), True, None)])
+def test_conv3x3_every_tile_shape_matches_plain(cuda_device, shape, int8, out_dtype):
+    """Every launch the tile picker can choose from (each compiled tile
+    shape), not only the one it picks, at ragged shapes, with the bf16 and
+    the f32 epilogue (int8 with f32 output takes f32 input, as the int8
+    layers do): int8 exact, bf16 within one bf16 step."""
+    from stable_renderer_tpu_torch.ops import conv_kernel as tck
+
+    x_dtype = torch.float32 if int8 and out_dtype == torch.float32 else torch.bfloat16
+    x, w_k, b, kw = _conv_case(cuda_device, *shape, int8=int8, x_dtype=x_dtype)
+    kw["out_dtype"] = out_dtype
+    ref = tck.conv3x3_kernel_reference(x, w_k, b, **kw).float()
+    cands = tck.tile_candidates(*shape, int8)
+    assert len(cands) == len(tck.TILE_CONFIGS)
+    for t in cands:
+        out = tck._launch(x, w_k, b, tiles=t, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == (out_dtype or x.dtype)
+        err = (out.float() - ref).abs()
+        if int8:
+            assert err.max().item() == 0.0, t
+        else:
+            assert (err <= BF16_RTOL * ref.abs() + 1e-3).all(), (t, err.max().item())
+
+
+def test_conv3x3_rejects_a_tile_shape_it_was_not_built_for(cuda_device):
+    """A launch outside the compiled table raises; nothing falls back."""
+    from stable_renderer_tpu_torch.ops import conv_kernel as tck
+
+    x, w_k, b, kw = _conv_case(cuda_device, 1, 16, 16, 64, 64)
+    t = tck.conv_tiles(1, 16, 16, 64, 64, False)._replace(bn=96)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tck._launch(x, w_k, b, tiles=t, **kw)
 
 
 def test_conv3x3_int8_silu_and_prologue(cuda_device):
