@@ -3,12 +3,13 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--frames N] [--int8] [--out result.json]
+    python3 scripts/profile_torch_frame.py [--frames N] [--int8 | --switched] [--out result.json]
 
 Builds the bench frame of chip_smoke.py (full SD1.5 widths, random bf16
 weights, 4-step LCM, cfg 2.0, OverlapCorresponder, 512x512; with --int8 the
 calibrated int8 convs of RenderConfig(int8_conv=True), whose 3x3 convs run on
-the K3 kernel), runs one warm
+the K3 kernel; with --switched the bf16 frame with the float K3 switch and the
+K4 switch on, as chip_smoke.py phase 10 runs it), runs one warm
 frame, then N frames under CUDA-event stage timers and one frame under
 torch.profiler. Prints and writes:
   * per-stage time per frame (raster + G-buffer, pack, VAE encode, the UNet
@@ -22,7 +23,10 @@ torch.profiler. Prints and writes:
     (kernels, copies, sets) the profiled frame launched, and among them the
     layout-copy kernels (names with "copy"); K1's kernels (names with
     "flash_") in time and launches; K3's kernels, the GEMM and the prep pass
-    apart (every kernel of csrc/conv3x3.cu), in time and launches;
+    apart (every kernel of csrc/conv3x3.cu), in time and launches; K2's
+    (csrc/raster_tile.cu: the setup and the binned tile kernel, or an older
+    tree's raster_tile) and K4's (csrc/group_norm.cu: gn_cluster, or an older
+    tree's gn_partial, gn_finalize and gn_apply), in time and launches;
   * with --int8, from one more frame: how many int8 conv calls met an input
     beyond their calibrated range (max|x| > 127.5 * a_scale, so that values
     clip at +-127), and the largest ratio of max|x| to the calibrated max.
@@ -46,6 +50,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--int8", action="store_true",
                     help="the calibrated int8 frame (RenderConfig(int8_conv=True))")
+    ap.add_argument("--switched", action="store_true",
+                    help="the bf16 frame with use_pallas_conv(True) and _group_norm_pallas_on")
     ap.add_argument("--out", default=None, help="also write the result as JSON here")
     args = ap.parse_args()
 
@@ -71,6 +77,14 @@ def main() -> None:
     from stable_renderer_tpu_torch.workflow.config import RenderConfig
 
     dev = torch.device("cuda", 0)
+    if args.int8 and args.switched:
+        sys.exit("--int8 and --switched are two frames: choose one")
+    if args.switched:
+        from stable_renderer_tpu_torch.models import layers
+        from stable_renderer_tpu_torch.ops.conv_kernel import use_pallas_conv
+
+        use_pallas_conv(True)
+        layers._group_norm_pallas_on = True
     cfg = RenderConfig(prompt="a ball", steps=4, cfg_scale=2.0, sampler="lcm",
                        scheduler="sgm_uniform", int8_conv=args.int8)
     t0 = time.perf_counter()
@@ -184,9 +198,13 @@ def main() -> None:
     # prologue (prep_act)
     k3_gemm = [(ms, n) for ms, n, k in kernels if "conv3x3_wgmma" in k or "conv3x3_igemm" in k]
     k3_prep = [(ms, n) for ms, n, k in kernels if "prep_act" in k]
+    k2_names = ("raster_setup", "raster_binned", "raster_tile")
+    k4_names = ("gn_cluster", "gn_partial", "gn_finalize", "gn_apply")
+    k2 = [(ms, n) for ms, n, k in kernels if any(m in k for m in k2_names)]
+    k4 = [(ms, n) for ms, n, k in kernels if any(m in k for m in k4_names)]
     result = {
         "card": card,
-        "mode": "int8" if args.int8 else "bf16",
+        "mode": "int8" if args.int8 else ("bf16 switched" if args.switched else "bf16"),
         "from_random_s": setup_s,
         "frames": args.frames,
         "wall_ms_median": statistics.median(walls),
@@ -206,6 +224,12 @@ def main() -> None:
                                  "prep": sum(n for _, n in k3_prep)},
         "k1_kernel_ms_per_frame": sum(ms for ms, _ in k1),
         "k1_kernels_per_frame": sum(n for _, n in k1),
+        "k2_kernel_ms_per_frame": sum(ms for ms, _ in k2),
+        "k2_kernels_per_frame": sum(n for _, n in k2),
+        "k4_kernel_ms_per_frame": sum(ms for ms, _ in k4),
+        "k4_kernels_per_frame": sum(n for _, n in k4),
+        "k2_k4_kernels": [{"ms": round(ms, 4), "calls": n, "name": k[:80]}
+                          for ms, n, k in kernels if any(m in k for m in k2_names + k4_names)],
         "device_ops_per_frame": sum(n for _, n, _ in kernels),
         "copy_kernels_per_frame": sum(n for _, n, k in kernels if "copy" in k.lower()),
         "int8_clipping": clipping,

@@ -7,6 +7,8 @@ by name (``device="cpu"``), as the tests do.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -17,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def on_device(device: torch.device):
+    """A CUDA device's context for a kernel launch, entered only when the
+    device is not already current (entering one costs the host time on every
+    call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

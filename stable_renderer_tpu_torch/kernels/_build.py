@@ -153,8 +153,13 @@ def load_library() -> ctypes.CDLL:
             lib.sr_flash_attention_bf16_variant.restype = ctypes.c_char_p
             lib.sr_flash_attention_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
             lib.sr_flash_attention_f32.restype = i32
-            lib.sr_raster_tile.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, ptr]
-            lib.sr_raster_tile.restype = i32
+            # clip, vertices, tris, tris int64, triangles, height, width, cull,
+            # constants out, tile ranges out, stream
+            lib.sr_raster_setup.argtypes = [ptr, i32, ptr, *[i32] * 5, ptr, ptr, ptr]
+            lib.sr_raster_setup.restype = i32
+            # constants, tile ranges, triangles, z, tri_id, bary, height, width, stream
+            lib.sr_raster_tiles.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr]
+            lib.sr_raster_tiles.restype = i32
             # x, weight tensor map, bias, bias kind, pre_scale, pre_shift, a_scale,
             # w_scale, out, act scratch, n, h, w, cin, cout, cs, int8, x f32,
             # out f32, act silu, pre, pre silu, bn, nwg, mb, stream
@@ -163,11 +168,15 @@ def load_library() -> ctypes.CDLL:
             # map out (128 bytes), weights (cout, 3, 3, cs), cout, cs, int8, bn
             lib.sr_conv3x3_weight_map.argtypes = [ptr, ptr, *[i32] * 4]
             lib.sr_conv3x3_weight_map.restype = i32
-            # x, weight, bias, wb bf16, y, part, scale, shift, n, s, c, groups, chunks,
-            # rows, eps, silu, x f32, stream
-            lib.sr_group_norm.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr,
-                                          *[i32] * 6, f32, i32, i32, ptr]
+            # x, weight, bias, wb bf16, y, n, s, c, groups, slice channels, cluster,
+            # rows a CTA, rows a pass, passes, resident, eps, silu, x f32, stream
+            lib.sr_group_norm.argtypes = [ptr, ptr, ptr, i32, ptr, *[i32] * 10, f32, i32, i32,
+                                          ptr]
             lib.sr_group_norm.restype = i32
+            # n, s, c, groups, slice channels, cluster, rows a CTA, rows a pass,
+            # passes, resident, x f32
+            lib.sr_group_norm_max_clusters.argtypes = [i32] * 11
+            lib.sr_group_norm_max_clusters.restype = i32
             lib.sr_cuda_error_string.argtypes = [i32]
             lib.sr_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -220,13 +220,15 @@ def test_float_routing_matches_jax(monkeypatch):
 # --- launches of the SD1.5 frame, counted on the meta device ------------------
 
 
-def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None):
+def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None,
+                          k4_shapes: Optional[dict] = None):
     """Run the full-width SD1.5 UNet (batch 2 at 64x64) and VAE (encode and
     decode at 512x512) on the meta device, with K1, K3 and K4 stubbed to
     shape-only functions, and count the K3 and K4 calls. The counts depend on
     shapes alone, so this is what one 512x512 frame launches per UNet
     evaluation and per VAE pass. ``shapes``, if given, gets each pass's K3
-    calls by (N, H, W, Cin, Cout, prologue)."""
+    calls by (N, H, W, Cin, Cout, prologue); ``k4_shapes``, if given, each
+    pass's K4 calls by (N, S, C, groups, act)."""
     from stable_renderer_tpu_torch.models import quant as tquant
     from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, UNetModel
     from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, VAE
@@ -234,6 +236,7 @@ def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None
 
     counts = {"k3": 0, "k4": 0}
     calls = collections.Counter()
+    k4_calls = collections.Counter()
 
     def k3(x, w, bias=None, **kw):
         counts["k3"] += 1
@@ -242,6 +245,7 @@ def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None
 
     def k4(x, *a, **kw):
         counts["k4"] += 1
+        k4_calls[tuple(x.shape) + (kw.get("groups"), kw.get("act"))] += 1
         return torch.empty_like(x)
 
     def int_conv(q, w_q, stride=1, padding=0):
@@ -283,10 +287,13 @@ def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None
                      ("encode", lambda: vae.encode(vp, px)), ("decode", lambda: vae.decode(vp, z))):
         counts.update(k3=0, k4=0)
         calls.clear()
+        k4_calls.clear()
         fn()
         out[name] = dict(counts)
         if shapes is not None:
             shapes[name] = collections.Counter(calls)
+        if k4_shapes is not None:
+            k4_shapes[name] = collections.Counter(k4_calls)
     return out
 
 
@@ -362,6 +369,22 @@ def test_switched_frame_k3_shape_classes(monkeypatch):
     assert dict(tally) == chip_smoke.K3_SWITCHED_FRAME_SHAPES
     assert len({k[:5] for k in tally}) == 12
     assert sum(tally.values()) == chip_smoke.K3_SWITCHED_CALLS_PER_FRAME == 93
+
+
+def test_switched_frame_k4_shape_classes(monkeypatch):
+    """The switched bf16 frame's 175 K4 launches: 13 classes of (N, S, C,
+    act), all with 32 groups: chip_smoke.K4_SWITCHED_FRAME_SHAPES, which
+    phase 8 and the card tests check one by one."""
+    import chip_smoke
+
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    monkeypatch.setattr(tlayers, "_group_norm_pallas_on", True)
+    k4 = {}
+    _count_frame_launches(monkeypatch, int8=False, k4_shapes=k4)
+    tally = _frame_tally(k4)
+    assert {k[4] for k in tally} <= {None, "silu"} and {k[3] for k in tally} == {32}
+    assert {k[:3] + (k[4],): v for k, v in tally.items()} == chip_smoke.K4_SWITCHED_FRAME_SHAPES
+    assert sum(tally.values()) == chip_smoke.K4_SWITCHED_CALLS_PER_FRAME == 175
 
 
 def _picker_cases():

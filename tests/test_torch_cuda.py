@@ -162,17 +162,20 @@ def test_flash_attention_rejects_unsupported_inputs(cuda_device):
         tfa._launch_bf16(q, q, q, variant=99)
 
 
+def _sphere(dev, h, w):
+    mesh = Mesh.Sphere(1.0, 48)
+    pos = torch.from_numpy(mesh.positions).to(dev)
+    ones = torch.ones_like(pos[:, :1])
+    mvp = (perspective(45.0, w / h, 0.1, 100.0) @ look_at([0.0, 0.5, 3.0], [0.0, 0.0, 0.0],
+                                                           [0.0, 1.0, 0.0])).to(dev)
+    return torch.cat([pos, ones], -1) @ mvp.T, torch.from_numpy(mesh.tris).to(dev)
+
+
 @pytest.mark.parametrize("size", [(512, 512), (200, 136)])
 def test_raster_kernel_matches_plain(cuda_device, size):
     """The bars of tests/test_raster_pallas.py:38-50."""
     h, w = size
-    mesh = Mesh.Sphere(1.0, 48)
-    pos = torch.from_numpy(mesh.positions).to(cuda_device)
-    ones = torch.ones_like(pos[:, :1])
-    mvp = (perspective(45.0, w / h, 0.1, 100.0) @ look_at([0.0, 0.5, 3.0], [0.0, 0.0, 0.0],
-                                                           [0.0, 1.0, 0.0])).to(cuda_device)
-    clip = torch.cat([pos, ones], -1) @ mvp.T
-    tris = torch.from_numpy(mesh.tris).to(cuda_device)
+    clip, tris = _sphere(cuda_device, h, w)
     before = trk.rasterize_kernel.launches
     out = trk.rasterize_kernel(clip, tris, h, w, cull_backface=True)
     torch.cuda.synchronize()
@@ -187,6 +190,96 @@ def test_raster_kernel_matches_plain(cuda_device, size):
     assert same.float().mean().item() > 0.98
     bary = torch.isclose(out.bary[both], ref.bary[both], atol=1e-3).all(-1)[same]
     assert bary.float().mean().item() > 0.98
+
+
+def _exact_against_references(clip, tris, h, w, cull):
+    """The setup kernel equals triangle_setup and tile_ranges, and the whole
+    call equals rasterize_tiles_reference over those constants: bit for bit.
+    Returns the kernel's buffer."""
+    tri_data = trk.triangle_setup(clip, tris, h, w, cull)
+    k_data, k_ranges = trk.triangle_setup_kernel(clip, tris, h, w, cull)
+    out = trk.rasterize_kernel(clip, tris, h, w, cull_backface=cull)
+    torch.cuda.synchronize()
+    assert chip_smoke.same_bits(k_data, tri_data)
+    assert torch.equal(k_ranges, trk.tile_ranges(tri_data, h, w))
+    ref = trk.rasterize_tiles_reference(tri_data, h, w)
+    for name, a, b in zip(out._fields, out, ref):
+        assert chip_smoke.same_bits(a, b), name
+    return out
+
+
+@pytest.mark.parametrize("size", [(512, 512), (200, 136)])
+def test_raster_kernel_equals_tiles_reference(cuda_device, size):
+    h, w = size
+    clip, tris = _sphere(cuda_device, h, w)
+    out = _exact_against_references(clip, tris, h, w, True)
+    assert (out.tri_id >= 0).any()
+
+
+@pytest.mark.parametrize("size", [(512, 512), (200, 136)])
+@pytest.mark.parametrize("cull,tris_dtype", [(False, torch.int32), (True, torch.int64)])
+def test_raster_kernel_soup_equals_tiles_reference(cuda_device, size, cull, tris_dtype):
+    """chip_smoke.raster_soup: full-screen triangles, 10,000 tiny triangles
+    inside one tile, coplanar ties (the lowest index wins), all sizes and
+    windings, triangles behind the camera and degenerate ones."""
+    h, w = size
+    clip, tris = chip_smoke.raster_soup(h, w)
+    clip = torch.from_numpy(clip).to(cuda_device)
+    tris = torch.from_numpy(tris).to(cuda_device, tris_dtype)
+    out = _exact_against_references(clip, tris, h, w, cull)
+    ids = set(out.tri_id.unique().tolist())
+    assert 2 in ids and 3 not in ids  # the coplanar pair: its first copy wins every tie
+    assert any(5 <= i < 10_005 for i in ids)  # tiny triangles drawn
+
+
+@pytest.mark.parametrize("case", ["no triangles", "all culled"])
+def test_raster_kernel_draws_nothing(cuda_device, case):
+    """T = 0, and a mesh whose every triangle faces away with culling on."""
+    import numpy as np
+
+    h, w = 200, 136
+    clip, tris = chip_smoke.raster_soup(h, w, tiny=100)
+    if case == "no triangles":
+        tris = tris[:0]
+    else:  # keep the clearly non-degenerate triangles in front, wound to face away
+        xy = clip[:, :2] / clip[:, 3:]
+        p = xy[tris]  # (T, 3, 2), NDC (y up): CCW, positive area, faces the camera
+        area = ((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+                - (p[:, 2, 0] - p[:, 0, 0]) * (p[:, 1, 1] - p[:, 0, 1]))
+        keep = (np.abs(area) * h * w / 4 > 1.0) & (clip[tris, 3] > 0.1).all(1)
+        tris = np.where((area > 0)[:, None], tris[:, ::-1], tris)[keep]
+        assert len(tris) > 200
+    clip = torch.from_numpy(clip).to(cuda_device)
+    tris = torch.from_numpy(np.ascontiguousarray(tris)).to(cuda_device)
+    out = _exact_against_references(clip, tris, h, w, True)
+    empty = tr.VisibilityBuffer.empty(h, w, device=cuda_device)
+    for a, b in zip(out, empty):
+        assert chip_smoke.same_bits(a, b)
+
+
+def test_raster_kernel_launches_two_kernels_and_replays_in_a_graph(cuda_device):
+    """One call is the setup kernel and the binned tile kernel, nothing else;
+    captured in a CUDA graph, it replays on new vertex positions."""
+    h = w = 512
+    clip, tris = _sphere(cuda_device, h, w)
+    names = chip_smoke.device_kernels(lambda: trk.rasterize_kernel(clip, tris, h, w, True))
+    assert len(names) == 2 and "raster_setup" in names[0] and "raster_binned" in names[1], names
+    static_clip = clip.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trk.rasterize_kernel(static_clip, tris, h, w, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trk.rasterize_kernel(static_clip, tris, h, w, True)
+    turned = clip * torch.tensor([0.8, 1.1, 1.0, 1.0], device=cuda_device)  # squeezed in x
+    static_clip.copy_(turned)
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = trk.rasterize_kernel(turned, tris, h, w, True)
+    for a, b in zip(out, ref):
+        assert chip_smoke.same_bits(a, b)
 
 
 # --- K3: the fused 3x3 conv ---------------------------------------------------
@@ -357,21 +450,31 @@ def test_int8_convs_route_to_k3_on_the_card(cuda_device):
 # --- K4: the fused GroupNorm ----------------------------------------------------
 
 
+def _gn_inputs(dev, shape, dtype, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
+    w = torch.randn((shape[2],), generator=g, device=dev).to(dtype)
+    b = torch.randn((shape[2],), generator=g, device=dev).to(dtype)
+    return x, w, b
+
+
 @pytest.mark.parametrize("shape,groups,dtype", [((2, 1024, 640), 32, torch.bfloat16),
                                                ((2, 256, 1920), 32, torch.bfloat16),
                                                ((1, 4096, 512), 32, torch.bfloat16),
                                                ((1, 17, 256), 32, torch.float32),
-                                               ((3, 8, 128), 4, torch.float32)])
+                                               ((3, 8, 128), 4, torch.float32),
+                                               ((1, 16384, 128), 32, torch.bfloat16),
+                                               ((1, 65536, 32), 32, torch.bfloat16),
+                                               ((1, 8, 32768), 32, torch.bfloat16)])
 @pytest.mark.parametrize("act", [None, "silu"])
 def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, dtype, act):
     """Statistics summed in another order (f32), then one rounding to the
-    output type: within one bf16 step in bf16, 1e-5 in f32."""
+    output type: within one bf16 step in bf16, 1e-5 in f32. (1, 65536, 32)
+    keeps x out of registers and reads it twice; (1, 8, 32768) has the
+    widest slice the kernel takes."""
     from stable_renderer_tpu_torch.ops import group_norm_kernel as tgn
 
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    x = (torch.randn(shape, generator=g, device=cuda_device) * 1.5 + 0.3).to(dtype)
-    w = torch.randn((shape[2],), generator=g, device=cuda_device).to(dtype)
-    b = torch.randn((shape[2],), generator=g, device=cuda_device).to(dtype)
+    x, w, b = _gn_inputs(cuda_device, shape, dtype)
     before = tgn.group_norm_kernel.launches
     out = tgn.group_norm_kernel(x, w, b, groups=groups, act=act)
     torch.cuda.synchronize()
@@ -380,3 +483,55 @@ def test_group_norm_kernel_matches_plain(cuda_device, shape, groups, dtype, act)
     err = (out.float() - ref.float()).abs()
     rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
     assert (err <= rtol * ref.float().abs() + 1e-5).all(), err.max().item()
+
+
+K4_CLASSES = sorted(chip_smoke.K4_SWITCHED_FRAME_SHAPES, key=str)
+
+
+@pytest.mark.parametrize("key", K4_CLASSES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_kernel_frame_classes(cuda_device, key, dtype):
+    """Every K4 shape class of the switched frame, with its activation and the
+    other one, bf16 (the frame's type) and f32 input: the card holds its
+    cluster (cudaOccupancyMaxActiveClusters), and the bars above hold."""
+    from stable_renderer_tpu_torch.ops import group_norm_kernel as tgn
+
+    n, s, c, act = key
+    geo = tgn.gn_geometry(n, s, c, 32, 2 if dtype == torch.bfloat16 else 4)
+    assert tgn.max_active_clusters(n, s, c, 32, geo, dtype == torch.float32) >= 1
+    x, w, b = _gn_inputs(cuda_device, (n, s, c), dtype)
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-5
+    for a in (act, "silu" if act is None else None):
+        out = tgn.group_norm_kernel(x, w, b, groups=32, act=a)
+        torch.cuda.synchronize()
+        ref = tgn.group_norm_kernel_reference(x, w, b, groups=32, act=a)
+        err = (out.float() - ref.float()).abs()
+        assert (err <= rtol * ref.float().abs() + 1e-5).all(), (a, err.max().item())
+
+
+@pytest.mark.parametrize("shape", chip_smoke.K4_TIMED_SHAPES)
+def test_group_norm_kernel_one_deterministic_launch(cuda_device, shape):
+    """One kernel a call; two calls give the same bits; a CUDA graph of the
+    call replays on new input to the same bits as an eager call."""
+    from stable_renderer_tpu_torch.ops import group_norm_kernel as tgn
+
+    x, w, b = _gn_inputs(cuda_device, shape, torch.bfloat16)
+    call = lambda: tgn.group_norm_kernel(x, w, b, groups=32, act="silu")  # noqa: E731
+    names = chip_smoke.device_kernels(call)
+    assert len(names) == 1 and "gn_cluster" in names[0], names
+    first, second = call(), call()
+    assert chip_smoke.same_bits(first.view(torch.int16), second.view(torch.int16))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    x2, _, _ = _gn_inputs(cuda_device, shape, torch.bfloat16, seed=2)
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = tgn.group_norm_kernel(x2, w, b, groups=32, act="silu")
+    assert chip_smoke.same_bits(out.view(torch.int16), eager.view(torch.int16))

@@ -95,3 +95,66 @@ def test_routing_matches_jax(monkeypatch, shape, routed):
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
     s = shape[1] * shape[2]
     assert jcalls == tcalls == ([(shape[0], s, c)] if routed else [])
+
+
+# --- K4's launch geometry (the card tests run it: tests/test_torch_cuda.py) -----
+
+
+def _k4_cases():
+    import chip_smoke
+
+    shapes = sorted({k[:3] for k in chip_smoke.K4_SWITCHED_FRAME_SHAPES})
+    cases = [(s, 32, 2) for s in shapes] + [(s, 32, 4) for s in shapes]
+    # the tests' small shapes, the gate's extremes, the widest slice, and
+    # 65536 rows of one slice, where x leaves the registers and is read twice
+    cases += [((1, 17, 256), 32, 4), ((3, 8, 128), 4, 4), ((2, 64, 128), 32, 4),
+              ((1, 16384, 128), 32, 2), ((1, 16384, 128), 32, 4), ((1, 8, 32768), 32, 2),
+              ((1, 65536, 32), 32, 2)]
+    return cases
+
+
+@pytest.mark.parametrize("shape,groups,elem_bytes", _k4_cases())
+def test_gn_geometry(shape, groups, elem_bytes):
+    """Every switched-frame shape class (bf16 and f32) and the gate's
+    extremes: whole groups and whole vectors a slice, clusters the card
+    allows, in one wave, every row covered, the kernel's thread, register and
+    shared memory limits; at the frame's classes the largest cluster that
+    keeps one wave, and whole 32-byte sectors of at least 64 bytes a row."""
+    n, s, c = shape
+    g = tgn.gn_geometry(n, s, c, groups, elem_bytes)
+    cpg = c // groups
+    assert g.slice_channels % cpg == 0 and g.slice_channels % tgn.VEC == 0
+    assert c % g.slice_channels == 0 and g.slice_channels <= tgn.MAX_SLICE
+    assert 1 <= g.cluster <= min(tgn.MAX_CLUSTER, s)
+    assert g.cluster * g.rows_per_cta >= s > (g.cluster - 1) * g.rows_per_cta  # every CTA has rows
+    assert g.passes * g.rows_per_pass >= g.rows_per_cta
+    assert (g.passes - 1) * g.rows_per_pass < g.rows_per_cta  # no empty pass
+    assert 1 <= g.threads <= tgn.MAX_THREADS
+    assert g.resident == (g.passes <= tgn.MAX_PASSES)
+    assert g.resident or shape in ((1, 65536, 32), (2, 1024, 1920), (2, 1024, 1280))
+    assert tgn.STATIC_SMEM <= tgn.SMEM_LIMIT
+    assert 2 * (g.slice_channels // cpg) * (g.cluster + 1) <= tgn.RED_FLOATS
+    assert g.threads % 32 == 0 and g.threads - 32 < g.slice_channels // tgn.VEC * g.rows_per_pass
+    clusters = n * (c // g.slice_channels)
+    assert g.cluster & (g.cluster - 1) == 0
+    assert clusters * g.cluster <= tgn.WAVE_CTAS[g.cluster] or g.cluster == 1  # one wave
+    if s * c <= tgn.MAX_ELEMENTS and c >= 512 and groups == 32:  # the frame's classes
+        assert clusters * g.cluster * 2 > tgn.WAVE_CTAS[min(16, 2 * g.cluster)]  # the largest
+        row_bytes = g.slice_channels * elem_bytes  # whole 32-byte sectors, at least 64 bytes
+        assert row_bytes % 32 == 0 and row_bytes >= tgn.SEGMENT_BYTES
+
+
+def test_gn_geometry_rejects_a_slice_the_kernel_cannot_hold():
+    with pytest.raises(ValueError, match="slice"):
+        tgn.gn_geometry(1, 8, 4096, 2, 2)  # one group of 2048 channels
+
+
+def test_gn_limits_match_the_kernel():
+    """The limits gn_geometry plans with are csrc/group_norm.cu's."""
+    import re
+
+    text = open(tgn.__file__.rsplit("/ops/", 1)[0] + "/csrc/group_norm.cu").read()
+    for name, value in (("kVec", tgn.VEC), ("kMaxThreads", tgn.MAX_THREADS),
+                        ("kMaxPasses", tgn.MAX_PASSES), ("kMaxCluster", tgn.MAX_CLUSTER),
+                        ("kMaxSlice", tgn.MAX_SLICE)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) == value, name

@@ -239,3 +239,98 @@ def test_mesh_matches_jax():
         assert (a.vertex_count, a.triangle_count) == (b.vertex_count, b.triangle_count)
         for lo_hi_a, lo_hi_b in zip(a.bounds, b.bounds):
             np.testing.assert_array_equal(lo_hi_a, lo_hi_b)
+
+
+# --- K2's plain versions: the binned tile kernel is held to them bit for bit
+# on the card (tests/test_torch_cuda.py, chip_smoke.py phase 4) -----------------
+
+
+@pytest.mark.parametrize("cull", [False, True])
+def test_tiles_reference_matches_jax_pallas_kernel(interpret_mode, cull):
+    """rasterize_tiles_reference over triangle_setup's constants against the
+    JAX Pallas kernel in interpret mode, at the bars of
+    tests/test_raster_pallas.py:38-50."""
+    mesh, _, _, clip, _, _ = _scene()
+    ref = jrp.rasterize_pallas(jnp.asarray(clip), jnp.asarray(mesh.tris), 64, 64, tile=32,
+                               cull_backface=cull)
+    tri_data = trk.triangle_setup(torch.from_numpy(clip), torch.from_numpy(mesh.tris), 64, 64,
+                                  cull_backface=cull)
+    _agree(trk.rasterize_tiles_reference(tri_data, 64, 64), ref)
+
+
+@pytest.mark.parametrize("size", [(64, 64), (40, 56)])
+def test_tiles_reference_matches_plain(size):
+    """... and against the port's plain rasterize, at the same bars, on a
+    frame whose edges are not multiples of the tile."""
+    h, w = size
+    mesh, _, _, clip, _, _ = _scene()
+    clip_t, tris_t = torch.from_numpy(clip), torch.from_numpy(mesh.tris)
+    ref = tr.rasterize(clip_t, tris_t, h, w, cull_backface=True)
+    out = trk.rasterize_tiles_reference(trk.triangle_setup(clip_t, tris_t, h, w, True), h, w)
+    _agree(out, ref)
+
+
+def test_tiles_reference_ties_and_empty_inputs():
+    """The lowest index wins a depth tie (a triangle drawn twice in one
+    plane); no triangles, or only culled ones, leave the empty buffer."""
+    import chip_smoke
+
+    clip, tris = chip_smoke.raster_soup(40, 56, tiny=50)
+    clip_t, tris_t = torch.from_numpy(clip), torch.from_numpy(tris)
+    vis = trk.rasterize_tiles_reference(trk.triangle_setup(clip_t, tris_t, 40, 56), 40, 56)
+    ids = set(vis.tri_id.unique().tolist())
+    assert 2 in ids and 3 not in ids  # the pair's first copy, never its second
+    empty = tr.VisibilityBuffer.empty(40, 56)
+    for t in (torch.zeros((0, 3), dtype=torch.int32), tris_t[-40:-20]):  # none; behind the camera
+        got = trk.rasterize_tiles_reference(trk.triangle_setup(clip_t, t, 40, 56), 40, 56)
+        for a, b in zip(got, empty):
+            assert torch.equal(a, b)
+
+
+def _brute_force_ranges(tri_data, height, width):
+    """Every tile's float test of the TPU kernel (inclusive at the tile's
+    edges), per triangle: the first and last admitted column and row."""
+    tiles_x, tiles_y = -(-width // trk.TILE), -(-height // trk.TILE)
+    x0 = torch.arange(tiles_x, dtype=torch.float32) * trk.TILE
+    y0 = torch.arange(tiles_y, dtype=torch.float32) * trk.TILE
+    r = tri_data
+    ok_x = (r[:, 16:17] >= x0) & (r[:, 15:16] <= x0 + trk.TILE)    # (T, tiles_x)
+    ok_y = (r[:, 18:19] >= y0) & (r[:, 17:18] <= y0 + trk.TILE)    # (T, tiles_y)
+    valid = r[:, 19] > 0.5
+    out = []
+    for t in range(r.shape[0]):
+        xs, ys = ok_x[t].nonzero()[:, 0], ok_y[t].nonzero()[:, 0]
+        if not valid[t] or not len(xs) or not len(ys):
+            out.append([1, 0, 1, 0])
+        else:  # the float test admits a contiguous run of tiles
+            assert xs[-1] - xs[0] + 1 == len(xs) and ys[-1] - ys[0] + 1 == len(ys)
+            out.append([xs[0].item(), xs[-1].item(), ys[0].item(), ys[-1].item()])
+    return torch.tensor(out, dtype=torch.int16)
+
+
+@pytest.mark.parametrize("size", [(64, 64), (200, 136), (17, 33)])
+def test_tile_ranges_match_brute_force(size):
+    """The setup kernel's compact tile ranges (its plain version) admit
+    exactly the tiles that the tile kernel's float bbox test admits:
+    bounds on tile edges, outside the frame, NaN and infinite, invalid."""
+    h, w = size
+    rng = np.random.default_rng(5)
+    t = 400
+    data = np.zeros((t, trk.N_COLS), np.float32)
+    lo = rng.uniform(-40, max(h, w) + 40, (t, 2)).astype(np.float32)
+    hi = lo + rng.exponential(20, (t, 2)).astype(np.float32)
+    edge = rng.random((t, 2)) < 0.3  # bounds exactly on a tile edge, or 16 past it
+    lo[edge] = np.round(lo[edge] / 16) * 16
+    hi[edge] = np.round(hi[edge] / 16) * 16
+    data[:, 15], data[:, 16], data[:, 17], data[:, 18] = lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]
+    data[:, 19] = (rng.random(t) < 0.9).astype(np.float32)
+    data[0, 15] = np.nan
+    data[1, 18] = np.nan
+    data[2, 15], data[2, 16] = -np.inf, np.inf
+    data[3, 15] = np.inf
+    data[4, 16] = -np.inf
+    data[5, 15:19] = [16.0 * 2, 16.0 * 2, 0.0, 0.0]  # a point on a tile corner: four tiles
+    tri_data = torch.from_numpy(data)
+    got = trk.tile_ranges(tri_data, h, w)
+    assert got.dtype == torch.int16 and got.shape == (t, 4)
+    assert torch.equal(got, _brute_force_ranges(tri_data, h, w))
