@@ -39,6 +39,19 @@ Phases, one line each; any failure exits non-zero:
                 evaluation against the bf16 UNet.
  10. switches — one bf16 frame with the float K3 switch and the K4 switch on;
                 launch counts checked; the image against phase 6's frame.
+ 11. engine   — the bench scene through the port's entry point, Engine.Run
+                (bench.py:216-251's BenchApp, debug=True, so a failing manager
+                raises), with phase 6's bf16 and phase 9's int8 pipelines:
+                2 warm + 4 timed presented frames each (and PRESENT_DEPTH more,
+                so every timed present happens in a steady frame), each
+                presented frame (512, 512, 4) uint8 and not constant; the
+                launch counts a frame, by the counters over the run and by
+                torch.profiler on one frame after a warm one, equal to phases
+                6 and 9's; the engine's first frame identical to frame_step's
+                at the same model-view matrix, background noise and generator
+                seed; the frame-time median and p90 from the present
+                timestamps (bench.py:238-247) beside phase 6's and 9's
+                frame_step medians.
 Every kernel line carries its time (K1 in bf16, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
@@ -62,6 +75,8 @@ import time
 
 SIZE = 512
 FRAMES_TIMED = 4
+ENGINE_WARM = 2     # phase 11's warm presented frames (bench.py's warm)
+PRESENT_DEPTH = 2   # RenderManager's default SR_PRESENT_DEPTH
 # K2's and K4's calls are shorter than the host's cost of replaying a graph,
 # so their device time is taken over this many calls a graph (graph_ms)
 SHORT_CALLS_A_GRAPH = 10
@@ -327,6 +342,69 @@ def bench_matrices(frame: int):
     return (view @ model).astype(np.float32), perspective(45.0, 1.0, 0.1, 100.0).numpy()
 
 
+def run_engine(pipe, size: int, frames: int, corr, on_frame=None):
+    """The bench scene (bench.py:227-236) through the port's ``Engine.Run``
+    with ``debug=True``; ``on_frame(engine, "begin" | "end")`` runs at each
+    frame's beforeFrameBegin and beforeFrameEnd. Returns the engine and its
+    presents as (host time, frame index, uint8 frame)."""
+    from stable_renderer_tpu_torch.engine import (
+        AutoRotation,
+        Camera,
+        Engine,
+        GameObject,
+        Mesh,
+        MeshRenderer,
+        SpriteInfo,
+    )
+
+    class BenchApp(Engine):
+        def beforePrepare(self):
+            cam = GameObject("camera")
+            self.cam = cam.addComponent(Camera)
+            self.cam.env_prompt.prompt = "a ball"
+            cam.transform.position = [0.0, 0.5, 3.0]
+            cam.transform.lookAt([0.0, 0.0, 0.0])
+            self.ball = GameObject("ball")
+            self.ball.addComponent(SpriteInfo, prompt="a shiny ball")
+            self.ball.addComponent(MeshRenderer, mesh=Mesh.Sphere(1.0, 48))
+            self.ball.addComponent(AutoRotation, speed_deg=4.0)
+
+        def beforeFrameBegin(self):
+            if on_frame is not None:
+                on_frame(self, "begin")
+
+        def beforeFrameEnd(self):
+            if on_frame is not None:
+                on_frame(self, "end")
+
+    presented = []
+    Engine._reset()
+    eng = BenchApp.Run(winSize=(size, size), pipeline=pipe, corresponder=corr, max_frames=frames,
+                       debug=True, frame_callback=lambda f, i: presented.append(
+                           (time.perf_counter(), i, f)))
+    return eng, presented
+
+
+def engine_frame_kernels(pipe, size: int, corr) -> list:
+    """The names of the kernels one engine frame launches on the card, by
+    torch.profiler: a two-frame ``run_engine`` whose first frame is the
+    profiler's warm-up step (its events dropped) and whose second is
+    recorded, the device synchronized at both ends of each frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        def on_frame(eng, when):
+            torch.cuda.synchronize()
+            if when == "end":
+                prof.step()
+
+        run_engine(pipe, size, 2, corr, on_frame)
+    return [e.name for e in prof.events()
+            if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+
+
 def main() -> None:
     import torch
     import torch.nn.functional as F
@@ -528,9 +606,9 @@ def main() -> None:
     sigs = ((DrawUniforms(sprite_id=1, material_id=1), (512, 512), None, None),)
     pp = PostProcessParams()
 
-    def run_frame(pipe, size, frame, corr, bg, step_noise=None):
+    def run_frame(pipe, size, frame, corr, bg, step_noise=None, mats=None):
         d = pipe.device
-        mv, proj = bench_matrices(frame)
+        mv, proj = bench_matrices(frame) if mats is None else mats
         draws = (dict(buffers=mesh_device_buffers(sphere, d), mv=mv, diffuse=None, noise=None,
                       corrmap=None),)
         _, ctx, nctx, _, _ = pipe.prepare_conditioning(sprites, env, 1)
@@ -739,6 +817,44 @@ def main() -> None:
           f"2^-7 |ref| + {K4_ATOL:g}; each call bit-identical to a second one, its cluster "
           f"held by the card): max abs err {k4['max_abs_err']:.3e}", flush=True)
     k4["checked_shape_classes"] = k4_checked
+    # the switched frame's K4 launches, summed over its classes: each class's
+    # device time, plain version, F.group_norm (+ F.silu) and bound, times its
+    # launches a frame (after the loop above, so that its profiler sessions
+    # do not interleave with these graph captures: a profiled call read no
+    # kernel when they did)
+    k4_frame = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                "bound_by": "bytes"}
+    for (n, s, c, act), per_frame in K4_SWITCHED_FRAME_SHAPES.items():
+        x = (torch.randn((n, s, c), generator=gen, device=dev) * 1.5 + 0.3).to(torch.bfloat16)
+        w = torch.randn((c,), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn((c,), generator=gen, device=dev).to(torch.bfloat16)
+        x_nc = x.transpose(1, 2)
+        out = group_norm_kernel(x, w, b, groups=32, act=act)
+        b_ms, b_by = bound(nbytes(x, w, b, out), 10.0 * x.numel(), "f32")
+        if b_by == "operations":  # "bytes" only while every class is bound by bytes
+            k4_frame["bound_by"] = b_by
+        times = {
+            "ms": graph_ms(lambda: group_norm_kernel(x, w, b, groups=32, act=act),
+                           calls=SHORT_CALLS_A_GRAPH),
+            "plain_ms": graph_ms(lambda: group_norm_kernel_reference(x, w, b, 32, 1e-6, act),
+                                 calls=SHORT_CALLS_A_GRAPH),
+            "library_ms": graph_ms((lambda: F.silu(F.group_norm(x_nc, 32, w, b, 1e-6)))
+                                   if act == "silu" else
+                                   (lambda: F.group_norm(x_nc, 32, w, b, 1e-6)),
+                                   calls=SHORT_CALLS_A_GRAPH),
+            "bound_ms": b_ms}
+        for key, t in times.items():
+            k4_frame[key] += per_frame * t
+        k4_frame["launches"] += per_frame
+    if k4_frame["launches"] != K4_SWITCHED_CALLS_PER_FRAME:
+        fail(f"K4_SWITCHED_FRAME_SHAPES holds {k4_frame['launches']} launches, want "
+             f"{K4_SWITCHED_CALLS_PER_FRAME}")
+    k4["switched_frame"] = k4_frame
+    print(f"[8 K4] the switched frame's {k4_frame['launches']} launches, summed over its "
+          f"classes (device time by graph replay, {SHORT_CALLS_A_GRAPH} calls a graph): kernel "
+          f"{k4_frame['ms']:.4f} ms, plain {k4_frame['plain_ms']:.4f} ms, F.group_norm (+ F.silu) "
+          f"{k4_frame['library_ms']:.4f} ms, bound {k4_frame['bound_ms']:.4f} ms "
+          f"({k4_frame['bound_by']}) | {card}", flush=True)
     k4.update(**{k: k4["shapes"][0][k] for k in ("ms", "ms_with_host", "plain_ms", "library_ms",
                                                  "bound_ms", "bound_by")})
 
@@ -800,7 +916,6 @@ def main() -> None:
           f"decoded frame 0 vs bf16: cosine {cos:.6f} (floor {INT8_FRAME_COS_FLOOR}), centred "
           f"{corr_c:.4f}, max abs diff {(a - b_).abs().max().item():.4f}; one UNet evaluation "
           f"vs bf16: cosine {ucos:.6f} (bar > {INT8_UNET_COS_BAR}) | {card}", flush=True)
-    del pipe_i8
 
     # --- 10. the bf16 frame with the K3 and K4 switches on ---------------------
     from stable_renderer_tpu_torch.ops.conv_kernel import use_pallas_conv
@@ -834,8 +949,101 @@ def main() -> None:
           f"mean abs {d.mean().item():.5f} (bar {SWITCH_MEAN_BAR}), max abs "
           f"{d.max().item():.4f} (bar {SWITCH_MAX_BAR}) | {card}", flush=True)
 
+    # --- 11. the engine: Engine.Run of the bench scene --------------------------
+    engine_ms = {}
+    for label, p_, step_ms in (("bf16", pipe, ms), ("int8", pipe_i8, ms_i8)):
+        int8 = label == "int8"
+        first = {}
+
+        def keep_first(eng, when):
+            if eng.RuntimeManager.FrameCount != 0:
+                return
+            rm = eng.RenderManager
+            if when == "begin":  # the model matrix frame 0 draws with: MeshRenderer
+                # submits its draw before AutoRotation turns the ball
+                first["mats"] = (eng.cam.viewMatrix @ eng.ball.transform.globalTransformMatrix,
+                                 eng.cam.projectionMatrix(1.0))
+            else:
+                first.update(images=rm.last_diffusion_frames.float().clone(),
+                             bg=rm.GlobalBGNoise)
+
+        n_eng = ENGINE_WARM + FRAMES_TIMED + PRESENT_DEPTH
+        torch.cuda.synchronize()
+        flash_attention.launches = rasterize_kernel.launches = 0
+        conv3x3_kernel.launches = group_norm_kernel.launches = 0
+        t0 = time.perf_counter()
+        eng, presented = run_engine(
+            p_, SIZE, n_eng, OverlapCorresponder(vertex_segments=4096, update_corrmap=False),
+            keep_first)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
+                  group_norm_kernel.launches)
+        want = (K1_CALLS_PER_FRAME * n_eng, n_eng, K3_INT8_CALLS_PER_FRAME * n_eng * int8, 0)
+        if counts != want:
+            fail(f"engine {label}: launches K1, K2, K3, K4 over {n_eng} frames = {counts}, "
+                 f"want {want}")
+        if eng.device.type != "cuda" or [i for _, i, _ in presented] != list(range(n_eng)):
+            fail(f"engine {label}: device {eng.device}, presented "
+                 f"{[i for _, i, _ in presented]}")
+        for _, i, frame in presented:
+            if frame.shape != (SIZE, SIZE, 4) or frame.dtype.name != "uint8":
+                fail(f"engine {label} frame {i}: presented {frame.shape} {frame.dtype}")
+            if int(frame[..., :3].max()) == int(frame[..., :3].min()):
+                fail(f"engine {label} frame {i}: constant frame")
+        # present intervals of the timed frames; frame i is presented in frame
+        # i + PRESENT_DEPTH's run, so these all fall in steady frames
+        stamps = [t for t, _, _ in presented[ENGINE_WARM - 1:ENGINE_WARM + FRAMES_TIMED]]
+        gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+        e_ms = statistics.median(gaps)
+        e_p90 = statistics.quantiles(gaps, n=10, method="inclusive")[-1]
+        # the first frame against frame_step at the engine's model-view and
+        # projection, its background noise and its generator seed (0)
+        if not torch.isfinite(first["images"]).all():
+            fail(f"engine {label}: non-finite decoded frame 0")
+        if not same_bits(first["bg"], bg):
+            fail(f"engine {label}: GlobalBGNoise differs from phase 6's background noise")
+        _, _, _, ref_images, _, _ = run_frame(
+            p_, SIZE, 0, OverlapCorresponder(vertex_segments=4096, update_corrmap=False), bg,
+            mats=first["mats"])
+        torch.cuda.synchronize()
+        first_err = (first["images"] - ref_images.float()).abs().max().item()
+        if not torch.equal(first["images"], ref_images.float()):
+            fail(f"engine {label}: frame 0 differs from frame_step's at the same inputs, "
+                 f"max abs {first_err:.3e}")
+        # one frame's kernels by the profiler, after a warm frame
+        flash_attention.launches = rasterize_kernel.launches = conv3x3_kernel.launches = 0
+        names = engine_frame_kernels(
+            p_, SIZE, OverlapCorresponder(vertex_segments=4096, update_corrmap=False))
+        prof_counts = (sum("flash_wg" in k or "flash_wide" in k for k in names),
+                       sum("raster_binned" in k for k in names),
+                       sum("raster_setup" in k for k in names),
+                       sum("conv3x3_wgmma" in k for k in names))
+        prof_want = (K1_CALLS_PER_FRAME, 1, 1, K3_INT8_CALLS_PER_FRAME * int8)
+        two = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches)
+        if prof_counts != prof_want or two != (2 * K1_CALLS_PER_FRAME, 2,
+                                               2 * K3_INT8_CALLS_PER_FRAME * int8):
+            fail(f"engine {label}: one profiled frame launched K1, K2 binned, K2 setup, K3 = "
+                 f"{prof_counts}, want {prof_want}; counters over its two frames K1, K2, K3 "
+                 f"= {two}")
+        engine_ms[label] = {"median_ms": e_ms, "p90_ms": e_p90, "frame_step_median_ms": step_ms,
+                            "gaps_ms": gaps, "frames": n_eng, "run_s": run_s}
+        k1.setdefault("launches_engine", {})[label] = counts[0]
+        k2.setdefault("launches_engine", {})[label] = counts[1]
+        if int8:
+            k3["launches_engine"] = counts[2]
+        print(f"[11 engine] {label}: Engine.Run of the bench scene at {SIZE}x{SIZE}, {n_eng} "
+              f"frames in {run_s:.2f} s; present-to-present median {e_ms:.1f} ms, p90 "
+              f"{e_p90:.1f} ms over {FRAMES_TIMED} timed frames after {ENGINE_WARM} warm "
+              f"(frame_step's median, phase {9 if int8 else 6}: {step_ms:.1f} ms); launches K1 "
+              f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]}, K4 {counts[3]} ({n_eng} frames); "
+              f"profiled frame K1 {prof_counts[0]}, K2 {prof_counts[1]} + {prof_counts[2]} "
+              f"setup, K3 {prof_counts[3]}; frame 0 identical to frame_step's | {card}",
+              flush=True)
+    del pipe_i8
+
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
-                      "card": card}))
+                      "engine_frame_ms": engine_ms, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -7,11 +7,11 @@ eagerly, in order, on the device of the frame's tensors:
   draws -> vertex_stage -> rasterize_auto (the K2 tile kernel on the card)
   -> shade_draw / compose_draw -> _pack_arrays -> DiffusionPipeline._render
   (VAE encode, CFG UNet denoise with attention through the K1 flash kernel
-  where K/V length >= 2048, VAE decode) -> defer_render -> post_process
-  -> uint8.
+  where K/V length >= 2048, VAE decode) -> apply_lights (when the scene has
+  lights) -> defer_render -> post_process -> uint8.
 
-The sequential branch is ported; the stream pipeline, ControlNet hints and
-defer-stage lights raise until their slices are ported.
+The sequential branch is ported; the stream pipeline and ControlNet hints
+raise until their slices are ported.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import torch
 from stable_renderer_tpu_torch.data.framebuffers import GBuffer
 from stable_renderer_tpu_torch.device import resolve_device
 from stable_renderer_tpu_torch.engine.render_exec import _draw_pass, _pack_arrays
-from stable_renderer_tpu_torch.ops.postprocess import defer_render, post_process
+from stable_renderer_tpu_torch.ops.postprocess import apply_lights, defer_render, post_process
 
 
 @torch.no_grad()
@@ -48,7 +48,7 @@ def frame_step(
     unet_params, vae_params, cn_params,
     y_cond=None, y_uncond=None,
     apply_post: bool = True,
-    lights=None,
+    lights=None,              # (L, 16) Light.pack_lights rows or None
     stream_state=None,
     stream_init: bool = False,
     stream_kv=None,
@@ -59,8 +59,6 @@ def frame_step(
     stream_kv): display is (H, W, 4), uint8 when ``to_uint8``."""
     if stream_state is not None or stream_init or stream_kv is not None:
         raise NotImplementedError("the stream pipeline is not ported yet")
-    if lights is not None:
-        raise NotImplementedError("defer-stage lighting is not ported yet")
     dev = bg_noise.device
     gbuf = GBuffer.empty(height, width, device=dev)
     zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
@@ -90,6 +88,9 @@ def frame_step(
         rgb = images[-1]  # display the latest frame (renderManager.py:1017-1021)
         display = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
 
+    if lights is not None:
+        lights = torch.as_tensor(lights, dtype=torch.float32).to(dev)
+        display = apply_lights(display, gbuf.normal, gbuf.pos, lights)
     display = defer_render(display, gbuf.id, is_baking=is_baking and not run_diffusion)
     if apply_post:
         display = post_process(display, pp)

@@ -1,7 +1,8 @@
 """Defer + post-process stages — the last two GL passes of the reference.
 
 Counterpart of stable_renderer_tpu/ops/postprocess.py:
-default_defer_render.frag.glsl (bake-mode correspondence overlay) and
+default_defer_render.frag.glsl (bake-mode correspondence overlay), the
+defer stage's Lambert lighting from the engine's Light components, and
 default_post_process.frag.glsl (gamma / exposure / saturation / brightness /
 contrast / HDR tonemap), elementwise over (..., H, W, 4).
 """
@@ -53,6 +54,60 @@ def defer_render(color: torch.Tensor, ids: torch.Tensor, is_baking: bool = False
     rgb = torch.where(ai[..., None], mixed, color[..., :3])
     alpha = torch.where(ai, torch.ones_like(color[..., 3]), color[..., 3])
     return torch.cat([rgb, alpha[..., None]], dim=-1)
+
+
+LIGHT_DIRECTIONAL = 0
+LIGHT_POINT = 1
+LIGHT_SPOT = 2
+
+
+def apply_lights(
+    color: torch.Tensor,       # (H, W, 4) display color
+    normal_enc: torch.Tensor,  # (H, W, 3) encoded view-space normal in [0,1]
+    pos: torch.Tensor,         # (H, W, 3) view-space position
+    lights: torch.Tensor,      # (L, 16) packed rows (Light.pack_lights):
+    # [type, r, g, b, intensity, px, py, pz, dx, dy, dz,
+    #  att_const, att_lin, att_quad, cos_angle, ambient]
+) -> torch.Tensor:
+    """Defer-stage diffuse lighting from the engine's Light components.
+
+    The reference maps Light components into shader UBO structs
+    (engine/runtime/components/light/light.py:13-80: position/color/intensity +
+    const/linear/quadratic attenuation) but its defer shader never consumed
+    them (shadow maps TODO, renderManager.py:452-461); the defer stage
+    applies the Lambert term those structs describe. Pixels with no geometry
+    (zero encoded normal) are left untouched. The light type is selected per
+    row on the device, as in the JAX package, so no row is read back."""
+    has_geom = normal_enc.sum(-1) > 0.0  # cleared G-buffer = 0
+    n = normal_enc * 2.0 - 1.0
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-6)
+    diffuse = torch.zeros_like(color[..., :3])
+    ambient = torch.zeros((), dtype=color.dtype, device=color.device)
+    for i in range(lights.shape[0]):
+        row = lights[i]
+        ltype = row[0]
+        lcol = row[1:4] * row[4]
+        lpos, ldir = row[5:8], row[8:11]
+        att_c, att_l, att_q = row[11], row[12], row[13]
+        cos_angle = row[14]
+        ambient = torch.maximum(ambient, row[15])
+        to_light = lpos - pos
+        dist = torch.clamp(torch.linalg.vector_norm(to_light, dim=-1, keepdim=True), min=1e-6)
+        l_point = to_light / dist
+        l_dir = -ldir / torch.clamp(torch.linalg.vector_norm(ldir), min=1e-6)
+        directional = ltype == LIGHT_DIRECTIONAL
+        l_vec = torch.where(directional, l_dir, l_point)
+        lambert = torch.clamp((n * l_vec).sum(-1, keepdim=True), min=0.0)
+        atten = torch.where(
+            directional, 1.0,
+            1.0 / torch.clamp(att_c + att_l * dist + att_q * dist * dist, min=1e-6))
+        # spot cone falloff: zero outside the half-angle
+        in_cone = (-l_point * l_dir).sum(-1, keepdim=True) >= cos_angle
+        spot = torch.where(ltype == LIGHT_SPOT, in_cone.to(color.dtype), 1.0)
+        diffuse = diffuse + lcol * lambert * atten * spot
+    lit = color[..., :3] * (ambient + diffuse)
+    rgb = torch.where(has_geom[..., None], lit, color[..., :3])
+    return torch.cat([rgb, color[..., 3:]], dim=-1)
 
 
 def post_process(color: torch.Tensor, params: PostProcessParams = PostProcessParams()) -> torch.Tensor:

@@ -535,3 +535,57 @@ def test_group_norm_kernel_one_deterministic_launch(cuda_device, shape):
     torch.cuda.synchronize()
     eager = tgn.group_norm_kernel(x2, w, b, groups=32, act="silu")
     assert chip_smoke.same_bits(out.view(torch.int16), eager.view(torch.int16))
+
+
+# --- the engine's present pipeline ----------------------------------------------
+
+
+@pytest.mark.parametrize("depth", ["1", "2"])
+def test_engine_presents_pinned_readbacks_in_order(cuda_device, monkeypatch, depth):
+    """Engine.Run on the card (raster only, K2, a light): every frame is
+    presented once, in order, equal to its device display, through a ring of
+    at most SR_PRESENT_DEPTH + 1 pinned host buffers that are reused."""
+    from stable_renderer_tpu_torch import engine as P
+    from stable_renderer_tpu_torch.engine.managers import RenderManager
+
+    monkeypatch.setenv("SR_PRESENT_DEPTH", depth)
+    displays, buffers = {}, set()
+    start = RenderManager._start_readback
+
+    def spy(self, display, frame_index):
+        entry = start(self, display, frame_index)
+        displays[frame_index] = display.clone()
+        assert entry[1].is_pinned() and entry[0] is display
+        buffers.add(entry[1].data_ptr())
+        return entry
+
+    monkeypatch.setattr(RenderManager, "_start_readback", spy)
+    presented = []
+
+    class App(P.Engine):
+        def beforePrepare(self):
+            cam = P.GameObject("cam")
+            cam.addComponent(P.Camera)
+            cam.transform.position = [0.0, 0.5, 3.0]
+            cam.transform.lookAt([0.0, 0.0, 0.0])
+            box = P.GameObject("box")
+            box.addComponent(P.MeshRenderer, mesh=Mesh.Cube(1.0))
+            box.addComponent(P.AutoRotation, speed_deg=20.0)
+            lamp = P.GameObject("lamp")  # lit faces change as the box turns
+            lamp.transform.position = [2.0, 2.0, 2.0]
+            lamp.transform.lookAt([0.0, 0.0, 0.0])
+            lamp.addComponent(P.DirectionalLight)
+
+    P.Engine._reset()
+    try:
+        eng = App.Run(winSize=(256, 256), disableComfyUI=True, max_frames=7, debug=True,
+                      frame_callback=lambda f, i: presented.append((i, f)))
+    finally:
+        P.Engine._reset()
+    assert eng.device.type == "cuda"
+    assert [i for i, _ in presented] == list(range(7))
+    for i, frame in presented:
+        assert frame.dtype.name == "uint8" and frame.shape == (256, 256, 4)
+        assert (torch.from_numpy(frame) == displays[i].cpu()).all(), i
+    assert len(buffers) <= int(depth) + 1
+    assert not (torch.from_numpy(presented[0][1]) == torch.from_numpy(presented[1][1])).all()

@@ -51,17 +51,16 @@ def _scene(segments=12):
     return mesh, *(np.array(a) for a in (view, proj, clip, vpos, vnrm))
 
 
-def _agree(out, ref, z_atol=1e-4):
-    """The bars of tests/test_raster_pallas.py:38-50."""
-    out_cov, ref_cov = np.asarray(out.tri_id) >= 0, np.asarray(ref.tri_id) >= 0
-    assert (ref_cov != out_cov).mean() < 0.005
-    both = ref_cov & out_cov
-    np.testing.assert_allclose(np.asarray(out.z)[both], np.asarray(ref.z)[both], atol=z_atol)
-    same_tri = (np.asarray(out.tri_id) == np.asarray(ref.tri_id))[both]
-    assert same_tri.mean() > 0.98
-    np.testing.assert_allclose(np.asarray(out.bary)[both].sum(-1), 1.0, atol=1e-4)
-    b_match = np.isclose(np.asarray(out.bary)[both], np.asarray(ref.bary)[both], atol=1e-3).all(-1)
-    assert b_match[same_tri].mean() > 0.98
+def _agree(out, ref):
+    """The same triangle at every pixel; z within 1e-4 and barycentrics
+    within 2e-4 at every pixel (measured on these scenes: z within 1.2e-5,
+    bary within 9.3e-6)."""
+    np.testing.assert_array_equal(np.asarray(out.tri_id), np.asarray(ref.tri_id))
+    np.testing.assert_allclose(np.asarray(out.z), np.asarray(ref.z), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(np.asarray(out.bary), np.asarray(ref.bary), atol=2e-4, rtol=0)
+    covered = np.asarray(out.tri_id) >= 0
+    assert covered.any()
+    np.testing.assert_allclose(np.asarray(out.bary)[covered].sum(-1), 1.0, atol=1e-4)
 
 
 def test_transforms_match_jax():
@@ -106,8 +105,7 @@ def test_triangle_setup_matches_jax(cull):
     out = trk.triangle_setup(torch.from_numpy(clip), torch.from_numpy(mesh.tris), 64, 64,
                              cull_backface=cull)
     assert out.shape == (mesh.tris.shape[0], trk.N_COLS)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3, rtol=1e-5)
-    np.testing.assert_array_equal(out[:, 19].numpy(), np.asarray(ref[:, 19]))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
 @pytest.mark.parametrize("cull", [False, True])
@@ -248,8 +246,7 @@ def test_mesh_matches_jax():
 @pytest.mark.parametrize("cull", [False, True])
 def test_tiles_reference_matches_jax_pallas_kernel(interpret_mode, cull):
     """rasterize_tiles_reference over triangle_setup's constants against the
-    JAX Pallas kernel in interpret mode, at the bars of
-    tests/test_raster_pallas.py:38-50."""
+    JAX Pallas kernel in interpret mode (``_agree``)."""
     mesh, _, _, clip, _, _ = _scene()
     ref = jrp.rasterize_pallas(jnp.asarray(clip), jnp.asarray(mesh.tris), 64, 64, tile=32,
                                cull_backface=cull)
