@@ -12,7 +12,8 @@ Phases, one line each; any failure exits non-zero:
   3. K1       — flash attention kernel vs its plain version at the frame's
                 shapes (bf16), one ragged K/V length, f32 checks, and
                 attention_pallas on the UNet's fused-QKV chunk views (read in
-                place) and on an unaligned view (copied by the wrapper).
+                place) at batch 2 (the sequential frame) and 8 (the stream
+                frame), and on an unaligned view (copied by the wrapper).
   4. K2       — the setup kernel and the binned tile kernel (two launches a
                 call, by torch.profiler) at 512x512, bit for bit against their
                 plain versions (triangle_setup, tile_ranges,
@@ -20,25 +21,34 @@ Phases, one line each; any failure exits non-zero:
                 triangle soup (raster_soup), and the bench sphere against the
                 plain rasterize at the bars of tests/test_raster_pallas.py.
   5. reference — a tiny pipeline's 128x128 frame on the GPU (both kernels) vs
-                the same frame's diffusion on the CPU plain path.
+                the same frame's diffusion on the CPU plain path; then three
+                tiny stream frames (a perturbed ControlNet's hints and the id
+                maps riding the state, lag-1 K/V) and a tiny frame with a
+                perturbed ControlNet, each on the GPU against the CPU.
   6. frame    — the bench frame at full SD1.5 widths (random bf16 weights),
                 1 warm + 4 timed frames of frame_step at 512x512, with the
                 kernels' launch counts checked.
   7. K3       — the fused 3x3 conv kernel vs its plain version at every shape
-                class of the int8 frame (int8, bit for bit) and of the
-                switched frame (bf16, with the GroupNorm+SiLU prologue where
-                the frame has it); nine of them timed (K3_TIMED_SHAPES).
+                class of the int8 frame and of the int8 stream frame (int8,
+                bit for bit), of the switched frame (bf16, with the
+                GroupNorm+SiLU prologue where the frame has it); nine of
+                them timed (K3_TIMED_SHAPES) and the stream frame's two
+                largest classes by launches x bytes. Each timed row's
+                launches a frame by shape class are read on the card in
+                phases 9, 10 and 12 (k3_shape_tally).
   8. K4       — the one-launch GroupNorm kernel vs its plain version at every
                 shape class of the switched frame (K4_SWITCHED_FRAME_SHAPES),
                 two calls bit-identical, the cluster held by the card; three
                 shapes timed (K4_TIMED_SHAPES), one kernel a call.
   9. int8     — the calibrated int8 frame: RenderConfig(int8_conv=True) ->
                 from_random -> quantize_convs, 1 warm + 4 timed 512x512
-                frames; K1, K2 and K3 launch counts checked; the decoded image
+                frames; K1, K2 and K3 launch counts checked, K3's also by
+                shape class; the decoded image
                 against phase 6's bf16 frame at the same inputs, and one UNet
                 evaluation against the bf16 UNet.
  10. switches — one bf16 frame with the float K3 switch and the K4 switch on;
-                launch counts checked; the image against phase 6's frame.
+                launch counts checked (K3's by shape class); the image
+                against phase 6's frame.
  11. engine   — the bench scene through the port's entry point, Engine.Run
                 (bench.py:216-251's BenchApp, debug=True, so a failing manager
                 raises), with phase 6's bf16 and phase 9's int8 pipelines:
@@ -47,11 +57,28 @@ Phases, one line each; any failure exits non-zero:
                 presented frame (512, 512, 4) uint8 and not constant; the
                 launch counts a frame, by the counters over the run and by
                 torch.profiler on one frame after a warm one, equal to phases
-                6 and 9's; the engine's first frame identical to frame_step's
+                6 and 9's (that frame's kernel time over the present-to-
+                present median is the device's busy share); the engine's
+                first frame identical to frame_step's
                 at the same model-view matrix, background noise and generator
                 seed; the frame-time median and p90 from the present
                 timestamps (bench.py:238-247) beside phase 6's and 9's
                 frame_step medians.
+ 12. stream   — bench.py's default mode: phase 9's int8 pipeline with
+                RenderConfig(stream_pipeline=True, stream_kv_layers=(6,)),
+                through Engine.Run (S - 1 = 3 transient frames, 2 warm, 4
+                timed) and frame_step; launches a stream frame (K1 7, K2 1
+                call of 2 kernels, K3 22 + 51), by the counters (K3's also
+                by shape class) and by a profiled frame; the engine's first
+                frame identical to
+                frame_step's stream_init frame; the int8 stream frames
+                against a bf16 stream run of the same frames, cosine > 0.9.
+ 13. control  — bench.py's control mode: phase 6's bf16 pipeline with two
+                random ControlNets (normal and depth hints, strength 0.6,
+                seeds 5 and 6) through Engine.Run (K1 38 a frame) and
+                frame_step: with their zero convs the frame equals phase 6's;
+                with them perturbed by a seeded draw it is finite and moves
+                by a mean abs above CONTROL_DIFF_FLOOR.
 Every kernel line carries its time (K1 in bf16, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
@@ -66,6 +93,8 @@ The last lines are the kernels' JSON summary, the nvidia-smi line and
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import statistics
@@ -81,6 +110,12 @@ PRESENT_DEPTH = 2   # RenderManager's default SR_PRESENT_DEPTH
 # so their device time is taken over this many calls a graph (graph_ms)
 SHORT_CALLS_A_GRAPH = 10
 K1_CALLS_PER_FRAME = 22  # 5 level-0 self-attentions x 4 steps + VAE encode + decode
+K1_STREAM_CALLS_PER_FRAME = 7  # the batch-8 UNet's 5 level-0 self-attentions + encode + decode
+# the control frame: 22, plus 2 ControlNets x 2 level-0 self-attentions x 4 evaluations
+K1_CONTROL_CALLS_PER_FRAME = 38
+STREAM_DEPTH = 4  # S = steps frames in flight; the first S - 1 presents are the transient
+CONTROL_PERTURB = 0.1  # perturbed zero convs: N(0, 0.1^2 / fan-in) weights, N(0, 0.1^2) biases
+CONTROL_DIFF_FLOOR = 1e-3  # perturbed control frame vs phase 6, mean abs on [0, 1] pixels
 K1_BF16_TOL = 1e-2  # bf16 output rounding (2^-8 relative) + the plain path's bf16 softmax weights
 K1_F32_TOL = 1e-4   # f32: summation order only
 REF_TOL = 2e-3      # tiny f32 frame, GPU kernels vs CPU plain path (order of f32 sums)
@@ -88,6 +123,10 @@ REF_TOL = 2e-3      # tiny f32 frame, GPU kernels vs CPU plain path (order of f3
 # tests/test_torch_conv_kernel.py: int8 4 x 22 (UNet) + 20 (encode) + 31 (decode);
 # with both switches, K3 4 x 11 + 20 + 29 and K4 4 x 43 + 2 + 1
 K3_INT8_CALLS_PER_FRAME = 139
+K3_UNET_CALLS_PER_EVAL = 22  # int8, one UNet evaluation, any batch
+K3_VAE_CALLS_PER_FRAME = 51  # int8, encode + decode
+# the stream frame: one UNet evaluation (batch 2S = 8) and the VAE
+K3_STREAM_CALLS_PER_FRAME = K3_UNET_CALLS_PER_EVAL + K3_VAE_CALLS_PER_FRAME
 K3_SWITCHED_CALLS_PER_FRAME = 93
 # K3's shape classes, (N, H, W, Cin, Cout) -> launches a frame, tallied on the
 # meta device by the same tests: the int8 frame's 20 classes, and the switched
@@ -104,6 +143,9 @@ K3_INT8_FRAME_SHAPES = {
 # the K3 rows phase 7 times (the int8 frame's largest classes by launches x
 # bound, and bf16 yardsticks against cuDNN), as scripts/sweep_torch_conv.py
 # --picked-only times them
+# the int8 stream frame's classes: the UNet's at batch 8, once; the VAE's as above
+K3_STREAM_FRAME_SHAPES = {(8 if k[0] == 2 else k[0],) + k[1:]: v // 4 if k[0] == 2 else v
+                          for k, v in K3_INT8_FRAME_SHAPES.items()}
 K3_TIMED_SHAPES = [
     ((2, 64, 64, 320, 320), "bf16"), ((1, 512, 512, 128, 128), "bf16+prologue"),
     ((2, 64, 64, 960, 320), "int8"), ((2, 32, 32, 640, 640), "int8"),
@@ -132,6 +174,9 @@ K4_SWITCHED_FRAME_SHAPES = {
 }
 # the K4 rows phase 8 times (bf16 + SiLU)
 K4_TIMED_SHAPES = [(2, 1024, 640), (2, 256, 1920), (1, 4096, 512)]
+# a profiled run that recorded no device event at all is made again, up to
+# this many times in all (device_kernels)
+PROFILE_ATTEMPTS = 3
 BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative
 K3_BF16_ATOL = 1e-3    # near zero, where the bf16 step is tiny: f32 sum order
 K4_ATOL = 1e-5
@@ -206,24 +251,68 @@ def device_kernels(fn, calls: int = 3) -> list:
     """The names of the kernels one call of ``fn`` launches on the card, by
     torch.profiler: a warm-up step of ``calls`` calls, whose events are
     dropped (the tracer can miss the first launches it is given), then
-    ``calls`` calls recorded; fails if they did not launch the same kernels."""
+    ``calls`` calls recorded; fails if they did not launch the same kernels.
+    A profiled run that recorded no device event at all (the tracer now and
+    then records none after CUDA-graph captures) is made again, up to
+    PROFILE_ATTEMPTS times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    names = [e.name for e in prof.events()
-             if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+        if names:
+            break
     if len(names) % calls or names != names[:len(names) // calls] * calls:
         fail(f"{calls} calls launched {names}")
     return names[:len(names) // calls]
+
+
+@contextlib.contextmanager
+def k3_shape_tally():
+    """K3's launches by shape class inside the ``with`` block, on the card:
+    ``models.layers.conv3x3_kernel`` (the frame's one caller of the K3
+    wrapper) is wrapped to note each call's (N, H, W, Cin, Cout, prologue),
+    and the notes must add up to the wrapper's own launch count over the
+    block. Yields the Counter of notes."""
+    from stable_renderer_tpu_torch.models import layers
+
+    k3 = layers.conv3x3_kernel
+    seen = collections.Counter()
+
+    def noted(x, w, bias=None, **kw):
+        seen[tuple(x.shape) + (w.shape[-1], kw.get("pre_scale") is not None)] += 1
+        return k3(x, w, bias, **kw)
+
+    before = k3.launches
+    layers.conv3x3_kernel = noted
+    try:
+        yield seen
+    finally:
+        layers.conv3x3_kernel = k3
+    if sum(seen.values()) != k3.launches - before:
+        fail(f"K3: {sum(seen.values())} calls noted by shape, {k3.launches - before} launches")
+
+
+def per_frame_classes(seen: collections.Counter, frames: int, prologue: bool = False) -> dict:
+    """``k3_shape_tally``'s notes over ``frames`` frames -> launches a frame
+    by class, keyed (N, H, W, Cin, Cout) (with the prologue flag when
+    ``prologue``), as chip_smoke's tallies are keyed."""
+    out = collections.Counter()
+    for k, n in seen.items():
+        out[k if prologue else k[:5]] += n
+    if any(n % frames for n in out.values()):
+        fail(f"K3 launches by class over {frames} frames are not whole per frame: {dict(out)}")
+    return {k: n // frames for k, n in out.items()}
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -385,11 +474,36 @@ def run_engine(pipe, size: int, frames: int, corr, on_frame=None):
     return eng, presented
 
 
-def engine_frame_kernels(pipe, size: int, corr) -> list:
-    """The names of the kernels one engine frame launches on the card, by
-    torch.profiler: a two-frame ``run_engine`` whose first frame is the
-    profiler's warm-up step (its events dropped) and whose second is
-    recorded, the device synchronized at both ends of each frame."""
+def host_syncs(fn) -> dict:
+    """Where one call of ``fn`` synchronizes the host with the card: the
+    caller's file:line of each synchronizing operation, with its count, by
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    where = collections.Counter(
+        f"{w.filename.split('stable_renderer_tpu_torch/')[-1]}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message))
+    return dict(where.most_common())
+
+
+def engine_frame_kernels(pipe, size: int, corr):
+    """(names, device ms): the kernels one engine frame launches on the
+    card and their summed device time, by torch.profiler: a two-frame
+    ``run_engine`` whose first frame is the profiler's warm-up step (its
+    events dropped) and whose second is recorded, the device synchronized
+    at both ends of each frame."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -401,8 +515,9 @@ def engine_frame_kernels(pipe, size: int, corr) -> list:
                 prof.step()
 
         run_engine(pipe, size, 2, corr, on_frame)
-    return [e.name for e in prof.events()
-            if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+    kernels = [e for e in prof.events()
+               if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+    return [e.name for e in kernels], sum(e.time_range.elapsed_us() for e in kernels) / 1e3
 
 
 def main() -> None:
@@ -487,15 +602,20 @@ def main() -> None:
         print(f"[3 K1] {row} (tol {tol:g})", flush=True)
         del q, k, v, qb, kb, vb
     # attention_pallas on (B, L, H*D): the UNet's fused-QKV chunks, read in
-    # place; and a view whose rows are 321 elements apart, which the wrapper
-    # copies (16-byte row copies need rows 8 elements apart)
+    # place, at the sequential frame's batch (2) and the stream frame's (8);
+    # and a view whose rows are 321 elements apart, which the wrapper copies
+    # (16-byte row copies need rows 8 elements apart)
     from stable_renderer_tpu_torch.ops.flash_attention import attention_pallas, needs_copy
 
-    b, l, heads, d = 2, 4096, 8, 40
-    qkv = torch.randn((b, l, 3 * heads * d), generator=gen, device=dev).to(torch.bfloat16)
-    unaligned = torch.randn((3, b, l, heads * d + 1), generator=gen, device=dev).to(torch.bfloat16)
-    for label, (q, k, v) in (("fused-QKV view", qkv.chunk(3, dim=-1)),
-                             ("unaligned view, copied", unaligned[..., 1:])):
+    l, heads, d = 4096, 8, 40
+    views = []
+    for b in (2, 2 * STREAM_DEPTH):
+        qkv = torch.randn((b, l, 3 * heads * d), generator=gen, device=dev).to(torch.bfloat16)
+        views.append((f"fused-QKV view{', stream batch' if b > 2 else ''}", qkv.chunk(3, dim=-1)))
+    unaligned = torch.randn((3, 2, l, heads * d + 1), generator=gen, device=dev).to(torch.bfloat16)
+    views.append(("unaligned view, copied", unaligned[..., 1:]))
+    for label, (q, k, v) in views:
+        b = q.shape[0]
         qh = q.unflatten(-1, (heads, d))
         copied = needs_copy(qh.shape, qh.stride(), qh.data_ptr())
         if copied != label.endswith("copied"):
@@ -508,7 +628,7 @@ def main() -> None:
         k1_err = max(k1_err, row["max_abs_err"])
         k1["shapes"].append(row)
         print(f"[3 K1] {row} (tol {K1_BF16_TOL:g})", flush=True)
-    del qkv, unaligned, q, k, v, qh, split
+    del views, qkv, unaligned, q, k, v, qh, split
     main_shape = k1["shapes"][0]
     k1.update(max_abs_err=k1_err, **{k: main_shape[k] for k in
                                      ("ms", "ms_with_host", "plain_ms", "library_ms", "bound_ms",
@@ -591,13 +711,15 @@ def main() -> None:
           f"bit against triangle_setup, tile_ranges and rasterize_tiles_reference)", flush=True)
 
     # --- 5. small-input reference --------------------------------------------
+    from dataclasses import replace as dc_replace
+
     from stable_renderer_tpu_torch.data.sprite import EnvPrompt, Sprite
     from stable_renderer_tpu_torch.engine.frame_program import frame_step
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
     from stable_renderer_tpu_torch.ops.gbuffer import DrawUniforms
     from stable_renderer_tpu_torch.ops.postprocess import PostProcessParams
-    from stable_renderer_tpu_torch.workflow.config import RenderConfig
+    from stable_renderer_tpu_torch.workflow.config import ControlNetSpec, RenderConfig
 
     cfg = RenderConfig(prompt="a ball", steps=4, cfg_scale=2.0, sampler="lcm",
                        scheduler="sgm_uniform")
@@ -606,16 +728,22 @@ def main() -> None:
     sigs = ((DrawUniforms(sprite_id=1, material_id=1), (512, 512), None, None),)
     pp = PostProcessParams()
 
-    def run_frame(pipe, size, frame, corr, bg, step_noise=None, mats=None):
+    def run_frame(pipe, size, frame, corr, bg, step_noise=None, mats=None, stream=None):
+        """The bench frame ``frame`` through frame_step, with the pipeline's
+        ControlNets' hint sources; ``stream`` = (state, kv) runs the stream
+        branch, (None, None) as its stream_init frame."""
         d = pipe.device
         mv, proj = bench_matrices(frame) if mats is None else mats
         draws = (dict(buffers=mesh_device_buffers(sphere, d), mv=mv, diffuse=None, noise=None,
                       corrmap=None),)
         _, ctx, nctx, _, _ = pipe.prepare_conditioning(sprites, env, 1)
         key = torch.Generator(device=d).manual_seed(cfg.seed + frame)
-        return frame_step(pipe, corr, (), sigs, size, size, True, False, pp, (), True, draws,
-                          proj, bg, None, ctx, nctx, pipe.scheduler_sigmas(), key,
-                          *pipe.compute_params(), step_noise=step_noise)
+        cn_sources = tuple(spec.source for _, _, spec in pipe.controlnets)
+        state, kv = stream if stream is not None else (None, None)
+        return frame_step(pipe, corr, (), sigs, size, size, True, False, pp, cn_sources, True,
+                          draws, proj, bg, None, ctx, nctx, pipe.scheduler_sigmas(), key,
+                          *pipe.compute_params(), step_noise=step_noise, stream_state=state,
+                          stream_init=stream is not None and state is None, stream_kv=kv)
 
     small = 128
     tiny_gpu = DiffusionPipeline.from_random(cfg, tiny=True, device=dev)
@@ -642,7 +770,51 @@ def main() -> None:
         fail(f"small frame: GPU vs CPU plain path max abs err {ref_err:.3e} >= {REF_TOL}")
     print(f"[5 reference] tiny pipeline {small}x{small}: GPU (K1 + K2) vs CPU plain "
           f"max abs err {ref_err:.3e} (tol {REF_TOL})", flush=True)
-    del tiny_gpu, tiny_cpu
+    # three tiny stream frames, a perturbed ControlNet's hints and the id
+    # maps riding the state, lag-1 K/V at the tiny UNet's middle transformer;
+    # then one sequential frame with that ControlNet: the GPU frame_step
+    # against the CPU plain path on the same packs, state and draws
+    st_cfg = dc_replace(cfg, stream_pipeline=True, stream_kv_layers=(2,))
+    st_gpu = dc_replace(tiny_gpu, config=st_cfg, controlnets=[])
+    st_cpu = dc_replace(tiny_cpu, config=st_cfg, controlnets=[])
+    perturbed_controlnet(st_gpu, ControlNetSpec(source="normal", strength=0.6), seed=5)
+    st_cpu.add_controlnet(_to_cpu(st_gpu.controlnets[0][1]), st_gpu.controlnets[0][2])
+    gpu_st = cpu_st = (None, None)
+    st_err = 0.0
+    for f in range(3):
+        draw = torch.randn((STREAM_DEPTH,) + lat[1:], generator=gen, device=dev)
+        _, _, pack, images, *gpu_st = run_frame(st_gpu, small, f, corr_small, bg_small, draw,
+                                                stream=tuple(gpu_st))
+        ref_images, *cpu_st = st_cpu._render_stream(
+            *st_cpu.compute_params()[:2], pack["color"][None].cpu(), pack["noise"][None].cpu(),
+            pack["id"][None].cpu(), cpu_st[0], st_cpu.scheduler_sigmas(), None, ctx_c, nctx_c,
+            stream_init=f == 0, kv_state=cpu_st[1], cn_params=st_cpu.compute_params()[2],
+            hints=(pack["normal"][None].cpu(),), corresponder=corr_small, step_noise=draw.cpu())
+        errs = [(images.cpu() - ref_images).abs().max().item(),
+                (gpu_st[0]["x"].cpu() - cpu_st[0]["x"]).abs().max().item(),
+                (gpu_st[1]["2"].cpu() - cpu_st[1]["2"]).abs().max().item()]
+        same_rows = (torch.equal(gpu_st[0]["ids"].cpu(), cpu_st[0]["ids"])
+                     and torch.equal(gpu_st[0]["hints"][0].cpu(), cpu_st[0]["hints"][0]))
+        st_err = max([st_err] + errs)
+        if not (torch.isfinite(images).all() and max(errs) < REF_TOL and same_rows):
+            fail(f"tiny stream frame {f}: GPU vs CPU image, latent state, K/V max abs err "
+                 f"{errs} (tol {REF_TOL}); hints and ids equal: {same_rows}")
+    cn_gpu = dc_replace(tiny_gpu, controlnets=list(st_gpu.controlnets))
+    cn_cpu = dc_replace(tiny_cpu, controlnets=list(st_cpu.controlnets))
+    _, _, pack, images, _, _ = run_frame(cn_gpu, small, 0, corr_small, bg_small, noise)
+    ref_images = cn_cpu._render(
+        corr_small, (), *cn_cpu.compute_params(), pack["color"][None].cpu(),
+        pack["noise"][None].cpu(), pack["id"][None].cpu(), (pack["normal"][None].cpu(),),
+        ctx_c, nctx_c, cn_cpu.scheduler_sigmas(), None, normal_maps=pack["normal"][None].cpu(),
+        step_noise=[n.cpu() for n in noise])
+    cn_err = (images.cpu() - ref_images).abs().max().item()
+    if not (torch.isfinite(images).all() and cn_err < REF_TOL):
+        fail(f"tiny control frame: GPU vs CPU plain path max abs err {cn_err:.3e} >= {REF_TOL}")
+    print(f"[5 reference] tiny stream, 3 frames (hints and ids riding, lag-1 K/V): GPU vs CPU "
+          f"plain max abs err {st_err:.3e} over images, latent state and K/V, hints and ids "
+          f"equal; tiny frame with a perturbed ControlNet: max abs err {cn_err:.3e} "
+          f"(tol {REF_TOL})", flush=True)
+    del tiny_gpu, tiny_cpu, st_gpu, st_cpu, cn_gpu, cn_cpu
 
     # --- 6. the frame ------------------------------------------------------------
     pipe = DiffusionPipeline.from_random(cfg, tiny=False, device=dev)
@@ -673,12 +845,16 @@ def main() -> None:
             fail(f"frame {f}: display {tuple(host.shape)} {host.dtype}")
         if int(host[..., :3].max()) == int(host[..., :3].min()):
             fail(f"frame {f}: constant display")
+    k1_a_frame = {"sequential": k1["launches"] // n_frames}
     ms = statistics.median(times[1:])
+    # where a steady frame synchronizes the host (torch.cuda.set_sync_debug_mode)
+    frame_syncs = {"bf16": host_syncs(lambda: run_frame(pipe, SIZE, n_frames, corr, bg))}
     print(f"[6 frame] {SIZE}x{SIZE} SD1.5 widths bf16, 4-step LCM cfg 2.0, sequential: "
           f"median {ms:.1f} ms/frame ({1e3 / ms:.2f} fps) over {FRAMES_TIMED} frames, warm frame "
           f"{times[0]:.1f} ms; K1 {k1['launches']} and K2 {k2['launches']} launches in "
           f"{n_frames} frames; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host syncs of one more frame "
+          f"{frame_syncs['bf16']} | {card}", flush=True)
 
     # --- 7. K3 ----------------------------------------------------------------
     from stable_renderer_tpu_torch.ops.conv_kernel import (
@@ -690,11 +866,18 @@ def main() -> None:
     k3 = {"name": "conv3x3_kernel", "route": "cuda",
           "source": "stable_renderer_tpu_torch/csrc/conv3x3.cu",
           "replaces": "stable_renderer_tpu/ops/conv_pallas.py:86", "shapes": []}
-    # every shape class the int8 and switched frames launch, checked; the
-    # K3_TIMED_SHAPES rows also timed
+    # every shape class the int8, int8 stream and switched frames launch,
+    # checked; the K3_TIMED_SHAPES rows and the stream frame's two largest
+    # classes by launches x bytes also timed
     k3_cases = [(s, "int8") for s in K3_INT8_FRAME_SHAPES]
+    k3_cases += [(s, "int8") for s in K3_STREAM_FRAME_SHAPES if (s, "int8") not in k3_cases]
     k3_cases += [(k[:5], "bf16+prologue" if k[5] else "bf16") for k in K3_SWITCHED_FRAME_SHAPES]
     k3_cases += [c for c in K3_TIMED_SHAPES if c not in k3_cases]
+    stream_timed = sorted((s_ for s_ in K3_STREAM_FRAME_SHAPES if s_[0] == 2 * STREAM_DEPTH),
+                          key=lambda s_: -K3_STREAM_FRAME_SHAPES[s_] * (
+                              2 * s_[0] * s_[1] * s_[2] * (s_[3] + s_[4]) + 9 * s_[3] * s_[4]))[:2]
+    k3_timed = K3_TIMED_SHAPES + [(s_, "int8") for s_ in stream_timed]
+    k3_rows = {}  # (shape, mode) -> its timed row, its launches a frame filled in phase 12
     k3_checked = 0
     for (n, h, w, cin, cout), mode in k3_cases:
         x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
@@ -726,7 +909,7 @@ def main() -> None:
             fail(f"K3 {shape}: max abs err {err:.3e} (bar: {bar})")
         k3_checked += 1
         k3["max_abs_err"] = max(k3.get("max_abs_err", 0.0), err)
-        if ((n, h, w, cin, cout), mode) not in K3_TIMED_SHAPES:
+        if ((n, h, w, cin, cout), mode) not in k3_timed:
             del x, wk, out, ref, diff
             continue
         t = conv_tiles(n, h, w, cin, cout, mode == "int8")
@@ -744,6 +927,7 @@ def main() -> None:
             nbytes(x, wk, b, out, kw.get("pre_scale"), kw.get("pre_shift")),
             2.0 * n * h * w * cout * 9 * cin, "int8" if mode == "int8" else "bf16")
         k3["shapes"].append(row)
+        k3_rows[((n, h, w, cin, cout), mode)] = row
         print(f"[7 K3] {row}", flush=True)
         del x, wk, out, ref, diff
     print(f"[7 K3] {k3_checked} shape classes checked against the plain version (int8 exact, "
@@ -859,8 +1043,6 @@ def main() -> None:
                                                  "bound_ms", "bound_by")})
 
     # --- 9. the calibrated int8 frame -----------------------------------------
-    from dataclasses import replace as dc_replace
-
     from stable_renderer_tpu_torch.models import layers
 
     t0 = time.perf_counter()
@@ -874,21 +1056,27 @@ def main() -> None:
     flash_attention.launches = rasterize_kernel.launches = 0
     conv3x3_kernel.launches = group_norm_kernel.launches = 0
     times = []
-    for f in range(1 + FRAMES_TIMED):
-        t0 = time.perf_counter()
-        disp, gbuf, pack, images, _, _ = run_frame(pipe_i8, SIZE, f, corr_i8, bg)
-        host = disp.cpu()
-        times.append((time.perf_counter() - t0) * 1e3)
-        if not torch.isfinite(images).all() or host.shape != (SIZE, SIZE, 4):
-            fail(f"int8 frame {f}: non-finite image or display {tuple(host.shape)}")
-        if f == 0:
-            i8_images = images.float().clone()
+    with k3_shape_tally() as seen:
+        for f in range(1 + FRAMES_TIMED):
+            t0 = time.perf_counter()
+            disp, gbuf, pack, images, _, _ = run_frame(pipe_i8, SIZE, f, corr_i8, bg)
+            host = disp.cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not torch.isfinite(images).all() or host.shape != (SIZE, SIZE, 4):
+                fail(f"int8 frame {f}: non-finite image or display {tuple(host.shape)}")
+            if f == 0:
+                i8_images = images.float().clone()
+    k3_classes = {"int8": per_frame_classes(seen, n_frames)}
+    if k3_classes["int8"] != K3_INT8_FRAME_SHAPES:
+        fail(f"int8 frame: K3 launches a frame by class {k3_classes['int8']}, want "
+             f"{K3_INT8_FRAME_SHAPES}")
     counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
               group_norm_kernel.launches)
     want = (K1_CALLS_PER_FRAME * n_frames, n_frames, K3_INT8_CALLS_PER_FRAME * n_frames, 0)
     if counts != want:
         fail(f"int8 frames: launches K1, K2, K3, K4 = {counts}, want {want}")
     k3["launches"] = counts[2]
+    k3_a_frame = {"int8": counts[2] // n_frames}
     a, b_ = i8_images.flatten(), bf16_images.flatten()
     cos = (a @ b_ / (a.norm() * b_.norm())).item()
     ac, bc = a - a.mean(), b_ - b_.mean()
@@ -925,10 +1113,12 @@ def main() -> None:
     flash_attention.launches = rasterize_kernel.launches = 0
     conv3x3_kernel.launches = group_norm_kernel.launches = 0
     t0 = time.perf_counter()
-    _, _, _, sw_images, _, _ = run_frame(pipe, SIZE, 0, OverlapCorresponder(
-        vertex_segments=4096, update_corrmap=False), bg)
-    torch.cuda.synchronize()
+    with k3_shape_tally() as seen:
+        _, _, _, sw_images, _, _ = run_frame(pipe, SIZE, 0, OverlapCorresponder(
+            vertex_segments=4096, update_corrmap=False), bg)
+        torch.cuda.synchronize()
     sw_ms = (time.perf_counter() - t0) * 1e3
+    k3_classes["switched"] = per_frame_classes(seen, 1, prologue=True)
     use_pallas_conv(False)
     layers._group_norm_pallas_on = False
     counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
@@ -936,6 +1126,9 @@ def main() -> None:
     want = (K1_CALLS_PER_FRAME, 1, K3_SWITCHED_CALLS_PER_FRAME, K4_SWITCHED_CALLS_PER_FRAME)
     if counts != want:
         fail(f"switched frame: launches K1, K2, K3, K4 = {counts}, want {want}")
+    if k3_classes["switched"] != K3_SWITCHED_FRAME_SHAPES:
+        fail(f"switched frame: K3 launches by class {k3_classes['switched']}, want "
+             f"{K3_SWITCHED_FRAME_SHAPES}")
     k4["launches"] = counts[3]
     k3["launches_switched_frame"] = counts[2]
     d = (sw_images.float() - bf16_images).abs()
@@ -951,8 +1144,16 @@ def main() -> None:
 
     # --- 11. the engine: Engine.Run of the bench scene --------------------------
     engine_ms = {}
-    for label, p_, step_ms in (("bf16", pipe, ms), ("int8", pipe_i8, ms_i8)):
-        int8 = label == "int8"
+
+    def run_engine_phase(phase: int, label: str, p_, step_ms: float, transient: int, want: tuple,
+                         stream: bool = False) -> dict:
+        """The bench scene through Engine.Run with pipeline ``p_``:
+        ``transient`` frames, ENGINE_WARM warm and FRAMES_TIMED timed
+        presents (and PRESENT_DEPTH more); ``want`` = launches a frame of K1,
+        K2, K3 and K4, held by the counters over the run and by the profiler
+        on one frame; frame 0 against frame_step's at the engine's inputs
+        (its stream_init frame when ``stream``). Returns the present-to-
+        present median and p90 of the timed frames."""
         first = {}
 
         def keep_first(eng, when):
@@ -967,7 +1168,7 @@ def main() -> None:
                 first.update(images=rm.last_diffusion_frames.float().clone(),
                              bg=rm.GlobalBGNoise)
 
-        n_eng = ENGINE_WARM + FRAMES_TIMED + PRESENT_DEPTH
+        n_eng = transient + ENGINE_WARM + FRAMES_TIMED + PRESENT_DEPTH
         torch.cuda.synchronize()
         flash_attention.launches = rasterize_kernel.launches = 0
         conv3x3_kernel.launches = group_norm_kernel.launches = 0
@@ -979,13 +1180,14 @@ def main() -> None:
         run_s = time.perf_counter() - t0
         counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
                   group_norm_kernel.launches)
-        want = (K1_CALLS_PER_FRAME * n_eng, n_eng, K3_INT8_CALLS_PER_FRAME * n_eng * int8, 0)
-        if counts != want:
+        if counts != tuple(c * n_eng for c in want):
             fail(f"engine {label}: launches K1, K2, K3, K4 over {n_eng} frames = {counts}, "
-                 f"want {want}")
+                 f"want {want} a frame")
         if eng.device.type != "cuda" or [i for _, i, _ in presented] != list(range(n_eng)):
             fail(f"engine {label}: device {eng.device}, presented "
                  f"{[i for _, i, _ in presented]}")
+        if stream and not isinstance(eng.RenderManager._stream_state, dict):
+            fail(f"engine {label}: no stream state carried ({eng.RenderManager._stream_state!r})")
         for _, i, frame in presented:
             if frame.shape != (SIZE, SIZE, 4) or frame.dtype.name != "uint8":
                 fail(f"engine {label} frame {i}: presented {frame.shape} {frame.dtype}")
@@ -993,7 +1195,8 @@ def main() -> None:
                 fail(f"engine {label} frame {i}: constant frame")
         # present intervals of the timed frames; frame i is presented in frame
         # i + PRESENT_DEPTH's run, so these all fall in steady frames
-        stamps = [t for t, _, _ in presented[ENGINE_WARM - 1:ENGINE_WARM + FRAMES_TIMED]]
+        lo = transient + ENGINE_WARM
+        stamps = [t for t, _, _ in presented[lo - 1:lo + FRAMES_TIMED]]
         gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
         e_ms = statistics.median(gaps)
         e_p90 = statistics.quantiles(gaps, n=10, method="inclusive")[-1]
@@ -1005,7 +1208,7 @@ def main() -> None:
             fail(f"engine {label}: GlobalBGNoise differs from phase 6's background noise")
         _, _, _, ref_images, _, _ = run_frame(
             p_, SIZE, 0, OverlapCorresponder(vertex_segments=4096, update_corrmap=False), bg,
-            mats=first["mats"])
+            mats=first["mats"], stream=(None, None) if stream else None)
         torch.cuda.synchronize()
         first_err = (first["images"] - ref_images.float()).abs().max().item()
         if not torch.equal(first["images"], ref_images.float()):
@@ -1013,40 +1216,211 @@ def main() -> None:
                  f"max abs {first_err:.3e}")
         # one frame's kernels by the profiler, after a warm frame
         flash_attention.launches = rasterize_kernel.launches = conv3x3_kernel.launches = 0
-        names = engine_frame_kernels(
+        names, device_ms = engine_frame_kernels(
             p_, SIZE, OverlapCorresponder(vertex_segments=4096, update_corrmap=False))
         prof_counts = (sum("flash_wg" in k or "flash_wide" in k for k in names),
                        sum("raster_binned" in k for k in names),
                        sum("raster_setup" in k for k in names),
                        sum("conv3x3_wgmma" in k for k in names))
-        prof_want = (K1_CALLS_PER_FRAME, 1, 1, K3_INT8_CALLS_PER_FRAME * int8)
+        prof_want = (want[0], 1, 1, want[2])
         two = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches)
-        if prof_counts != prof_want or two != (2 * K1_CALLS_PER_FRAME, 2,
-                                               2 * K3_INT8_CALLS_PER_FRAME * int8):
+        if prof_counts != prof_want or two != (2 * want[0], 2, 2 * want[2]):
             fail(f"engine {label}: one profiled frame launched K1, K2 binned, K2 setup, K3 = "
                  f"{prof_counts}, want {prof_want}; counters over its two frames K1, K2, K3 "
                  f"= {two}")
-        engine_ms[label] = {"median_ms": e_ms, "p90_ms": e_p90, "frame_step_median_ms": step_ms,
-                            "gaps_ms": gaps, "frames": n_eng, "run_s": run_s}
         k1.setdefault("launches_engine", {})[label] = counts[0]
         k2.setdefault("launches_engine", {})[label] = counts[1]
-        if int8:
-            k3["launches_engine"] = counts[2]
-        print(f"[11 engine] {label}: Engine.Run of the bench scene at {SIZE}x{SIZE}, {n_eng} "
-              f"frames in {run_s:.2f} s; present-to-present median {e_ms:.1f} ms, p90 "
-              f"{e_p90:.1f} ms over {FRAMES_TIMED} timed frames after {ENGINE_WARM} warm "
-              f"(frame_step's median, phase {9 if int8 else 6}: {step_ms:.1f} ms); launches K1 "
-              f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]}, K4 {counts[3]} ({n_eng} frames); "
-              f"profiled frame K1 {prof_counts[0]}, K2 {prof_counts[1]} + {prof_counts[2]} "
-              f"setup, K3 {prof_counts[3]}; frame 0 identical to frame_step's | {card}",
-              flush=True)
-    del pipe_i8
+        if want[2]:
+            k3.setdefault("launches_engine", {})[label] = counts[2]
+        print(f"[{phase} engine] {label}: Engine.Run of the bench scene at "
+              f"{SIZE}x{SIZE}, {n_eng} frames in {run_s:.2f} s; present-to-present median "
+              f"{e_ms:.1f} ms, p90 {e_p90:.1f} ms over {FRAMES_TIMED} timed frames after "
+              f"{transient} transient and {ENGINE_WARM} warm (frame_step's median: "
+              f"{step_ms:.1f} ms); launches K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, K4 "
+              f"{counts[3]} ({n_eng} frames); profiled frame K1 {prof_counts[0]}, K2 "
+              f"{prof_counts[1]} + {prof_counts[2]} setup, K3 {prof_counts[3]}; its kernels "
+              f"{device_ms:.1f} ms, busy share {device_ms / e_ms:.3f} of the median; frame 0 "
+              f"identical to frame_step's | {card}", flush=True)
+        return {"median_ms": e_ms, "p90_ms": e_p90, "frame_step_median_ms": step_ms,
+                "gaps_ms": gaps, "frames": n_eng, "run_s": run_s,
+                "profiled_frame_device_ms": device_ms, "busy_share": device_ms / e_ms}
+
+    for label, p_, step_ms, int8 in (("bf16", pipe, ms, False), ("int8", pipe_i8, ms_i8, True)):
+        engine_ms[label] = run_engine_phase(
+            11, label, p_, step_ms, 0, (K1_CALLS_PER_FRAME, 1, K3_INT8_CALLS_PER_FRAME * int8, 0))
+
+    # --- 12. the stream: bench.py's default mode -----------------------------------
+    st_cfg = dc_replace(pipe_i8.config, stream_pipeline=True, stream_kv_layers=(6,))
+    pipe_st = dc_replace(pipe_i8, config=st_cfg, controlnets=[])  # phase 9's quantized trees
+    pipe_st_bf16 = dc_replace(pipe, config=dc_replace(st_cfg, int8_conv=False), controlnets=[])
+    st_want = (K1_STREAM_CALLS_PER_FRAME, 1, K3_STREAM_CALLS_PER_FRAME, 0)
+    # frame_step over S - 1 transient frames, one warm and FRAMES_TIMED timed,
+    # in int8 and in bf16 at the same inputs
+    n_st = STREAM_DEPTH - 1 + 1 + FRAMES_TIMED
+    st_images, st_ms, st_counts = {}, {}, {}
+    for label, p_ in (("int8", pipe_st), ("bf16", pipe_st_bf16)):
+        state = (None, None)
+        torch.cuda.synchronize()
+        flash_attention.launches = rasterize_kernel.launches = 0
+        conv3x3_kernel.launches = group_norm_kernel.launches = 0
+        times, imgs = [], []
+        with k3_shape_tally() as seen:
+            for f in range(n_st):
+                t0 = time.perf_counter()
+                disp, _, pack, images, *state = run_frame(p_, SIZE, f, OverlapCorresponder(
+                    vertex_segments=4096, update_corrmap=False), bg, stream=tuple(state))
+                host = disp.cpu()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if not torch.isfinite(images).all() or host.shape != (SIZE, SIZE, 4):
+                    fail(f"stream {label} frame {f}: non-finite image or display "
+                         f"{tuple(host.shape)}")
+                imgs.append(images.float().clone())
+        if label == "int8":
+            k3_classes["stream int8"] = per_frame_classes(seen, n_st)
+            if k3_classes["stream int8"] != K3_STREAM_FRAME_SHAPES:
+                fail(f"int8 stream frame: K3 launches a frame by class "
+                     f"{k3_classes['stream int8']}, want {K3_STREAM_FRAME_SHAPES}")
+        counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
+                  group_norm_kernel.launches)
+        want = tuple(c * n_st for c in st_want[:2]) + (
+            st_want[2] * n_st if label == "int8" else 0, 0)
+        if counts != want:
+            fail(f"stream {label} frame_step: launches K1, K2, K3, K4 over {n_st} frames = "
+                 f"{counts}, want {want}")
+        st_counts[label] = tuple(c // n_st for c in counts)
+        if sorted(state[1]) != ["6"] or tuple(state[1]["6"].shape) != (STREAM_DEPTH, 64, 1280):
+            fail(f"stream {label}: captured K/V "
+                 f"{[(k_, tuple(v_.shape)) for k_, v_ in state[1].items()]}")
+        st_images[label] = imgs
+        st_ms[label] = statistics.median(times[-FRAMES_TIMED:])
+        if label == "int8":  # one more steady frame: the stream program, then the frame
+            _, ctx_st, nctx_st, _, _ = p_.prepare_conditioning(sprites, env, 1)
+            st_syncs = host_syncs(lambda: p_._render_stream(
+                *p_.compute_params()[:2], pack["color"][None], pack["noise"][None],
+                pack["id"][None], state[0], p_.scheduler_sigmas(),
+                torch.Generator(device=dev).manual_seed(99), ctx_st, nctx_st, kv_state=state[1],
+                corresponder=OverlapCorresponder(vertex_segments=4096, update_corrmap=False)))
+            if st_syncs:
+                fail(f"the stream program synchronized the host: {st_syncs}")
+            frame_syncs["stream int8"] = host_syncs(lambda: run_frame(
+                p_, SIZE, n_st, OverlapCorresponder(vertex_segments=4096, update_corrmap=False),
+                bg, stream=tuple(state)))
+    st_cos = []
+    for a, b_ in zip(st_images["int8"], st_images["bf16"]):
+        a, b_ = a.flatten(), b_.flatten()
+        st_cos.append((a @ b_ / (a.norm() * b_.norm())).item())
+    if not min(st_cos) > INT8_FRAME_COS_FLOOR:
+        fail(f"int8 stream frames vs bf16 stream frames: cosines {st_cos}, floor "
+             f"{INT8_FRAME_COS_FLOOR}")
+    del st_images
+    print(f"[12 stream] frame_step, {n_st} stream frames ({STREAM_DEPTH - 1} transient): median "
+          f"int8 {st_ms['int8']:.1f} ms, bf16 {st_ms['bf16']:.1f} ms over the last "
+          f"{FRAMES_TIMED}; a steady int8 _render_stream call ran without a host sync, the "
+          f"frame around it synchronized {frame_syncs['stream int8']}; launches a frame "
+          f"(counted) K1 {st_counts['int8'][0]}, K2 {st_counts['int8'][1]}, K3 "
+          f"{st_counts['int8'][2]} in {len(k3_classes['stream int8'])} shape classes (int8); "
+          f"int8 vs bf16 decoded frames: cosine min {min(st_cos):.6f} (floor "
+          f"{INT8_FRAME_COS_FLOOR}) | {card}", flush=True)
+    k1_a_frame["stream"] = st_counts["int8"][0]
+    k3_a_frame["stream int8"] = st_counts["int8"][2]
+    engine_ms["stream int8"] = run_engine_phase(
+        12, "stream int8", pipe_st, st_ms["int8"], STREAM_DEPTH - 1, st_want, stream=True)
+    del pipe_st, pipe_st_bf16, pipe_i8
+
+    # --- 13. control: bench.py's control mode (two ControlNets) ----------------------
+    pipe_cn = dc_replace(pipe, controlnets=[])
+    for source, seed in (("normal", 5), ("depth", 6)):
+        pipe_cn.add_random_controlnet(ControlNetSpec(source=source, strength=0.6), seed=seed)
+    torch.cuda.synchronize()
+    flash_attention.launches = rasterize_kernel.launches = 0
+    conv3x3_kernel.launches = group_norm_kernel.launches = 0
+    times = []
+    for f in range(1 + FRAMES_TIMED):  # phase 6's frames, with the ControlNets
+        t0 = time.perf_counter()
+        disp, _, _, images, _, _ = run_frame(
+            pipe_cn, SIZE, f, OverlapCorresponder(vertex_segments=4096, update_corrmap=False), bg)
+        disp.cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if f == 0:
+            zero_images = images.float().clone()
+    cn_ms = statistics.median(times[1:])
+    counts = (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
+              group_norm_kernel.launches)
+    cn_want = (K1_CONTROL_CALLS_PER_FRAME, 1, 0, 0)
+    if counts != tuple(c * n_frames for c in cn_want):
+        fail(f"control frames: launches K1, K2, K3, K4 over {n_frames} frames = {counts}, want "
+             f"{cn_want} a frame")
+    k1_a_frame["control"] = counts[0] // n_frames
+    d = (zero_images.float() - bf16_images).abs()
+    zero_same = torch.equal(zero_images.float(), bf16_images)
+    if not (zero_same or (d.mean().item() < SWITCH_MEAN_BAR and d.max().item() < SWITCH_MAX_BAR)):
+        fail(f"zero-init control frame vs phase 6: mean abs {d.mean().item():.3e}, max "
+             f"{d.max().item():.3e} (bars {SWITCH_MEAN_BAR}, {SWITCH_MAX_BAR})")
+    engine_ms["control bf16"] = run_engine_phase(13, "control bf16", pipe_cn, cn_ms, 0, cn_want)
+    for i, (_, params, _) in enumerate(pipe_cn.controlnets):
+        perturb_zero_convs(params, 105 + i)
+    _, _, _, pert_images, _, _ = run_frame(
+        pipe_cn, SIZE, 0, OverlapCorresponder(vertex_segments=4096, update_corrmap=False), bg)
+    dp = (pert_images.float() - bf16_images).abs().mean().item()
+    frame_syncs["control bf16"] = host_syncs(lambda: run_frame(
+        pipe_cn, SIZE, 0, OverlapCorresponder(vertex_segments=4096, update_corrmap=False), bg))
+    if not (torch.isfinite(pert_images).all() and dp > CONTROL_DIFF_FLOOR):
+        fail(f"perturbed control frame vs phase 6: mean abs {dp:.3e} (floor {CONTROL_DIFF_FLOOR}) "
+             f"or non-finite")
+    print(f"[13 control] two ControlNets (normal, depth; strength 0.6): frame_step median "
+          f"{cn_ms:.1f} ms over {FRAMES_TIMED} frames (phase 6 without them: {ms:.1f} ms); "
+          f"launches a frame (counted) K1 {k1_a_frame['control']}, K2 {counts[1] // n_frames}; "
+          f"zero-init frame vs phase "
+          f"6 frame 0 {'bit for bit' if zero_same else 'differs'}: mean abs {d.mean().item():.3e}, "
+          f"max {d.max().item():.3e}; with the zero convs perturbed (seeded): mean abs "
+          f"{dp:.4f} (floor {CONTROL_DIFF_FLOOR}), finite; host syncs of one frame "
+          f"{frame_syncs['control bf16']} | {card}", flush=True)
+    # launches a frame, all counted in this run: K1's and K3's by path, and
+    # each timed K3 row's by shape class (phases 9, 10 and 12)
+    k1["launches_a_frame"], k3["launches_a_frame"] = k1_a_frame, k3_a_frame
+    for (shape, mode), row in k3_rows.items():
+        if mode == "int8":
+            row["launches_a_frame"] = {"int8": k3_classes["int8"].get(shape, 0),
+                                       "stream int8": k3_classes["stream int8"].get(shape, 0)}
+        else:
+            row["launches_a_frame"] = {"switched": k3_classes["switched"].get(
+                shape + (mode == "bf16+prologue",), 0)}
+    del pipe_cn
 
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
-                      "engine_frame_ms": engine_ms, "card": card}))
+                      "stream_frame_step_ms": st_ms, "control_frame_ms": cn_ms,
+                      "host_syncs_a_frame": frame_syncs,
+                      "engine_frame_ms": engine_ms,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
+
+
+def perturbed_controlnet(pipe, spec, seed: int) -> None:
+    """``pipe.add_random_controlnet(spec, seed)``, then its zero convs,
+    middle_block_out and last hint conv drawn from a generator seeded with
+    ``seed`` + 100 on the pipeline's device: weights N(0, CONTROL_PERTURB^2
+    / fan-in), biases N(0, CONTROL_PERTURB^2). A fresh ControlNet adds exact
+    zeros; this one moves the frame."""
+    pipe.add_random_controlnet(spec, seed=seed)
+    perturb_zero_convs(pipe.controlnets[-1][1], seed + 100)
+
+
+def perturb_zero_convs(params: dict, seed: int) -> None:
+    import torch
+
+    w0 = params["middle_block_out"]["0"]["weight"]
+    gen = torch.Generator(device=w0.device).manual_seed(seed)
+    leaves = [params["middle_block_out"]["0"], params["input_hint_block"]["14"]]
+    leaves += [z["0"] for z in params["zero_convs"].values()]
+    for leaf in leaves:
+        w, b = leaf["weight"], leaf["bias"]
+        fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+        leaf["weight"] = (torch.randn(w.shape, generator=gen, device=w.device)
+                          * (CONTROL_PERTURB / fan_in ** 0.5)).to(w.dtype)
+        leaf["bias"] = (torch.randn(b.shape, generator=gen, device=b.device)
+                        * CONTROL_PERTURB).to(b.dtype)
 
 
 def _count_int8(tree) -> int:

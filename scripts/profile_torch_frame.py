@@ -3,17 +3,24 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/profile_torch_frame.py [--frames N] [--int8 | --switched] [--out result.json]
+    python3 scripts/profile_torch_frame.py [--frames N] [--int8 | --switched] [--stream]
+        [--control] [--out result.json]
 
 Builds the bench frame of chip_smoke.py (full SD1.5 widths, random bf16
 weights, 4-step LCM, cfg 2.0, OverlapCorresponder, 512x512; with --int8 the
 calibrated int8 convs of RenderConfig(int8_conv=True), whose 3x3 convs run on
 the K3 kernel; with --switched the bf16 frame with the float K3 switch and the
-K4 switch on, as chip_smoke.py phase 10 runs it), runs one warm
-frame, then N frames under CUDA-event stage timers and one frame under
-torch.profiler. Prints and writes:
-  * per-stage time per frame (raster + G-buffer, pack, VAE encode, the UNet
-    evaluations, VAE decode, the rest; means) from CUDA events around the
+K4 switch on, as chip_smoke.py phase 10 runs it; with --stream the stream
+program of RenderConfig(stream_pipeline=True, stream_kv_layers=(6,)), as
+chip_smoke.py phase 12 runs it, in bf16 or with --int8; with --control two
+random ControlNets with perturbed zero convs, normal and depth hints at
+strength 0.6, as chip_smoke.py phase 13 runs them), runs one warm frame (the
+stream: S warm frames, so that every stage is filled), then N frames under
+CUDA-event stage timers and one frame under torch.profiler. Prints and
+writes:
+  * per-stage time per frame (raster + G-buffer, pack, VAE encode, the
+    ControlNets' hint towers and their trunks, the UNet evaluations, VAE
+    decode, the rest; means) from CUDA events around the
     stages — stream time between the events, so it includes the device's
     idle gaps while the host enqueues that stage;
   * host wall time per frame (median and max), and the device busy share:
@@ -52,6 +59,11 @@ def main() -> None:
                     help="the calibrated int8 frame (RenderConfig(int8_conv=True))")
     ap.add_argument("--switched", action="store_true",
                     help="the bf16 frame with use_pallas_conv(True) and _group_norm_pallas_on")
+    ap.add_argument("--stream", action="store_true",
+                    help="the stream program, lag-1 K/V at transformer 6 (bench.py's default "
+                         "mode with --int8)")
+    ap.add_argument("--control", action="store_true",
+                    help="two perturbed ControlNets, normal and depth, strength 0.6")
     ap.add_argument("--out", default=None, help="also write the result as JSON here")
     args = ap.parse_args()
 
@@ -74,7 +86,7 @@ def main() -> None:
     from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
     from stable_renderer_tpu_torch.ops.gbuffer import DrawUniforms
     from stable_renderer_tpu_torch.ops.postprocess import PostProcessParams
-    from stable_renderer_tpu_torch.workflow.config import RenderConfig
+    from stable_renderer_tpu_torch.workflow.config import ControlNetSpec, RenderConfig
 
     dev = torch.device("cuda", 0)
     if args.int8 and args.switched:
@@ -86,9 +98,14 @@ def main() -> None:
         use_pallas_conv(True)
         layers._group_norm_pallas_on = True
     cfg = RenderConfig(prompt="a ball", steps=4, cfg_scale=2.0, sampler="lcm",
-                       scheduler="sgm_uniform", int8_conv=args.int8)
+                       scheduler="sgm_uniform", int8_conv=args.int8,
+                       stream_pipeline=args.stream, stream_kv_layers=(6,) if args.stream else ())
     t0 = time.perf_counter()
     pipe = DiffusionPipeline.from_random(cfg, tiny=False, device=dev)
+    if args.control:
+        for source, seed in (("normal", 5), ("depth", 6)):
+            chip_smoke.perturbed_controlnet(pipe, ControlNetSpec(source=source, strength=0.6),
+                                            seed)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     corr = OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
@@ -120,6 +137,11 @@ def main() -> None:
     pipe.vae.encode = timed("vae_encode", pipe.vae.encode)
     pipe.vae.decode = timed("vae_decode", pipe.vae.decode)
     pipe.unet.apply = timed("unet_eval", pipe.unet.apply)
+    for cn, _, _ in pipe.controlnets:
+        cn.apply_hint = timed("hint_tower", cn.apply_hint)
+        cn.apply = timed("controlnet", cn.apply)
+    cn_sources = tuple(spec.source for _, _, spec in pipe.controlnets)
+    stream = {"state": None, "kv": None}
 
     def frame(i):
         mv, proj = chip_smoke.bench_matrices(i)
@@ -128,11 +150,17 @@ def main() -> None:
         _, ctx, nctx, _, _ = pipe.prepare_conditioning(sprites, env, 1)
         key = torch.Generator(device=dev).manual_seed(cfg.seed + i)
         out = frame_program.frame_step(
-            pipe, corr, (), sigs, 512, 512, True, False, PostProcessParams(), (), True, draws,
-            proj, bg, None, ctx, nctx, pipe.scheduler_sigmas(), key, *pipe.compute_params())
+            pipe, corr, (), sigs, 512, 512, True, False, PostProcessParams(), cn_sources, True,
+            draws, proj, bg, None, ctx, nctx, pipe.scheduler_sigmas(), key,
+            *pipe.compute_params(), stream_state=stream["state"],
+            stream_init=args.stream and stream["state"] is None, stream_kv=stream["kv"])
+        if args.stream:
+            stream["state"], stream["kv"] = out[4], out[5]
         return out[0].cpu()
 
-    frame(0)
+    warm = cfg.steps if args.stream else 1
+    for i in range(warm):
+        frame(i)
     torch.cuda.synchronize()
     active["on"] = True
     walls, totals = [], []
@@ -140,7 +168,7 @@ def main() -> None:
         fs, fe = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         fs.record()
-        frame(1 + i)
+        frame(warm + i)
         fe.record()
         fe.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -154,7 +182,7 @@ def main() -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        frame(1 + args.frames)
+        frame(warm + args.frames)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -189,7 +217,7 @@ def main() -> None:
             return conv_q(p, x, stride=stride, padding=padding)
 
         layers.conv3x3_kernel, quant.conv2d_q = k3_rec, conv_q_rec
-        frame(2 + args.frames)
+        frame(warm + 1 + args.frames)
         layers.conv3x3_kernel, quant.conv2d_q = k3, conv_q
         clipping = {"int8_conv_calls": len(seen), "calls_clipping": sum(r > 1 for r in seen),
                     "max_ratio_to_calibrated": max(seen)}
@@ -204,7 +232,8 @@ def main() -> None:
     k4 = [(ms, n) for ms, n, k in kernels if any(m in k for m in k4_names)]
     result = {
         "card": card,
-        "mode": "int8" if args.int8 else ("bf16 switched" if args.switched else "bf16"),
+        "mode": " ".join(["int8" if args.int8 else "bf16"] + ["switched"] * args.switched
+                         + ["stream"] * args.stream + ["control"] * args.control),
         "from_random_s": setup_s,
         "frames": args.frames,
         "wall_ms_median": statistics.median(walls),
@@ -212,6 +241,8 @@ def main() -> None:
         "event_ms_mean": statistics.mean(totals),
         "stage_ms_per_frame": per_frame,
         "unet_evals_per_frame": len(spans["unet_eval"]) / args.frames,
+        "controlnet_evals_per_frame": len(spans["controlnet"]) / args.frames,
+        "hint_tower_runs_per_frame": len(spans["hint_tower"]) / args.frames,
         "profiled_frame_wall_ms": prof_wall,
         "profiled_device_ms": device_us / 1e3,
         # kernel time of one frame over the frame's wall time without the

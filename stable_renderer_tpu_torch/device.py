@@ -28,3 +28,13 @@ def on_device(device: torch.device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without a host sync: a blocking copy from
+    pageable memory waits for all the stream's earlier work, so a CUDA
+    target gets a pinned copy sent with ``non_blocking`` (the pinned block
+    is not reused before the copy has run)."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

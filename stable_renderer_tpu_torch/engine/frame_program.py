@@ -7,11 +7,14 @@ eagerly, in order, on the device of the frame's tensors:
   draws -> vertex_stage -> rasterize_auto (the K2 tile kernel on the card)
   -> shade_draw / compose_draw -> _pack_arrays -> DiffusionPipeline._render
   (VAE encode, CFG UNet denoise with attention through the K1 flash kernel
-  where K/V length >= 2048, VAE decode) -> apply_lights (when the scene has
-  lights) -> defer_render -> post_process -> uint8.
+  where K/V length >= 2048, ControlNet residuals from the G-buffer hints,
+  VAE decode) -> apply_lights (when the scene has lights) -> defer_render ->
+  post_process -> uint8.
 
-The sequential branch is ported; the stream pipeline and ControlNet hints
-raise until their slices are ported.
+With a stream state (or ``stream_init``) the denoise runs as
+``DiffusionPipeline._render_stream`` instead: one batched UNet evaluation
+advances the S in-flight frames, and the frame's hints and id map ride the
+stream state.
 """
 
 from __future__ import annotations
@@ -56,9 +59,8 @@ def frame_step(
     step_noise=None,          # optional explicit sampler re-noise draws
 ):
     """One frame. Returns (display, gbuf, pack, images, stream_state,
-    stream_kv): display is (H, W, 4), uint8 when ``to_uint8``."""
-    if stream_state is not None or stream_init or stream_kv is not None:
-        raise NotImplementedError("the stream pipeline is not ported yet")
+    stream_kv): display is (H, W, 4), uint8 when ``to_uint8``. In the stream
+    branch ``step_noise`` is the (S, h, w, 4) LCM re-noise draw."""
     dev = bg_noise.device
     gbuf = GBuffer.empty(height, width, device=dev)
     zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
@@ -73,8 +75,20 @@ def frame_step(
 
     pack = _pack_arrays(gbuf, bg_noise)
     display = gbuf.color
-    images = None
-    if run_diffusion:
+    images = new_stream_state = new_stream_kv = None
+    if run_diffusion and (stream_state is not None or stream_init):
+        # one batched UNet evaluation advances the in-flight frames; each
+        # frame's hints and ids ride the stream state with it
+        stream_hints = tuple(pack[s][None] for s in cn_sources) or None
+        images, new_stream_state, new_stream_kv = pipeline._render_stream(
+            unet_params, vae_params, pack["color"][None], pack["noise"][None], pack["id"][None],
+            stream_state, sigmas, key, ctx, nctx, stream_init=stream_init, kv_state=stream_kv,
+            cn_params=cn_params, hints=stream_hints, corresponder=corresponder,
+            step_noise=step_noise,
+        )
+        rgb = images[-1]
+        display = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+    elif run_diffusion:
         if pending is not None:
             batch = {k: torch.cat([pending[k], pack[k][None]], 0) for k in pending}
         else:
@@ -96,7 +110,7 @@ def frame_step(
         display = post_process(display, pp)
     if to_uint8:
         display = display_to_uint8(display)
-    return display, gbuf, pack, images, None, None
+    return display, gbuf, pack, images, new_stream_state, new_stream_kv
 
 
 def display_to_uint8(display: torch.Tensor) -> torch.Tensor:

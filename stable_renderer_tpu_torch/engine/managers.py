@@ -231,8 +231,8 @@ class RenderManager(Manager):
         self._pending: List[dict] = []  # accumulated frame packs for bake batching
         self._pending_indices: List[int] = []
         # the stream pipeline's state (RenderConfig.stream_pipeline and
-        # stream_kv_layers): in-flight latents and lag-1 K/V contexts. The
-        # stream program is not ported yet; on_frame_run raises before it.
+        # stream_kv_layers): in-flight latents (with hints and ids) and the
+        # lag-1 K/V contexts, carried frame to frame
         self._stream_state = None
         self._stream_kv = None
         # present pipeline: frames awaiting host readback, FIFO. Depth 1 = the
@@ -371,12 +371,9 @@ class RenderManager(Manager):
             y_cond = y_uncond = None
             pending = None
             unet_params = vae_params = None
+            cn_sources: tuple = ()
             cn_params: tuple = ()
             if run_diffusion:
-                if pipe.config.stream_pipeline:
-                    # the stream program and its state (_stream_state,
-                    # _stream_kv) plug in here
-                    raise NotImplementedError("the stream pipeline is not ported yet")
                 corresponder = dm.corresponder
                 n = len(self._pending) + 1
                 env = self._env_tuple()
@@ -392,13 +389,16 @@ class RenderManager(Manager):
                     pending = {
                         k: torch.stack([p[k] for p in self._pending]) for k in _PACK_KEYS
                     }
+                cn_sources = tuple(spec.source for _, _, spec in pipe.controlnets)
                 unet_params, vae_params, cn_params = pipe.compute_params()
 
             pp = self.post_process_params or PostProcessParams()
             have_tasks = bool(len(self.defer_tasks) or len(self.post_tasks))
 
+        use_stream = run_diffusion and pipe.config.stream_pipeline and not is_baking
+
         with self.timer.stage("dispatch"):
-            display, gbuf, pack, images, _, _ = frame_program.frame_step(
+            display, gbuf, pack, images, stream_state, stream_kv = frame_program.frame_step(
                 pipe if run_diffusion else None,
                 corresponder,
                 sprite_ids,
@@ -408,7 +408,7 @@ class RenderManager(Manager):
                 run_diffusion,
                 is_baking,
                 pp,
-                (),  # ControlNet hint sources (not ported yet)
+                cn_sources,
                 not have_tasks,  # uint8 on the device unless host tasks intervene
                 draws,
                 proj,
@@ -425,7 +425,12 @@ class RenderManager(Manager):
                 y_uncond,
                 apply_post=not have_tasks,
                 lights=lights,
+                stream_state=self._stream_state if use_stream else None,
+                stream_init=use_stream and self._stream_state is None,
+                stream_kv=self._stream_kv if use_stream else None,
             )
+        if use_stream:
+            self._stream_state, self._stream_kv = stream_state, stream_kv
         self.last_gbuffer = gbuf
 
         if have_tasks:

@@ -5,13 +5,18 @@ executor round trip, diffusionManager.py:289-352 -> execution.py). One call
 runs CLIP conditioning (cached per prompt) -> VAE encode -> CFG denoise over
 the UNet with the corresponder's hooks -> VAE decode. ``_render`` is the
 counterpart of the JAX package's jitted ``_jit_render``: PyTorch runs it
-eagerly, with model params passed in as arguments.
+eagerly, with model params passed in as arguments. ``_render_stream`` is the
+counterpart of ``_jit_render_stream``, the StreamDiffusion-style program
+(S = steps frames in flight, one batched UNet evaluation an engine frame,
+lag-1 K/V correspondence).
 
 Ported so far: the SD1.5 family from random weights, plain (non-scene)
-conditioning, the sequential program and the calibrated int8 conv path
-(``quantize_convs``). Checkpoint loading, ControlNets, scene conditioning,
-TAESD and the stream program raise until their slices are ported. The
-pipeline's tensors live on the card unless ``device`` names another device.
+conditioning, the sequential and stream programs, ControlNets
+(``add_controlnet``, ``add_random_controlnet``) and the calibrated int8 conv
+path (``quantize_convs``). Checkpoint loading, control-LoRAs, T2I-Adapters,
+scene conditioning, TAESD and the multi-device stream mesh raise until their
+slices are ported. The pipeline's tensors live on the card unless ``device``
+names another device.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from stable_renderer_tpu_torch.data.engine_data import EngineData
-from stable_renderer_tpu_torch.device import resolve_device
+from stable_renderer_tpu_torch.device import resolve_device, to_device
 from stable_renderer_tpu_torch.models.clip import (
     SD15_CLIP_CONFIG,
     TINY_CLIP_CONFIG,
@@ -30,12 +35,24 @@ from stable_renderer_tpu_torch.models.clip import (
     Tokenizer,
     encode_token_weights_batch,
 )
+from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
 from stable_renderer_tpu_torch.models.sampling import ModelSampling, calculate_sigmas, sample
 from stable_renderer_tpu_torch.models.sampling.assemble import build_denoiser
-from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, TINY_UNET_CONFIG, UNetModel
+from stable_renderer_tpu_torch.models.sampling.cfg import make_denoiser, timestep_from_sigma
+from stable_renderer_tpu_torch.models.unet import (
+    SD15_UNET_CONFIG,
+    TINY_UNET_CONFIG,
+    AttnHooks,
+    UNetModel,
+)
 from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, TINY_VAE_CONFIG, VAE
-from stable_renderer_tpu_torch.ops.correspondence import Corresponder, default_corresponder
-from stable_renderer_tpu_torch.workflow.config import RenderConfig
+from stable_renderer_tpu_torch.ops.correspondence import (
+    Corresponder,
+    default_corresponder,
+    vertex_average_injection,
+)
+from stable_renderer_tpu_torch.ops.math import resize_nearest
+from stable_renderer_tpu_torch.workflow.config import ControlNetSpec, RenderConfig
 
 
 @dataclass(eq=False)
@@ -50,11 +67,11 @@ class DiffusionPipeline:
     config: RenderConfig = field(default_factory=RenderConfig)
     model_sampling: ModelSampling = field(default_factory=ModelSampling)
     device: Optional[torch.device] = None  # None: the card
+    controlnets: List[Tuple[ControlNet, dict, ControlNetSpec]] = field(default_factory=list)
 
     def __post_init__(self) -> None:
-        cfg = self.config
-        if cfg.stream_pipeline or cfg.realtime_taesd or cfg.controlnets:
-            raise NotImplementedError("stream, TAESD and ControlNet configs are not ported yet")
+        if self.config.realtime_taesd:
+            raise NotImplementedError("TAESD (RenderConfig.realtime_taesd) is not ported yet")
         self.device = resolve_device(self.device)
         self._cond_cache: dict = {}
         self._prep_cond_cache: dict = {}
@@ -149,6 +166,76 @@ class DiffusionPipeline:
         self.vae_params = quantize_tree(self.vae_params, scales_v, min_pixels=32 * 32)
         return self
 
+    # --- ControlNets ----------------------------------------------------------
+
+    def add_controlnet(self, params: dict, spec: ControlNetSpec) -> None:
+        """Chain a ControlNet with ``params`` (the checkpoint tree under
+        ``control_model.``, as tensors on the pipeline's device)."""
+        cn = ControlNet(ControlNetConfig(unet=self.unet.config))
+        self.controlnets.append((cn, params, spec))
+
+    def add_random_controlnet(self, spec: ControlNetSpec, seed: int = 5) -> None:
+        """Chain a random ControlNet: ``ControlNet.init`` from a generator
+        seeded with ``seed`` on the pipeline's device, in the UNet's param
+        type. Its zero convs are zeros, so it adds nothing to the frame."""
+        cn = ControlNet(ControlNetConfig(unet=self.unet.config))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        dtype = self.unet_params["time_embed"]["0"]["weight"].dtype
+        self.controlnets.append((cn, cn.init(gen, dtype=dtype, device=self.device), spec))
+
+    def add_control_lora(self, control_weights: dict, spec: ControlNetSpec) -> None:
+        raise NotImplementedError("control-LoRAs wait for the checkpoint slice (ROADMAP 1.8)")
+
+    def add_t2i_adapter(self, params: dict, spec: ControlNetSpec, config=None) -> None:
+        raise NotImplementedError("the T2I-Adapter waits for the checkpoint slice (ROADMAP 1.8)")
+
+    def add_control_from_state_dict(self, flat: dict, spec: ControlNetSpec) -> None:
+        raise NotImplementedError("control checkpoints wait for the checkpoint slice (ROADMAP 1.8)")
+
+    def _make_control_fn(self, hints: tuple, cn_params=None):
+        """The per-evaluation control callable: every ControlNet's residuals,
+        summed entry by entry (chained controls, ControlBase.control_merge),
+        or None without ControlNets. ``hints`` is aligned with
+        ``self.controlnets``; each is brought to 8x the latent size (the hint
+        tower's factor). A hint does not change within a frame, so each net's
+        hint tower runs once, on the first evaluation, at the hint's own
+        batch, and its output is tiled to the cfg batch for every
+        evaluation of the frame."""
+        if not self.controlnets:
+            return None
+        total_t = self.model_sampling.num_timesteps
+        if cn_params is None:
+            cn_params = tuple(p for _, p, _ in self.controlnets)
+        guided: dict = {}  # (net index, batch) -> the tiled hint tower output
+
+        def control_fn(x_in, t, ctx):
+            total: Optional[dict] = None
+            for i, ((cn, _, spec), params, hint) in enumerate(
+                    zip(self.controlnets, cn_params, hints)):
+                g = guided.get((i, x_in.shape[0]))
+                if g is None:
+                    want = (x_in.shape[1] * 8, x_in.shape[2] * 8)
+                    if tuple(hint.shape[1:3]) != want:
+                        hint = resize_nearest(hint, want[0], want[1])
+                    g = cn.apply_hint(params, hint)
+                    reps = x_in.shape[0] // g.shape[0]
+                    g = guided[(i, x_in.shape[0])] = torch.cat([g] * reps, 0) if reps > 1 else g
+                ctl = cn.apply(params, x_in, None, t, ctx, strength=spec.strength,
+                               percent_range=(spec.start_percent, spec.end_percent),
+                               total_timesteps=total_t, guided_hint=g)
+                if total is None:
+                    total = dict(ctl)
+                    continue
+                for k, lst in ctl.items():
+                    if k not in total:
+                        total[k] = lst
+                    else:
+                        total[k] = [a if b is None else (b if a is None else a + b)
+                                    for a, b in zip(total[k], lst)]
+            return total
+
+        return control_fn
+
     # --- conditioning ---------------------------------------------------------
 
     def encode_prompts(self, prompts: List[str], negatives: List[str]):
@@ -232,10 +319,11 @@ class DiffusionPipeline:
         return result
 
     def compute_params(self):
-        """(unet_params, vae_params, cn_params) as fed to the render program.
-        The JAX package builds a TPU (HWIO) view here; the port feeds the
-        checkpoint-layout trees as they are."""
-        return self.unet_params, self.vae_params, ()
+        """(unet_params, vae_params, cn_params) as fed to the render programs,
+        ``cn_params`` aligned with ``self.controlnets``. The JAX package
+        builds a TPU (HWIO) view here; the port feeds the checkpoint-layout
+        trees as they are."""
+        return self.unet_params, self.vae_params, tuple(p for _, p, _ in self.controlnets)
 
     # --- the render program ---------------------------------------------------
 
@@ -259,10 +347,16 @@ class DiffusionPipeline:
             image_size=tuple(engine_data.color_maps.shape[1:3]),
         )
         corresponder = corresponder or default_corresponder()
+        hint_sources = {
+            "normal": engine_data.normal_maps, "depth": engine_data.depth_maps,
+            "canny": engine_data.canny_maps, "color": engine_data.color_maps,
+            "pos": engine_data.pos_maps,
+        }
+        hints = tuple(hint_sources[spec.source] for _, _, spec in self.controlnets)
         unet_params, vae_params, cn_params = self.compute_params()
         images = self._render(
             corresponder, sprite_ids, unet_params, vae_params, cn_params,
-            engine_data.color_maps, engine_data.noise_maps, engine_data.id_maps, (),
+            engine_data.color_maps, engine_data.noise_maps, engine_data.id_maps, hints,
             ctx, nctx, self.scheduler_sigmas(), key, y_cond, y_uncond,
             normal_maps=engine_data.normal_maps,
         )
@@ -277,11 +371,11 @@ class DiffusionPipeline:
     ) -> torch.Tensor:
         """VAE encode -> CFG denoise with the corresponder's hooks -> VAE
         decode, for a frame batch (N, H, W, 3) in [0, 1]. ``key`` is the
-        sampler's generator; ``step_noise`` optionally replaces its draws."""
+        sampler's generator; ``step_noise`` optionally replaces its draws.
+        ``hints`` (aligned with ``self.controlnets``) feed the ControlNets."""
         cfg = self.config
-        if sprite_ids or hints or cn_params or y_cond is not None or y_uncond is not None:
-            raise NotImplementedError("scene conditioning, ControlNet hints and ADM vectors "
-                                      "are not ported yet")
+        if sprite_ids or y_cond is not None or y_uncond is not None:
+            raise NotImplementedError("scene conditioning and ADM vectors are not ported yet")
         vae_dtype = vae_params["quant_conv"]["weight"].dtype  # kept out of int8 by the skip list
         latent = self.vae.encode(vae_params, (color * 2.0 - 1.0).to(vae_dtype)).float()
         lh, lw = latent.shape[1], latent.shape[2]
@@ -315,9 +409,141 @@ class DiffusionPipeline:
             self.unet, unet_params, cond_context=ctx, uncond_context=uncond,
             log_sigmas=log_sigmas, cfg_scale=cfg.cfg_scale,
             prediction=self.model_sampling.prediction, hooks=hooks,
+            control_fn=self._make_control_fn(hints, cn_params),
             inpaint_mask=inpaint_mask, inpaint_latent=inpaint_latent,
         )
         out_latent = sample(den, noise, sigmas, latent_image=latent, sampler=cfg.sampler,
                             generator=key, step_callback=step_cb, step_noise=step_noise)
         decoded = self.vae.decode(vae_params, out_latent.to(vae_dtype)).float()
         return torch.clamp(decoded * 0.5 + 0.5, 0.0, 1.0)
+
+    # --- the stream-pipelined realtime program ----------------------------------
+
+    def enable_stream_mesh(self, mesh, dp_axis: str = "dp", tp_axis: str = "tp"):
+        raise NotImplementedError("the multi-device stream mesh is not ported yet (ROADMAP 1.14)")
+
+    @torch.no_grad()
+    def _render_stream(
+        self, unet_params, vae_params, color, noise_maps, id_maps, state, sigmas, key, ctx,
+        nctx, stream_init: bool = False, kv_state=None, cn_params=None, hints=None,
+        corresponder=None, step_noise=None,
+    ):
+        """StreamDiffusion-style frame pipelining: S = steps frames are in
+        flight at different denoise stages, and one engine frame costs one
+        batched UNet evaluation (batch 2S with cfg).
+
+        ``state`` holds the (S, h, w, 4) latents, row i at sigma_i, or, when
+        ControlNet hints or id maps ride the stream, a dict {"x": latents,
+        "hints": per-ControlNet (S, H, W, C) stacks, "ids": (S, H, W, 4)
+        stack}, so each in-flight frame keeps its own conditioning. A call
+        pushes the new frame's noised latent (and hints and ids) in at stage
+        0, advances every stage one step and decodes the completed stage;
+        ``stream_init`` fills the S stages with the incoming frame. With
+        ``RenderConfig.stream_kv_layers``, the self-attention contexts of the
+        positive rows at those transformer indices are captured, and the
+        previous frame's stored contexts replace K and V (lag-1 K/V); with a
+        corresponder's ``step_finished_inject_ratio`` > 0 the x0 predictions
+        are vertex-averaged across the S rows, gated per row by timestep.
+
+        ``key`` is the frame's generator: the initial noise when there are no
+        noise maps, then the LCM re-noise draws, which ``step_noise`` of
+        shape (S, h, w, 4) replaces. Samplers: lcm and euler. Returns
+        (image (1, H, W, 3), new state, captured contexts or None)."""
+        cfg = self.config
+        if cfg.sampler not in ("lcm", "euler"):
+            raise NotImplementedError(f"the stream runs lcm and euler, not {cfg.sampler!r}")
+        vae_dtype = vae_params["quant_conv"]["weight"].dtype
+        latent = self.vae.encode(vae_params, (color * 2.0 - 1.0).to(vae_dtype)).float()
+        lh, lw = latent.shape[1], latent.shape[2]
+        if noise_maps is not None:
+            noise = noise_maps[..., : latent.shape[-1]]
+            if noise.shape[1:3] != (lh, lw):
+                noise = resize_nearest(noise, lh, lw)
+        elif id_maps is not None and cfg.vertex_noise:
+            raise NotImplementedError("vertex_noise is not ported yet")
+        else:
+            noise = torch.randn(latent.shape, generator=key, device=latent.device)
+        sigmas = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
+        s = sigmas.shape[0] - 1  # pipeline depth = steps
+        x_t = latent + noise * sigmas[0]  # (1, h, w, C)
+        carry_hints = bool(self.controlnets) and hints is not None
+        avg_ratio = float(getattr(corresponder, "step_finished_inject_ratio", 0.0) or 0.0)
+        carry_ids = avg_ratio > 0.0 and id_maps is not None
+        if stream_init:
+            xs = x_t.expand(s, *x_t.shape[1:])
+            hint_s = tuple(hh.expand(s, *hh.shape[1:]) for hh in hints) if carry_hints else ()
+            ids_s = id_maps.expand(s, *id_maps.shape[1:]) if carry_ids else None
+        elif isinstance(state, dict):
+            xs, hint_s, ids_s = state["x"], tuple(state.get("hints") or ()), state.get("ids")
+        else:
+            xs, hint_s, ids_s = state, (), None
+
+        kv_layers = tuple(cfg.stream_kv_layers or ())
+        if kv_state is not None and set(kv_state) != {str(layer) for layer in kv_layers}:
+            raise ValueError(
+                f"stale stream kv_state: carries layers {sorted(kv_state)} but "
+                f"RenderConfig.stream_kv_layers expects {sorted(str(x) for x in kv_layers)}; "
+                "reset the stream (pass kv_state=None) after changing stream_kv_layers")
+        captured: dict = {}
+        hooks = AttnHooks()
+        if kv_layers:
+            def kv_pre(q, k, v, layer):
+                if layer not in kv_layers:
+                    return q, k, v
+                captured[str(layer)] = k
+                if kv_state is None:
+                    return q, k, v  # first frame: self-reference
+                pk = kv_state[str(layer)].to(k.dtype)
+                return q, pk, pk
+
+            hooks = AttnHooks(pre=kv_pre)
+
+        uncond = None if cfg.cfg_scale == 1.0 else nctx
+        log_sigmas = torch.as_tensor(self.model_sampling.log_sigmas, dtype=torch.float32)
+        den = make_denoiser(
+            self.unet, unet_params, ctx[:1].expand(s, *ctx.shape[1:]),
+            None if uncond is None else uncond[:1].expand(s, *uncond.shape[1:]),
+            log_sigmas, cfg_scale=cfg.cfg_scale, prediction=self.model_sampling.prediction,
+            hooks=hooks,
+            control_fn=self._make_control_fn(hint_s, cn_params) if carry_hints else None,
+        )
+        sig_vec, sig_next = sigmas[:s], sigmas[1:s + 1]  # stage i steps sigma_i -> sigma_i+1
+        denoised = den(xs, sig_vec)
+        dev = denoised.device
+        if carry_ids:
+            # vertex averaging over the in-flight rows in x0 space (the rows
+            # sit at different sigmas); the per-row timestep gate comes from
+            # the host sigmas: no device value is read
+            injected = vertex_average_injection(
+                denoised, ids_s, avg_ratio,
+                num_segments=int(getattr(corresponder, "vertex_segments", 262144)),
+                weighting=getattr(corresponder, "weighting", "average"),
+                adain_mode=getattr(corresponder, "step_finished_adain", "content"))
+            stop_t = float(getattr(corresponder, "step_finished_stop_inject_timestep", 500.0))
+            gate = to_device(timestep_from_sigma(log_sigmas, sig_vec) >= stop_t, dev)
+            denoised = torch.where(gate[:, None, None, None], injected, denoised)
+        sv = to_device(sig_vec, dev)[:, None, None, None]
+        sn = to_device(sig_next, dev)[:, None, None, None]
+        if cfg.sampler == "lcm":
+            if step_noise is not None:
+                fresh = step_noise.to(device=dev, dtype=denoised.dtype)
+            else:
+                fresh = torch.randn(denoised.shape, generator=key, device=dev)
+            stepped = denoised + sn * fresh
+        else:  # euler
+            stepped = xs + (xs - denoised) / torch.clamp(sv, min=1e-8) * (sn - sv)
+        # the last stage's sigma is a host value: choosing the output is a
+        # host branch, not a device sync
+        out_latent = stepped[-1:] if float(sig_next[-1]) > 0 else denoised[-1:]
+        new_state = torch.cat([x_t, stepped[:-1]], 0)
+        if carry_hints or carry_ids:
+            # each conditioning row shifts with its frame
+            new_state = {
+                "x": new_state,
+                "hints": tuple(torch.cat([new, old[:-1]], 0)
+                               for new, old in zip(hints or (), hint_s)),
+                "ids": None if ids_s is None else torch.cat([id_maps, ids_s[:-1]], 0),
+            }
+        decoded = self.vae.decode(vae_params, out_latent.to(vae_dtype)).float()
+        image = torch.clamp(decoded * 0.5 + 0.5, 0.0, 1.0)
+        return image, new_state, (captured if kv_layers else None)

@@ -8,7 +8,9 @@ calculate_denoised). cond and uncond run as ONE UNet batch
 the positive rows only (attention.py:596-599).
 
 Sigmas stay on the host as 0-d f32 CPU tensors, so the per-step scalars
-(timestep, c_in, the LCM coefficients) cost no device round trip.
+(timestep, c_in, the LCM coefficients) cost no device round trip. The stream
+pipeline passes a 1-D sigma, one per row (its rows sit at different denoise
+stages); those stay host tensors too and go to the device as one small copy.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable, Optional
 
 import torch
 
+from stable_renderer_tpu_torch.device import to_device
 from stable_renderer_tpu_torch.models.unet import AttnHooks, UNetModel
 
 
@@ -59,16 +62,16 @@ def make_denoiser(
     cfg_scale: float = 7.0,
     prediction: str = "eps",
     hooks: AttnHooks = AttnHooks(),
-    control_fn: Optional[Callable] = None,
+    control_fn: Optional[Callable] = None,  # (x_in, t, batched_context) -> control dict
     mask: Optional[torch.Tensor] = None,           # (B, h, w, 1) inpaint mask (1 = denoise)
     masked_latent: Optional[torch.Tensor] = None,
 ) -> Callable:
     """Build the (x, sigma) -> denoised closure for samplers.sample().
 
     CFG: uncond + (cond - uncond) * cfg_scale (samplers.py:329-358); with
-    uncond_context=None the UNet runs cond-only."""
-    if control_fn is not None:
-        raise NotImplementedError("ControlNet residuals are not ported yet")
+    uncond_context=None the UNet runs cond-only. ``control_fn`` sees the
+    batched UNet input, timesteps and contexts; its residual dict goes into
+    ``UNetModel.apply``."""
     use_cfg = uncond_context is not None
     log_sigmas = torch.as_tensor(log_sigmas, dtype=torch.float32).cpu()
     compute_dtype = params["time_embed"]["0"]["weight"].dtype
@@ -84,7 +87,10 @@ def make_denoiser(
                 return q, k, v
             if not use_cfg:
                 return hooks.pre(q, k, v, layer)
-            qp, kp, vp = hooks.pre(q[:batch], k[:batch], v[:batch], layer)
+            qs, ks, vs = q[:batch], k[:batch], v[:batch]
+            qp, kp, vp = hooks.pre(qs, ks, vs, layer)
+            if qp is qs and kp is ks and vp is vs:
+                return q, k, v  # untouched: keeps the block's fused QKV projection
             qn, kn, vn = q[batch:], k[batch:], v[batch:]
             if kp.shape[1] != kn.shape[1]:
                 # negatives keep their own contexts, tiled to the injected length
@@ -121,11 +127,18 @@ def make_denoiser(
         return AttnHooks(pre=pre, post=post, attn=attn, mid=mid)
 
     def denoise(x: torch.Tensor, sigma) -> torch.Tensor:
-        sigma = torch.as_tensor(sigma, dtype=torch.float32)
-        if sigma.dim() != 0:
-            raise NotImplementedError("per-sample sigmas (the stream pipeline) are not ported yet")
+        sigma = torch.as_tensor(sigma, dtype=torch.float32).cpu()
         b = x.shape[0]
         t = timestep_from_sigma(log_sigmas, sigma)
+        if sigma.dim() == 1:
+            # per-sample sigmas: the stream's rows sit at different denoise
+            # stages; the per-row scalars broadcast over (h, w, C) and reach
+            # the device without a host sync
+            tb = to_device(t.repeat(2 if use_cfg else 1), x.device)
+            sigma = to_device(sigma.reshape(b, 1, 1, 1), x.device)
+            t = to_device(t.reshape(b, 1, 1, 1), x.device)
+        else:
+            tb = t.to(x.device).expand(2 * b if use_cfg else b)
         c_in = 1.0 / torch.sqrt(sigma ** 2 + 1.0)
         x_in = (x * c_in).to(compute_dtype)
         if use_cfg:
@@ -133,8 +146,9 @@ def make_denoiser(
             ctx = torch.cat([cond_context, uncond_context], 0)
         else:
             x_b, ctx = x_in, cond_context
-        tb = t.to(x.device).expand(x_b.shape[0])
-        out = unet.apply(params, x_b, tb, ctx.to(compute_dtype), hooks=wrap_hooks(b)).float()
+        ctx = ctx.to(compute_dtype)
+        control = control_fn(x_b, tb, ctx) if control_fn is not None else None
+        out = unet.apply(params, x_b, tb, ctx, control=control, hooks=wrap_hooks(b)).float()
         x32 = x.float()
         if use_cfg:
             den_c = calculate_denoised(prediction, x32, out[:b], sigma, t)

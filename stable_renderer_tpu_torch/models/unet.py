@@ -233,12 +233,15 @@ class UNetModel:
         timesteps: torch.Tensor,  # (B,) float
         context: torch.Tensor,    # (B, L, context_dim) text conditioning
         y: Optional[torch.Tensor] = None,
-        control: Optional[dict] = None,
+        control: Optional[dict] = None,  # {'input': [...], 'middle': [...], 'output': [...]}
         hooks: AttnHooks = AttnHooks(),
     ) -> torch.Tensor:
-        if y is not None or control is not None:
-            raise NotImplementedError("ADM / class conditioning and ControlNet residuals "
-                                      "are not ported yet")
+        """``control`` holds ControlNet residuals (``models/controlnet.py``):
+        ``input`` entries are added after their input block (None: none),
+        ``middle`` after the middle block, and ``output`` entries are popped
+        onto the skip connections, last first."""
+        if y is not None:
+            raise NotImplementedError("ADM / class conditioning (y) is not ported yet")
         cfg = self.config
         t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
         emb = linear(params["time_embed"]["0"], t_emb)
@@ -249,6 +252,7 @@ class UNetModel:
         layer_idx = 0
         hs = []
         h = x
+        ctrl_in = control.get("input") if control is not None else None
         for i, (kind, _, depth) in enumerate(plan_in):
             p = params["input_blocks"][str(i)]
             if kind == "conv":
@@ -260,6 +264,8 @@ class UNetModel:
                 if kind == "res_attn":
                     h, layer_idx = spatial_transformer(
                         p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks)
+            if ctrl_in is not None and i < len(ctrl_in) and ctrl_in[i] is not None:
+                h = h + ctrl_in[i].to(h.dtype)
             hs.append(h)
 
         mp = params["middle_block"]
@@ -267,10 +273,16 @@ class UNetModel:
         h, layer_idx = spatial_transformer(
             mp["1"], h, context, cfg.heads_for(h.shape[-1]), middle_depth, layer_idx, hooks)
         h = res_block(mp["2"], h, emb)
+        if control is not None and control.get("middle"):
+            h = h + control["middle"][0].to(h.dtype)
 
+        ctrl_out = list(control.get("output", [])) if control is not None else []
         for i, (kind, _, up, depth) in enumerate(plan_out):
             p = params["output_blocks"][str(i)]
-            h = torch.cat([h, hs.pop()], dim=-1)
+            skip = hs.pop()
+            if ctrl_out:
+                skip = skip + ctrl_out.pop().to(h.dtype)
+            h = torch.cat([h, skip], dim=-1)
             h = res_block(p["0"], h, emb)
             if kind == "res_attn":
                 h, layer_idx = spatial_transformer(

@@ -221,14 +221,16 @@ def test_float_routing_matches_jax(monkeypatch):
 
 
 def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None,
-                          k4_shapes: Optional[dict] = None):
-    """Run the full-width SD1.5 UNet (batch 2 at 64x64) and VAE (encode and
-    decode at 512x512) on the meta device, with K1, K3 and K4 stubbed to
-    shape-only functions, and count the K3 and K4 calls. The counts depend on
-    shapes alone, so this is what one 512x512 frame launches per UNet
-    evaluation and per VAE pass. ``shapes``, if given, gets each pass's K3
-    calls by (N, H, W, Cin, Cout, prologue); ``k4_shapes``, if given, each
-    pass's K4 calls by (N, S, C, groups, act)."""
+                          k4_shapes: Optional[dict] = None, batch: int = 2):
+    """Run the full-width SD1.5 UNet (batch ``batch`` at 64x64: 2 in the
+    sequential frame, 2S = 8 in the stream frame) and VAE (encode and decode
+    at 512x512) on the meta device, with K1, K3 and K4 stubbed to shape-only
+    functions, and count the K3 and K4 calls. The counts depend on shapes
+    alone, so this is what one 512x512 frame launches per UNet evaluation
+    and per VAE pass. ``shapes``, if given, gets each pass's K3 calls by (N,
+    H, W, Cin, Cout, prologue); ``k4_shapes``, if given, each pass's K4 calls
+    by (N, S, C, groups, act). int8 calibration records spatial sizes, which
+    the batch does not change."""
     from stable_renderer_tpu_torch.models import quant as tquant
     from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, UNetModel
     from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, VAE
@@ -261,9 +263,9 @@ def _count_frame_launches(monkeypatch, int8: bool, shapes: Optional[dict] = None
     meta, dt = torch.device("meta"), torch.bfloat16
     unet, vae = UNetModel(SD15_UNET_CONFIG), VAE(SD15_VAE_CONFIG)
     up, vp = unet.init(dtype=dt, device=meta), vae.init(dtype=dt, device=meta)
-    x = torch.empty((2, 64, 64, 4), dtype=dt, device=meta)
-    t = torch.empty((2,), device=meta)
-    ctx = torch.empty((2, 77, 768), dtype=dt, device=meta)
+    x = torch.empty((batch, 64, 64, 4), dtype=dt, device=meta)
+    t = torch.empty((batch,), device=meta)
+    ctx = torch.empty((batch, 77, 768), dtype=dt, device=meta)
     z = torch.empty((1, 64, 64, 4), dtype=dt, device=meta)
     px = torch.empty((1, 512, 512, 3), dtype=dt, device=meta)
     if int8:  # quantize_convs' policy, with the spatial sizes a calibration records
@@ -354,6 +356,52 @@ def test_int8_frame_k3_shape_classes(monkeypatch):
     assert {k[:5]: v for k, v in tally.items()} == chip_smoke.K3_INT8_FRAME_SHAPES
     assert not any(k[5] for k in tally)
     assert len(tally) == 20 and sum(tally.values()) == chip_smoke.K3_INT8_CALLS_PER_FRAME == 139
+
+
+def test_int8_stream_frame_k3_shape_classes(monkeypatch):
+    """The int8 stream frame (bench.py's default mode) runs one UNet
+    evaluation at batch 2S = 8 and the VAE once each way: u + v = 22 + 51 =
+    73 K3 launches, where the sequential frame's 139 = 4u + v; its classes
+    are chip_smoke.K3_STREAM_FRAME_SHAPES, the UNet's at batch 8."""
+    import chip_smoke
+
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    shapes = {}
+    c = _count_frame_launches(monkeypatch, int8=True, shapes=shapes, batch=8)
+    u, v = c["unet"]["k3"], c["encode"]["k3"] + c["decode"]["k3"]
+    assert (u, v) == (chip_smoke.K3_UNET_CALLS_PER_EVAL, chip_smoke.K3_VAE_CALLS_PER_FRAME)
+    assert 4 * u + v == chip_smoke.K3_INT8_CALLS_PER_FRAME
+    tally = collections.Counter()
+    for name in ("unet", "encode", "decode"):
+        tally.update({k[:5]: n for k, n in shapes[name].items()})
+    assert dict(tally) == chip_smoke.K3_STREAM_FRAME_SHAPES
+    assert sum(tally.values()) == chip_smoke.K3_STREAM_CALLS_PER_FRAME == 73
+    assert {k[0] for k in shapes["unet"]} == {8}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hint_tower_k3_routing(monkeypatch, dtype):
+    """Under the float switch, the ControlNet hint tower's last conv (256 ->
+    320 at 64x64, stride 1, batch 1: the tower runs once a frame on the
+    frame's hint) passes the float gate: K3 takes it for bf16 activations.
+    The G-buffer's hints are f32, as in the JAX package, so on the card the
+    tower runs in f32 and stays off K3, whose float mode takes bf16."""
+    from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
+
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    calls = []
+
+    def k3(x, w, bias=None, **kw):
+        calls.append(tuple(x.shape) + (w.shape[-1],))
+        return torch.empty(x.shape[:3] + (w.shape[-1],), dtype=x.dtype, device=x.device)
+
+    monkeypatch.setattr(tlayers, "conv3x3_kernel", k3)
+    meta = torch.device("meta")
+    cn = ControlNet(ControlNetConfig())
+    params = cn.init(dtype=torch.bfloat16, device=meta)
+    out = cn.apply_hint(params, torch.empty((1, 512, 512, 3), dtype=dtype, device=meta))
+    assert tuple(out.shape) == (1, 64, 64, 320)
+    assert calls == ([(1, 64, 64, 256, 320)] if dtype == torch.bfloat16 else [])
 
 
 def test_switched_frame_k3_shape_classes(monkeypatch):

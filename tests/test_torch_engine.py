@@ -606,13 +606,16 @@ def test_engine_device():
 
 
 def _stream_run():
-    from dataclasses import replace
-
+    """The stream runs a frame in production mode and carries its state; its
+    multi-device mesh is not ported."""
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.workflow.config import RenderConfig
 
-    pipe = DiffusionPipeline.from_random(tiny=True, device="cpu")
-    pipe.config = replace(pipe.config, stream_pipeline=True)  # the pipeline refuses it
-    P.Engine.Run(winSize=(16, 16), pipeline=pipe, max_frames=1)  # production mode
+    pipe = DiffusionPipeline.from_random(
+        RenderConfig(stream_pipeline=True, stream_kv_layers=(2,)), tiny=True, device="cpu")
+    eng = P.Engine.Run(winSize=(16, 16), pipeline=pipe, max_frames=1)  # production mode
+    assert eng.RenderManager._stream_state is not None and eng.RenderManager._stream_kv
+    pipe.enable_stream_mesh(None)
 
 
 def _ai_canny_dump():
