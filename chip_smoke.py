@@ -79,6 +79,34 @@ Phases, one line each; any failure exits non-zero:
                 frame_step: with their zero convs the frame equals phase 6's;
                 with them perturbed by a seeded draw it is finite and moves
                 by a mean abs above CONTROL_DIFF_FLOOR.
+ 14. bake     — BASELINE config 1 with diffusion: phase 6's pipeline through
+                Engine.Bake of scripts/bake_ball.py's scene (Sphere(1.0, 48)
+                with a CorrMapRenderer on CorrespondMap(k=3, 512x512),
+                EqualIntervalRotation 22.5 degrees a frame, camera at
+                (0, 0, 3)), DefaultCorresponder("first"), baking_interval 8,
+                16 frames: two submits of 8 frames at cfg batch 16. K1's
+                launches a submit by shape (k1_shape_tally) and in one
+                profiled submit frame, K2 one call a frame; written cells
+                grow with each submit; submit 1's map equal, exactly, to the
+                port's plain update on the CPU fed the same decoded frames
+                and id maps; one DefaultCorresponder.finished call makes no
+                host sync. The bake's K1 shapes timed.
+ 15. replay   — BASELINE config 3: the map dumped (zip), loaded back (equal
+                on the uint8 grid), and replayed by Engine.Run in GAME mode
+                without diffusion (BAKED draws): 2 warm + 8 timed frames
+                (present-to-present median, p90, fps); frame 0 within one
+                uint8 step of the same replay on the CPU wherever both drew
+                the same map cell (the pixels further apart, at raster edges
+                where the plain rasterizer and K2 pick another cell, under
+                REPLAY_EDGE_SHARE of the ball), and its ball showing the map.
+ 16. all-frames — cross_frame_attention (K1 on the batch folded into the
+                query sequence) at the level-0 shape for 16 frames
+                (65,536 tokens) and at the three folded shapes of a bake
+                submit, each against its plain version on its first, middle
+                and last frame (max abs error within K1_FOLD_REL_TOL of the
+                largest |plain output|), timed; then one bake submit
+                through frame_step with OverlapCorresponder(all_frames=True,
+                layer_range=None): K1's launches by shape, finite frames.
 Every kernel line carries its time (K1 in bf16, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
@@ -117,6 +145,11 @@ STREAM_DEPTH = 4  # S = steps frames in flight; the first S - 1 presents are the
 CONTROL_PERTURB = 0.1  # perturbed zero convs: N(0, 0.1^2 / fan-in) weights, N(0, 0.1^2) biases
 CONTROL_DIFF_FLOOR = 1e-3  # perturbed control frame vs phase 6, mean abs on [0, 1] pixels
 K1_BF16_TOL = 1e-2  # bf16 output rounding (2^-8 relative) + the plain path's bf16 softmax weights
+# all-frames attention spreads each softmax over N*L keys, so its outputs
+# shrink like sqrt(e / (N L)) (~0.0064 at 65,536 keys) and an absolute bar
+# would be as large as they are: the folded route's max abs error is held to
+# this share of the largest |plain output| instead, a few bf16 steps (2^-8)
+K1_FOLD_REL_TOL = 2e-2
 K1_F32_TOL = 1e-4   # f32: summation order only
 REF_TOL = 2e-3      # tiny f32 frame, GPU kernels vs CPU plain path (order of f32 sums)
 # K3 and K4 launches a frame, counted on the meta device by
@@ -185,6 +218,34 @@ INT8_FRAME_COS_FLOOR = 0.9  # int8 vs bf16 decoded frame: random weights push th
 # activations past their calibrated ranges (PERF.md, section 5), so the frame gets a floor only
 SWITCH_MEAN_BAR = 0.02  # switched vs unswitched frame, mean abs on [0, 1] pixels
 SWITCH_MAX_BAR = 0.25   # ... and max abs
+# the bake (scripts/bake_ball.py, BASELINE config 1): baking_interval 8 (the
+# reference's diffusionManager.py:37,47), two submits of 8 frames
+BAKE_INTERVAL = 8
+BAKE_FRAMES = 16
+BAKE_PROMPT = "a colorful beach ball, high quality"
+# K1 launches a bake submit by (BH, Lq, Lk, d): the batch-16 UNet's (8 frames x
+# cfg) 5 level-0 self-attentions x 4 steps, and the batch-8 VAE's mid-block
+# attention in encode and decode
+K1_BAKE_SHAPES = {(128, 4096, 4096, 40): 20, (8, 4096, 4096, 512): 2}
+# a bake submit with OverlapCorresponder(all_frames=True, layer_range=None):
+# the hook gets the positive rows (8 frames) of every self-attention, folded
+# into one sequence at each level (level 0: 8 x 4096 tokens, level 1: 8 x
+# 1024, level 2: 8 x 256; the middle block's 8 x 64 stays plain, under 2048),
+# 5 a level in each of 4 evaluations; the negative rows keep per-frame
+# attention, which reaches K1 at level 0 only
+K1_ALL_FRAMES_SHAPES = {(8, 32768, 32768, 40): 20, (8, 8192, 8192, 80): 20,
+                        (8, 2048, 2048, 160): 20, (64, 4096, 4096, 40): 20,
+                        (8, 4096, 4096, 512): 2}
+# cross_frame_attention rows phase 16 times: (frames, tokens a frame, heads,
+# d): the level-0 shape at N = 16 (8 frames x cfg 2), and the three folded
+# shapes of the bake submit above (N = 8 positive rows)
+CROSS_FRAME_SHAPES = [(16, 4096, 8, 40), (8, 4096, 8, 40), (8, 1024, 8, 80), (8, 256, 8, 160)]
+REPLAY_WARM = 2      # phase 15's warm replay frames
+REPLAY_TIMED = 8     # ... and timed ones (config 3: 8 frames of free playback)
+# replay frame 0 against the CPU replay: the pixels more than one uint8 step
+# apart, each in a map cell the two rasterizers chose differently, at most
+# this share of the ball's pixels
+REPLAY_EDGE_SHARE = 1e-3
 # NVIDIA H100 SXM data sheet (700 W): dense tensor-core and FMA peaks, HBM rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
@@ -315,6 +376,32 @@ def per_frame_classes(seen: collections.Counter, frames: int, prologue: bool = F
     return {k: n // frames for k, n in out.items()}
 
 
+@contextlib.contextmanager
+def k1_shape_tally():
+    """K1's launches by (BH, Lq, Lk, d) inside the ``with`` block, on the
+    card: ``ops.flash_attention._launch_bf16`` (the bf16 wrappers' one call
+    of the kernel) is wrapped to note each call's shape, and the notes must
+    add up to the wrapper's launch count over the block. Yields the Counter."""
+    from stable_renderer_tpu_torch.ops import flash_attention as fa
+
+    launch = fa._launch_bf16
+    seen = collections.Counter()
+
+    def noted(q, k, v, variant=-1):
+        seen[(q.shape[0] * q.shape[2], q.shape[1], k.shape[1], q.shape[3])] += 1
+        return launch(q, k, v, variant)
+
+    before = fa.flash_attention.launches
+    fa._launch_bf16 = noted
+    try:
+        yield seen
+    finally:
+        fa._launch_bf16 = launch
+    if sum(seen.values()) != fa.flash_attention.launches - before:
+        fail(f"K1: {sum(seen.values())} calls noted by shape, "
+             f"{fa.flash_attention.launches - before} launches")
+
+
 def bound(nbytes: float, ops: float, kind: str):
     """(ms, "bytes" | "operations"): the least time the card could take."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -334,23 +421,30 @@ def k1_bound(bh: int, lq: int, lk: int, d: int):
     return (t, "bytes") if t == t_bytes else (t, "operations")
 
 
-def _k1_case(row: dict, dt, tol: float, kernel, plain, library, k1b) -> float:
+def _k1_case(row: dict, dt, tol, kernel, plain, library, k1b, compare=None,
+             plain_repeats: int = 10) -> float:
     """Run one K1 case: the kernel against its plain version (fails past
-    tol), then for bf16 its device time by graph replay (ms), per call with
-    the host's launch cost (ms_with_host), the plain version's and the
-    library call's (SDPA) times and the bound. Fills row; returns the error."""
+    the bar), then for bf16 its device time by graph replay (ms), per call
+    with the host's launch cost (ms_with_host), the plain version's (median
+    of ``plain_repeats`` calls) and the library call's (SDPA) times and the
+    bound. The comparison is ``compare(out)`` -> (max abs err, its bar)
+    where given, else the max abs difference from ``plain()`` held to tol.
+    Fills row; returns the error."""
     import torch
 
     out = kernel()
     torch.cuda.synchronize()
-    err = (out.float() - plain().float()).abs().max().item()
-    if not math.isfinite(err) or err > tol:
-        fail(f"K1 {row['shape']}: max abs err {err:.3e} > {tol:g}")
-    row["max_abs_err"] = err
+    if compare is None:
+        err, bar = (out.float() - plain().float()).abs().max().item(), tol
+    else:
+        err, bar = compare(out)
+    if not math.isfinite(err) or err > bar:
+        fail(f"K1 {row['shape']}: max abs err {err:.3e} > {bar:.3e}")
+    row["max_abs_err"], row["err_bar"] = err, bar
     if dt == torch.bfloat16:
         row["ms"] = graph_ms(kernel)
         row["ms_with_host"] = cuda_ms(kernel, 20)
-        row["plain_ms"] = cuda_ms(plain, 10)
+        row["plain_ms"] = cuda_ms(plain, plain_repeats)
         row["library_ms"] = graph_ms(library)
         row["bound_ms"], row["bound_by"] = k1b
     return err
@@ -431,32 +525,44 @@ def bench_matrices(frame: int):
     return (view @ model).astype(np.float32), perspective(45.0, 1.0, 0.1, 100.0).numpy()
 
 
-def run_engine(pipe, size: int, frames: int, corr, on_frame=None):
-    """The bench scene (bench.py:227-236) through the port's ``Engine.Run``
-    with ``debug=True``; ``on_frame(engine, "begin" | "end")`` runs at each
-    frame's beforeFrameBegin and beforeFrameEnd. Returns the engine and its
-    presents as (host time, frame index, uint8 frame)."""
+def bench_scene():
+    """The bench scene (bench.py:227-236): camera at (0, 0.5, 3) looking at
+    the origin, a 48-segment sphere turned 4 degrees a frame. Returns the
+    Camera component and the ball's GameObject."""
     from stable_renderer_tpu_torch.engine import (
         AutoRotation,
         Camera,
-        Engine,
         GameObject,
         Mesh,
         MeshRenderer,
         SpriteInfo,
     )
 
-    class BenchApp(Engine):
+    cam = GameObject("camera")
+    camera = cam.addComponent(Camera)
+    camera.env_prompt.prompt = "a ball"
+    cam.transform.position = [0.0, 0.5, 3.0]
+    cam.transform.lookAt([0.0, 0.0, 0.0])
+    ball = GameObject("ball")
+    ball.addComponent(SpriteInfo, prompt="a shiny ball")
+    ball.addComponent(MeshRenderer, mesh=Mesh.Sphere(1.0, 48))
+    ball.addComponent(AutoRotation, speed_deg=4.0)
+    return camera, ball
+
+
+def run_engine(pipe, size: int, frames: int, corr, on_frame=None, scene=bench_scene,
+               bake: bool = False, **kw):
+    """``scene()`` (bench.py's by default) through the port's Engine.Bake
+    (``bake``) or Engine.Run with ``debug=True``, its result kept as the
+    engine's ``scene``; ``on_frame(engine, "begin" | "end")`` runs at each
+    frame's beforeFrameBegin and beforeFrameEnd; ``kw`` goes to the engine.
+    Returns the engine and its presents as (host time, frame index, uint8
+    frame)."""
+    from stable_renderer_tpu_torch.engine import Engine
+
+    class App(Engine):
         def beforePrepare(self):
-            cam = GameObject("camera")
-            self.cam = cam.addComponent(Camera)
-            self.cam.env_prompt.prompt = "a ball"
-            cam.transform.position = [0.0, 0.5, 3.0]
-            cam.transform.lookAt([0.0, 0.0, 0.0])
-            self.ball = GameObject("ball")
-            self.ball.addComponent(SpriteInfo, prompt="a shiny ball")
-            self.ball.addComponent(MeshRenderer, mesh=Mesh.Sphere(1.0, 48))
-            self.ball.addComponent(AutoRotation, speed_deg=4.0)
+            self.scene = scene()
 
         def beforeFrameBegin(self):
             if on_frame is not None:
@@ -468,9 +574,9 @@ def run_engine(pipe, size: int, frames: int, corr, on_frame=None):
 
     presented = []
     Engine._reset()
-    eng = BenchApp.Run(winSize=(size, size), pipeline=pipe, corresponder=corr, max_frames=frames,
-                       debug=True, frame_callback=lambda f, i: presented.append(
-                           (time.perf_counter(), i, f)))
+    eng = (App.Bake if bake else App.Run)(
+        winSize=(size, size), pipeline=pipe, corresponder=corr, max_frames=frames, debug=True,
+        frame_callback=lambda f, i: presented.append((time.perf_counter(), i, f)), **kw)
     return eng, presented
 
 
@@ -1162,8 +1268,9 @@ def main() -> None:
             rm = eng.RenderManager
             if when == "begin":  # the model matrix frame 0 draws with: MeshRenderer
                 # submits its draw before AutoRotation turns the ball
-                first["mats"] = (eng.cam.viewMatrix @ eng.ball.transform.globalTransformMatrix,
-                                 eng.cam.projectionMatrix(1.0))
+                cam, ball = eng.scene
+                first["mats"] = (cam.viewMatrix @ ball.transform.globalTransformMatrix,
+                                 cam.projectionMatrix(1.0))
             else:
                 first.update(images=rm.last_diffusion_frames.float().clone(),
                              bg=rm.GlobalBGNoise)
@@ -1387,14 +1494,408 @@ def main() -> None:
                 shape + (mode == "bf16+prologue",), 0)}
     del pipe_cn
 
+    # --- 14-16. the bake, its replay and all-frames attention ------------------------
+    bake = bake_phases(pipe, dev, card, k1, k2)
+
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
                       "stream_frame_step_ms": st_ms, "control_frame_ms": cn_ms,
                       "host_syncs_a_frame": frame_syncs,
-                      "engine_frame_ms": engine_ms,
+                      "engine_frame_ms": engine_ms, **bake,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
+
+
+def bake_scene(cmap, frames_a_turn: int = 16, interval: int = 1, prompt: str = BAKE_PROMPT):
+    """scripts/bake_ball.py's scene (and corrmap_render_example.py's): the
+    camera at (0, 0, 3), a 48-segment sphere with a CorrMapRenderer on
+    ``cmap``, turned 360 / frames_a_turn degrees every ``interval`` frames."""
+    from stable_renderer_tpu_torch.engine import (
+        Camera,
+        CorrMapRenderer,
+        EqualIntervalRotation,
+        GameObject,
+        Mesh,
+        SpriteInfo,
+    )
+
+    cam = GameObject("camera")
+    cam.addComponent(Camera)
+    cam.transform.position = [0.0, 0.0, 3.0]
+    ball = GameObject("ball")
+    ball.addComponent(SpriteInfo, prompt=prompt)
+    ball.addComponent(CorrMapRenderer, mesh=Mesh.Sphere(1.0, 48), corrmaps=[cmap])
+    ball.addComponent(EqualIntervalRotation, angle_deg=360.0 / frames_a_turn, interval=interval)
+
+
+def _cross_frame_case(row: dict, n: int, l: int, heads: int, d: int, gen) -> None:
+    """cross_frame_attention on the UNet's fused-QKV chunk views (n, l, 3 *
+    heads * d), bf16, through ``_k1_case``: held to its plain version on the
+    first, middle and last frame (a frame at a time: the dense form's logits
+    need not fit), the largest error within K1_FOLD_REL_TOL of the smallest
+    of those frames' largest |output|; the plain version timed over all n
+    frames, SDPA on the folded (1, heads, n l, d) views. Fills row."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_renderer_tpu_torch.parallel.ring_attention import (
+        cross_frame_attention,
+        cross_frame_attention_reference,
+    )
+
+    qkv = torch.randn((n, l, 3 * heads * d), generator=gen, device=gen.device).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+
+    def compare(out):
+        errs, peaks = [], []
+        for i in sorted({0, n // 2, n - 1}):
+            ref = cross_frame_attention_reference(q[i:i + 1], k, v, heads).float()
+            errs.append((out[i:i + 1].float() - ref).abs().max().item())
+            peaks.append(ref.abs().max().item())
+            del ref
+        return max(errs), K1_FOLD_REL_TOL * min(peaks)
+
+    fold = [t.reshape(1, n * l, heads, d).transpose(1, 2) for t in (q, k, v)]
+    _k1_case(row, torch.bfloat16, None, lambda: cross_frame_attention(q, k, v, heads),
+             lambda: [cross_frame_attention_reference(q[i:i + 1], k, v, heads)
+                      for i in range(n)],
+             lambda: F.scaled_dot_product_attention(*fold), k1_bound(heads, n * l, n * l, d),
+             compare=compare, plain_repeats=2)
+
+
+def bake_phases(pipe, dev, card: str, k1: dict, k2: dict) -> dict:
+    """Phases 14-16: the bake (BASELINE config 1) through Engine.Bake, its
+    replay (config 3) through Engine.Run, and all-frames attention. Adds the
+    new K1 rows to ``k1`` and the bake's launches to ``k1`` and ``k2``;
+    returns the numbers for the summary line."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from stable_renderer_tpu_torch.data.corrmap import CorrespondMap
+    from stable_renderer_tpu_torch.data.engine_data import EngineData
+    from stable_renderer_tpu_torch.data.sprite import EnvPrompt, Sprite
+    from stable_renderer_tpu_torch.engine.frame_program import frame_step
+    from stable_renderer_tpu_torch.engine.mesh import Mesh
+    from stable_renderer_tpu_torch.engine.render_exec import mesh_device_buffers
+    from stable_renderer_tpu_torch.ops.correspondence import (
+        DefaultCorresponder,
+        OverlapCorresponder,
+    )
+    from stable_renderer_tpu_torch.ops.flash_attention import (
+        attention_pallas,
+        flash_attention,
+        flash_attention_reference,
+    )
+    from stable_renderer_tpu_torch.ops.gbuffer import RENDER_MODE_BAKING, DrawUniforms
+    from stable_renderer_tpu_torch.ops.postprocess import PostProcessParams
+    from stable_renderer_tpu_torch.ops.raster_kernel import rasterize_kernel
+    from stable_renderer_tpu_torch.ops.transforms import look_at, perspective, quat_to_matrix
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    # --- 14. the bake: BASELINE config 1 with diffusion ------------------------------
+    cmap = CorrespondMap(name="bake_ball", k=3, height=SIZE, width=SIZE)
+    corr = DefaultCorresponder(update_corrmap_mode="first")
+    rec = {"written": []}
+
+    def recording_finished(engine_data, images):
+        """The stock finished, recording submit 1's inputs and the map after
+        it, and each submit's written count (on the device, no host sync)."""
+        first = "ids" not in rec
+        if first:
+            rec.update(ids=engine_data.id_maps.clone(), images=images.clone(),
+                       frames=engine_data.frame_indices.tolist(),
+                       keys=list(engine_data.correspond_maps))
+        DefaultCorresponder.finished(corr, engine_data, images)
+        rec["written"].append(cmap.written.sum())
+        if first:
+            rec["after"] = (cmap.values.clone(), cmap.written.clone())
+
+    corr.finished = recording_finished
+    stamps = {}
+
+    def on_bake_frame(eng, when):
+        fc = eng.RuntimeManager.FrameCount
+        if fc == 0 and when == "end":  # the ball's coverage in frame 0's view
+            rec["cover0"] = eng.RenderManager.last_gbuffer.id[..., 0] != 0
+        if (when, fc) in (("begin", BAKE_INTERVAL), ("begin", BAKE_FRAMES - 1),
+                          ("end", BAKE_FRAMES - 1)):
+            torch.cuda.synchronize()
+            stamps[(when, fc)] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = rasterize_kernel.launches = 0
+    t0 = time.perf_counter()
+    with k1_shape_tally() as seen:
+        eng, _ = run_engine(pipe, SIZE, BAKE_FRAMES, corr, on_bake_frame,
+                            lambda: bake_scene(cmap), bake=True, baking_interval=BAKE_INTERVAL)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    bake_mem = torch.cuda.max_memory_allocated()
+    k2_bake = rasterize_kernel.launches
+    submits = BAKE_FRAMES // BAKE_INTERVAL
+    k1_submit = {key: n // submits for key, n in seen.items()}
+    if any(n % submits for n in seen.values()) or k1_submit != K1_BAKE_SHAPES:
+        fail(f"bake: K1 launches by shape over {submits} submits {dict(seen)}, want "
+             f"{K1_BAKE_SHAPES} a submit")
+    if k2_bake != BAKE_FRAMES or eng.Mode.name != "BAKE":
+        fail(f"bake: K2 {k2_bake} calls in {BAKE_FRAMES} frames, mode {eng.Mode.name}")
+    if rec["frames"] != list(range(BAKE_INTERVAL)) or len(rec["written"]) != submits:
+        fail(f"bake: submit 1 held frames {rec['frames']}, {len(rec['written'])} submits")
+    written = [int(w) for w in rec["written"]]
+    if not 0 < written[0] < written[1] or cmap.values.device != dev:
+        fail(f"bake: written cells after each submit {written} (must grow), map on "
+             f"{cmap.values.device}")
+    if not torch.isfinite(cmap.values).all():
+        fail("bake: non-finite map values")
+    # submit 1's map against the port's plain update on the CPU, fed the same
+    # decoded frames and id maps: exact in "first" mode
+    cpu_map = CorrespondMap(k=3, height=SIZE, width=SIZE, device="cpu")
+    DefaultCorresponder(update_corrmap_mode="first").finished(
+        EngineData(frame_indices=torch.arange(BAKE_INTERVAL), id_maps=rec["ids"].cpu(),
+                   correspond_maps={rec["keys"][0]: cpu_map}), rec["images"].cpu())
+    same_map = (torch.equal(cpu_map.values, rec["after"][0].cpu())
+                and torch.equal(cpu_map.written, rec["after"][1].cpu()))
+    if not same_map:
+        fail(f"bake: submit 1's map differs from the CPU plain update: values max abs "
+             f"{(cpu_map.values - rec['after'][0].cpu()).abs().max().item():.3e}, written "
+             f"differ in {(cpu_map.written != rec['after'][1].cpu()).sum().item()} cells")
+    # one finished call on a scratch map: no host sync, and its device time
+    scratch = CorrespondMap(k=3, height=SIZE, width=SIZE, device=dev)
+    ed = EngineData(frame_indices=torch.arange(BAKE_INTERVAL), id_maps=rec["ids"],
+                    correspond_maps={rec["keys"][0]: scratch})
+    fin = DefaultCorresponder(update_corrmap_mode="first")
+    syncs = host_syncs(lambda: fin.finished(ed, rec["images"]))
+    if syncs:
+        fail(f"bake: DefaultCorresponder.finished synchronized the host: {syncs}")
+    update_ms = cuda_ms(lambda: fin.finished(ed, rec["images"]), 5)
+    submit_ms = (stamps[("end", BAKE_FRAMES - 1)] - stamps[("begin", BAKE_FRAMES - 1)]) * 1e3
+    steady_fps = (BAKE_FRAMES - BAKE_INTERVAL) / (
+        stamps[("end", BAKE_FRAMES - 1)] - stamps[("begin", BAKE_INTERVAL)])
+    # one more submit, its frame profiled after a warm (accumulating) frame
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=BAKE_INTERVAL - 2, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        def on_prof_frame(eng_, when):
+            if when == "end":
+                torch.cuda.synchronize()
+                prof.step()
+
+        run_engine(pipe, SIZE, BAKE_INTERVAL, DefaultCorresponder(update_corrmap_mode="first"),
+                   on_prof_frame, lambda: bake_scene(CorrespondMap(k=3, height=SIZE, width=SIZE)),
+                   bake=True, baking_interval=BAKE_INTERVAL)
+    kernels = [e for e in prof.events()
+               if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+    names = [e.name for e in kernels]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    k1_ms = sum(e.time_range.elapsed_us() for e in kernels if "flash_" in e.name) / 1e3
+    prof_counts = {"flash_wg": sum("flash_wg" in n_ for n_ in names),
+                   "flash_wide": sum("flash_wide" in n_ for n_ in names),
+                   "raster_setup": sum("raster_setup" in n_ for n_ in names),
+                   "raster_binned": sum("raster_binned" in n_ for n_ in names)}
+    prof_want = {"flash_wg": sum(n for key, n in K1_BAKE_SHAPES.items() if key[3] <= 64),
+                 "flash_wide": sum(n for key, n in K1_BAKE_SHAPES.items() if key[3] > 64),
+                 "raster_setup": 1, "raster_binned": 1}
+    if prof_counts != prof_want:
+        fail(f"bake: the profiled submit frame launched {prof_counts}, want {prof_want}")
+    k1.setdefault("launches_engine", {})["bake"] = sum(seen.values())
+    k2.setdefault("launches_engine", {})["bake"] = BAKE_FRAMES
+    k1["launches_a_frame"]["bake submit"] = sum(k1_submit.values())
+    # the bake's K1 shapes, timed: the UNet's on its fused-QKV chunk views
+    # (batch 16, 8 heads), the VAE's (batch 8, one head of 512)
+    for bh, l, _, d in K1_BAKE_SHAPES:
+        vae = d == 512  # the VAE's one head of 512 on separate q, k, v; the UNet's 8 heads
+        label = "bake VAE" if vae else "bake UNet, fused-QKV views"
+        heads = 1 if vae else 8
+        b = bh // heads
+        if not vae:
+            qkv = torch.randn((b, l, 3 * heads * d), generator=gen, device=dev).to(torch.bfloat16)
+            q, k, v = qkv.chunk(3, dim=-1)
+        else:
+            q, k, v = (torch.randn((b, l, d), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+        split = [t.unflatten(-1, (heads, d)).transpose(1, 2) for t in (q, k, v)]
+        row = {"shape": f"attention_pallas b={b} l={l} heads={heads} d={d} bf16 {label}",
+               "launches_a_submit": K1_BAKE_SHAPES[(bh, l, l, d)]}
+        _k1_case(row, torch.bfloat16, K1_BF16_TOL, lambda: attention_pallas(q, k, v, heads),
+                 lambda: flash_attention_reference(*split).transpose(1, 2).reshape(
+                     b, l, heads * d),
+                 lambda: F.scaled_dot_product_attention(*split), k1_bound(bh, l, l, d))
+        k1["shapes"].append(row)
+        print(f"[14 K1] {row}", flush=True)
+        del q, k, v, split
+    out["bake"] = {"submit_ms": submit_ms, "steady_frames_per_s": steady_fps, "run_s": bake_s,
+                   "profiled_submit_device_ms": device_ms, "profiled_submit_k1_ms": k1_ms,
+                   "busy_share": device_ms / submit_ms,
+                   "corrmap_update_ms": update_ms, "peak_memory_gib": bake_mem / 2**30,
+                   "written_after_submits": written, "k1_a_submit": {
+                       str(key): n for key, n in k1_submit.items()}}
+    print(f"[14 bake] Engine.Bake of bake_ball's scene at {SIZE}x{SIZE}, SD1.5 widths bf16, "
+          f"4-step LCM cfg 2.0, DefaultCorresponder('first'), CorrespondMap(k=3, {SIZE}x{SIZE}): "
+          f"{BAKE_FRAMES} frames in {bake_s:.2f} s, {submits} submits of {BAKE_INTERVAL}; "
+          f"submit frame {submit_ms:.1f} ms (the second), steady {steady_fps:.2f} frames/s over "
+          f"frames {BAKE_INTERVAL}-{BAKE_FRAMES - 1}; one finished() "
+          f"(the corrmap update of {BAKE_INTERVAL} frames) {update_ms:.2f} ms, no host sync; "
+          f"written cells after each submit {written}; submit 1's map equal to the CPU plain "
+          f"update (exact); K1 a submit by (BH, Lq, Lk, d) {k1_submit}, K2 "
+          f"{k2_bake} calls; profiled submit frame {prof_counts}, its kernels {device_ms:.1f} ms "
+          f"(K1 {k1_ms:.1f}), busy share {device_ms / submit_ms:.3f} of the timed submit; peak memory "
+          f"{bake_mem / 2**30:.2f} GiB | {card}", flush=True)
+
+    # --- 15. replay: BASELINE config 3 ------------------------------------------------
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="smoke_corrmap_", dir=build))
+    zpath = cmap.dump(work, zip=True)
+    loaded = CorrespondMap.Load(zpath)
+    # the uint8 grid as dump and Load define it, in numpy on the host
+    grid = np.clip(255.0 * cmap.values.cpu().numpy(), 0, 255).astype(np.uint8)
+    grid = torch.from_numpy(grid.astype(np.float32) / 255.0)
+    if loaded.values.device != dev or not (torch.equal(loaded.values.cpu(), grid)
+                                          and torch.equal(loaded.written, cmap.written)):
+        fail(f"replay: dump/Load round trip differs from the map on the uint8 grid (on "
+             f"{loaded.values.device}): values max abs "
+             f"{(loaded.values.cpu() - grid).abs().max().item():.3e}")
+    n_replay = REPLAY_WARM + REPLAY_TIMED + PRESENT_DEPTH
+    cells = {}
+
+    def keep_cells(label: str):
+        """An on_frame hook keeping frame 0's G-buffer (map index, vertex
+        id), which map cell each pixel drew, as cells[label]."""
+        def hook(eng_, when):
+            if when == "end" and eng_.RuntimeManager.FrameCount == 0:
+                cells[label] = eng_.RenderManager.last_gbuffer.id[..., 2:].cpu()
+        return hook
+
+    torch.cuda.synchronize()
+    flash_attention.launches = rasterize_kernel.launches = 0
+    eng, presented = run_engine(
+        None, SIZE, n_replay, None, keep_cells("card"),
+        lambda: bake_scene(loaded, frames_a_turn=n_replay, prompt=""), disableComfyUI=True)
+    if (eng.device.type != "cuda" or eng.Mode.name != "GAME" or flash_attention.launches
+            or rasterize_kernel.launches != n_replay
+            or [i for _, i, _ in presented] != list(range(n_replay))):
+        fail(f"replay: device {eng.device}, mode {eng.Mode.name}, K1 {flash_attention.launches}, "
+             f"K2 {rasterize_kernel.launches} calls, presented {[i for _, i, _ in presented]}")
+    stamps_r = [t for t, _, _ in presented[REPLAY_WARM - 1:REPLAY_WARM + REPLAY_TIMED]]
+    gaps = sorted((b - a) * 1e3 for a, b in zip(stamps_r, stamps_r[1:]))
+    r_ms = statistics.median(gaps)
+    r_p90 = statistics.quantiles(gaps, n=10, method="inclusive")[-1]
+    frame0 = torch.from_numpy(presented[0][2])
+    # the same replay on the CPU: the map loaded there, the plain rasterizer
+    loaded_cpu = CorrespondMap.Load(zpath, device="cpu")
+    t0 = time.perf_counter()
+    _, cpu_frames = run_engine(
+        None, SIZE, 1, None, keep_cells("cpu"),
+        lambda: bake_scene(loaded_cpu, frames_a_turn=n_replay, prompt=""), disableComfyUI=True,
+        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diff = (frame0.int() - torch.from_numpy(cpu_frames[0][2]).int()).abs()
+    over = (diff > 1).any(-1)
+    same_cell = (cells["card"] == cells["cpu"]).all(-1)
+    cover = rec["cover0"].cpu()
+    written_px = (frame0[..., 3] > 0) & cover
+    pink = ((frame0[..., 0] == 255) & (frame0[..., 1] == 0) & (frame0[..., 2] == 255)) & cover
+    replay_check = {"max_abs_diff": int(diff.max()), "pixels_over_one_step": int(over.sum()),
+                    "over_one_step_in_the_same_cell": int((over & same_cell).sum()),
+                    "cells_differ_share": float((~same_cell).float().mean()),
+                    "ball_pixels": int(cover.sum()),
+                    "ball_written_share": float(written_px.sum() / cover.sum()),
+                    "ball_pink_share": float(pink.sum() / cover.sum())}
+    if frame0.shape != (SIZE, SIZE, 4) or frame0.dtype != torch.uint8:
+        fail(f"replay: frame 0 is {tuple(frame0.shape)} {frame0.dtype}")
+    # within one uint8 step wherever both replays drew the same map cell;
+    # where the plain rasterizer and K2 differ at an edge (phase 4) a pixel
+    # may draw another cell, and those pixels are few
+    if (replay_check["over_one_step_in_the_same_cell"]
+            or replay_check["pixels_over_one_step"] > REPLAY_EDGE_SHARE * cover.sum()):
+        fail(f"replay: frame 0 differs from the CPU replay by more than one uint8 step: "
+             f"{replay_check}")
+    # the ball shows the map: not the pink of a draw without one, and more than
+    # one color (its written share is reported: the BAKED lookup reads the
+    # cell at the reference's swapped uv axes, ops/gbuffer.py, which other
+    # views than frame 0's wrote)
+    colors = len(torch.unique(frame0[cover][:, :3], dim=0))
+    replay_check["ball_colors"] = colors
+    if not (replay_check["ball_pink_share"] < 0.5 and replay_check["ball_written_share"] > 0
+            and colors > 100):
+        fail(f"replay: frame 0's ball does not show the map: {replay_check}")
+    out["replay"] = {"median_ms": r_ms, "p90_ms": r_p90, "fps": 1e3 / r_ms, "gaps_ms": gaps,
+                     "cpu_frame_s": cpu_s, **replay_check}
+    print(f"[15 replay] dump (zip) -> Load round trip equal on the uint8 grid; Engine.Run GAME "
+          f"mode, disableComfyUI, {n_replay} BAKED frames at {SIZE}x{SIZE}: present-to-present "
+          f"median {r_ms:.2f} ms ({1e3 / r_ms:.1f} fps), p90 {r_p90:.2f} ms over "
+          f"{REPLAY_TIMED} frames after {REPLAY_WARM} warm; K2 {n_replay} calls, no K1; frame 0 "
+          f"vs the CPU replay ({cpu_s:.1f} s): {replay_check} | {card}", flush=True)
+    del loaded, loaded_cpu, cmap
+
+    # --- 16. all-frames attention --------------------------------------------------
+    for n, l, heads, d in CROSS_FRAME_SHAPES:
+        row = {"shape": f"cross_frame_attention n={n} l={l} heads={heads} d={d} bf16 "
+                        f"(K1 bh={heads} lq=lk={n * l})"}
+        if n == BAKE_INTERVAL:
+            row["launches_a_submit"] = K1_ALL_FRAMES_SHAPES[(heads, n * l, n * l, d)]
+        _cross_frame_case(row, n, l, heads, d, gen)
+        k1["shapes"].append(row)
+        print(f"[16 all-frames] {row}", flush=True)
+    # one bake submit through frame_step: 7 accumulated frames and the 8th
+    view = look_at([0.0, 0.0, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]).numpy()
+    proj = perspective(45.0, 1.0, 0.1, 100.0).numpy()
+    sphere = Mesh.Sphere(1.0, 48)
+    sigs = ((DrawUniforms(sprite_id=1, material_id=1, render_mode=RENDER_MODE_BAKING,
+                          use_texcoord_as_id=True), (SIZE, SIZE), None, None),)
+    sprites = {1: Sprite(spriteID=1, prompt=BAKE_PROMPT)}
+    _, ctx, nctx, _, _ = pipe.prepare_conditioning(sprites, (EnvPrompt(""),), BAKE_INTERVAL)
+    bg = torch.randn((1, SIZE, SIZE, 4), generator=gen, device=dev)
+    corr_af = OverlapCorresponder(all_frames=True, layer_range=None, update_corrmap=False)
+
+    def bake_frame(f: int, pending=None):
+        half = math.radians(360.0 / 16 * f) / 2.0
+        model = quat_to_matrix([math.cos(half), 0.0, math.sin(half), 0.0]).numpy()
+        draws = (dict(buffers=mesh_device_buffers(sphere, dev), mv=view @ model, diffuse=None,
+                      noise=None, corrmap=None),)
+        key = torch.Generator(device=dev).manual_seed(pipe.config.seed + f)
+        return frame_step(pipe, corr_af, (), sigs, SIZE, SIZE, pending is not None, True,
+                          PostProcessParams(), (), True, draws, proj, bg, pending, ctx, nctx,
+                          pipe.scheduler_sigmas(), key, *pipe.compute_params())
+
+    packs = [bake_frame(f)[2] for f in range(BAKE_INTERVAL - 1)]
+    pending = {k_: torch.stack([p[k_] for p in packs]) for k_ in packs[0]}
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(2):
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with k1_shape_tally() as seen_af:
+            disp, _, _, images, _, _ = bake_frame(BAKE_INTERVAL - 1, pending)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if dict(seen_af) != K1_ALL_FRAMES_SHAPES:
+            fail(f"all-frames submit: K1 launches by (BH, Lq, Lk, d) {dict(seen_af)}, want "
+                 f"{K1_ALL_FRAMES_SHAPES}")
+        if tuple(images.shape) != (BAKE_INTERVAL, SIZE, SIZE, 3) or not (
+                torch.isfinite(images).all() and torch.isfinite(disp.float()).all()):
+            fail(f"all-frames submit: images {tuple(images.shape)}, finite "
+                 f"{bool(torch.isfinite(images).all())}")
+    af_mem = torch.cuda.max_memory_allocated()
+    k1["launches_a_frame"]["all-frames bake submit"] = sum(seen_af.values())
+    out["all_frames"] = {"submit_ms": times[-1], "first_submit_ms": times[0],
+                         "peak_memory_gib": af_mem / 2**30,
+                         "k1_a_submit": {str(key): n for key, n in seen_af.items()}}
+    print(f"[16 all-frames] a bake submit of {BAKE_INTERVAL} frames through frame_step with "
+          f"OverlapCorresponder(all_frames=True, layer_range=None): {times[-1]:.1f} ms (first "
+          f"{times[0]:.1f} ms), finite {tuple(images.shape)} frames; K1 a submit by (BH, Lq, "
+          f"Lk, d) {dict(seen_af)}; peak memory {af_mem / 2**30:.2f} GiB | {card}", flush=True)
+    return out
 
 
 def perturbed_controlnet(pipe, spec, seed: int) -> None:

@@ -2,8 +2,6 @@
 the frame program, draw execution, meshes and the diffusion pipeline.
 
 Counterpart of stable_renderer_tpu/engine/__init__.py, with the same names.
-CorrMapRenderer imports, and raises when attached, until the CorrespondMap is
-ported.
 """
 
 from stable_renderer_tpu_torch.engine.mesh import Mesh

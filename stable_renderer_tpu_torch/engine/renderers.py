@@ -8,9 +8,6 @@ components/light/light.py:13-80). Each frame they submit DrawCalls (arrays +
 uniforms) into the RenderManager's sorted queue — draw order encodes opaque
 near-to-far / transparent far-to-near exactly like the reference's
 order = render_order -/+ 1/cam_z.
-
-CorrMapRenderer needs the CorrespondMap (data/corrmap.py), which is not ported
-yet: it imports, and raises when attached.
 """
 
 from __future__ import annotations
@@ -20,12 +17,18 @@ from typing import List, Optional
 
 import numpy as np
 
+from stable_renderer_tpu_torch.data.corrmap import CorrespondMap
 from stable_renderer_tpu_torch.data.sprite import Sprite
 from stable_renderer_tpu_torch.engine.gameobj import Component
-from stable_renderer_tpu_torch.engine.material import Material, RenderOrder
+from stable_renderer_tpu_torch.engine.material import DefaultTextureType, Material, RenderOrder
 from stable_renderer_tpu_torch.engine.mesh import Mesh
 from stable_renderer_tpu_torch.engine.texture import Texture
-from stable_renderer_tpu_torch.ops.gbuffer import RENDER_MODE_NORMAL, DrawUniforms
+from stable_renderer_tpu_torch.ops.gbuffer import (
+    RENDER_MODE_BAKED,
+    RENDER_MODE_BAKING,
+    RENDER_MODE_NORMAL,
+    DrawUniforms,
+)
 
 
 @dataclass
@@ -39,7 +42,7 @@ class DrawCall:
     order: float = 0.0
     diffuse: Optional[Texture] = None
     noise: Optional[Texture] = None
-    corrmap: Optional[object] = None  # a CorrespondMap (not ported yet)
+    corrmap: Optional[CorrespondMap] = None
     shader: Optional[object] = None  # engine/shader.py Shader (None = fixed)
 
 
@@ -122,13 +125,79 @@ class SpriteInfo(Component):
 
 class CorrMapRenderer(Component):
     """AI-object renderer (corrmap_renderer.py:43-192): draws with renderMode
-    BAKING (bake mode) or BAKED (replay from the corrmap) and submits its
-    CorrespondMap into the frame's EngineData. The CorrespondMap
-    (data/corrmap.py) is not ported yet, so attaching one raises."""
+    BAKING (bake mode) or BAKED (replay from the corrmap), auto-attaches a noise
+    texture, and submits its CorrespondMap into the frame's EngineData. Each
+    map moves to the engine's device with the resources' prepare pass."""
 
-    def __init__(self, game_object, *args, **kwargs):
-        raise NotImplementedError("CorrMapRenderer needs the CorrespondMap (data/corrmap.py), "
-                                  "which is not ported yet")
+    def __init__(self, game_object, mesh: Mesh | None = None,
+                 corrmaps: List[CorrespondMap] | None = None,
+                 materials: List[Material] | None = None,
+                 use_texcoord_id: bool = True,
+                 auto_noise_map_if_not_exist: bool = True):
+        super().__init__(game_object)
+        self.mesh = mesh
+        self.corrmaps = corrmaps or []
+        self.materials = materials or [Material.DefaultOpaqueMaterial()]
+        self.use_texcoord_id = use_texcoord_id
+        self.auto_noise_map_if_not_exist = auto_noise_map_if_not_exist
+        from stable_renderer_tpu_torch.engine.resources import CorrMapResource
+
+        self._corrmap_resources = [CorrMapResource(c) for c in self.corrmaps]
+
+    def start(self):
+        for i, mat in enumerate(self.materials):
+            if i >= len(self.corrmaps):
+                break
+            if not mat.hasDefaultTexture(DefaultTextureType.CorrespondMap):
+                mat.addDefaultTexture(self.corrmaps[i], DefaultTextureType.CorrespondMap)
+            if (
+                not mat.hasDefaultTexture(DefaultTextureType.Noise)
+                and self.auto_noise_map_if_not_exist
+            ):
+                mat.addDefaultTexture(Texture.CreateNoiseTex(), DefaultTextureType.Noise)
+
+    @property
+    def spriteID(self) -> Optional[int]:
+        info = self.gameObj.getComponent(SpriteInfo)
+        return info.sprite.spriteID if info else None
+
+    def update(self):
+        from stable_renderer_tpu_torch.engine.camera import Camera
+        from stable_renderer_tpu_torch.engine.engine import EngineMode
+
+        if self.mesh is None or not self.corrmaps or self.spriteID is None:
+            return
+        cam = Camera.MainCamera()
+        cam_z = 1.0
+        if cam is not None:
+            cam_z = -cam.transform.inverseTransformPoint(self.transform.position)[2]
+            if not cam_z > 0:
+                return
+            cam_z += 1.0
+        mode = RENDER_MODE_BAKING if self.engine.Mode == EngineMode.BAKE else RENDER_MODE_BAKED
+        model = self.transform.globalTransformMatrix
+        for i, mat in enumerate(self.materials):
+            if i >= len(self.corrmaps):
+                break
+            cmap = self.corrmaps[i]
+            self.engine.RenderManager.AddGBufferTask(
+                DrawCall(
+                    mesh=self.mesh,
+                    model_matrix=model,
+                    uniforms=DrawUniforms(
+                        sprite_id=self.spriteID,
+                        material_id=mat.materialID,
+                        render_mode=mode,
+                        corrmap_k=cmap.k,
+                        use_texcoord_as_id=self.use_texcoord_id and bool(np.any(self.mesh.uvs)),
+                    ),
+                    order=mat.render_order - 1.0 / cam_z,
+                    diffuse=mat.diffuse,
+                    noise=mat.noise,
+                    corrmap=cmap,
+                )
+            )
+            self.engine.RenderManager.SubmitCorrmap(self.spriteID, mat.materialID, cmap)
 
 
 class Light(Component):

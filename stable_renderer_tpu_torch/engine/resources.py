@@ -222,11 +222,20 @@ class TextureResource(ResourcesObj):
 
 
 class CorrMapResource(ResourcesObj):
-    """A CorrespondMap's (values, written) pair, uploaded as one unit. The
-    CorrespondMap (data/corrmap.py) is not ported yet: this raises."""
+    """A CorrespondMap's (values, written) pair, moved as one unit onto the
+    engine's device at load."""
 
     BaseClsName = "CorrespondMap"
     LoadOrder = 20
 
     def __init__(self, corrmap, **kw):
-        raise NotImplementedError("CorrespondMap (data/corrmap.py) is not ported yet")
+        self.corrmap = corrmap
+        super().__init__(**kw)
+
+    def _load(self) -> None:
+        from stable_renderer_tpu_torch.engine.engine import engine_device
+
+        self.corrmap.to(engine_device())
+
+    def _destroy(self) -> None:
+        pass  # the map owns its tensors; dropping the resource is enough

@@ -11,8 +11,14 @@ through ``models.unet.AttnHooks`` and the sampler's step callback:
     all pixels (across frames) that show the same 3D vertex, then AdaIN back
     to the original statistics (OverlapCorresponder.step_finished).
 
-Ported so far: the ``average`` weighting, both AdaIN modes, and the
-corresponders without the bake-time corrmap update or all-frames attention.
+  * ``DefaultCorresponder.finished`` — the bake: scatter the decoded frames
+    into every submitted CorrespondMap (data/corrmap.py), without a host sync.
+  * ``OverlapCorresponder(all_frames=True)`` — every frame attends to the K/V
+    of all frames (parallel/ring_attention.py ``cross_frame_attention``, K1
+    on the card).
+
+Ported so far: the ``average`` weighting and both AdaIN modes. The ring form
+of all-frames attention (``mesh``) waits for ROADMAP 1.14.
 """
 
 from __future__ import annotations
@@ -110,16 +116,34 @@ class Corresponder:
 
 @dataclass(eq=False)
 class DefaultCorresponder(Corresponder):
-    """Bake-path corresponder (corresponder.py:100-155). Its ``finished`` hook
-    scatters decoded frames into the submitted CorrespondMaps; that update
-    is not ported yet, so it raises when there is a map to update."""
+    """Bake-path corresponder (corresponder.py:100-155): on ``finished``
+    (after the VAE decode) scatter the decoded frames into every submitted
+    CorrespondMap, the AI pixels only (``masks=id_masks(id_maps)`` inverted).
+    The update stays on the device and never waits for it."""
 
     update_corrmap: bool = True
+    update_corrmap_mode: str = "first_avg"
+    ignore_obj_mat_id_when_update: bool = False
 
     def finished(self, engine_data, images: torch.Tensor) -> None:  # noqa: ANN001
-        if (self.update_corrmap and images is not None and engine_data is not None
-                and engine_data.id_maps is not None and engine_data.correspond_maps):
-            raise NotImplementedError("the CorrespondMap update is not ported yet")
+        if not self.update_corrmap or images is None or engine_data is None \
+                or engine_data.id_maps is None:
+            return
+        from stable_renderer_tpu_torch.data.idmap import id_masks
+
+        id_maps = engine_data.id_maps
+        masks = id_masks(id_maps)
+        for (sprite_id, material_id), cmap in engine_data.correspond_maps.items():
+            cmap.update(
+                color_frames=images,
+                id_maps=id_maps,
+                mode=self.update_corrmap_mode,
+                masks=masks,
+                spriteID=sprite_id,
+                materialID=material_id,
+                ignore_obj_mat_id=self.ignore_obj_mat_id_when_update,
+                inverse_masks=True,  # update the non-background pixels
+            )
 
 
 _DEFAULT_CORRESPONDER: Optional[DefaultCorresponder] = None
@@ -139,8 +163,14 @@ class OverlapCorresponder(DefaultCorresponder):
     gated layers every frame attends to the K/V of ``pre_attn_frames`` (or of
     ``pre_attn_inject_num_random_frames`` frames picked per run when that is
     None), and each step vertex-averages the latent while the timestep is
-    at or above ``step_finished_stop_inject_timestep``."""
+    at or above ``step_finished_stop_inject_timestep``.
 
+    ``all_frames=True``: at the gated layers every frame attends to the K/V
+    of all frames instead (``cross_frame_attention``; under CFG the
+    positive rows, as the denoiser hands the hook). ``mesh`` asks for the
+    ring form over a device mesh, which waits for ROADMAP 1.14."""
+
+    update_corrmap_mode: str = "first"
     pre_attn_inject_num_random_frames: int = 1
     pre_attn_frames: Optional[Tuple[int, ...]] = (1,)
     step_finished_inject_ratio: float = 0.1
@@ -149,10 +179,26 @@ class OverlapCorresponder(DefaultCorresponder):
     weighting: str = "average"
     step_finished_adain: str = "content"
     all_frames: bool = False
+    mesh: Optional[object] = None  # a device mesh: the ring form (ROADMAP 1.14)
+    mesh_axis: str = "dp"
 
     def attn_hooks(self, engine_data, generator: Optional[torch.Generator] = None) -> AttnHooks:  # noqa: ANN001
         if self.all_frames:
-            raise NotImplementedError("all-frames cross-frame attention is not ported yet")
+            from stable_renderer_tpu_torch.parallel.ring_attention import (
+                cross_frame_attention,
+                ring_cross_frame_attention,
+            )
+
+            def attn(q, k, v, heads, layer):
+                from stable_renderer_tpu_torch.models.layers import attention as _plain
+
+                if not self._gate_layer(layer):
+                    return _plain(q, k, v, heads)
+                if self.mesh is not None:
+                    return ring_cross_frame_attention(q, k, v, heads, self.mesh, self.mesh_axis)
+                return cross_frame_attention(q, k, v, heads)
+
+            return AttnHooks(attn=attn)
         if self.pre_attn_inject_num_random_frames < 0:
             return AttnHooks()
         n_sel = max(self.pre_attn_inject_num_random_frames, 1)

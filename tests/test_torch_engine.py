@@ -626,18 +626,25 @@ def _ai_canny_dump():
     eng.DiffusionManager._dump_maps_async(EngineData(frame_indices=torch.zeros(1)), None)
 
 
-def _corrmap_resource():
-    from stable_renderer_tpu_torch.engine.resources import CorrMapResource
+def _corrmap_update_batch():
+    from stable_renderer_tpu_torch.data.corrmap import CorrespondMap
 
-    CorrMapResource(None)
+    CorrespondMap(k=1, height=2, width=2, device="cpu").update_batch(None, None, None)
+
+
+def _ring_cross_frame_attention():
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
+
+    x = torch.zeros((2, 4, 8))
+    OverlapCorresponder(all_frames=True, mesh=object()).attn_hooks(None).attn(x, x, x, 2, 6)
 
 
 _UNPORTED = {
     "stream": _stream_run,
     "editor": lambda: P.Engine(mode=P.EngineMode.EDITOR, device="cpu"),
     "run_editor": lambda: P.Engine.RunEditor(device="cpu", max_frames=1),
-    "corrmap_renderer": lambda: P.GameObject("ai").addComponent(P.CorrMapRenderer),
-    "corrmap_resource": _corrmap_resource,
+    "corrmap_update_batch": _corrmap_update_batch,
+    "ring_cross_frame_attention": _ring_cross_frame_attention,
     "ai_canny": _ai_canny_dump,
 }
 
