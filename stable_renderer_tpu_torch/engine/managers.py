@@ -598,9 +598,6 @@ class DiffusionManager(Manager):
     # --- map dumping (diffusionManager.py:160-285), async like the reference ---
 
     def _dump_maps_async(self, engine_data: EngineData, images) -> None:
-        if self.output_ai_canny:
-            raise NotImplementedError("output_ai_canny needs ops/canny.py, which is not ported yet")
-
         def host(t):
             return t.detach().cpu().numpy()
 
@@ -614,6 +611,10 @@ class DiffusionManager(Manager):
             "noise": host(engine_data.noise_maps),
             "result": host(images),
         }
+        if self.output_ai_canny:
+            from stable_renderer_tpu_torch.ops.canny import canny
+
+            arrays["ai_canny"] = host(canny(engine_data.color_maps))
         frames = [int(i) for i in engine_data.frame_indices.tolist()]
         self._dump_futures.append(
             self._pool.submit(self._dump_maps, arrays, frames, self.map_output_dir)

@@ -12,11 +12,13 @@ lag-1 K/V correspondence).
 
 Ported so far: the SD1.5 family from random weights, plain (non-scene)
 conditioning, the sequential and stream programs, ControlNets
-(``add_controlnet``, ``add_random_controlnet``) and the calibrated int8 conv
-path (``quantize_convs``). Checkpoint loading, control-LoRAs, T2I-Adapters,
-scene conditioning, TAESD and the multi-device stream mesh raise until their
-slices are ported. The pipeline's tensors live on the card unless ``device``
-names another device.
+(``add_controlnet``, ``add_random_controlnet``), the calibrated int8 conv
+path (``quantize_convs``), the TAESD autoencoder for realtime frames
+(``with_taesd``, ``RenderConfig.realtime_taesd``) and per-vertex starting
+noise (``RenderConfig.vertex_noise`` without noise maps). Checkpoint loading,
+control-LoRAs, T2I-Adapters, scene conditioning and the multi-device stream
+mesh raise until their slices are ported. The pipeline's tensors live on the
+card unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetCo
 from stable_renderer_tpu_torch.models.sampling import ModelSampling, calculate_sigmas, sample
 from stable_renderer_tpu_torch.models.sampling.assemble import build_denoiser
 from stable_renderer_tpu_torch.models.sampling.cfg import make_denoiser, timestep_from_sigma
+from stable_renderer_tpu_torch.models.taesd import TAESD
 from stable_renderer_tpu_torch.models.unet import (
     SD15_UNET_CONFIG,
     TINY_UNET_CONFIG,
@@ -50,6 +53,7 @@ from stable_renderer_tpu_torch.ops.correspondence import (
     Corresponder,
     default_corresponder,
     vertex_average_injection,
+    vertex_noise,
 )
 from stable_renderer_tpu_torch.ops.math import resize_nearest
 from stable_renderer_tpu_torch.workflow.config import ControlNetSpec, RenderConfig
@@ -68,10 +72,11 @@ class DiffusionPipeline:
     model_sampling: ModelSampling = field(default_factory=ModelSampling)
     device: Optional[torch.device] = None  # None: the card
     controlnets: List[Tuple[ControlNet, dict, ControlNetSpec]] = field(default_factory=list)
+    # TAESD tiny autoencoder for RenderConfig.realtime_taesd frames
+    taesd: Optional[TAESD] = None
+    taesd_params: Optional[dict] = None
 
     def __post_init__(self) -> None:
-        if self.config.realtime_taesd:
-            raise NotImplementedError("TAESD (RenderConfig.realtime_taesd) is not ported yet")
         self.device = resolve_device(self.device)
         self._cond_cache: dict = {}
         self._prep_cond_cache: dict = {}
@@ -119,6 +124,40 @@ class DiffusionPipeline:
         if config.int8_conv:
             pipe.quantize_convs()
         return pipe
+
+    def with_taesd(self, encoder_path: Optional[str] = None,
+                   decoder_path: Optional[str] = None, seed: int = 11) -> "DiffusionPipeline":
+        """Attach a TAESD tiny autoencoder for ``RenderConfig.realtime_taesd``
+        frames: random f32 weights from a generator seeded with ``seed`` on
+        the pipeline's device. Official weight files (``encoder_path``,
+        ``decoder_path``) wait for ROADMAP 1.8 and raise.
+
+        A config with ``realtime_taesd`` runs TAESD only once it is attached;
+        before, both programs run the full VAE, as the JAX package's do."""
+        if encoder_path or decoder_path:
+            params = TAESD.load(encoder_path, decoder_path)
+        else:
+            params = TAESD().init(torch.Generator(device=self.device).manual_seed(seed),
+                                  device=self.device)
+        self.taesd, self.taesd_params = TAESD(), params
+        return self
+
+    def _use_taesd(self) -> bool:
+        return self.config.realtime_taesd and self.taesd is not None
+
+    def _encode(self, vae_params: dict, color: torch.Tensor, vae_dtype) -> torch.Tensor:
+        """[0, 1] colour (N, H, W, 3) -> the f32 latent: TAESD takes the
+        colour as it is, the VAE takes it in [-1, 1]; both in ``vae_dtype``."""
+        if self._use_taesd():
+            return self.taesd.encode(self.taesd_params, color.to(vae_dtype)).float()
+        return self.vae.encode(vae_params, (color * 2.0 - 1.0).to(vae_dtype)).float()
+
+    def _decode(self, vae_params: dict, latent: torch.Tensor, vae_dtype) -> torch.Tensor:
+        """Latent -> f32 pixels in [0, 1] (TAESD's decode clamps itself)."""
+        if self._use_taesd():
+            return self.taesd.decode(self.taesd_params, latent.to(vae_dtype)).float()
+        decoded = self.vae.decode(vae_params, latent.to(vae_dtype)).float()
+        return torch.clamp(decoded * 0.5 + 0.5, 0.0, 1.0)
 
     def quantize_convs(self, render_size: Tuple[int, int] = (512, 512)) -> "DiffusionPipeline":
         """Apply the int8 conv path (models/quant.py) to the UNet and VAE
@@ -377,7 +416,7 @@ class DiffusionPipeline:
         if sprite_ids or y_cond is not None or y_uncond is not None:
             raise NotImplementedError("scene conditioning and ADM vectors are not ported yet")
         vae_dtype = vae_params["quant_conv"]["weight"].dtype  # kept out of int8 by the skip list
-        latent = self.vae.encode(vae_params, (color * 2.0 - 1.0).to(vae_dtype)).float()
+        latent = self._encode(vae_params, color, vae_dtype)
         lh, lw = latent.shape[1], latent.shape[2]
         if noise_maps is not None:
             noise = noise_maps[..., : latent.shape[-1]]
@@ -388,7 +427,7 @@ class DiffusionPipeline:
 
                 noise = resize_nearest(noise, lh, lw)
         elif id_maps is not None and cfg.vertex_noise:
-            raise NotImplementedError("vertex_noise is not ported yet")
+            noise = vertex_noise(key, id_maps, lh, lw, latent.shape[-1])
         else:
             noise = torch.randn(latent.shape, generator=key, device=latent.device)
         uncond = None if cfg.cfg_scale == 1.0 else nctx
@@ -414,8 +453,7 @@ class DiffusionPipeline:
         )
         out_latent = sample(den, noise, sigmas, latent_image=latent, sampler=cfg.sampler,
                             generator=key, step_callback=step_cb, step_noise=step_noise)
-        decoded = self.vae.decode(vae_params, out_latent.to(vae_dtype)).float()
-        return torch.clamp(decoded * 0.5 + 0.5, 0.0, 1.0)
+        return self._decode(vae_params, out_latent, vae_dtype)
 
     # --- the stream-pipelined realtime program ----------------------------------
 
@@ -453,14 +491,14 @@ class DiffusionPipeline:
         if cfg.sampler not in ("lcm", "euler"):
             raise NotImplementedError(f"the stream runs lcm and euler, not {cfg.sampler!r}")
         vae_dtype = vae_params["quant_conv"]["weight"].dtype
-        latent = self.vae.encode(vae_params, (color * 2.0 - 1.0).to(vae_dtype)).float()
+        latent = self._encode(vae_params, color, vae_dtype)
         lh, lw = latent.shape[1], latent.shape[2]
         if noise_maps is not None:
             noise = noise_maps[..., : latent.shape[-1]]
             if noise.shape[1:3] != (lh, lw):
                 noise = resize_nearest(noise, lh, lw)
         elif id_maps is not None and cfg.vertex_noise:
-            raise NotImplementedError("vertex_noise is not ported yet")
+            noise = vertex_noise(key, id_maps, lh, lw, latent.shape[-1])
         else:
             noise = torch.randn(latent.shape, generator=key, device=latent.device)
         sigmas = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
@@ -544,6 +582,5 @@ class DiffusionPipeline:
                                for new, old in zip(hints or (), hint_s)),
                 "ids": None if ids_s is None else torch.cat([id_maps, ids_s[:-1]], 0),
             }
-        decoded = self.vae.decode(vae_params, out_latent.to(vae_dtype)).float()
-        image = torch.clamp(decoded * 0.5 + 0.5, 0.0, 1.0)
+        image = self._decode(vae_params, out_latent, vae_dtype)
         return image, new_state, (captured if kv_layers else None)

@@ -9,7 +9,10 @@ through ``models.unet.AttnHooks`` and the sampler's step callback:
     selected frames (OverlapCorresponder.pre_atten_inject).
   * ``vertex_average_injection`` — blend each latent pixel toward the mean of
     all pixels (across frames) that show the same 3D vertex, then AdaIN back
-    to the original statistics (OverlapCorresponder.step_finished).
+    to the original statistics (OverlapCorresponder.step_finished), with
+    the reference's legacy weightings.
+  * ``vertex_noise`` — CreateNoiseSequenceFromIdMap: the same starting noise
+    for a 3D vertex in every frame.
 
   * ``DefaultCorresponder.finished`` — the bake: scatter the decoded frames
     into every submitted CorrespondMap (data/corrmap.py), without a host sync.
@@ -17,8 +20,7 @@ through ``models.unet.AttnHooks`` and the sampler's step callback:
     of all frames (parallel/ring_attention.py ``cross_frame_attention``, K1
     on the card).
 
-Ported so far: the ``average`` weighting and both AdaIN modes. The ring form
-of all-frames attention (``mesh``) waits for ROADMAP 1.14.
+The ring form of all-frames attention (``mesh``) waits for ROADMAP 1.14.
 """
 
 from __future__ import annotations
@@ -30,7 +32,13 @@ import torch
 
 from stable_renderer_tpu_torch.data.framebuffers import NON_AI_MAP_INDEX
 from stable_renderer_tpu_torch.models.unet import AttnHooks
-from stable_renderer_tpu_torch.ops.math import adain, group_average_by_id
+from stable_renderer_tpu_torch.ops.math import (
+    adain,
+    group_average_by_id,
+    group_frame_distance_average,
+    group_randn_by_id,
+    group_weighted_average_by_id,
+)
 
 
 def broadcast_kv_injection(
@@ -69,24 +77,83 @@ def vertex_average_injection(
     normal_maps: Optional[torch.Tensor] = None,
     adain_mode: str = "content",
 ) -> torch.Tensor:
-    """Blend each latent pixel toward the mean of all pixels sharing its 3D
-    vertex, then AdaIN: ``content`` renormalizes the averaged latent to the
-    original statistics; ``reference`` is bug-compatible with the
-    reference's step_finished (original content, averaged statistics)."""
-    if weighting in ("frame_distance", "pixel_distance") or (
-            weighting == "view_normal" and normal_maps is not None):
-        raise NotImplementedError(f"weighting={weighting!r} is not ported yet")
+    """Blend each latent pixel toward the (weighted) mean of all pixels
+    (across frames) sharing its 3D vertex, then AdaIN: ``content``
+    renormalizes the averaged latent to the original statistics;
+    ``reference`` is bug-compatible with the reference's step_finished
+    (original content, averaged statistics).
+
+    ``weighting``, the reference's legacy overlap schemes (legacy_codes/
+    stable_rendering_algo/overlap/algorithms.py:6-121):
+      * "average"        — uniform group mean (AverageDistance);
+      * "frame_distance" — pairwise 1/(|f_i - f_j| + 1) mixing over frames;
+      * "pixel_distance" — trust 1/(|x - x̄_g| + |y - ȳ_g| + 1), pixels far
+                           from the vertex's mean screen position count less;
+      * "view_normal"    — trust 1/(|1 - facing| + 1), facing = |n_z| of the
+                           encoded normal map; "average" when normal_maps is
+                           None."""
     b, h, w, c = latent.shape
     vids, valid = latent_vertex_ids(id_maps, h, w)
     flat = latent.reshape(-1, c)
-    per_row, _ = group_average_by_id(flat, vids.reshape(-1), num_segments,
-                                     valid=valid.reshape(-1))
+    flat_ids = vids.reshape(-1)
+    flat_valid = valid.reshape(-1)
+    dev = latent.device
+    if weighting == "frame_distance":
+        frames = torch.arange(b, device=dev).repeat_interleave(h * w)
+        per_row = group_frame_distance_average(flat, flat_ids, frames, num_segments, b,
+                                               valid=flat_valid)
+    elif weighting == "pixel_distance":
+        xs = torch.arange(w, dtype=torch.float32, device=dev).repeat(b * h)
+        ys = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w).repeat(b)
+        pos = torch.stack([xs, ys], -1)
+        mean_pos, _ = group_average_by_id(pos, flat_ids, num_segments, valid=flat_valid)
+        dist = (pos - mean_pos).abs().sum(-1)
+        per_row = group_weighted_average_by_id(flat, flat_ids, 1.0 / (dist + 1.0),
+                                               num_segments, valid=flat_valid)
+    elif weighting == "view_normal" and normal_maps is not None:
+        rows = torch.arange(h, device=dev) * normal_maps.shape[1] // h
+        cols = torch.arange(w, device=dev) * normal_maps.shape[2] // w
+        small = normal_maps[:, rows][:, :, cols]
+        # encoded [0, 1] -> view-space normal; facing = |n_z| (1 = toward the camera)
+        facing = (small[..., 2] * 2.0 - 1.0).abs().reshape(-1)
+        per_row = group_weighted_average_by_id(flat, flat_ids, 1.0 / ((1.0 - facing).abs() + 1.0),
+                                               num_segments, valid=flat_valid)
+    else:
+        per_row, _ = group_average_by_id(flat, flat_ids, num_segments, valid=flat_valid)
     blended = (1.0 - ratio) * flat + ratio * per_row
-    blended = torch.where(valid.reshape(-1, 1), blended, flat)
+    blended = torch.where(flat_valid[:, None], blended, flat)
     modified = blended.reshape(b, h, w, c)
     if adain_mode == "reference":
         return adain(latent, modified)
     return adain(modified, latent)
+
+
+def vertex_noise(
+    generator: Optional[torch.Generator],
+    id_maps: torch.Tensor,  # (B, H, W, 4)
+    height: int,
+    width: int,
+    channels: int = 4,
+    num_segments: int = 262144,
+    table: Optional[torch.Tensor] = None,
+    fallback: Optional[torch.Tensor] = None,
+    indep: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-vertex-consistent starting noise at latent resolution
+    (CreateNoiseSequenceFromIdMap): pixels of one 3D vertex get the same
+    gaussian sample in every frame, background pixels independent ones.
+    Draws, from ``generator`` in this order unless passed in: the per-id
+    ``table`` (num_segments, channels), the out-of-range ids' ``fallback``
+    and the background's ``indep`` (both (B*height*width, channels))."""
+    b = id_maps.shape[0]
+    vids, valid = latent_vertex_ids(id_maps, height, width)
+    flat = group_randn_by_id(generator, vids.reshape(-1), num_segments, channels,
+                             table=table, fallback=fallback)
+    if indep is None:
+        indep = torch.randn((b * height * width, channels), generator=generator,
+                            device=id_maps.device)
+    out = torch.where(valid.reshape(-1, 1), flat, indep.to(flat.device, flat.dtype))
+    return out.reshape(b, height, width, channels)
 
 
 # ---------------------------------------------------------------------------

@@ -515,6 +515,43 @@ def test_map_dumps(tmp_path):
     assert np.load(tmp_path / "noise" / "noise_0.npy").shape == (4, 4, 4)
 
 
+def test_ai_canny_dump_matches_jax(tmp_path):
+    """``output_ai_canny`` adds the canny edges of the frame's colour map to
+    the dumped maps (ai_canny/ai_canny_<frame>.png), as the JAX package's
+    RenderManager does; the edges equal the JAX package's canny of the same
+    colour map but at pixels that f32 rounding may flip. The flat-shaded
+    G-buffer's colour map has exact ties between neighbours in the
+    suppression, which the two packages' sums break differently."""
+    from test_torch_frame_options import assert_canny_agrees
+
+    from stable_renderer_tpu.ops.canny import canny as j_canny
+
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.workflow.config import RenderConfig
+
+    pipe = DiffusionPipeline.from_random(
+        RenderConfig(steps=1, cfg_scale=1.0, sampler="euler", scheduler="sgm_uniform"),
+        tiny=True, device="cpu")
+    dumped = []
+
+    class App(P.Engine):
+        def beforePrepare(self):
+            _bench_scene(P, mesh_segments=6)
+            dm = self.DiffusionManager
+            dm.output_ai_canny = True
+            dump = dm._dump_maps
+            dm._dump_maps = lambda arrays, *a: (dumped.append(arrays), dump(arrays, *a))
+
+    App.Run(winSize=(32, 32), pipeline=pipe, max_frames=1, output_maps=True,
+            map_output_dir=str(tmp_path), debug=True)
+    assert (tmp_path / "ai_canny" / "ai_canny_0.png").exists()
+    arrays = dumped[0]
+    assert arrays["ai_canny"].shape == arrays["color"].shape == (1, 32, 32, 3)
+    assert_canny_agrees(arrays["ai_canny"], np.asarray(j_canny(arrays["color"])),
+                        arrays["color"], 0.4, 0.8)
+    assert arrays["ai_canny"].max() == 1.0  # the ball's outline
+
+
 def test_submit_prompt_renders_engine_data():
     """DiffusionManager.SubmitPrompt renders a packed batch with a generator
     seeded with seed + frame, as the frame loop's sampler key."""
@@ -618,14 +655,6 @@ def _stream_run():
     pipe.enable_stream_mesh(None)
 
 
-def _ai_canny_dump():
-    from stable_renderer_tpu_torch.data.engine_data import EngineData
-
-    eng = P.Engine(winSize=(16, 16), disableComfyUI=True, device="cpu")
-    eng.DiffusionManager.output_ai_canny = True
-    eng.DiffusionManager._dump_maps_async(EngineData(frame_indices=torch.zeros(1)), None)
-
-
 def _corrmap_update_batch():
     from stable_renderer_tpu_torch.data.corrmap import CorrespondMap
 
@@ -645,7 +674,6 @@ _UNPORTED = {
     "run_editor": lambda: P.Engine.RunEditor(device="cpu", max_frames=1),
     "corrmap_update_batch": _corrmap_update_batch,
     "ring_cross_frame_attention": _ring_cross_frame_attention,
-    "ai_canny": _ai_canny_dump,
 }
 
 

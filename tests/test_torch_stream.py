@@ -172,7 +172,8 @@ def test_per_sample_sigma_denoiser_matches_jax():
 
 def test_stream_errors_and_unported_paths():
     """A kv_state for other layers than ``stream_kv_layers`` is a stale
-    stream (ValueError); TAESD and the stream mesh raise by name."""
+    stream (ValueError); TAESD weight files (ROADMAP 1.8) and the stream
+    mesh raise by name."""
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.workflow.config import RenderConfig
 
@@ -184,7 +185,8 @@ def test_stream_errors_and_unported_paths():
                             torch.from_numpy(inp["noise"]), torch.from_numpy(inp["id"]), None,
                             pipe.scheduler_sigmas(), None, ctx, nctx, stream_init=True,
                             kv_state={"5": torch.zeros(4, 64, 64)})
-    with pytest.raises(NotImplementedError, match="TAESD"):
-        DiffusionPipeline.from_random(RenderConfig(realtime_taesd=True), device="cpu")
+    taesd_pipe = DiffusionPipeline.from_random(RenderConfig(realtime_taesd=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="TAESD weights"):
+        taesd_pipe.with_taesd(encoder_path="taesd_encoder.pth")
     with pytest.raises(NotImplementedError, match="stream mesh"):
         pipe.enable_stream_mesh(None)
