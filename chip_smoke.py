@@ -132,9 +132,10 @@ Phases, one line each; any failure exits non-zero:
                 calls it with a pending frame) with phase 6's bf16 pipeline
                 and fixed sampler draws, once for each of vertex_noise (no
                 noise maps), the frame_distance, pixel_distance and
-                view_normal weightings: each finite and moved from the
-                average frame by more than two runs of the average frame
-                differ; each held at 64x64 with a tiny pipeline on the card
+                view_normal weightings: two runs of the average frame
+                equal bit for bit (the segment sums' order is fixed), and
+                each option finite and moved from the average frame by more
+                than they differ; each held at 64x64 with a tiny pipeline on the card
                 against the same pipeline on the CPU (noise and vertex-noise
                 draws passed in) within REF_TOL. output_ai_canny: the bench
                 scene through Engine.Run with map dumps on, its ai_canny map
@@ -144,6 +145,30 @@ Phases, one line each; any failure exits non-zero:
  19. bench    — python bench_torch.py in its default mode, SR_BENCH_FRAMES=4,
                 as its own process: exit 0, its last stdout line bench.py's
                 four-key JSON with "(cuda)" in the metric and a positive fps.
+ 20. checkpoint — phase 6's trees (UNet, VAE, CLIP) written as one BF16
+                .safetensors in the LDM key layout by the port's writer
+                (size, write and read times; read back bit for bit) and
+                loaded by DiffusionPipeline.from_checkpoint on the card: the
+                SD1.5 config detected, every key consumed, every leaf equal
+                to what was written after the JAX package's casts (VAE and
+                CLIP to f32). The bench scene through Engine.Run with it
+                (K1 22 a frame, the f32 VAE's two on K1's f32 route: the
+                launches that did not pass the bf16 wrapper, counted), its
+                frame 0 identical to frame_step's for a pipeline built in
+                memory from the same trees at the same types; K1 timed at
+                the f32 VAE attention shape against its plain version. An
+                LCM-LoRA-shaped file (rank 64, F16, LDM names, every
+                attention projection, ff, proj_in and proj_out) merged by
+                from_checkpoint: modules applied, merge time, sampled leaves
+                equal to a plain f32 merge on the CPU. The loaded pipeline
+                quantized (int8_conv): K3 139 a frame by class. Control
+                files through add_control_from_state_dict: two perturbed
+                ControlNets under control_model. (frame equal to
+                add_controlnet's with the same params, K1 38), a rank-8
+                control-LoRA and a full-width T2I-Adapter (finite, moved
+                frames; the adapter's K3 launches under the switch). A
+                2-vector textual-inversion file: a prompt with
+                embedding:name encoded on the card against the CPU.
 Every kernel line carries its time (K1 in bf16, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
@@ -188,6 +213,8 @@ K1_BF16_TOL = 1e-2  # bf16 output rounding (2^-8 relative) + the plain path's bf
 # this share of the largest |plain output| instead, a few bf16 steps (2^-8)
 K1_FOLD_REL_TOL = 2e-2
 K1_F32_TOL = 1e-4   # f32: summation order only
+K1_F32_CALLS_LOADED = 2  # the f32 VAE's mid-block attention, encode and decode
+VAE_ATTN_SHAPE = (1, 4096, 4096, 512)  # (BH, Lq, Lk, d) at 512x512
 REF_TOL = 2e-3      # tiny f32 frame, GPU kernels vs CPU plain path (order of f32 sums)
 # K3 and K4 launches a frame, counted on the meta device by
 # tests/test_torch_conv_kernel.py: int8 4 x 22 (UNet) + 20 (encode) + 31 (decode);
@@ -296,6 +323,18 @@ REPLAY_TIMED = 8     # ... and timed ones (config 3: 8 frames of free playback)
 # apart, each in a map cell the two rasterizers chose differently, at most
 # this share of the ball's pixels
 REPLAY_EDGE_SHARE = 1e-3
+# phase 20: the LoRA file's rank (the public LCM-LoRA for SD1.5's) and alpha,
+# the control-LoRA's rank, the textual-inversion vectors; the CLIP encoding
+# with an embedding, card against CPU in f32 (order of f32 sums)
+CKPT_LORA_RANK = 64
+CKPT_LORA_ALPHA = 64.0
+CONTROL_LORA_RANK = 8
+TI_VECTORS = 2
+TI_TOL = 1e-4
+# the full-width T2I-Adapter's 3x3 convs that pass the float K3 gate (>= 64^2
+# pixels, >= 128 channels): conv_in and stage 0's two block1s, at 64x64 from
+# a 512x512 hint; its later stages are below 64^2 and its block2s are 1x1
+T2I_K3_CLASSES = {(1, 64, 64, 192, 320): 1, (1, 64, 64, 320, 320): 2}
 # NVIDIA H100 SXM data sheet (700 W): dense tensor-core and FMA peaks, HBM rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
@@ -445,11 +484,14 @@ def per_frame_classes(seen: collections.Counter, frames: int, prologue: bool = F
 
 
 @contextlib.contextmanager
-def k1_shape_tally():
+def k1_shape_tally(f32: bool = False):
     """K1's launches by (BH, Lq, Lk, d) inside the ``with`` block, on the
     card: ``ops.flash_attention._launch_bf16`` (the bf16 wrappers' one call
     of the kernel) is wrapped to note each call's shape, and the notes must
-    add up to the wrapper's launch count over the block. Yields the Counter."""
+    add up to the wrapper's launch count over the block. With ``f32``, the
+    launches that did not pass through it (the f32 SIMT route, the only
+    other launch in ``flash_attention``) are noted under the key "f32"
+    instead. Yields the Counter."""
     from stable_renderer_tpu_torch.ops import flash_attention as fa
 
     launch = fa._launch_bf16
@@ -465,7 +507,9 @@ def k1_shape_tally():
         yield seen
     finally:
         fa._launch_bf16 = launch
-    if sum(seen.values()) != fa.flash_attention.launches - before:
+    if f32:
+        seen["f32"] = fa.flash_attention.launches - before - sum(seen.values())
+    if sum(seen.values()) != fa.flash_attention.launches - before or seen["f32"] < 0:
         fail(f"K1: {sum(seen.values())} calls noted by shape, "
              f"{fa.flash_attention.launches - before} launches")
 
@@ -698,6 +742,7 @@ def main() -> None:
     import torch
     import torch.nn.functional as F
 
+    t_start = time.perf_counter()
     # --- 1. device -----------------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs only on a GPU")
@@ -1320,14 +1365,15 @@ def main() -> None:
     engine_ms = {}
 
     def run_engine_phase(phase: int, label: str, p_, step_ms: float, transient: int, want: tuple,
-                         stream: bool = False) -> dict:
+                         stream: bool = False, ref=None) -> dict:
         """The bench scene through Engine.Run with pipeline ``p_``:
         ``transient`` frames, ENGINE_WARM warm and FRAMES_TIMED timed
         presents (and PRESENT_DEPTH more); ``want`` = launches a frame of K1,
         K2, K3 and K4, held by the counters over the run and by the profiler
         on one frame; frame 0 against frame_step's at the engine's inputs
-        (its stream_init frame when ``stream``). Returns the present-to-
-        present median and p90 of the timed frames."""
+        (its stream_init frame when ``stream``) with pipeline ``ref``
+        (default ``p_``). Returns the present-to-present median and p90 of
+        the timed frames."""
         first = {}
 
         def keep_first(eng, when):
@@ -1382,7 +1428,8 @@ def main() -> None:
         if not same_bits(first["bg"], bg):
             fail(f"engine {label}: GlobalBGNoise differs from phase 6's background noise")
         _, _, _, ref_images, _, _ = run_frame(
-            p_, SIZE, 0, OverlapCorresponder(vertex_segments=4096, update_corrmap=False), bg,
+            p_ if ref is None else ref, SIZE, 0,
+            OverlapCorresponder(vertex_segments=4096, update_corrmap=False), bg,
             mats=first["mats"], stream=(None, None) if stream else None)
         torch.cuda.synchronize()
         first_err = (first["images"] - ref_images.float()).abs().max().item()
@@ -1395,7 +1442,8 @@ def main() -> None:
             flash_attention.launches = rasterize_kernel.launches = conv3x3_kernel.launches = 0
             names, device_ms = engine_frame_kernels(
                 p_, SIZE, OverlapCorresponder(vertex_segments=4096, update_corrmap=False))
-            prof_counts = (sum("flash_wg" in k or "flash_wide" in k for k in names),
+            prof_counts = (sum("flash_wg" in k or "flash_wide" in k or "flash_simt_f32" in k
+                               for k in names),
                            sum("raster_binned" in k for k in names),
                            sum("raster_setup" in k for k in names),
                            sum("conv3x3_wgmma" in k for k in names))
@@ -1718,11 +1766,18 @@ def main() -> None:
     # --- 19. bench_torch.py ------------------------------------------------------------
     bench = bench_phase(card)
 
+    # --- 20. checkpoint: phase 6's trees through files and from_checkpoint ------------
+    checkpoint = checkpoint_phase(pipe, dev, card, k1, run_frame, run_engine_phase, engine_ms,
+                                  bg)
+
+    wall_s = time.perf_counter() - t_start
+    print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
                       "stream_frame_step_ms": st_ms, "control_frame_ms": cn_ms,
                       "host_syncs_a_frame": frame_syncs,
                       "engine_frame_ms": engine_ms, **bake, "taesd": taesd,
-                      "options": options, "bench": bench, "card": card}))
+                      "options": options, "bench": bench, "checkpoint": checkpoint,
+                      "wall_s": wall_s, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -2207,6 +2262,10 @@ def option_phases(pipe, dev, card: str, run_engine_fn) -> dict:
     flash_attention.launches = 0
     avg = [option_frame(pipe, batch, "average", step_noise) for _ in range(2)]
     spread = (avg[0] - avg[1]).abs().max().item()
+    if spread != 0:
+        fail(f"options: two average frames of the same inputs differ by max abs {spread:.3e}: "
+             "the sequential program does not repeat itself (its segment sums: "
+             "ops.math.segment_add_)")
     rows = {}
     for option in ("vertex_noise",) + OPTION_WEIGHTINGS:
         t0 = time.perf_counter()
@@ -2337,6 +2396,403 @@ def bench_phase(card: str) -> dict:
     print(f"[19 bench] python bench_torch.py (default mode, SR_BENCH_FRAMES=4) in {wall:.1f} s: "
           f"{json.dumps(line)} {notes} | {card}", flush=True)
     return {"line": line, "stderr": notes, "wall_s": wall}
+
+
+def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase,
+                     engine_ms: dict, bg) -> dict:
+    """Phase 20: weights from files, at full SD1.5 widths (see the module
+    docstring). ``pipe`` is phase 6's bf16 pipeline; ``run_frame`` and
+    ``run_engine_phase`` are main's; K1's f32 row joins ``k1["shapes"]``
+    and the engine run ``engine_ms``. The files go to a temporary directory
+    under build/, removed at the end."""
+    import shutil
+    import tempfile
+    from dataclasses import replace as dc_replace
+    from pathlib import Path
+
+    import torch
+    import torch.nn.functional as F
+
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.models.clip import (
+        SD15_CLIP_CONFIG,
+        Tokenizer,
+        encode_token_weights_batch,
+    )
+    from stable_renderer_tpu_torch.models.lora import merge_lora
+    from stable_renderer_tpu_torch.models.t2i_adapter import T2IAdapter, T2IAdapterConfig
+    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG
+    from stable_renderer_tpu_torch.models.weights import (
+        flatten,
+        read_safetensors,
+        split_checkpoint,
+        tree_to,
+        write_safetensors,
+    )
+    from stable_renderer_tpu_torch.ops.conv_kernel import conv3x3_kernel, use_pallas_conv
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
+    from stable_renderer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+    from stable_renderer_tpu_torch.ops.group_norm_kernel import group_norm_kernel
+    from stable_renderer_tpu_torch.ops.raster_kernel import rasterize_kernel
+    from stable_renderer_tpu_torch.workflow.config import ControlNetSpec
+
+    def corr():
+        return OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        flash_attention.launches = rasterize_kernel.launches = 0
+        conv3x3_kernel.launches = group_norm_kernel.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
+                group_norm_kernel.launches)
+
+    def frame0(p_):
+        """The decoded frame 0 of frame_step with pipeline ``p_``, f32."""
+        images = run_frame(p_, SIZE, 0, corr(), bg)[3]
+        if not torch.isfinite(images).all():
+            fail("phase 20: non-finite decoded frame")
+        return images.float()
+
+    cfg, out = pipe.config, {}
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="checkpoint-", dir=root))
+    try:
+        # --- 20.1 the checkpoint file: write, then read back -----------------------
+        flat = {prefix + k: v.to(torch.bfloat16) for prefix, tree in (
+            ("model.diffusion_model.", pipe.unet_params), ("first_stage_model.", pipe.vae_params),
+            ("cond_stage_model.transformer.", pipe.clip_params)) for k, v in flatten(tree).items()}
+        path = tmp / "sd15.safetensors"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        size = write_safetensors(flat, path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mapped = read_safetensors(path)
+        map_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = {k: v.to(dev) for k, v in mapped.items()}
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        if sorted(back) != sorted(flat) or not all(same_bits(back[k], v) for k, v in flat.items()):
+            fail("phase 20: the checkpoint did not read back bit for bit")
+        del mapped, back
+        out["file"] = {"bytes": size, "tensors": len(flat), "write_s": write_s, "map_s": map_s,
+                       "read_to_card_s": read_s}
+        print(f"[20 checkpoint] {len(flat)} tensors, {size / 2**30:.3f} GiB BF16 written in "
+              f"{write_s:.2f} s ({size / write_s / 1e9:.2f} GB/s, the card's trees copied to the "
+              f"host included); mapped in {map_s * 1e3:.1f} ms, read to the card in {read_s:.2f} "
+              f"s ({size / read_s / 1e9:.2f} GB/s, from the page cache), bit for bit | {card}",
+              flush=True)
+
+        # --- 20.2 from_checkpoint ------------------------------------------------------
+        t0 = time.perf_counter()
+        pipe_l = DiffusionPipeline.from_checkpoint(str(path), config=cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if pipe_l.unet.config != SD15_UNET_CONFIG or pipe_l.model_family != "sd1":
+            fail(f"phase 20: detected {pipe_l.unet.config}, family {pipe_l.model_family}")
+        n_leaves = 0
+        for prefix, tree, dt in (("model.diffusion_model.", pipe_l.unet_params, torch.bfloat16),
+                                 ("first_stage_model.", pipe_l.vae_params, torch.float32),
+                                 ("cond_stage_model.transformer.", pipe_l.clip_params,
+                                  torch.float32)):
+            for k, v in flatten(tree).items():
+                n_leaves += 1
+                want = flat.get(prefix + k)
+                if (want is None or v.device.type != "cuda"
+                        or not same_bits(v, want.to(dt))):
+                    fail(f"phase 20: loaded leaf {prefix + k} ({v.dtype}, {v.device}) is not "
+                         f"what was written, cast to {dt}")
+        if n_leaves != len(flat):
+            fail(f"phase 20: {len(flat) - n_leaves} keys of the file were left unconsumed")
+        out["from_checkpoint_s"] = load_s
+        print(f"[20 checkpoint] from_checkpoint on the card in {load_s:.2f} s: SD1.5 detected, "
+              f"{n_leaves} leaves, none left over, each equal to the file's (UNet bf16; VAE and "
+              f"CLIP cast to f32) | {card}", flush=True)
+
+        # --- 20.3 its frames: frame_step, then Engine.Run ------------------------------
+        unet_t, vae_t, clip_t = split_checkpoint(flat)
+        pipe_mem = DiffusionPipeline(
+            unet=pipe.unet, vae=pipe.vae, clip=pipe.clip, tokenizer=pipe.tokenizer,
+            unet_params=unet_t, vae_params=tree_to(vae_t, dev, torch.float32),
+            clip_params=tree_to(clip_t, dev, torch.float32), config=cfg,
+            model_sampling=pipe.model_sampling, device=dev)
+        zero_counts()
+        times = []
+        with k1_shape_tally(f32=True) as seen:
+            for f in range(1 + FRAMES_TIMED):
+                t0 = time.perf_counter()
+                disp, _, _, images, _, _ = run_frame(pipe_l, SIZE, f, corr(), bg)
+                host = disp.cpu()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if not torch.isfinite(images).all() or host.shape != (SIZE, SIZE, 4):
+                    fail(f"phase 20: loaded frame {f} non-finite or display {tuple(host.shape)}")
+                if f == 0:
+                    loaded0 = images.float().clone()
+        n = 1 + FRAMES_TIMED
+        want = (K1_CALLS_PER_FRAME, 1, 0, 0)
+        if counts() != tuple(c * n for c in want):
+            fail(f"phase 20: loaded frames launched K1, K2, K3, K4 = {counts()} over {n} "
+                 f"frames, want {want} a frame")
+        # the f32 VAE's two mid-block attentions (encode, decode) take the f32
+        # route, by the launches that did not pass through the bf16 wrapper
+        f32_a_frame, f32_rest = divmod(seen.pop("f32"), n)
+        bf16_a_frame, bf16_rest = divmod(sum(seen.values()), n)
+        if (f32_a_frame, bf16_a_frame, f32_rest, bf16_rest) != (
+                K1_F32_CALLS_LOADED, K1_CALLS_PER_FRAME - K1_F32_CALLS_LOADED, 0, 0) or any(
+                shape[3] == VAE_ATTN_SHAPE[3] for shape in seen):
+            fail(f"phase 20: loaded frames' K1 launches by route over {n} frames: f32 "
+                 f"{f32_a_frame * n + f32_rest}, bf16 by shape {dict(seen)}; want "
+                 f"{K1_F32_CALLS_LOADED} f32 a frame and no bf16 launch at d = {VAE_ATTN_SHAPE[3]}")
+        step_ms = statistics.median(times[1:])
+        k1.setdefault("launches_a_frame", {})["checkpoint"] = K1_CALLS_PER_FRAME
+        engine = engine_ms["checkpoint bf16"] = run_engine_phase(
+            20, "checkpoint bf16", pipe_l, step_ms, 0, want, ref=pipe_mem)
+        out["frame_step_median_ms"] = step_ms
+        print(f"[20 checkpoint] loaded pipeline (UNet bf16, VAE and CLIP f32): frame_step median "
+              f"{step_ms:.1f} ms over {FRAMES_TIMED} frames (warm {times[0]:.1f} ms), K1 "
+              f"{bf16_a_frame} bf16 + {f32_a_frame} f32 launches a frame; Engine.Run "
+              f"median {engine['median_ms']:.1f} ms, p90 {engine['p90_ms']:.1f} ms beside phase "
+              f"11's bf16 {engine_ms['bf16']['median_ms']:.1f} / {engine_ms['bf16']['p90_ms']:.1f}"
+              f" ms; its frame 0 identical to frame_step's for the in-memory pipeline | {card}",
+              flush=True)
+        del pipe_mem, unet_t, vae_t, clip_t
+
+        # --- 20.4 K1's f32 route at the f32 VAE's attention shape -----------------------
+        gen = torch.Generator(device=dev).manual_seed(20)
+        bh, lq, _, d = VAE_ATTN_SHAPE
+        q, k_, v = (torch.randn((bh, lq, d), generator=gen, device=dev) for _ in range(3))
+        qb, kb, vb = q[None], k_[None], v[None]
+        kernel = lambda: flash_attention(q, k_, v)  # noqa: E731
+        plain = lambda: flash_attention_reference(q, k_, v)  # noqa: E731
+        err = (kernel() - plain()).abs().max().item()
+        if not (math.isfinite(err) and err <= K1_F32_TOL):
+            fail(f"K1 f32 at the VAE shape: max abs err {err:.3e} > {K1_F32_TOL}")
+        b_ms, b_by = bound(4.0 * bh * d * (2 * lq + 2 * lq), 4.0 * bh * lq * lq * d, "f32")
+        row = {"shape": f"bh={bh} lq={lq} lk={lq} d={d} float32 (flash_simt_f32: the loaded "
+                        f"pipeline's f32 VAE mid-block attention)",
+               "max_abs_err": err, "err_bar": K1_F32_TOL, "ms": graph_ms(kernel, repeats=10),
+               "ms_with_host": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 5),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb), 5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "launches_a_frame": {"checkpoint": f32_a_frame}}
+        k1["shapes"].append(row)
+        out["k1_f32_vae"] = row
+        print(f"[20 K1 f32] {row} | {card}", flush=True)
+        del q, k_, v, qb, kb, vb
+
+        # --- 20.5 an LCM-LoRA-shaped file ------------------------------------------------
+        pre = "model.diffusion_model."
+        targets = [k for k in flat if k.startswith(pre) and k.endswith(".weight") and any(
+            t in k for t in ("to_q", "to_k", "to_v", "to_out", "ff.net", "proj_in", "proj_out"))]
+        gl = torch.Generator(device=dev).manual_seed(21)
+        lora = {}
+        for k in targets:
+            w, r = flat[k], CKPT_LORA_RANK
+            name = "lora_unet_" + k[len(pre):-len(".weight")].replace(".", "_")
+            ones = (1,) * (w.dim() - 2)  # 1x1 convs (proj_in, proj_out): (O, r, 1, 1)
+            lora[name + ".lora_up.weight"] = (torch.randn(
+                (w.shape[0], r) + ones, generator=gl, device=dev) * 0.01).half()
+            lora[name + ".lora_down.weight"] = (torch.randn(
+                (r,) + tuple(w.shape[1:]), generator=gl, device=dev) * 0.01).half()
+            lora[name + ".alpha"] = torch.tensor(CKPT_LORA_ALPHA, dtype=torch.float16)
+        lora_path = tmp / "lcm-lora-shaped.safetensors"
+        lora_bytes = write_safetensors(lora, lora_path)
+        t0 = time.perf_counter()
+        pipe_lora = DiffusionPipeline.from_checkpoint(str(path), config=cfg, device=dev,
+                                                      loras=[(str(lora_path), 1.0)])
+        torch.cuda.synchronize()
+        lora_load_s = time.perf_counter() - t0
+        applied = pipe_lora.lora_modules_applied
+        if applied != [{"path": str(lora_path), "strength": 1.0, "unet": len(targets), "te": 0}]:
+            fail(f"phase 20: LoRA modules applied {applied}, want {len(targets)} in the UNet")
+        unet_cpu = split_checkpoint(read_safetensors(path))[0]
+        lora_cpu = read_safetensors(lora_path)
+        t0 = time.perf_counter()
+        _, n_merged = merge_lora(unet_cpu, lora_cpu, 1.0)
+        merge_s = time.perf_counter() - t0
+        merged = flatten(pipe_lora.unet_params)
+        sample = [targets[0], targets[len(targets) // 2], targets[-1],
+                  next(k for k in targets if "proj_in" in k),
+                  next(k for k in targets if "ff.net.0.proj" in k)]
+        for k in sample:  # the plain f32 merge on the CPU, in the JAX package's order
+            name = "lora_unet_" + k[len(pre):-len(".weight")].replace(".", "_")
+            w = flat[k].float().cpu().numpy()
+            up = lora[name + ".lora_up.weight"].float().cpu().numpy()
+            down = lora[name + ".lora_down.weight"].float().cpu().numpy()
+            delta = (up.reshape(up.shape[0], -1) @ down.reshape(down.shape[0], -1)).reshape(w.shape)
+            plain_w = torch.from_numpy(w + (1.0 * CKPT_LORA_ALPHA / CKPT_LORA_RANK) * delta)
+            if not same_bits(merged[k[len(pre):]].cpu(), plain_w.to(torch.bfloat16)):
+                fail(f"phase 20: merged leaf {k} differs from the plain f32 merge on the CPU")
+        untouched = "input_blocks.1.0.in_layers.2.weight"
+        if not same_bits(merged[untouched], flat[pre + untouched]):
+            fail(f"phase 20: the LoRA changed {untouched}, which it does not target")
+        out["lora"] = {"modules": len(targets), "applied": applied, "bytes": lora_bytes,
+                       "from_checkpoint_s": lora_load_s, "merge_s": merge_s,
+                       "sampled_leaves_equal": len(sample)}
+        print(f"[20 lora] LCM-LoRA-shaped file (rank {CKPT_LORA_RANK}, F16, {len(targets)} "
+              f"modules, {lora_bytes / 2**20:.1f} MiB): from_checkpoint with it "
+              f"{lora_load_s:.2f} s (without: {load_s:.2f} s), {applied[0]['unet']} UNet modules "
+              f"applied; "
+              f"merge_lora alone {merge_s:.2f} s on the host ({n_merged} modules); {len(sample)} "
+              f"sampled leaves equal to the plain f32 merge on the CPU bit for bit | {card}",
+              flush=True)
+        del pipe_lora, unet_cpu, lora_cpu, merged, lora
+        lora_path.unlink()
+
+        # --- 20.6 the loaded pipeline quantized -------------------------------------------
+        pipe_q = dc_replace(pipe_l, config=dc_replace(cfg, int8_conv=True))
+        t0 = time.perf_counter()
+        pipe_q.quantize_convs()
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        zero_counts()
+        with k3_shape_tally() as seen:
+            q_images = frame0(pipe_q)
+        by_class, c = per_frame_classes(seen, 1), counts()
+        if c != (K1_CALLS_PER_FRAME, 1, K3_INT8_CALLS_PER_FRAME, 0) or (
+                by_class != K3_INT8_FRAME_SHAPES):
+            fail(f"phase 20 int8: launches K1, K2, K3, K4 = {c}, K3 by class {by_class}")
+        out["int8"] = {"quantize_s": q_s, "launches": c}
+        print(f"[20 int8] the loaded pipeline quantized in {q_s:.2f} s; one frame: K1 {c[0]}, K2 "
+              f"{c[1]}, K3 {c[2]} by the int8 frame's {len(by_class)} classes, finite; vs the "
+              f"bf16 loaded frame mean abs {(q_images - loaded0).abs().mean().item():.4f} | "
+              f"{card}", flush=True)
+        del pipe_q
+
+        # --- 20.7 control checkpoints ----------------------------------------------------
+        specs = (ControlNetSpec(source="normal", strength=0.6),
+                 ControlNetSpec(source="depth", strength=0.6))
+        pipe_a, pipe_b = dc_replace(pipe_l, controlnets=[]), dc_replace(pipe_l, controlnets=[])
+        for i, spec in enumerate(specs):
+            perturbed_controlnet(pipe_a, spec, seed=5 + i)
+            cn_path = tmp / f"controlnet-{spec.source}.safetensors"
+            write_safetensors({"control_model." + k: v for k, v in
+                               flatten(pipe_a.controlnets[-1][1]).items()}, cn_path)
+            pipe_b.add_control_from_state_dict(read_safetensors(cn_path), spec)
+            cn_path.unlink()
+        zero_counts()
+        cn_images = frame0(pipe_b)
+        c = counts()
+        same = torch.equal(cn_images, frame0(pipe_a))
+        kinds = [type(m).__name__ for m, _, _ in pipe_b.controlnets]
+        if not same or c[0] != K1_CONTROL_CALLS_PER_FRAME or kinds != ["ControlNet"] * 2:
+            fail(f"phase 20 ControlNet files: frame equal to add_controlnet's {same}, K1 {c[0]} "
+                 f"(want {K1_CONTROL_CALLS_PER_FRAME}), controls {kinds}")
+        # a control-LoRA: the first net's control-only tensors in full, rank-8
+        # factors (F32) for every 2-D and 4-D weight of the UNet's trunk
+        cn0 = flatten(pipe_a.controlnets[0][1])
+        gc = torch.Generator(device=dev).manual_seed(22)
+        control_lora = {"lora_controlnet": torch.zeros(0)}
+        control_lora.update({k: v for k, v in cn0.items() if k.startswith(
+            ("input_hint_block.", "zero_convs.", "middle_block_out."))})
+        for k, w in flatten(pipe_l.unet_params).items():
+            if (k.startswith(("time_embed.", "input_blocks.", "middle_block."))
+                    and k.endswith(".weight") and w.dim() in (2, 4)):
+                base, r = k[:-len(".weight")], CONTROL_LORA_RANK
+                control_lora[base + ".up"] = torch.randn((w.shape[0], r), generator=gc,
+                                                         device=dev) * 0.01
+                control_lora[base + ".down"] = torch.randn((r,) + tuple(w.shape[1:]),
+                                                           generator=gc, device=dev) * 0.01
+        cl_path = tmp / "control-lora.safetensors"
+        write_safetensors(control_lora, cl_path)
+        pipe_c = dc_replace(pipe_l, controlnets=[])
+        t0 = time.perf_counter()
+        pipe_c.add_control_from_state_dict(read_safetensors(cl_path), specs[1])
+        cl_s = time.perf_counter() - t0
+        cl_pairs = sum(k.endswith(".up") for k in control_lora)
+        del control_lora, cn0
+        cl_path.unlink()
+        zero_counts()
+        cl_images = frame0(pipe_c)
+        c_cl = counts()
+        cl_moved = (cl_images - loaded0).abs().mean().item()
+        if type(pipe_c.controlnets[0][0]).__name__ != "ControlNet" or not (
+                cl_moved > CONTROL_DIFF_FLOOR):
+            fail(f"phase 20 control-LoRA: moved {cl_moved:.3e} (floor {CONTROL_DIFF_FLOOR})")
+        # a full-width T2I-Adapter, f32 weights from a seed, as a file
+        ad = T2IAdapter(T2IAdapterConfig())
+        ad_flat = flatten(ad.init(torch.Generator(device=dev).manual_seed(23), device=dev))
+        ad_path = tmp / "t2i-adapter.safetensors"
+        write_safetensors(ad_flat, ad_path)
+        pipe_t = dc_replace(pipe_l, controlnets=[])
+        pipe_t.add_control_from_state_dict(read_safetensors(ad_path), specs[0])
+        ad_path.unlink()
+        zero_counts()
+        ad_images = frame0(pipe_t)
+        c_ad = counts()
+        ad_moved = (ad_images - loaded0).abs().mean().item()
+        if (type(pipe_t.controlnets[0][0]).__name__ != "T2IAdapter"
+                or c_ad != (K1_CALLS_PER_FRAME, 1, 0, 0) or not ad_moved > CONTROL_DIFF_FLOOR):
+            fail(f"phase 20 T2I-Adapter: launches {c_ad}, moved {ad_moved:.3e}")
+        # its features under the float K3 switch, from a 512x512 hint
+        hint = torch.rand((1, SIZE, SIZE, 3), generator=torch.Generator(device=dev).manual_seed(
+            24), device=dev)
+        ad_t, ad_params, _ = pipe_t.controlnets[0]
+        use_pallas_conv(True)
+        try:
+            with k3_shape_tally() as seen:
+                feats = ad_t.apply_hint(ad_params, hint, torch.bfloat16)
+                torch.cuda.synchronize()
+        finally:
+            use_pallas_conv(False)
+        ad_classes = per_frame_classes(seen, 1)
+        if ad_classes != T2I_K3_CLASSES or not all(torch.isfinite(f).all() for f in feats
+                                                   if f is not None):
+            fail(f"phase 20 T2I-Adapter under the K3 switch: classes {ad_classes}, want "
+                 f"{T2I_K3_CLASSES}")
+        out["control"] = {
+            "controlnet_files": {"frame_equal": same, "k1_a_frame": c[0]},
+            "control_lora": {"pairs": cl_pairs, "rank": CONTROL_LORA_RANK, "compose_s": cl_s,
+                             "moved_mean_abs": cl_moved, "launches": c_cl},
+            "t2i_adapter": {"moved_mean_abs": ad_moved, "launches": c_ad,
+                            "k3_classes_switched": {str(k): n for k, n in ad_classes.items()}}}
+        k1["launches_a_frame"]["checkpoint control"] = c[0]
+        print(f"[20 control] two ControlNet files (control_model.): frame identical to "
+              f"add_controlnet's, K1 {c[0]} a frame; control-LoRA (rank {CONTROL_LORA_RANK}, "
+              f"{cl_pairs} factor pairs) composed in {cl_s:.2f} s, frame finite, moved "
+              f"{cl_moved:.4f} mean abs, launches {c_cl}; T2I-Adapter (full width): frame finite, "
+              f"moved {ad_moved:.4f}, launches {c_ad}; its features under the K3 switch: K3 "
+              f"{sum(ad_classes.values())} launches {ad_classes} | {card}", flush=True)
+        del pipe_a, pipe_b, pipe_c, pipe_t, ad_flat, feats
+
+        # --- 20.8 textual inversion -------------------------------------------------------
+        emb_dir = tmp / "embeddings"
+        emb_dir.mkdir()
+        vecs = torch.randn((TI_VECTORS, SD15_CLIP_CONFIG.hidden_size),
+                           generator=torch.Generator().manual_seed(25)) * 0.3
+        write_safetensors({"emb_params": vecs}, emb_dir / "shinything.safetensors")
+        tok = Tokenizer(SD15_CLIP_CONFIG, embedding_directory=str(emb_dir))
+        pipe_e = dc_replace(pipe_l, tokenizer=tok, controlnets=[])
+        prompt = "a shiny ball embedding:shinything"
+        ctx, _ = pipe_e.encode_prompts([prompt], [""])
+        ids, weights, custom = tok.tokenize_weighted_batch([prompt, ""])
+        with torch.no_grad():
+            ref, _ = encode_token_weights_batch(
+                pipe_e.clip, _to_cpu(pipe_e.clip_params), torch.as_tensor(ids),
+                torch.as_tensor(weights), custom_embeds=torch.as_tensor(custom),
+                clip_skip=cfg.clip_skip)
+        ti_err = (ctx.cpu() - ref[:1]).abs().max().item()
+        ti_moved = (ctx - pipe_e.encode_prompts(["a shiny ball"], [""])[0]).abs().max().item()
+        if custom is None or custom.shape[0] != TI_VECTORS or not (
+                ti_err <= TI_TOL and ti_moved > 1e-2):
+            fail(f"phase 20 textual inversion: vectors {None if custom is None else custom.shape}"
+                 f", card vs CPU max abs {ti_err:.3e} (tol {TI_TOL}), moved {ti_moved:.3e}")
+        out["textual_inversion"] = {"vectors": TI_VECTORS, "max_abs_err": ti_err,
+                                    "moved": ti_moved}
+        print(f"[20 textual inversion] {prompt!r}: {TI_VECTORS} vectors spliced, card vs CPU "
+              f"encoding max abs {ti_err:.3e} (tol {TI_TOL}), moved {ti_moved:.3f} from the "
+              f"prompt without them | {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def perturbed_controlnet(pipe, spec, seed: int) -> None:

@@ -18,8 +18,9 @@ Pallas kernel in the JAX package either). Update modes (corrmap.py:344-357):
 "First" is the pixel with the smallest flat screen index: a ``scatter_reduce``
 ``amin`` over int32 pixel indices, exact on every device, so ``first`` and
 ``replace`` agree with the JAX package bit for bit. The ``_avg`` modes sum
-with ``index_add_``, whose order of additions on CUDA is not fixed: they
-agree with the JAX package to rounding, not bit for bit.
+with ``ops.math.segment_add_``, in an order fixed by the input (the same map
+from run to run), but not the JAX package's order: they agree with it to
+rounding, not bit for bit.
 
 ``dump`` / ``Load`` use the JAX package's (and the reference's) on-disk format
 byte for byte: k*k PNGs, ``{i}_written.png`` masks and ``meta.json``,
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from stable_renderer_tpu_torch.device import resolve_device
+from stable_renderer_tpu_torch.ops.math import segment_add_
 from stable_renderer_tpu_torch.utils.log import EngineLogger
 from stable_renderer_tpu_torch.utils.paths import TEMP_DIR
 
@@ -103,9 +105,9 @@ def corrmap_update(
 
     if mode.endswith("_avg"):
         sums = torch.zeros((n_seg + 1, c), dtype=torch.float32, device=dev)
-        sums.index_add_(0, seg, torch.where(valid[:, None], cf, torch.zeros_like(cf)))
+        segment_add_(sums, seg, torch.where(valid[:, None], cf, torch.zeros_like(cf)))
         counts = torch.zeros(n_seg + 1, dtype=torch.float32, device=dev)
-        counts.index_add_(0, seg, valid.to(torch.float32))
+        segment_add_(counts, seg, valid.to(torch.float32))
         counts = counts[:-1]
         touched = counts > 0
         new_cell = sums[:-1] / counts.clamp(min=1.0)[:, None]

@@ -10,21 +10,25 @@ counterpart of ``_jit_render_stream``, the StreamDiffusion-style program
 (S = steps frames in flight, one batched UNet evaluation an engine frame,
 lag-1 K/V correspondence).
 
-Ported so far: the SD1.5 family from random weights, plain (non-scene)
-conditioning, the sequential and stream programs, ControlNets
-(``add_controlnet``, ``add_random_controlnet``), the calibrated int8 conv
-path (``quantize_convs``), the TAESD autoencoder for realtime frames
+Ported so far: the SD1.x family from random weights or from a checkpoint
+(``from_checkpoint``: an ldm file or a diffusers folder, with LoRAs merged),
+plain (non-scene) conditioning with textual inversion, the sequential and
+stream programs, ControlNets, control-LoRAs and T2I-Adapters
+(``add_controlnet``, ``add_random_controlnet``, ``add_control_lora``,
+``add_t2i_adapter``, ``add_control_from_state_dict``), the calibrated int8
+conv path (``quantize_convs``), the TAESD autoencoder for realtime frames
 (``with_taesd``, ``RenderConfig.realtime_taesd``) and per-vertex starting
-noise (``RenderConfig.vertex_noise`` without noise maps). Checkpoint loading,
-control-LoRAs, T2I-Adapters, scene conditioning and the multi-device stream
-mesh raise until their slices are ported. The pipeline's tensors live on the
-card unless ``device`` names another device.
+noise (``RenderConfig.vertex_noise`` without noise maps). Other model
+families (ROADMAP 1.11), scene conditioning (1.7) and the multi-device stream
+mesh (1.14) raise until their slices are ported. The pipeline's tensors live
+on the card unless ``device`` names another device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import List, Optional, Tuple
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,6 +79,13 @@ class DiffusionPipeline:
     # TAESD tiny autoencoder for RenderConfig.realtime_taesd frames
     taesd: Optional[TAESD] = None
     taesd_params: Optional[dict] = None
+    # set by from_checkpoint, as the JAX package sets them: the checkpoint's
+    # family ("sd1") and the SD2.1-unclip noise-augmentor width (None)
+    model_family: str = "sd1"
+    noise_aug_dim: Optional[int] = None
+    # from_checkpoint's LoRAs: {"path", "strength", "unet", "te"} with the
+    # number of modules each merged into the UNet and the CLIP
+    lora_modules_applied: List[dict] = field(default_factory=list)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -83,6 +94,68 @@ class DiffusionPipeline:
         self._sigma_cache: Optional[Tuple[tuple, torch.Tensor]] = None
 
     # --- constructors --------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        path: str,
+        config: Optional[RenderConfig] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        loras: Sequence[Tuple[str, float]] = (),
+        device=None,
+    ) -> "DiffusionPipeline":
+        """An SD1.x checkpoint (an ldm ``.safetensors`` / ``.ckpt`` file, or a
+        diffusers folder) with optional LoRAs, e.g. LCM (comfy sd.py:592-712
+        load_checkpoint_guess_config).
+
+        The state dict is read once (a mapped file) and threaded through
+        detection, the split into towers and the LoRA merges
+        (``loras=[(path, strength)]``: ``lora_unet_`` into the UNet,
+        ``lora_te_`` into the CLIP, in the files' dtypes). The trees then go
+        to ``device`` (default: the card; checked before anything is read) in
+        the JAX package's types: the UNet in ``dtype``, the VAE and the CLIP
+        in f32. ``config.int8_conv`` quantizes the convs afterwards. Other
+        families raise naming ROADMAP 1.11 (so a diffusers folder loads SD1.x
+        only, as in the JAX package), inpaint UNets naming 1.7. The merged
+        module counts are kept in ``lora_modules_applied``."""
+        from stable_renderer_tpu_torch.models.lora import merge_lora
+        from stable_renderer_tpu_torch.models.weights import (
+            load_checkpoint_flat,
+            load_state_dict,
+            tree_to,
+        )
+
+        device = resolve_device(device)
+        if Path(path).is_dir():
+            from stable_renderer_tpu_torch.models.diffusers_convert import load_diffusers_folder
+
+            flat = load_diffusers_folder(str(path))
+        else:
+            flat = load_state_dict(path)
+        unet_p, vae_p, clip_p, ucfg, fam = load_checkpoint_flat(flat, str(path))
+        applied = []
+        for lora_path, strength in loras:
+            lora_flat = load_state_dict(lora_path)
+            unet_p, n_unet = merge_lora(unet_p, lora_flat, strength, prefix="lora_unet_")
+            clip_p, n_te = merge_lora(clip_p, lora_flat, strength, prefix="lora_te_")
+            applied.append({"path": str(lora_path), "strength": strength, "unet": n_unet,
+                            "te": n_te})
+        config = config or RenderConfig()
+        ms = ModelSampling(prediction=config.prediction or (
+            "lcm" if config.sampler == "lcm" else fam["prediction"]))
+        pipe = cls(
+            unet=UNetModel(ucfg), vae=VAE(SD15_VAE_CONFIG), clip=CLIPTextModel(SD15_CLIP_CONFIG),
+            tokenizer=Tokenizer(SD15_CLIP_CONFIG),
+            unet_params=tree_to(unet_p, device, dtype),
+            vae_params=tree_to(vae_p, device, torch.float32),
+            clip_params=tree_to(clip_p, device, torch.float32),
+            config=config, model_sampling=ms, device=device,
+            model_family=fam["family"], noise_aug_dim=fam["noise_aug_dim"],
+            lora_modules_applied=applied,
+        )
+        if config.int8_conv:
+            pipe.quantize_convs()
+        return pipe
 
     @classmethod
     def from_random(
@@ -128,14 +201,17 @@ class DiffusionPipeline:
     def with_taesd(self, encoder_path: Optional[str] = None,
                    decoder_path: Optional[str] = None, seed: int = 11) -> "DiffusionPipeline":
         """Attach a TAESD tiny autoencoder for ``RenderConfig.realtime_taesd``
-        frames: random f32 weights from a generator seeded with ``seed`` on
-        the pipeline's device. Official weight files (``encoder_path``,
-        ``decoder_path``) wait for ROADMAP 1.8 and raise.
+        frames: the official weight files (``encoder_path``,
+        ``decoder_path``: taesd .pth / .safetensors, moved to the pipeline's
+        device in their own dtype), or without them random f32 weights from a
+        generator seeded with ``seed`` on the pipeline's device.
 
         A config with ``realtime_taesd`` runs TAESD only once it is attached;
         before, both programs run the full VAE, as the JAX package's do."""
         if encoder_path or decoder_path:
-            params = TAESD.load(encoder_path, decoder_path)
+            from stable_renderer_tpu_torch.models.weights import tree_to
+
+            params = tree_to(TAESD.load(encoder_path, decoder_path), self.device)
         else:
             params = TAESD().init(torch.Generator(device=self.device).manual_seed(seed),
                                   device=self.device)
@@ -223,22 +299,55 @@ class DiffusionPipeline:
         self.controlnets.append((cn, cn.init(gen, dtype=dtype, device=self.device), spec))
 
     def add_control_lora(self, control_weights: dict, spec: ControlNetSpec) -> None:
-        raise NotImplementedError("control-LoRAs wait for the checkpoint slice (ROADMAP 1.8)")
+        """Chain a control-LoRA (comfy controlnet.py:303): the UNet's trunk
+        with the file's low-rank deltas merged and its full tensors
+        (``ControlNet.init_control_lora``), on the pipeline's device."""
+        cn = ControlNet(ControlNetConfig(unet=self.unet.config))
+        self.controlnets.append((cn, cn.init_control_lora(self.unet_params, control_weights),
+                                 spec))
 
     def add_t2i_adapter(self, params: dict, spec: ControlNetSpec, config=None) -> None:
-        raise NotImplementedError("the T2I-Adapter waits for the checkpoint slice (ROADMAP 1.8)")
+        """Chain a T2I-Adapter with ``params`` (its checkpoint tree, as
+        tensors on the pipeline's device) and ``config`` (default: the SD1.x
+        adapter)."""
+        from stable_renderer_tpu_torch.models.t2i_adapter import T2IAdapter, T2IAdapterConfig
+
+        self.controlnets.append((T2IAdapter(config or T2IAdapterConfig()), params, spec))
 
     def add_control_from_state_dict(self, flat: dict, spec: ControlNetSpec) -> None:
-        raise NotImplementedError("control checkpoints wait for the checkpoint slice (ROADMAP 1.8)")
+        """Chain a control checkpoint's flat state dict, its format sniffed as
+        comfy load_controlnet / load_t2i_adapter (controlnet.py:360-560) do:
+        a ``lora_controlnet`` key makes a control-LoRA; ``adapter.`` or
+        ``body.`` keys or ``conv_in.weight`` a T2I-Adapter; anything else a
+        ControlNet, its ``control_model.`` prefix stripped. The tensors move
+        to the pipeline's device in the file's dtype (the layers cast weights
+        to the activations' type, as the JAX package's do)."""
+        from stable_renderer_tpu_torch.models.weights import nest, tree_to
+
+        if "lora_controlnet" in flat:
+            self.add_control_lora(flat, spec)
+            return
+        if any(k.startswith(("adapter.", "body.")) or k == "conv_in.weight" for k in flat):
+            from stable_renderer_tpu_torch.models.t2i_adapter import load_t2i_adapter
+
+            ad, params = load_t2i_adapter(flat)
+            self.controlnets.append((ad, tree_to(params, self.device), spec))
+            return
+        if any(k.startswith("control_model.") for k in flat):
+            flat = {k[len("control_model."):]: v for k, v in flat.items()
+                    if k.startswith("control_model.")}
+        self.add_controlnet(tree_to(nest(flat, ""), self.device), spec)
 
     def _make_control_fn(self, hints: tuple, cn_params=None):
-        """The per-evaluation control callable: every ControlNet's residuals,
-        summed entry by entry (chained controls, ControlBase.control_merge),
-        or None without ControlNets. ``hints`` is aligned with
-        ``self.controlnets``; each is brought to 8x the latent size (the hint
-        tower's factor). A hint does not change within a frame, so each net's
-        hint tower runs once, on the first evaluation, at the hint's own
-        batch, and its output is tiled to the cfg batch for every
+        """The per-evaluation control callable: every control's residuals
+        (ControlNet: middle and output; T2I-Adapter: input), summed entry by
+        entry (chained controls, ControlBase.control_merge), or None without
+        controls. ``hints`` is aligned with ``self.controlnets``; each is
+        brought to 8x the latent size (the hint tower's factor). A hint does
+        not change within a frame, so each control's hint tower (a
+        ControlNet's input_hint_block, in the hint's type; an adapter's
+        features, in the UNet's) runs once, on the first evaluation, at the
+        hint's own batch, and its output is tiled to the cfg batch for every
         evaluation of the frame."""
         if not self.controlnets:
             return None
@@ -256,9 +365,13 @@ class DiffusionPipeline:
                     want = (x_in.shape[1] * 8, x_in.shape[2] * 8)
                     if tuple(hint.shape[1:3]) != want:
                         hint = resize_nearest(hint, want[0], want[1])
-                    g = cn.apply_hint(params, hint)
-                    reps = x_in.shape[0] // g.shape[0]
-                    g = guided[(i, x_in.shape[0])] = torch.cat([g] * reps, 0) if reps > 1 else g
+                    reps = x_in.shape[0] // hint.shape[0]
+                    if isinstance(cn, ControlNet):
+                        g = _tiled(cn.apply_hint(params, hint), reps)
+                    else:  # T2I-Adapter: one residual (or None) per input block
+                        g = [None if f is None else _tiled(f, reps)
+                             for f in cn.apply_hint(params, hint, x_in.dtype)]
+                    guided[(i, x_in.shape[0])] = g
                 ctl = cn.apply(params, x_in, None, t, ctx, strength=spec.strength,
                                percent_range=(spec.start_percent, spec.end_percent),
                                total_timesteps=total_t, guided_hint=g)
@@ -279,7 +392,7 @@ class DiffusionPipeline:
 
     def encode_prompts(self, prompts: List[str], negatives: List[str]):
         """Weighted multi-chunk conditioning ((word:1.2) weighting, >75-token
-        chunk concat). cond and uncond are tokenized together so both pad to
+        chunk concat, textual-inversion embeddings). cond and uncond are tokenized together so both pad to
         the same chunk count. Cached by (texts, clip_skip)."""
         ctx_p, ctx_n, _, _ = self._encode_prompts_full(prompts, negatives)
         return ctx_p, ctx_n
@@ -290,11 +403,15 @@ class DiffusionPipeline:
         if hit is not None:
             return hit
         np_b = len(prompts)
-        ids, weights, _ = self.tokenizer.tokenize_weighted_batch(list(prompts) + list(negatives))
+        ids, weights, custom = self.tokenizer.tokenize_weighted_batch(
+            list(prompts) + list(negatives))
         with torch.no_grad():
             ctx, pooled = encode_token_weights_batch(
                 self.clip, self.clip_params, torch.as_tensor(ids, device=self.device),
-                torch.as_tensor(weights, device=self.device), clip_skip=self.config.clip_skip)
+                torch.as_tensor(weights, device=self.device),
+                custom_embeds=None if custom is None else torch.as_tensor(custom,
+                                                                          device=self.device),
+                clip_skip=self.config.clip_skip)
         result = (ctx[:np_b], ctx[np_b:], pooled[:np_b], pooled[np_b:])
         if len(self._cond_cache) > 32:
             self._cond_cache.clear()
@@ -584,3 +701,8 @@ class DiffusionPipeline:
             }
         image = self._decode(vae_params, out_latent, vae_dtype)
         return image, new_state, (captured if kv_layers else None)
+
+
+def _tiled(t: torch.Tensor, reps: int) -> torch.Tensor:
+    """``t`` repeated ``reps`` times along the batch (itself for one)."""
+    return torch.cat([t] * reps, 0) if reps > 1 else t

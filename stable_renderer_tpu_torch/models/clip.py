@@ -44,18 +44,20 @@ class CLIPTextModel:
     def apply(
         self,
         params: dict,
-        tokens: torch.Tensor,  # (B, 77) integer ids
+        tokens: torch.Tensor,  # (B, 77) integer ids; negative ids index custom_embeds
         clip_skip: int = -1,
         final_norm: bool = True,
-        custom_embeds: Optional[torch.Tensor] = None,
+        custom_embeds: Optional[torch.Tensor] = None,  # (K, hidden) textual inversion
     ) -> torch.Tensor:
-        """tokens -> (B, 77, hidden) conditioning."""
-        if custom_embeds is not None:
-            raise NotImplementedError("textual-inversion embeddings are not ported yet")
+        """tokens -> (B, 77, hidden) conditioning. Textual-inversion vectors
+        ride in as negative ids -(k+1) into ``custom_embeds``."""
         cfg = self.config
         tm = params["text_model"]
         tokens = tokens.long()
         x = tm["embeddings"]["token_embedding"]["weight"][torch.clamp(tokens, min=0)]
+        if custom_embeds is not None:
+            cidx = torch.clamp(-tokens - 1, min=0)
+            x = torch.where((tokens < 0)[..., None], custom_embeds[cidx].to(x.dtype), x)
         x = x + tm["embeddings"]["position_embedding"]["weight"][: tokens.shape[1]][None]
 
         l = tokens.shape[1]  # noqa: E741
@@ -121,17 +123,21 @@ class CLIPTextModel:
 
 class Tokenizer:
     """The CLIP BPE tokenizer over the bundled vocab, with ``(word:1.2)``
-    weighting (models/tokenizer.py). Tiny test configs (vocab_size < 49408)
-    use the JAX package's deterministic hash tokenizer, which is Python's
-    ``hash`` and so agrees with it within one process."""
+    weighting and ``embedding:name`` textual inversion from
+    ``embedding_directory`` (models/tokenizer.py). Tiny test configs
+    (vocab_size < 49408) use the JAX package's deterministic hash tokenizer,
+    which is Python's ``hash`` and so agrees with it within one process."""
 
-    def __init__(self, config: CLIPConfig = SD15_CLIP_CONFIG, vocab_path: Optional[str] = None):
+    def __init__(self, config: CLIPConfig = SD15_CLIP_CONFIG, vocab_path: Optional[str] = None,
+                 embedding_directory=None):
         self.config = config
         self._sd = None
         if config.vocab_size >= 49408:
             from stable_renderer_tpu_torch.models.tokenizer import SDTokenizer
 
-            self._sd = SDTokenizer(tokenizer_path=vocab_path, max_length=config.max_length)
+            self._sd = SDTokenizer(tokenizer_path=vocab_path, max_length=config.max_length,
+                                   embedding_directory=embedding_directory,
+                                   embedding_size=config.hidden_size)
 
     def encode(self, text: str) -> np.ndarray:
         """text -> (77,) int32 with BOS/EOS + EOS padding (first chunk only)."""
@@ -146,7 +152,8 @@ class Tokenizer:
         return np.asarray(ids, np.int32)
 
     def tokenize_weighted(self, text: str):
-        """text -> (ids (n_chunks, 77) i32, weights (n_chunks, 77) f32, None)."""
+        """text -> (ids (n_chunks, 77) i32, weights (n_chunks, 77) f32,
+        custom_embeds (K, hidden) f32 or None)."""
         from stable_renderer_tpu_torch.models.tokenizer import pack_chunks
 
         if self._sd is not None:
@@ -155,18 +162,26 @@ class Tokenizer:
         return ids, np.ones_like(ids, np.float32), None
 
     def tokenize_weighted_batch(self, texts: Sequence[str]):
-        """texts -> (ids (B, C, 77), weights (B, C, 77), None): every prompt is
-        padded to the same chunk count C with empty chunks."""
+        """texts -> (ids (B, C, 77), weights (B, C, 77), custom (K, hidden) or
+        None): every prompt is padded to the same chunk count C with empty
+        chunks; the prompts' textual-inversion vectors join one table, their
+        ids renumbered into it."""
         cfg = self.config
         packed = [self.tokenize_weighted(t) for t in texts]
         c = max(p[0].shape[0] for p in packed)
         ids = np.full((len(texts), c, cfg.max_length), cfg.eos_token % cfg.vocab_size, np.int32)
         ids[:, :, 0] = cfg.bos_token % cfg.vocab_size
         weights = np.ones((len(texts), c, cfg.max_length), np.float32)
-        for bi, (pid, pw, _) in enumerate(packed):
+        customs = []
+        offset = 0
+        for bi, (pid, pw, pc) in enumerate(packed):
+            if pc is not None:
+                pid = np.where(pid < 0, pid - offset, pid)  # -(k+1) -> -(offset+k+1)
+                customs.append(pc)
+                offset += pc.shape[0]
             ids[bi, : pid.shape[0]] = pid
             weights[bi, : pw.shape[0]] = pw
-        return ids, weights, None
+        return ids, weights, np.concatenate(customs, axis=0) if customs else None
 
 
 def encode_token_weights_batch(

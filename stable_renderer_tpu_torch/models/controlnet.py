@@ -117,8 +117,41 @@ class ControlNet:
         return {"middle": [mid * gate], "output": [o * gate for o in outs]}
 
     def init_control_lora(self, unet_params: dict, control_weights: dict) -> dict:
-        raise NotImplementedError(
-            "control-LoRA composition waits for the checkpoint slice (ROADMAP 1.8)")
+        """ControlLora (comfy/controlnet.py:303-352 ControlLora +
+        ControlLoraOps): ControlNet params composed from the UNet's trunk
+        (``time_embed``, ``input_blocks``, ``middle_block``, ``label_emb``,
+        copied as the reference copies the diffusion model's state dict) and
+        a control file holding full tensors for the control-specific parts
+        (hint block, zero convs, norms, biases), which replace the trunk's, and
+        ``<name>.up`` / ``<name>.down`` low-rank factors for the shared
+        weights. The reference adds ``up @ down`` in every forward; here each
+        pair is merged once, as the JAX package does: the product in numpy at
+        the factors' own dtype (bf16 factors, which numpy promotes, in f32),
+        cast to the weight's dtype and added to it. Full tensors keep the
+        file's dtype, on the trunk's device."""
+        from stable_renderer_tpu_torch.models.weights import flatten, nest
+
+        flat_unet = flatten(unet_params)
+        device = flat_unet["time_embed.0.weight"].device
+        out: dict = {k: v for k, v in flat_unet.items()
+                     if k.startswith(("time_embed.", "input_blocks.", "middle_block.",
+                                      "label_emb."))}
+        ups: dict = {}
+        for k, v in control_weights.items():
+            if k == "lora_controlnet":
+                continue
+            if k.endswith(".up") or k.endswith(".down"):
+                ups.setdefault(k.rsplit(".", 1)[0], {})[k.rsplit(".", 1)[1]] = v
+            else:
+                out[k] = torch.as_tensor(v).to(device)
+        for base, ud in ups.items():
+            w = out[base + ".weight"]
+            up, down = (torch.as_tensor(ud[s]).cpu() for s in ("up", "down"))
+            up, down = (t.float() if t.dtype == torch.bfloat16 else t for t in (up, down))
+            delta = torch.from_numpy(up.numpy().reshape(up.shape[0], -1)
+                                     @ down.numpy().reshape(down.shape[0], -1))
+            out[base + ".weight"] = w + delta.reshape(w.shape).to(device=w.device, dtype=w.dtype)
+        return nest(out, "")
 
     def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
              device=None) -> dict:

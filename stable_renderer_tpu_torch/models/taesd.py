@@ -14,8 +14,8 @@ Layer plan (taesd.py):
 The convs go through ``models.layers.conv2d``, which casts the weight to the
 activation's dtype: the f32 tree runs in bf16 when the pipeline hands it bf16
 pixels, as the JAX package's conv2d does. At 64 channels no conv passes K3's
-gate. Loading official weights (``TAESD.load``) waits for the checkpoint
-slice (ROADMAP 1.8).
+gate. ``TAESD.load`` reads the official taesd_encoder / taesd_decoder
+.pth or .safetensors files.
 """
 
 from __future__ import annotations
@@ -113,8 +113,14 @@ class TAESD:
 
     @staticmethod
     def load(encoder_path: Optional[str] = None, decoder_path: Optional[str] = None) -> dict:
-        """Official taesd .pth / .safetensors files: waits for
-        ``models/weights.py`` (ROADMAP 1.8)."""
-        raise NotImplementedError(
-            "loading TAESD weights needs models/weights.py, which waits for the checkpoint "
-            "slice (ROADMAP 1.8); with_taesd() without paths draws random weights")
+        """Official taesd .pth / .safetensors files -> {"encoder", "decoder"}
+        trees of CPU tensors in the files' dtypes (a path left out gives an
+        empty tree)."""
+        from stable_renderer_tpu_torch.models.weights import load_state_dict, nest
+
+        params: dict = {"encoder": {}, "decoder": {}}
+        if encoder_path:
+            params["encoder"] = nest(load_state_dict(encoder_path), "")
+        if decoder_path:
+            params["decoder"] = nest(load_state_dict(decoder_path), "")
+        return params

@@ -11,8 +11,11 @@ normalization, CJK spacing, NFC, lower case) and its pre-tokenizer pattern
 by Unicode category.
 
 Weighting grammar: ``(word)`` multiplies the weight by 1.1 per nesting level,
-``(word:1.3)`` sets it, ``\\(`` / ``\\)`` escape literal parens. Textual
-inversion (``embedding:name``) is not ported yet.
+``(word:1.3)`` sets it, ``\\(`` / ``\\)`` escape literal parens.
+``embedding:name`` words load a textual-inversion embedding from the
+embedding directory (``load_embed``) and splice its vectors into the token
+stream; ``pack_chunks`` turns them into negative ids -(k+1) into a table of
+custom embeddings, which ``CLIPTextModel.apply`` reads.
 """
 
 from __future__ import annotations
@@ -21,14 +24,21 @@ import json
 import os
 import unicodedata
 from functools import lru_cache
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+
+from stable_renderer_tpu_torch.utils.log import get_logger
+
+logger = get_logger("sr_tpu.tokenizer")
 
 ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "stable_renderer_tpu", "assets", "clip_tokenizer")
 
 _SPECIAL = ("<|startoftext|>", "<|endoftext|>")
+# the tower an embedding file's per-tower entry is read from (SD1.x's one)
+EMBEDDING_KEY = "clip_l"
 _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
 
 
@@ -209,14 +219,100 @@ def unescape_important(text: str) -> str:
     return text.replace("\0\1", ")").replace("\0\2", "(")
 
 
+def _embed_file(embedding_name: str, directories: Sequence[str]) -> Optional[str]:
+    """The embedding's file: ``name`` itself or with a .safetensors, .pt or
+    .bin suffix, in the first directory that has one; a name that resolves
+    outside its directory is refused (the reference's path traversal guard)."""
+    for embed_dir in directories:
+        embed_dir = os.path.abspath(embed_dir)
+        embed_path = os.path.abspath(os.path.join(embed_dir, embedding_name))
+        try:
+            if os.path.commonpath((embed_dir, embed_path)) != embed_dir:
+                continue
+        except ValueError:
+            continue
+        if os.path.isfile(embed_path):
+            return embed_path
+        for ext in (".safetensors", ".pt", ".bin"):
+            if os.path.isfile(embed_path + ext):
+                return embed_path + ext
+    return None
+
+
+def load_embed(
+    embedding_name: str,
+    embedding_directory: Union[str, Sequence[str], None],
+    embedding_size: int,
+    embed_key: Optional[str] = None,
+) -> Optional[np.ndarray]:
+    """A textual-inversion embedding as (n_vectors, embedding_size) f32, or
+    None (no such file, a file that does not load, or another width).
+
+    Reads .safetensors (the port's reader) and torch .pt / .bin files
+    (``torch.load(weights_only=True)``, as the reference loads them) with a
+    raw tensor, {'string_to_param': {'*': t}}, {'emb_params': t} or per-tower
+    keys {'clip_l': t, 'clip_g': t} (sd1_clip.py:286-356)."""
+    if embedding_directory is None:
+        return None
+    if isinstance(embedding_directory, (str, os.PathLike)):
+        embedding_directory = [str(embedding_directory)]
+    valid_file = _embed_file(embedding_name, embedding_directory)
+    if valid_file is None:
+        return None
+    try:
+        if valid_file.endswith(".safetensors"):
+            from stable_renderer_tpu_torch.models.weights import read_safetensors
+
+            data = read_safetensors(valid_file)
+        else:
+            data = torch.load(valid_file, map_location="cpu", weights_only=True)
+            if isinstance(data, dict) and "string_to_param" in data:
+                data = data["string_to_param"]
+            if isinstance(data, torch.Tensor):
+                data = {"emb_params": data}
+        embed = {k: v.detach().float().numpy() for k, v in data.items()
+                 if isinstance(v, torch.Tensor)}
+    except Exception as e:  # a corrupt file: warn and skip, as the reference
+        logger.warning(f"could not load embedding {valid_file}: {e}")
+        return None
+    values = None
+    if embed_key is not None and embed_key in embed:
+        values = embed[embed_key]
+    elif "emb_params" in embed:
+        values = embed["emb_params"]
+    elif "*" in embed:
+        values = embed["*"]
+    elif len(embed) == 1:
+        values = next(iter(embed.values()))
+    else:  # per-tower keys: the entry of this tower's width
+        for v in embed.values():
+            if v.ndim and v.shape[-1] == embedding_size:
+                values = v
+                break
+    if values is None:
+        return None
+    values = np.asarray(values, np.float32)
+    if values.ndim == 1:
+        values = values[None]
+    if values.shape[-1] != embedding_size:
+        logger.warning(f"embedding {embedding_name} has dim {values.shape[-1]}, expected "
+                       f"{embedding_size}; ignoring")
+        return None
+    return values
+
+
 class SDTokenizer:
     """Reference-parity prompt tokenizer (sd1_clip.py:358-484):
-    ``tokenize_with_weights`` returns 77-long chunks of (token_id, weight)
-    pairs with BOS/EOS and padding. Words shorter than ``max_word_length``
-    tokens wrap whole to the next chunk; longer ones may split."""
+    ``tokenize_with_weights`` returns 77-long chunks of (token_id or
+    embedding vector, weight) pairs with BOS/EOS and padding. Words shorter
+    than ``max_word_length`` tokens wrap whole to the next chunk; longer ones
+    may split. ``embedding:name`` words read ``name`` from
+    ``embedding_directory`` (``load_embed``)."""
 
     def __init__(self, tokenizer_path: Optional[str] = None, max_length: int = 77,
-                 pad_with_end: bool = True, pad_to_max_length: bool = True):
+                 pad_with_end: bool = True, pad_to_max_length: bool = True,
+                 embedding_directory: Union[str, Sequence[str], None] = None,
+                 embedding_size: int = 768):
         self.tokenizer = CLIPBPE(tokenizer_path)
         self.max_length = max_length
         self.start_token = self.tokenizer.bos
@@ -224,14 +320,43 @@ class SDTokenizer:
         self.pad_with_end = pad_with_end
         self.pad_to_max_length = pad_to_max_length
         self.max_word_length = 8
+        self.embedding_directory = embedding_directory
+        self.embedding_identifier = "embedding:"
+        self.embedding_size = embedding_size
+
+    def _try_get_embedding(self, name: str):
+        """(vectors or None, what is left of the word): a name that loads
+        nothing is tried again without its trailing commas, which are then
+        tokenized as text."""
+        embed = load_embed(name, self.embedding_directory, self.embedding_size,
+                           EMBEDDING_KEY)
+        if embed is None:
+            stripped = name.strip(",")
+            if len(stripped) < len(name):
+                embed = load_embed(stripped, self.embedding_directory, self.embedding_size,
+                                   EMBEDDING_KEY)
+                return embed, name[len(stripped):]
+        return embed, ""
 
     def tokenize_with_weights(self, text: str):
         pad_token = self.end_token if self.pad_with_end else 0
-        tokens: List[List[Tuple[int, float]]] = []
+        tokens: list = []
         for segment, weight in token_weights(escape_important(text), 1.0):
             for word in unescape_important(segment).replace("\n", " ").split(" "):
-                if word:
-                    tokens.append([(t, weight) for t in self.tokenizer.encode(word)])
+                if not word:
+                    continue
+                if (word.startswith(self.embedding_identifier)
+                        and self.embedding_directory is not None):
+                    name = word[len(self.embedding_identifier):].strip("\n")
+                    embed, leftover = self._try_get_embedding(name)
+                    if embed is None:
+                        logger.warning(f"embedding:{name} does not exist, ignoring")
+                    else:
+                        tokens.append([(embed[x], weight) for x in range(embed.shape[0])])
+                    if not leftover:
+                        continue
+                    word = leftover
+                tokens.append([(t, weight) for t in self.tokenizer.encode(word)])
 
         batch = [(self.start_token, 1.0)]
         batched = [batch]
@@ -259,9 +384,22 @@ class SDTokenizer:
         return batched
 
 
-def pack_chunks(chunks) -> Tuple[np.ndarray, np.ndarray, None]:
-    """tokenize_with_weights output -> (ids (n_chunks, L) int32,
-    weights (n_chunks, L) f32, custom_embeds None)."""
-    ids = np.asarray([[t for t, _ in c] for c in chunks], np.int32)
-    weights = np.asarray([[w for _, w in c] for c in chunks], np.float32)
-    return ids, weights, None
+def pack_chunks(chunks) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """tokenize_with_weights output -> (ids (n_chunks, L) int32, weights
+    (n_chunks, L) f32, custom_embeds (K, D) f32 or None). Embedding vectors
+    become negative ids -(k+1) into custom_embeds (the counterpart of
+    sd1_clip.py:125-162 set_up_textual_embeddings)."""
+    n = len(chunks)
+    length = len(chunks[0]) if n else 0
+    ids = np.zeros((n, length), np.int32)
+    weights = np.ones((n, length), np.float32)
+    custom: List[np.ndarray] = []
+    for ci, chunk in enumerate(chunks):
+        for ti, (tok, w) in enumerate(chunk):
+            if isinstance(tok, np.ndarray):
+                custom.append(np.asarray(tok, np.float32))
+                ids[ci, ti] = -len(custom)
+            else:
+                ids[ci, ti] = int(tok)
+            weights[ci, ti] = float(w)
+    return ids, weights, np.stack(custom) if custom else None

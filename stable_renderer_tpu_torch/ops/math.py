@@ -4,7 +4,9 @@ Counterpart of stable_renderer_tpu/ops/math.py (the reference's
 math_utils.py:27-278). Group ops are fixed-size segment reductions over
 ``num_segments`` (static shapes, as in the JAX package): ids outside
 ``[0, num_segments)`` — and rows masked invalid — scatter into one extra dump
-segment and keep their own values. Randomness comes from a
+segment and keep their own values. Segment sums go through ``segment_add_``,
+whose order of additions is fixed, so a frame is the same from run to run.
+Randomness comes from a
 ``torch.Generator``; ``group_randn_by_id`` also takes its draws passed in,
 since ``jax.random`` and torch never draw the same numbers.
 """
@@ -44,6 +46,19 @@ def _valid_segments(ids: torch.Tensor, num_segments: int) -> Tuple[torch.Tensor,
     return seg, valid
 
 
+def segment_add_(out: torch.Tensor, seg: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``out[seg[i]] += values[i]`` for every row i, in place, in an order
+    fixed by the input. On CUDA ``index_put_(accumulate=True)`` sorts the
+    indices and adds each segment's rows in turn, where ``index_add_`` adds
+    with atomics in an order that changes from run to run (and so the last
+    bits of a segment mean, which four sampler steps grow to ~0.02 of a
+    pixel). On the CPU ``index_add_`` adds the rows in order, where
+    ``index_put_`` splits them over threads."""
+    if out.device.type == "cuda":
+        return out.index_put_((seg,), values, accumulate=True)
+    return out.index_add_(0, seg, values)
+
+
 def _masked_segments(ids, num_segments, valid):
     """``_valid_segments`` with an extra validity mask; segment ids as int64."""
     seg, in_range = _valid_segments(ids, num_segments)
@@ -65,9 +80,9 @@ def group_average_by_id(
     seg, in_range = _masked_segments(ids, num_segments, valid)
     v32 = values.float()
     sums = torch.zeros((num_segments + 1, v32.shape[1]), dtype=torch.float32, device=v32.device)
-    sums.index_add_(0, seg, torch.where(in_range[:, None], v32, torch.zeros_like(v32)))
+    segment_add_(sums, seg, torch.where(in_range[:, None], v32, torch.zeros_like(v32)))
     counts = torch.zeros(num_segments + 1, dtype=torch.float32, device=v32.device)
-    counts.index_add_(0, seg, in_range.float())
+    segment_add_(counts, seg, in_range.float())
     seg_mean = (sums / torch.clamp(counts, min=1.0)[:, None])[:-1]
     per_row = seg_mean[torch.clamp(ids, 0, num_segments - 1).long()]
     per_row = torch.where(in_range[:, None], per_row, v32)
@@ -88,9 +103,9 @@ def group_weighted_average_by_id(
     v32 = values.float()
     w32 = torch.where(in_range, weights.float(), torch.zeros_like(weights, dtype=torch.float32))
     sums = torch.zeros((num_segments + 1, v32.shape[1]), dtype=torch.float32, device=v32.device)
-    sums.index_add_(0, seg, v32 * w32[:, None])
+    segment_add_(sums, seg, v32 * w32[:, None])
     wsum = torch.zeros(num_segments + 1, dtype=torch.float32, device=v32.device)
-    wsum.index_add_(0, seg, w32)
+    segment_add_(wsum, seg, w32)
     seg_mean = (sums / torch.clamp(wsum, min=1e-8)[:, None])[:-1]
     per_row = seg_mean[torch.clamp(ids, 0, num_segments - 1).long()]
     return torch.where(in_range[:, None], per_row, v32).to(values.dtype)
@@ -107,7 +122,7 @@ def group_frame_distance_average(
     """Pairwise frame-distance mixing (the legacy FrameDistance scheme): row
     i of group g becomes sum_j x_j / (|f_i - f_j| + 1), normalized, over the
     group's rows j. Per-(segment, frame) sums and counts with one
-    ``index_add_`` over seg * n_frames + frame, then the static (F, F)
+    ``segment_add_`` over seg * n_frames + frame, then the static (F, F)
     reciprocal-distance kernel combines them."""
     seg, in_range = _valid_segments(ids, num_segments)
     if valid is not None:
@@ -118,9 +133,9 @@ def group_frame_distance_average(
     v32 = values.float()
     c = v32.shape[1]
     sums = torch.zeros((dump + 1, c), dtype=torch.float32, device=v32.device)
-    sums.index_add_(0, seg2, torch.where(in_range[:, None], v32, torch.zeros_like(v32)))
+    segment_add_(sums, seg2, torch.where(in_range[:, None], v32, torch.zeros_like(v32)))
     counts = torch.zeros(dump + 1, dtype=torch.float32, device=v32.device)
-    counts.index_add_(0, seg2, in_range.float())
+    segment_add_(counts, seg2, in_range.float())
     sums = sums[:-1].reshape(num_segments, n_frames, c)
     counts = counts[:-1].reshape(num_segments, n_frames)
     fgrid = torch.arange(n_frames, dtype=torch.float32, device=v32.device)

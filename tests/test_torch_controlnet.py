@@ -333,18 +333,22 @@ def test_zero_init_controlnet_leaves_frame_unchanged():
 
 
 def test_unported_control_paths_raise():
+    """What the control path still leaves out raises: ADM / class
+    conditioning (``y``, the SDXL family's, ROADMAP 1.11). The control
+    checkpoints that raised before their slice now build controls
+    (tests/test_torch_control_checkpoints.py holds them to JAX)."""
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.workflow.config import ControlNetSpec
 
     pipe = DiffusionPipeline.from_random(tiny=True, device="cpu")
     spec = ControlNetSpec()
-    for call in (lambda: pipe.add_control_lora({}, spec), lambda: pipe.add_t2i_adapter({}, spec),
-                 lambda: pipe.add_control_from_state_dict({}, spec)):
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-            call()
     _, cn = _nets()
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        cn.init_control_lora({}, {})
+    composed = cn.init_control_lora(pipe.unet_params, {"lora_controlnet": torch.zeros(0)})
+    assert composed["input_blocks"].keys() == pipe.unet_params["input_blocks"].keys()
+    pipe.add_control_lora({"lora_controlnet": torch.zeros(0)}, spec)
+    pipe.add_control_from_state_dict({"conv_in.weight": torch.zeros(32, 192, 3, 3),
+                                      "body.0.block2.weight": torch.zeros(32, 32, 1, 1)}, spec)
+    assert [type(c).__name__ for c, _, _ in pipe.controlnets] == ["ControlNet", "T2IAdapter"]
     x = torch.zeros((1, 8, 8, 4))
     with pytest.raises(NotImplementedError, match="y"):
         pipe.unet.apply(pipe.unet_params, x, torch.zeros(1), torch.zeros((1, 77, 64)),

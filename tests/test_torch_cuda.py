@@ -614,3 +614,24 @@ def test_cross_frame_attention_folds_into_k1(cuda_device, n, l, heads, d):
     err = (out.float() - ref).abs().max().item()
     assert err < K1_BF16_TOL
     assert err <= K1_FOLD_REL_TOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("fn", ["average", "weighted", "frame_distance"])
+def test_segment_means_repeat_exactly(cuda_device, fn):
+    """The group means on the card give the same bits on every call
+    (``segment_add_``; ``index_add_``'s atomics did not): 2 x 512 x 512 rows
+    into 4096 segments, as a bench frame's ids, ten calls."""
+    from stable_renderer_tpu_torch.ops import math as tmath
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n = 2 * 512 * 512
+    vals = torch.randn((n, 4), generator=g, device=cuda_device)
+    ids = torch.randint(-1, 4096, (n,), generator=g, device=cuda_device, dtype=torch.int32)
+    frames = torch.randint(0, 2, (n,), generator=g, device=cuda_device)
+    w = torch.rand((n,), generator=g, device=cuda_device)
+    call = {"average": lambda: tmath.group_average_by_id(vals, ids, 4096)[1],
+            "weighted": lambda: tmath.group_weighted_average_by_id(vals, ids, w, 4096),
+            "frame_distance": lambda: tmath.group_frame_distance_average(vals, ids, frames,
+                                                                         4096, 2)}[fn]
+    first = call()
+    assert all(torch.equal(call(), first) for _ in range(9))

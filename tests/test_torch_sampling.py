@@ -174,6 +174,17 @@ def test_group_average_dump_segment_matches_jax(rng):
             np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL)
 
 
+def test_segment_add_on_the_cpu_adds_rows_in_order(rng):
+    """``segment_add_`` on the CPU (``index_add_``) equals adding the rows
+    one at a time in row order, bit for bit, with repeated segments."""
+    vals = _t(rng.standard_normal((3000, 4)).astype(np.float32))
+    seg = _t(rng.integers(0, 17, 3000).astype(np.int64))
+    want = torch.zeros((17, 4))
+    for i in range(3000):
+        want[seg[i]] += vals[i]
+    assert torch.equal(tmath.segment_add_(torch.zeros((17, 4)), seg, vals), want)
+
+
 def test_latent_ids_and_kv_broadcast_match_jax(rng):
     ids = _id_maps(rng)
     for x, y in zip(tcorr.latent_vertex_ids(_t(ids), 5, 7),

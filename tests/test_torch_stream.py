@@ -172,8 +172,8 @@ def test_per_sample_sigma_denoiser_matches_jax():
 
 def test_stream_errors_and_unported_paths():
     """A kv_state for other layers than ``stream_kv_layers`` is a stale
-    stream (ValueError); TAESD weight files (ROADMAP 1.8) and the stream
-    mesh raise by name."""
+    stream (ValueError); a TAESD weight file that is not there raises
+    (no random weights in its place); the stream mesh raises by name."""
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.workflow.config import RenderConfig
 
@@ -186,7 +186,8 @@ def test_stream_errors_and_unported_paths():
                             pipe.scheduler_sigmas(), None, ctx, nctx, stream_init=True,
                             kv_state={"5": torch.zeros(4, 64, 64)})
     taesd_pipe = DiffusionPipeline.from_random(RenderConfig(realtime_taesd=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="TAESD weights"):
-        taesd_pipe.with_taesd(encoder_path="taesd_encoder.pth")
+    with pytest.raises(FileNotFoundError):
+        taesd_pipe.with_taesd(encoder_path="no_such_dir/taesd_encoder.pth")
+    assert taesd_pipe.taesd is None
     with pytest.raises(NotImplementedError, match="stream mesh"):
         pipe.enable_stream_mesh(None)

@@ -264,16 +264,25 @@ def test_realtime_taesd_without_with_taesd_runs_the_vae():
     assert torch.equal(asks.taesd_params["decoder"]["3"]["conv"]["0"]["weight"], before)
 
 
-def test_with_taesd_paths_wait_for_checkpoints():
+def test_with_taesd_paths_wait_for_checkpoints(tmp_path):
+    """With paths, ``with_taesd`` loads the official files (here written from
+    an init seeded with 5: an encoder .safetensors, a decoder .pth) onto the
+    pipeline's device; without, it draws random weights from ``seed``."""
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.models.taesd import TAESD
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
 
     pipe = DiffusionPipeline.from_random(tiny=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        pipe.with_taesd(encoder_path="taesd_encoder.pth")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        TAESD.load(decoder_path="taesd_decoder.safetensors")
     assert pipe.taesd is None
+    files = TAESD().init(torch.Generator().manual_seed(5))
+    write_safetensors(flatten(files["encoder"]), tmp_path / "taesd_encoder.safetensors")
+    torch.save(flatten(files["decoder"]), tmp_path / "taesd_decoder.pth")
+    pipe.with_taesd(encoder_path=str(tmp_path / "taesd_encoder.safetensors"),
+                    decoder_path=str(tmp_path / "taesd_decoder.pth"))
+    for part in ("encoder", "decoder"):
+        got, want = flatten(pipe.taesd_params[part]), flatten(files[part])
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want), part
     pipe.with_taesd(seed=4)
     same = TAESD().init(torch.Generator().manual_seed(4))
     assert torch.equal(pipe.taesd_params["encoder"]["14"]["weight"], same["encoder"]["14"]["weight"])
