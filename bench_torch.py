@@ -13,8 +13,10 @@ made in steady frames (bench.py times the run's last presents too).
 stdout: ONE JSON line {"metric", "value", "unit", "vs_baseline"}, with
 vs_baseline = fps / 2.5 (the reference's published 2-3 fps midpoint) and the
 torch device type, "(cuda)", where bench.py names the JAX platform.
-stderr: the "# compile ..." line and the present-to-present median and p90 ms
-of the timed frames.
+stderr: first the two TF32 switches (``device.keep_f32`` turns both off, so
+the f32 towers, such as the control mode's hint towers, run in f32), then the
+"# compile ..." line and the present-to-present median and p90 ms of the
+timed frames.
 
 Modes (bench.py's env knobs, resolved by ``resolve_mode``):
   (default)            stream pipeline + lag-1 K/V at transformer 6 + the
@@ -111,7 +113,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     import torch
 
-    from stable_renderer_tpu_torch.device import resolve_device
+    from stable_renderer_tpu_torch.device import keep_f32, resolve_device, tf32_switches
     from stable_renderer_tpu_torch.engine import (
         AutoRotation,
         Camera,
@@ -126,6 +128,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from stable_renderer_tpu_torch.workflow.config import ControlNetSpec, RenderConfig
 
     device = resolve_device(args.device)
+    keep_f32()
+    print(f"# {tf32_switches()}", file=sys.stderr, flush=True)
     if mode["switched"] and device.type != "cpu":
         from stable_renderer_tpu_torch.models import layers
         from stable_renderer_tpu_torch.ops.conv_kernel import use_pallas_conv

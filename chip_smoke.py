@@ -10,10 +10,13 @@ Phases, one line each; any failure exits non-zero:
                 ptxas's report (-Xptxas -v), which must name K3's kernels
                 and show no serialized wgmma (C7510-C7515) in any kernel.
   3. K1       — flash attention kernel vs its plain version at the frame's
-                shapes (bf16), one ragged K/V length, f32 checks, and
-                attention_pallas on the UNet's fused-QKV chunk views (read in
-                place) at batch 2 (the sequential frame) and 8 (the stream
-                frame), and on an unaligned view (copied by the wrapper).
+                shapes (bf16), one ragged K/V length, the all-frames bake
+                submit's folded levels 1 and 2 (d = 80, 160: the mid wgmma
+                route), the loaded f32 VAE's attention (the f32 route), f32
+                checks, and attention_pallas on the UNet's fused-QKV chunk
+                views (read in place) at batch 2 (the sequential frame) and 8
+                (the stream frame), and on an unaligned view (copied by the
+                wrapper). Each row names its kernel (k1_route).
   4. K2       — the setup kernel and the binned tile kernel (two launches a
                 call, by torch.profiler) at 512x512, bit for bit against their
                 plain versions (triangle_setup, tile_ranges,
@@ -106,7 +109,8 @@ Phases, one line each; any failure exits non-zero:
                 and last frame (max abs error within K1_FOLD_REL_TOL of the
                 largest |plain output|), timed; then one bake submit
                 through frame_step with OverlapCorresponder(all_frames=True,
-                layer_range=None): K1's launches by shape, finite frames.
+                layer_range=None): K1's launches by shape and by kernel
+                (levels 1 and 2 on the mid wgmma route), finite frames.
  17. TAESD   — bench.py's TAESD modes with the TAESD autoencoder
                 (with_taesd(), random f32 weights from seed 11): the
                 sequential bf16 frame (SR_BENCH_TAESD=1) and the int8
@@ -144,7 +148,8 @@ Phases, one line each; any failure exits non-zero:
                 unstable_pixels); canny at 64x64 the same way.
  19. bench    — python bench_torch.py in its default mode, SR_BENCH_FRAMES=4,
                 as its own process: exit 0, its last stdout line bench.py's
-                four-key JSON with "(cuda)" in the metric and a positive fps.
+                four-key JSON with "(cuda)" in the metric and a positive fps,
+                its first stderr note both TF32 switches off.
  20. checkpoint — phase 6's trees (UNet, VAE, CLIP) written as one BF16
                 .safetensors in the LDM key layout by the port's writer
                 (size, write and read times; read back bit for bit) and
@@ -152,11 +157,11 @@ Phases, one line each; any failure exits non-zero:
                 SD1.5 config detected, every key consumed, every leaf equal
                 to what was written after the JAX package's casts (VAE and
                 CLIP to f32). The bench scene through Engine.Run with it
-                (K1 22 a frame, the f32 VAE's two on K1's f32 route: the
-                launches that did not pass the bf16 wrapper, counted), its
-                frame 0 identical to frame_step's for a pipeline built in
-                memory from the same trees at the same types; K1 timed at
-                the f32 VAE attention shape against its plain version. An
+                (K1 22 a frame, the f32 VAE's two on K1's f32 route,
+                flash_f32, counted by kernel), its frame 0 identical to
+                frame_step's for a pipeline built in memory from the same
+                trees at the same types; phase 3's f32 row gets these
+                launches. An
                 LCM-LoRA-shaped file (rank 64, F16, LDM names, every
                 attention projection, ff, proj_in and proj_out) merged by
                 from_checkpoint: modules applied, merge time, sampled leaves
@@ -169,7 +174,7 @@ Phases, one line each; any failure exits non-zero:
                 frames; the adapter's K3 launches under the switch). A
                 2-vector textual-inversion file: a prompt with
                 embedding:name encoded on the card against the CPU.
-Every kernel line carries its time (K1 in bf16, K2, K3 and K4: device time of
+Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
 time beside it as ms_with_host), its plain version's
@@ -214,7 +219,12 @@ K1_BF16_TOL = 1e-2  # bf16 output rounding (2^-8 relative) + the plain path's bf
 K1_FOLD_REL_TOL = 2e-2
 K1_F32_TOL = 1e-4   # f32: summation order only
 K1_F32_CALLS_LOADED = 2  # the f32 VAE's mid-block attention, encode and decode
+# the first kernel of each K1 launch, by name (a K/V-split launch adds a merge)
+K1_KERNELS = ("flash_wg", "flash_wide", "flash_simt_f32", "flash_f32")
 VAE_ATTN_SHAPE = (1, 4096, 4096, 512)  # (BH, Lq, Lk, d) at 512x512
+# the all-frames bake submit's folded levels 1 and 2 (in K1_ALL_FRAMES_SHAPES),
+# timed in phase 3 on K1's mid wgmma route
+K1_LEVEL_SHAPES = ((8, 8192, 8192, 80), (8, 2048, 2048, 160))
 REF_TOL = 2e-3      # tiny f32 frame, GPU kernels vs CPU plain path (order of f32 sums)
 # K3 and K4 launches a frame, counted on the meta device by
 # tests/test_torch_conv_kernel.py: int8 4 x 22 (UNet) + 20 (encode) + 31 (decode);
@@ -484,34 +494,51 @@ def per_frame_classes(seen: collections.Counter, frames: int, prologue: bool = F
 
 
 @contextlib.contextmanager
-def k1_shape_tally(f32: bool = False):
-    """K1's launches by (BH, Lq, Lk, d) inside the ``with`` block, on the
-    card: ``ops.flash_attention._launch_bf16`` (the bf16 wrappers' one call
-    of the kernel) is wrapped to note each call's shape, and the notes must
-    add up to the wrapper's launch count over the block. With ``f32``, the
-    launches that did not pass through it (the f32 SIMT route, the only
-    other launch in ``flash_attention``) are noted under the key "f32"
-    instead. Yields the Counter."""
+def k1_shape_tally():
+    """K1's launches by shape inside the ``with`` block, on the card:
+    ``ops.flash_attention._launch_bf16`` and ``_launch_f32`` (the wrappers'
+    only calls of the kernels) are wrapped to note each call's (BH, Lq, Lk,
+    d), and (BH, Lq, Lk, d, "f32") for f32, and the notes must add up to the
+    wrapper's launch count over the block. Yields the Counter;
+    ``k1_routes`` names the kernel each shape took."""
     from stable_renderer_tpu_torch.ops import flash_attention as fa
 
-    launch = fa._launch_bf16
+    launch_bf16, launch_f32 = fa._launch_bf16, fa._launch_f32
     seen = collections.Counter()
 
-    def noted(q, k, v, variant=-1):
+    def noted_bf16(q, k, v, variant=-1):
         seen[(q.shape[0] * q.shape[2], q.shape[1], k.shape[1], q.shape[3])] += 1
-        return launch(q, k, v, variant)
+        return launch_bf16(q, k, v, variant)
+
+    def noted_f32(q, k, v):
+        seen[(q.shape[0], q.shape[1], k.shape[1], q.shape[2], "f32")] += 1
+        return launch_f32(q, k, v)
 
     before = fa.flash_attention.launches
-    fa._launch_bf16 = noted
+    fa._launch_bf16, fa._launch_f32 = noted_bf16, noted_f32
     try:
         yield seen
     finally:
-        fa._launch_bf16 = launch
-    if f32:
-        seen["f32"] = fa.flash_attention.launches - before - sum(seen.values())
-    if sum(seen.values()) != fa.flash_attention.launches - before or seen["f32"] < 0:
+        fa._launch_bf16, fa._launch_f32 = launch_bf16, launch_f32
+    if sum(seen.values()) != fa.flash_attention.launches - before:
         fail(f"K1: {sum(seen.values())} calls noted by shape, "
              f"{fa.flash_attention.launches - before} launches")
+
+
+def k1_route(d: int, f32: bool = False) -> str:
+    """The kernel K1's wrapper launches for head dim d (the library's own
+    dispatch: sr_flash_attention_route)."""
+    from stable_renderer_tpu_torch.kernels import _build
+
+    return _build.load_library().sr_flash_attention_route(d, int(f32)).decode()
+
+
+def k1_routes(seen) -> dict:
+    """``k1_shape_tally``'s notes -> launches by kernel."""
+    out = collections.Counter()
+    for key, n in seen.items():
+        out[k1_route(key[3], len(key) == 5)] += n
+    return dict(out)
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -521,27 +548,29 @@ def bound(nbytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_bound(bh: int, lq: int, lk: int, d: int):
-    """(ms, "bytes" | "operations"): K1's least time in bf16, the largest of
-    its bytes (q, k, v read once, the output written once), its MMA
-    operations (4 bh lq lk d at the tensor cores' peak) and its exponentials
-    (bh lq lk on the MUFU pipes, EXP_PER_S)."""
-    t_bytes, _ = bound(2.0 * bh * d * (2 * lq + 2 * lk), 0.0, "bf16")
-    t_ops = 4.0 * bh * lq * lk * d / PEAK_OPS["bf16"] * 1e3
+def k1_bound(bh: int, lq: int, lk: int, d: int, f32: bool = False):
+    """(ms, "bytes" | "operations"): K1's least time, the largest of its
+    bytes (q, k, v read once, the output written once), its operations (4
+    bh lq lk d: the tensor cores' bf16 peak, or for ``f32`` the FMA pipes'
+    f32 peak) and its exponentials (bh lq lk on the MUFU pipes,
+    EXP_PER_S)."""
+    kind = "f32" if f32 else "bf16"
+    t_bytes, _ = bound((4.0 if f32 else 2.0) * bh * d * (2 * lq + 2 * lk), 0.0, kind)
+    t_ops = 4.0 * bh * lq * lk * d / PEAK_OPS[kind] * 1e3
     t_exp = bh * lq * lk / EXP_PER_S * 1e3
     t = max(t_bytes, t_ops, t_exp)
     return (t, "bytes") if t == t_bytes else (t, "operations")
 
 
 def _k1_case(row: dict, dt, tol, kernel, plain, library, k1b, compare=None,
-             plain_repeats: int = 10) -> float:
+             plain_repeats: int = 10, timed: bool = None) -> float:
     """Run one K1 case: the kernel against its plain version (fails past
-    the bar), then for bf16 its device time by graph replay (ms), per call
-    with the host's launch cost (ms_with_host), the plain version's (median
-    of ``plain_repeats`` calls) and the library call's (SDPA) times and the
-    bound. The comparison is ``compare(out)`` -> (max abs err, its bar)
-    where given, else the max abs difference from ``plain()`` held to tol.
-    Fills row; returns the error."""
+    the bar), then, if ``timed`` (default: for bf16), its device time by
+    graph replay (ms), per call with the host's launch cost (ms_with_host),
+    the plain version's (median of ``plain_repeats`` calls) and the library
+    call's (SDPA) times and the bound. The comparison is ``compare(out)`` ->
+    (max abs err, its bar) where given, else the max abs difference from
+    ``plain()`` held to tol. Fills row; returns the error."""
     import torch
 
     out = kernel()
@@ -553,7 +582,7 @@ def _k1_case(row: dict, dt, tol, kernel, plain, library, k1b, compare=None,
     if not math.isfinite(err) or err > bar:
         fail(f"K1 {row['shape']}: max abs err {err:.3e} > {bar:.3e}")
     row["max_abs_err"], row["err_bar"] = err, bar
-    if dt == torch.bfloat16:
+    if dt == torch.bfloat16 if timed is None else timed:
         row["ms"] = graph_ms(kernel)
         row["ms_with_host"] = cuda_ms(kernel, 20)
         row["plain_ms"] = cuda_ms(plain, plain_repeats)
@@ -755,13 +784,13 @@ def main() -> None:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from stable_renderer_tpu_torch.device import keep_f32, tf32_switches
+
+    keep_f32()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(f"[1 device] {kind} | nvidia-smi: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"{torch.version.cuda} | {tf32_switches()}", flush=True)
 
     # --- 2. build ------------------------------------------------------------
     from stable_renderer_tpu_torch.kernels import _build
@@ -800,22 +829,30 @@ def main() -> None:
           "source": "stable_renderer_tpu_torch/csrc/flash_attention.cu",
           "replaces": "stable_renderer_tpu/ops/flash_attention.py:38", "shapes": []}
     k1_err = 0.0
-    cases = [((16, 4096, 4096, 40), torch.bfloat16, K1_BF16_TOL),   # UNet level 0
-             ((1, 4096, 4096, 512), torch.bfloat16, K1_BF16_TOL),   # VAE mid block
-             ((16, 4096, 2100, 40), torch.bfloat16, K1_BF16_TOL),   # ragged K/V tile
-             ((4, 257, 2100, 40), torch.float32, K1_F32_TOL),
-             ((2, 130, 333, 512), torch.float32, K1_F32_TOL)]
-    for (bh, lq, lk, d), dt, tol in cases:
+    # (shape, type, bar, timed): the f32 rows are timed where the main path
+    # runs them (the loaded VAE's attention)
+    cases = [((16, 4096, 4096, 40), torch.bfloat16, K1_BF16_TOL, True),   # UNet level 0
+             ((1, 4096, 4096, 512), torch.bfloat16, K1_BF16_TOL, True),   # VAE mid block
+             ((16, 4096, 2100, 40), torch.bfloat16, K1_BF16_TOL, True),   # ragged K/V tile
+             *((shape, torch.bfloat16, K1_BF16_TOL, True) for shape in K1_LEVEL_SHAPES),
+             (VAE_ATTN_SHAPE, torch.float32, K1_F32_TOL, True),           # the loaded f32 VAE
+             ((4, 257, 2100, 40), torch.float32, K1_F32_TOL, False),
+             ((2, 130, 333, 512), torch.float32, K1_F32_TOL, False)]
+    for (bh, lq, lk, d), dt, tol, timed in cases:
         q = torch.randn((bh, lq, d), generator=gen, device=dev).to(dt)
         k = torch.randn((bh, lk, d), generator=gen, device=dev).to(dt)
         v = torch.randn((bh, lk, d), generator=gen, device=dev).to(dt)
-        row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')}"}
+        f32 = dt == torch.float32
+        row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')}",
+               "route": k1_route(d, f32)}
         # (1, BH, L, D): the fused SDPA backends take 4-D inputs
         qb, kb, vb = q[None], k[None], v[None]
         err = _k1_case(row, dt, tol, lambda: flash_attention(q, k, v),
                        lambda: flash_attention_reference(q, k, v),
-                       lambda: F.scaled_dot_product_attention(qb, kb, vb), k1_bound(bh, lq, lk, d))
-        if dt == torch.bfloat16:
+                       lambda: F.scaled_dot_product_attention(qb, kb, vb),
+                       k1_bound(bh, lq, lk, d, f32), timed=timed,
+                       plain_repeats=5 if f32 else 10)
+        if not f32:
             k1_err = max(k1_err, err)
         k1["shapes"].append(row)
         print(f"[3 K1] {row} (tol {tol:g})", flush=True)
@@ -1442,8 +1479,7 @@ def main() -> None:
             flash_attention.launches = rasterize_kernel.launches = conv3x3_kernel.launches = 0
             names, device_ms = engine_frame_kernels(
                 p_, SIZE, OverlapCorresponder(vertex_segments=4096, update_corrmap=False))
-            prof_counts = (sum("flash_wg" in k or "flash_wide" in k or "flash_simt_f32" in k
-                               for k in names),
+            prof_counts = (sum(any(k1k in k for k1k in K1_KERNELS) for k in names),
                            sum("raster_binned" in k for k in names),
                            sum("raster_setup" in k for k in names),
                            sum("conv3x3_wgmma" in k for k in names))
@@ -2116,7 +2152,7 @@ def bake_phases(pipe, dev, card: str, k1: dict, k2: dict) -> dict:
     # --- 16. all-frames attention --------------------------------------------------
     for n, l, heads, d in CROSS_FRAME_SHAPES:
         row = {"shape": f"cross_frame_attention n={n} l={l} heads={heads} d={d} bf16 "
-                        f"(K1 bh={heads} lq=lk={n * l})"}
+                        f"(K1 bh={heads} lq=lk={n * l})", "route": k1_route(d)}
         if n == BAKE_INTERVAL:
             row["launches_a_submit"] = K1_ALL_FRAMES_SHAPES[(heads, n * l, n * l, d)]
         _cross_frame_case(row, n, l, heads, d, gen)
@@ -2158,19 +2194,31 @@ def bake_phases(pipe, dev, card: str, k1: dict, k2: dict) -> dict:
         if dict(seen_af) != K1_ALL_FRAMES_SHAPES:
             fail(f"all-frames submit: K1 launches by (BH, Lq, Lk, d) {dict(seen_af)}, want "
                  f"{K1_ALL_FRAMES_SHAPES}")
+        routes = k1_routes(seen_af)
+        levels = {k1_route(shape[3]) for shape in K1_LEVEL_SHAPES}
+        if levels != {"flash_wg 64<d<=256"} or routes.get("flash_wg 64<d<=256") != sum(
+                K1_ALL_FRAMES_SHAPES[shape] for shape in K1_LEVEL_SHAPES):
+            fail(f"all-frames submit: K1 launches by kernel {routes}; levels 1 and 2 take "
+                 f"{levels}, want the mid wgmma route")
         if tuple(images.shape) != (BAKE_INTERVAL, SIZE, SIZE, 3) or not (
                 torch.isfinite(images).all() and torch.isfinite(disp.float()).all()):
             fail(f"all-frames submit: images {tuple(images.shape)}, finite "
                  f"{bool(torch.isfinite(images).all())}")
     af_mem = torch.cuda.max_memory_allocated()
     k1["launches_a_frame"]["all-frames bake submit"] = sum(seen_af.values())
+    for bh, lq, lk, d in K1_LEVEL_SHAPES:  # phase 3's rows of the levels' shapes
+        row = next(r for r in k1["shapes"]
+                   if r["shape"] == f"bh={bh} lq={lq} lk={lk} d={d} bfloat16")
+        row["launches_a_frame"] = {"all-frames bake submit": seen_af[(bh, lq, lk, d)]}
     out["all_frames"] = {"submit_ms": times[-1], "first_submit_ms": times[0],
                          "peak_memory_gib": af_mem / 2**30,
-                         "k1_a_submit": {str(key): n for key, n in seen_af.items()}}
+                         "k1_a_submit": {str(key): n for key, n in seen_af.items()},
+                         "k1_routes_a_submit": routes}
     print(f"[16 all-frames] a bake submit of {BAKE_INTERVAL} frames through frame_step with "
           f"OverlapCorresponder(all_frames=True, layer_range=None): {times[-1]:.1f} ms (first "
           f"{times[0]:.1f} ms), finite {tuple(images.shape)} frames; K1 a submit by (BH, Lq, "
-          f"Lk, d) {dict(seen_af)}; peak memory {af_mem / 2**30:.2f} GiB | {card}", flush=True)
+          f"Lk, d) {dict(seen_af)}, by kernel {routes}; peak memory {af_mem / 2**30:.2f} GiB "
+          f"| {card}", flush=True)
     return out
 
 
@@ -2393,6 +2441,9 @@ def bench_phase(card: str) -> dict:
         fail(f"bench_torch.py: exit {run.returncode}, last stdout line "
              f"{lines[-1] if lines else None!r}; stderr {run.stderr[-1500:]}")
     notes = [ln for ln in run.stderr.splitlines() if ln.startswith("# ")]
+    if not notes or notes[0] != "# matmul.allow_tf32=False cudnn.allow_tf32=False":
+        fail(f"bench_torch.py: its first stderr note is {notes[:1]}, want both TF32 switches "
+             f"off")
     print(f"[19 bench] python bench_torch.py (default mode, SR_BENCH_FRAMES=4) in {wall:.1f} s: "
           f"{json.dumps(line)} {notes} | {card}", flush=True)
     return {"line": line, "stderr": notes, "wall_s": wall}
@@ -2411,7 +2462,6 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
     from pathlib import Path
 
     import torch
-    import torch.nn.functional as F
 
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.models.clip import (
@@ -2431,10 +2481,7 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
     )
     from stable_renderer_tpu_torch.ops.conv_kernel import conv3x3_kernel, use_pallas_conv
     from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
-    from stable_renderer_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_reference,
-    )
+    from stable_renderer_tpu_torch.ops.flash_attention import flash_attention
     from stable_renderer_tpu_torch.ops.group_norm_kernel import group_norm_kernel
     from stable_renderer_tpu_torch.ops.raster_kernel import rasterize_kernel
     from stable_renderer_tpu_torch.workflow.config import ControlNetSpec
@@ -2526,7 +2573,7 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
             model_sampling=pipe.model_sampling, device=dev)
         zero_counts()
         times = []
-        with k1_shape_tally(f32=True) as seen:
+        with k1_shape_tally() as seen:
             for f in range(1 + FRAMES_TIMED):
                 t0 = time.perf_counter()
                 disp, _, _, images, _, _ = run_frame(pipe_l, SIZE, f, corr(), bg)
@@ -2542,15 +2589,15 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
             fail(f"phase 20: loaded frames launched K1, K2, K3, K4 = {counts()} over {n} "
                  f"frames, want {want} a frame")
         # the f32 VAE's two mid-block attentions (encode, decode) take the f32
-        # route, by the launches that did not pass through the bf16 wrapper
-        f32_a_frame, f32_rest = divmod(seen.pop("f32"), n)
-        bf16_a_frame, bf16_rest = divmod(sum(seen.values()), n)
-        if (f32_a_frame, bf16_a_frame, f32_rest, bf16_rest) != (
-                K1_F32_CALLS_LOADED, K1_CALLS_PER_FRAME - K1_F32_CALLS_LOADED, 0, 0) or any(
-                shape[3] == VAE_ATTN_SHAPE[3] for shape in seen):
-            fail(f"phase 20: loaded frames' K1 launches by route over {n} frames: f32 "
-                 f"{f32_a_frame * n + f32_rest}, bf16 by shape {dict(seen)}; want "
-                 f"{K1_F32_CALLS_LOADED} f32 a frame and no bf16 launch at d = {VAE_ATTN_SHAPE[3]}")
+        # route (flash_f32); the UNet's 20 the bf16 one at d = 40
+        routes = k1_routes(seen)
+        want_routes = {k1_route(VAE_ATTN_SHAPE[3], True): K1_F32_CALLS_LOADED * n,
+                       k1_route(40): (K1_CALLS_PER_FRAME - K1_F32_CALLS_LOADED) * n}
+        f32_a_frame = sum(c for key, c in seen.items() if len(key) == 5) // n
+        bf16_a_frame = K1_CALLS_PER_FRAME - f32_a_frame
+        if routes != want_routes or seen[VAE_ATTN_SHAPE + ("f32",)] != K1_F32_CALLS_LOADED * n:
+            fail(f"phase 20: loaded frames' K1 launches over {n} frames by kernel {routes}, by "
+                 f"shape {dict(seen)}; want {want_routes}")
         step_ms = statistics.median(times[1:])
         k1.setdefault("launches_a_frame", {})["checkpoint"] = K1_CALLS_PER_FRAME
         engine = engine_ms["checkpoint bf16"] = run_engine_phase(
@@ -2558,35 +2605,21 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
         out["frame_step_median_ms"] = step_ms
         print(f"[20 checkpoint] loaded pipeline (UNet bf16, VAE and CLIP f32): frame_step median "
               f"{step_ms:.1f} ms over {FRAMES_TIMED} frames (warm {times[0]:.1f} ms), K1 "
-              f"{bf16_a_frame} bf16 + {f32_a_frame} f32 launches a frame; Engine.Run "
+              f"{bf16_a_frame} bf16 + {f32_a_frame} f32 launches a frame (by kernel over "
+              f"{n} frames: {routes}); Engine.Run "
               f"median {engine['median_ms']:.1f} ms, p90 {engine['p90_ms']:.1f} ms beside phase "
               f"11's bf16 {engine_ms['bf16']['median_ms']:.1f} / {engine_ms['bf16']['p90_ms']:.1f}"
               f" ms; its frame 0 identical to frame_step's for the in-memory pipeline | {card}",
               flush=True)
         del pipe_mem, unet_t, vae_t, clip_t
 
-        # --- 20.4 K1's f32 route at the f32 VAE's attention shape -----------------------
-        gen = torch.Generator(device=dev).manual_seed(20)
+        # --- 20.4 K1's f32 route: phase 3 timed it; these are its launches -----------
         bh, lq, _, d = VAE_ATTN_SHAPE
-        q, k_, v = (torch.randn((bh, lq, d), generator=gen, device=dev) for _ in range(3))
-        qb, kb, vb = q[None], k_[None], v[None]
-        kernel = lambda: flash_attention(q, k_, v)  # noqa: E731
-        plain = lambda: flash_attention_reference(q, k_, v)  # noqa: E731
-        err = (kernel() - plain()).abs().max().item()
-        if not (math.isfinite(err) and err <= K1_F32_TOL):
-            fail(f"K1 f32 at the VAE shape: max abs err {err:.3e} > {K1_F32_TOL}")
-        b_ms, b_by = bound(4.0 * bh * d * (2 * lq + 2 * lq), 4.0 * bh * lq * lq * d, "f32")
-        row = {"shape": f"bh={bh} lq={lq} lk={lq} d={d} float32 (flash_simt_f32: the loaded "
-                        f"pipeline's f32 VAE mid-block attention)",
-               "max_abs_err": err, "err_bar": K1_F32_TOL, "ms": graph_ms(kernel, repeats=10),
-               "ms_with_host": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 5),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb), 5),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "launches_a_frame": {"checkpoint": f32_a_frame}}
-        k1["shapes"].append(row)
+        row = next(r for r in k1["shapes"]
+                   if r["shape"] == f"bh={bh} lq={lq} lk={lq} d={d} float32")
+        row["launches_a_frame"] = {"checkpoint": f32_a_frame}
         out["k1_f32_vae"] = row
         print(f"[20 K1 f32] {row} | {card}", flush=True)
-        del q, k_, v, qb, kb, vb
 
         # --- 20.5 an LCM-LoRA-shaped file ------------------------------------------------
         pre = "model.diffusion_model."

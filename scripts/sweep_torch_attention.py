@@ -8,7 +8,8 @@ repository root on a machine with a CUDA card:
 
 For each of the frame's two attention shapes, (16, 4096, 4096, 40) (the UNet's
 level-0 self-attention, 8 heads x CFG batch 2) and (1, 4096, 4096, 512) (the
-VAE mid-block attention), every compiled tile variant of
+VAE mid-block attention), and the all-frames bake submit's folded levels 1
+and 2, (8, 8192, 8192, 80) and (8, 2048, 2048, 160), every compiled tile variant of
 csrc/flash_attention.cu that takes the head dim (query rows, K/V rows,
 pipeline stages, K/V split; the table in the source) is checked against the
 plain version (bf16 bar 1e-2) and timed as device time by CUDA-graph replay,
@@ -28,7 +29,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SHAPES = ((16, 4096, 4096, 40), (1, 4096, 4096, 512))
+SHAPES = ((16, 4096, 4096, 40), (1, 4096, 4096, 512), (8, 8192, 8192, 80), (8, 2048, 2048, 160))
 TOL = 1e-2
 
 

@@ -12,7 +12,7 @@
 //
 // Two routes, by dtype:
 //   * bf16: the tensor-core kernels below (wgmma, TMA and mbarriers at
-//     d <= 64; mma.sync and cp.async above). Operands come as strided
+//     d <= 256; mma.sync and cp.async above). Operands come as strided
 //     (B, L, H, D) views (unit d stride; element strides of batch, sequence
 //     and head), so the UNet's q, k and v are read straight out of its fused
 //     QKV product and the output is written as (B, L, H*D). Any head dim from
@@ -20,9 +20,9 @@
 //     memory. Tiles move by TMA or 16-byte cp.async (zero-filled past d and
 //     past the sequence) when d and every stride are multiples of 8 elements
 //     and the bases 16-byte aligned, else element by element.
-//   * f32: the SIMT kernel at the end of the file (f32 FMA pipes, contiguous
-//     (BH, L, D) only). The tiny f32 frame and the f32 card tests use it;
-//     TF32 tensor cores would change its numbers.
+//   * f32: contiguous (BH, L, D) on the f32 FMA pipes (TF32 tensor cores
+//     would change its numbers): flash_simt_f32 at d <= 64 (the tiny f32
+//     frame), flash_f32 above (the loaded pipeline's f32 VAE, d = 512).
 //
 // What bounds the bf16 route on the H100, and what the design does about it:
 //   d <= 64 (flash_wg; the UNet's level-0 self-attention, d = 40): the
@@ -31,18 +31,31 @@
 //     48 (~0.05 ms at 989 TFLOP/s), so the exponentials and the MMAs must not
 //     wait for each other. A block of four warpgroups owns a 256-row query
 //     tile (256 blocks at (16, 4096), one an SM, 16 warps). Q sits in shared
-//     memory; thread 0 streams 64-row K and V tiles by TMA (one box per 8
-//     columns, so each lands as wgmma's no-swizzle core matrices: K K-major,
-//     V MN-major, and P.V needs no transpose) into a ring of 4 buffers run on
-//     mbarriers, with no block-wide barrier in the loop. Each warpgroup
-//     issues S(j + 1) = Q.K(j + 1)^T and O += P(j).V(j) as asynchronous
-//     wgmmas back to back, as FlashAttention-3 does, and runs the softmax of
-//     S(j + 1) while P.V(j) computes: one FFMA (scale * log2 e folded in) and
+//     memory; thread 0 streams 64-row K and V tiles by TMA (one box a tile
+//     from a 5-d map whose chunks of 8 columns land as wgmma's no-swizzle
+//     core matrices: K K-major, V MN-major, and P.V needs no transpose) into
+//     a ring of 4 buffers run on mbarriers, with no block-wide barrier in the
+//     loop. Each warpgroup issues S(j + 1) = Q.K(j + 1)^T and O += P(j).V(j)
+//     as asynchronous wgmmas back to back, as FlashAttention-3 does, the
+//     warpgroups in turns (ping-pong), and runs the softmax of S(j + 1)
+//     while P.V(j) computes: one FFMA (scale * log2 e folded in) and
 //     one ex2 a score, row max by quad shuffles, l kept per thread and
 //     reduced once at the end. P goes from the S accumulators into A
 //     fragments in registers (the wgmma C layout is the A layout), so it
 //     never touches shared memory; P.V is 64 x 40 at d = 40.
-//   64 < d <= 512 (flash_wide; the VAE mid-block attention, d = 512): the
+//   64 < d <= 256 (flash_wg again; the all-frames levels 1 and 2, d = 80 and
+//     160): the MMAs and the exponentials together (at (8, 8192^2, 80) 0.17
+//     and 0.14 ms). The same kernel with d padded only to 16: Q.K^T is DK / 16
+//     wgmmas deep (5 at d = 80, 10 at 160) and P.V is one m64nDK wgmma a
+//     16-key step, 80 or 160 wide. The block is sized to the register file
+//     and shared memory: a warpgroup holds S (BK / 2 registers a thread) and
+//     O (DK / 2), so four warpgroups (256 query rows, 128 registers a thread)
+//     up to DK = 80, three up to 128, two above; K/V tiles of 64 rows up to
+//     DK = 176 and 32 above, so that Q and a ring of 4 stages fit in 227 KB.
+//     With two warpgroups (d > 128) a block streams a head's whole K/V for
+//     only 128 query rows, so the K/V loads from L2 bound it: they come in
+//     the 32-byte swizzle, whole sectors (see flash_wg).
+//   256 < d <= 512 (flash_wide; the VAE mid-block attention, d = 512): the
 //     MMAs, 4 x 4096^2 x 512 operations. A 64 x 512 f32 output block is 256
 //     registers a thread for one warpgroup, so 8 warps split it by columns
 //     (64 each, 128 registers). S (64 x 64) is computed once per K tile, 16 x
@@ -56,6 +69,21 @@
 //     4) and a small second kernel merges their (O / l, m + log l) partials.
 //     A cluster merge through distributed shared memory would save that pass
 //     (~20 MB of traffic); it is left for later.
+// What bounds the f32 route at d = 512, and what flash_f32 does about it: the
+//   f32 FMAs, 2 x 4096^2 x 512 of them at (1, 4096^2, 512) (0.51 ms at 67
+//   TFLOP/s), provided shared memory feeds them: an SM does 128 FMAs a clock
+//   but reads only 32 floats, so every float read must feed 4 FMAs or more.
+//   A block of 8 warps owns 64 query rows, warp w rows 8w..8w+7 in both
+//   products, so the softmax never leaves the warp. Q^T (scaled) stays in
+//   shared memory; K comes in 128-key x 32-deep chunks and V in 8-key x
+//   512-wide chunks through a ring of 3 buffers by cp.async (one block-wide
+//   barrier a chunk). In Q.K^T a lane holds 8 rows x 4 keys of S: for each
+//   depth it reads 8 floats of Q (one broadcast for the warp) and 4 of K for
+//   32 FMAs. In P.V it holds 8 rows x 16 columns of O (128 registers): for each
+//   key, 8 probabilities (a broadcast from its warp's P in shared memory) and
+//   16 values of V for 128 FMAs. One block an SM (O takes half the register
+//   file), so the K/V sequence is split across blocks as for flash_wide (2
+//   at that shape) and flash_merge_f32 merges the partials.
 // Tile variants (query rows, K/V rows, ring buffers, warpgroup ping-pong,
 // K/V split) are compiled as a table; sr_flash_attention_bf16 takes an index
 // into it (-1: the default for the head dim), which
@@ -89,6 +117,7 @@ struct Args {
   Strides sq, sk, sv, so;
   int heads, lq, lk, d;
   int vec;              // 16-byte rows: cp.async and TMA copies
+  int box5;             // swizzled flash_wg: one 5-d box a tile (d % 16 == 0), else one a plane
   int splits, tiles_per_split;
   float sl2;            // softmax scale * log2(e)
 };
@@ -182,6 +211,21 @@ template <int N>
 struct WgmmaSS;
 
 template <>
+struct WgmmaSS<32> {
+  __device__ static __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(acc));
+  }
+};
+
+template <>
 struct WgmmaSS<64> {
   __device__ static __forceinline__ void run(float* d, uint64_t desc_a, uint64_t desc_b, int acc) {
     asm volatile(
@@ -233,7 +277,7 @@ struct WgmmaSS<128> {
 // past `valid` rows and past column d: the 8 columns 8c..8c+7 of all rows are
 // one [ROWS][16 bytes] block, so the 16-byte chunk (row r, chunk c) is at byte
 // c * ROWS * 16 + r * 16, and an 8 x 16-byte core matrix is 128 contiguous
-// bytes. The layout TMA writes with an 8-column box.
+// bytes. The layout TMA writes with make_tmap's box.
 template <int ROWS, int CH, int NT>
 __device__ __forceinline__ void load_chunks(uint8_t* s, const bf16* base, long long ls, int r0,
                                             int valid, int d, bool vec, int tid) {
@@ -254,21 +298,49 @@ __device__ __forceinline__ void load_chunks(uint8_t* s, const bf16* base, long l
   }
 }
 
-// ---- d <= 64 on wgmma: P in registers, the softmax of S(j + 1) during P.V(j) ----
+// Rows [r0, r0 + ROWS) of a (L, d) slab, element by element, in the layout
+// TMA writes with the 32-byte swizzle: 16 columns a plane of ROWS rows x 32
+// bytes, the two 16-byte halves of rows 4..7 of every 8 swapped (address bit 4
+// ^= bit 7); zero past `valid` rows and past column d.
+template <int ROWS, int PLANES, int NT>
+__device__ __forceinline__ void load_planes_sw32(uint8_t* s, const bf16* base, long long ls,
+                                                 int r0, int valid, int d, int tid) {
+  for (int i = tid; i < ROWS * PLANES * 16; i += NT) {
+    const int r = i / (PLANES * 16), col = i - r * (PLANES * 16);
+    int off = r * 32 + (col & 15) * 2;
+    off ^= ((off >> 7) & 1) << 4;
+    *reinterpret_cast<bf16*>(s + (col >> 4) * ROWS * 32 + off) =
+        (r < valid && col < d) ? base[(long long)(r0 + r) * ls + col] : __float2bfloat16(0.f);
+  }
+}
+
+// ---- d <= 256 on wgmma: P in registers, the softmax of S(j + 1) during P.V(j) ----
 // DK: d padded to 16 (the Q.K^T depth); DV: d padded to 8, 40 or a multiple of
-// 16 (the P.V width); BK: K/V rows a tile (64 or 128); R: ring buffers; NWG consumer
+// 16 (the P.V width); BK: K/V rows a tile (32, 64 or 128); R: ring buffers; NWG consumer
 // warpgroups of 64 query rows each (BQ = 64 NWG). Thread 0 loads each K/V
-// tile by TMA (tmk, tmv) or, where rows are not 16-byte aligned (a.vec = 0),
-// every thread loads part of it; every thread consumes the whole tile. The ring runs
-// on mbarriers (full: the tile has landed; empty: every thread is done with
-// it), so the warpgroups are not held in step by a block-wide barrier.
+// tile by TMA (tmk, tmv; make_tmap), as one box where it can (one box a chunk
+// cost the mid route 16% at d = 80): without SW32 in 8-column chunks that
+// land as the no-swizzle core matrices, with SW32 in 16-column planes in the
+// 32-byte swizzle, which reads whole 32-byte sectors (it took the mid route
+// from 0.084 to 0.058 ms at (8, 2048^2, 160), and cost d = 40, whose P.V it
+// widens to 48, 12%). Where rows are not 16-byte aligned (a.vec = 0) every
+// thread loads part of the tile, in the same layout; every thread consumes
+// the whole tile. The ring runs on mbarriers (full: the tile has
+// landed; empty: every thread is done with it), so the warpgroups are not
+// held in step by a block-wide barrier.
 template <int DK, int DV, int BK, int R, int NWG>
 __host__ __device__ constexpr int wg_smem_bytes() {
   return 64 * NWG * DK * 2 + R * BK * (DK + DV) * 2 + 2 * R * 8;
 }
 
-template <int DK, int DV, int BK, int R, int NWG, bool PP>
-__global__ void __launch_bounds__(128 * NWG, NWG == 2 && BK == 64 ? 2 : 1)
+// two blocks an SM (128 registers a thread) only where S and O leave room
+template <int DV, int BK, int NWG>
+constexpr int wg_min_blocks() {
+  return (NWG == 2 && BK == 64 && DV <= 64) || NWG == 1 ? 2 : 1;
+}
+
+template <int DK, int DV, int BK, int R, int NWG, bool PP, bool SW32>
+__global__ void __launch_bounds__(128 * NWG, wg_min_blocks<DV, BK, NWG>())
 flash_wg(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap tmk,
          const __grid_constant__ CUtensorMap tmv) {
   static_assert(R >= 4, "tile j + R - 2 is loaded while tiles j - 1 .. j + 1 are in use");
@@ -297,7 +369,7 @@ flash_wg(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap tmk
       mbar_init(empty + i, NT / 32);  // one arrival per warp
     }
   }
-  if (a.vec) {
+  if (a.vec && !SW32) {
     for (int i = tid; i < R * (KCH - dch) * BK; i += NT) {
       const int slot = i / ((KCH - dch) * BK), rest = i - slot * (KCH - dch) * BK;
       *reinterpret_cast<uint4*>(ring + slot * STAGE + dch * BK * 16 + rest * 16) =
@@ -318,17 +390,34 @@ flash_wg(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap tmk
     if (a.vec) {
       if (tid != 0) return;
       if (j >= R) mbar_wait(empty + slot, (j / R - 1) & 1);  // tile j - R is done with
-      mbar_expect_tx(full + slot, 2 * dch * BK * 16);
-      for (int c = 0; c < dch; ++c) {
-        tma_load(st + c * BK * 16, &tmk, c * 8, k0, h, b, full + slot);
-        tma_load(st + KBYTES + c * BK * 16, &tmv, c * 8, k0, h, b, full + slot);
+      if (SW32) {
+        const int pairs = (a.d + 15) / 16;
+        mbar_expect_tx(full + slot, 2 * pairs * BK * 32);
+        if (a.box5) {
+          tma_load(st, &tmk, 0, k0, 0, h, b, full + slot);
+          tma_load(st + KBYTES, &tmv, 0, k0, 0, h, b, full + slot);
+        } else {
+          for (int p = 0; p < pairs; ++p) {
+            tma_load(st + p * BK * 32, &tmk, p * 16, k0, h, b, full + slot);
+            tma_load(st + KBYTES + p * BK * 32, &tmv, p * 16, k0, h, b, full + slot);
+          }
+        }
+        return;
       }
+      mbar_expect_tx(full + slot, 2 * dch * BK * 16);
+      tma_load(st, &tmk, 0, k0, 0, h, b, full + slot);
+      tma_load(st + KBYTES, &tmv, 0, k0, 0, h, b, full + slot);
       return;
     }
     if (j >= R) mbar_wait(empty + slot, (j / R - 1) & 1);  // tile j - R is done with
     const int valid = min(BK, a.lk - k0);
-    load_chunks<BK, KCH, NT>(st, kb, a.sk.l, k0, valid, a.d, false, tid);
-    load_chunks<BK, VCH, NT>(st + KBYTES, vb, a.sv.l, k0, valid, a.d, false, tid);
+    if (SW32) {
+      load_planes_sw32<BK, DK / 16, NT>(st, kb, a.sk.l, k0, valid, a.d, tid);
+      load_planes_sw32<BK, DV / 16, NT>(st + KBYTES, vb, a.sv.l, k0, valid, a.d, tid);
+    } else {
+      load_chunks<BK, KCH, NT>(st, kb, a.sk.l, k0, valid, a.d, false, tid);
+      load_chunks<BK, VCH, NT>(st + KBYTES, vb, a.sv.l, k0, valid, a.d, false, tid);
+    }
     mbar_arrive(full + slot);
   };
   auto landed = [&](int j) {  // wait for tile j, and make it visible to wgmma
@@ -345,7 +434,9 @@ flash_wg(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap tmk
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk)
       WgmmaSS<BK>::run(s, smem_desc(qw + kk * 2 * BQ * 16, BQ * 16, 128),
-                       smem_desc(kt + kk * 2 * BK * 16, BK * 16, 128), kk > 0);
+                       SW32 ? smem_desc_sw32(kt + kk * BK * 32, 16)
+                            : smem_desc(kt + kk * 2 * BK * 16, BK * 16, 128),
+                       kk > 0);
     wgmma_commit();
     fence_regs<NS>(s);
   };
@@ -427,7 +518,10 @@ flash_wg(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap tmk
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      WgmmaRS<DV>::template run<1>(o, pa[kk], smem_desc(vt + kk * 256, 128, BK * 16), 1);
+      WgmmaRS<DV>::template run<1>(o, pa[kk],
+                                   SW32 ? smem_desc_sw32(vt + kk * 512, BK * 32)
+                                        : smem_desc(vt + kk * 256, 128, BK * 16),
+                                   1);
     wgmma_commit();
     fence_regs<NO>(o);
     if (PP && (more || wg != NWG - 1))  // the next warpgroup's turn
@@ -463,8 +557,8 @@ flash_wg(const __grid_constant__ Args a, const __grid_constant__ CUtensorMap tmk
   }
 }
 
-// ---- 64 < d <= 512: output columns split across warps, P through shared memory ----
-// DK: d padded to 128, 256 or 512; BK: K/V rows per tile. 8 warps, 64 query
+// ---- 256 < d <= 512: output columns split across warps, P through shared memory ----
+// DK: d padded to 512; BK: K/V rows per tile. 8 warps, 64 query
 // rows. blockIdx.z is the K/V split: tiles [z * tiles_per_split, ...).
 constexpr int kWideQ = 64;
 constexpr int kWideThreads = 256;
@@ -686,13 +780,12 @@ flash_merge(const Args a, int bh_total, int dk) {
   }
 }
 
-// ---- f32 route: the SIMT kernel ------------------------------------------------
+// ---- f32 route, d <= 64: the SIMT kernel -----------------------------------------
 // Contiguous (BH, L, D) f32. Every block owns one (bh, BQ-row) query tile,
 // streams K and V through shared memory in BK-row tiles and keeps the
 // online softmax in f32 registers; both products on the f32 FMA pipes, with
 // each thread holding a TR x TC block of scores and a TR x (D/16) block of
-// outputs. Tiles: d <= 64: 64 x 64; d <= 512: 32 x 64 (Q^T and K^T staged as
-// d x BQ and d x BK f32 tiles inside the 227 KB a block may use).
+// outputs (64 x 64 tiles).
 
 constexpr int kSimtThreads = 256;
 
@@ -850,6 +943,270 @@ flash_simt_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- f32 route, 64 < d <= 512: register tiles on the FMA pipes (see the top) ----
+// Contiguous (BH, L, D) f32, d <= kF32D. blockIdx.z is the K/V split, as in
+// flash_wide. The scores are kept in the log2 domain (Q is scaled by
+// scale * log2 e as it is staged), so the partials' lse is m + log2 l.
+constexpr int kF32Q = 64;         // query rows a block: 8 a warp
+constexpr int kF32K = 128;        // keys a tile: 4 a lane
+constexpr int kF32D = 512;        // the widest head dim; O is 8 x 16 a lane at any d
+constexpr int kF32DC = 32;        // depth of a K chunk
+constexpr int kF32VC = 8;         // keys of a V chunk
+constexpr int kF32Threads = 256;
+constexpr int kF32QS = kF32Q + 4;   // Q^T row stride: 16-byte rows, 4-way at most on the store
+constexpr int kF32KS = kF32DC + 4;  // K chunk row stride: lanes 8 apart land on other banks
+constexpr int kF32Buf = kF32K * kF32KS > kF32VC * kF32D ? kF32K * kF32KS : kF32VC * kF32D;
+constexpr int kF32Ring = 3;         // chunk t + 2 loads while chunk t is read
+constexpr int kF32SmemBytes =
+    (kF32D * kF32QS + (kF32Threads / 32) * kF32K * 8 + kF32Ring * kF32Buf) * 4;
+static_assert(kF32SmemBytes <= 232448, "flash_f32's shared memory exceeds what a block may use");
+
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  float* part_o;    // (splits, BH, lq, kF32D) partial outputs O / l, or null
+  float* part_lse;  // (splits, BH, lq) partial m + log2 l, or null
+  int lq, lk, d;
+  int vec;          // d a multiple of 4 and 16-byte bases: cp.async rows
+  int splits, tiles_per_split;
+  float sl2;        // softmax scale * log2(e)
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_f32(const F32Args a) {
+  extern __shared__ __align__(16) float fsm[];
+  float* qt = fsm;                       // [kF32D][kF32QS]: Q^T * sl2
+  float* pt = qt + kF32D * kF32QS;       // [warp][kF32K][8]: P^T of each warp's rows
+  float* ring = pt + (kF32Threads / 32) * kF32K * 8;  // kF32Ring chunks
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kF32Q;
+  const long long bh = blockIdx.y;
+  const float* qb = a.q + bh * a.lq * a.d;
+  const float* kb = a.k + bh * a.lk * a.d;
+  const float* vb = a.v + bh * a.lk * a.d;
+  const int nkc = (a.d + kF32DC - 1) / kF32DC;    // K chunks a tile
+  const int per_tile = nkc + kF32K / kF32VC;      // chunks a tile: K's, then V's
+  const int ntiles = (a.lk + kF32K - 1) / kF32K;
+  const int j0 = blockIdx.z * a.tiles_per_split;
+  const int j1 = min(j0 + a.tiles_per_split, ntiles);
+  const int nchunks = (j1 - j0) * per_tile;
+
+  // chunk t into its ring slot: cp.async where rows are 16-byte aligned, else
+  // plain loads (visible after the barrier that precedes its use); zero past
+  // the sequence and past d
+  auto load_chunk = [&](int t) {
+    float* dst = ring + (t % kF32Ring) * kF32Buf;
+    const int k0 = (j0 + t / per_tile) * kF32K, u = t % per_tile;
+    if (u < nkc) {  // K rows k0.., depth u kF32DC..
+      const int c0 = u * kF32DC;
+      for (int i = tid; i < kF32K * kF32DC / 4; i += kF32Threads) {
+        const int r = i / (kF32DC / 4), c = c0 + 4 * (i % (kF32DC / 4));
+        float* sp = dst + r * kF32KS + (c - c0);
+        const float* gp = kb + (long long)(k0 + r) * a.d + c;
+        if (a.vec) {
+          const bool ok = k0 + r < a.lk && c < a.d;
+          cp_async16(sp, ok ? gp : kb, ok);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sp[e] = k0 + r < a.lk && c + e < a.d ? gp[e] : 0.f;
+        }
+      }
+    } else {  // V rows r0.., every column
+      const int r0 = k0 + (u - nkc) * kF32VC;
+      for (int i = tid; i < kF32VC * kF32D / 4; i += kF32Threads) {
+        const int r = i / (kF32D / 4), c = 4 * (i % (kF32D / 4));
+        float* sp = dst + r * kF32D + c;
+        const float* gp = vb + (long long)(r0 + r) * a.d + c;
+        if (a.vec) {
+          const bool ok = r0 + r < a.lk && c < a.d;
+          cp_async16(sp, ok ? gp : vb, ok);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sp[e] = r0 + r < a.lk && c + e < a.d ? gp[e] : 0.f;
+        }
+      }
+    }
+  };
+
+  load_chunk(0);
+  cp_async_commit();
+  if (nchunks > 1) load_chunk(1);
+  cp_async_commit();
+  // Q^T, scaled, zero past lq and past d (depth rows up to nkc kF32DC)
+  for (int i = tid; i < kF32Q * nkc * kF32DC; i += kF32Threads) {
+    const int r = i / (nkc * kF32DC), c = i - r * (nkc * kF32DC);
+    qt[c * kF32QS + r] = q0 + r < a.lq && c < a.d ? qb[(long long)(q0 + r) * a.d + c] * a.sl2
+                                                  : 0.f;
+  }
+
+  // chunk t has landed for every thread, chunk t - 1's slot is free: load t + 2
+  auto begin_chunk = [&](int t) -> const float* {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t + 2 < nchunks) load_chunk(t + 2);
+    cp_async_commit();
+    return ring + (t % kF32Ring) * kF32Buf;
+  };
+
+  float o[8][16], m[8], l[8];  // l: this lane's share of each row's sum
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) o[r][c] = 0.f;
+  }
+  const float* qw = qt + warp * 8;            // this warp's 8 query rows
+  float* pw = pt + warp * kF32K * 8;          // and their P^T
+  int t = 0;
+  for (int j = j0; j < j1; ++j) {
+    // S = Q.K^T: rows 8 warp.., keys lane + 32 i
+    float s[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+    for (int u = 0; u < nkc; ++u, ++t) {
+      const float* kc = begin_chunk(t);
+      const float* qc = qw + u * kF32DC * kF32QS;
+#pragma unroll 2
+      for (int cc = 0; cc < kF32DC; cc += 4) {
+        float4 kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) kv[i] = lds4(kc + (lane + 32 * i) * kF32KS + cc);
+#pragma unroll
+        for (int dd = 0; dd < 4; ++dd) {
+          const float4 qa = lds4(qc + (cc + dd) * kF32QS), qz = lds4(qc + (cc + dd) * kF32QS + 4);
+          const float qr[8] = {qa.x, qa.y, qa.z, qa.w, qz.x, qz.y, qz.z, qz.w};
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[r][i] = fmaf(qr[r], f4(kv[i], dd), s[r][i]);
+        }
+      }
+    }
+    // the online softmax of this tile; a row's 128 scores are this warp's
+    const int k0 = j * kF32K;
+    if (k0 + kF32K > a.lk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k0 + lane + 32 * i >= a.lk)
+#pragma unroll
+          for (int r = 0; r < 8; ++r) s[r][i] = -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[r], mx);  // finite: a split's first key is real
+      const float corr = exp2f(m[r] - mn);
+      m[r] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[r][i] = exp2f(s[r][i] - mn);
+        sum += s[r][i];
+      }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) o[r][c] *= corr;
+    }
+    // P^T to this warp's slice (the barrier of the next chunk orders it
+    // after the last tile's reads and before this tile's)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* p = pw + (lane + 32 * i) * 8;
+      *reinterpret_cast<float4*>(p) = make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+      *reinterpret_cast<float4*>(p + 4) = make_float4(s[4][i], s[5][i], s[6][i], s[7][i]);
+    }
+    // O += P.V: rows 8 warp.., columns 128 i + 4 lane + e
+    for (int u = 0; u < kF32K / kF32VC; ++u, ++t) {
+      const float* vc = begin_chunk(t);
+      const float* pc = pw + u * kF32VC * 8;
+#pragma unroll 2
+      for (int kk = 0; kk < kF32VC; ++kk) {
+        const float4 pa = lds4(pc + kk * 8), pz = lds4(pc + kk * 8 + 4);
+        const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pz.x, pz.y, pz.z, pz.w};
+        float4 vv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vv[i] = lds4(vc + kk * kF32D + 128 * i + 4 * lane);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[r][4 * i + e] = fmaf(pr[r], f4(vv[i], e), o[r][4 * i + e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const long long rows = (long long)gridDim.y * a.lq;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    float lt = l[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
+    const int row = q0 + warp * 8 + r;
+    if (row >= a.lq) continue;
+    const float inv = 1.f / lt;
+    const long long prow = bh * a.lq + row;
+    if (a.splits == 1) {
+      float* orow = a.o + prow * a.d;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 128 * i + 4 * lane + e;
+          if (c < a.d) orow[c] = o[r][4 * i + e] * inv;
+        }
+    } else {
+      const long long srow = blockIdx.z * rows + prow;
+      float* orow = a.part_o + srow * kF32D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(orow + 128 * i + 4 * lane) =
+            make_float4(o[r][4 * i] * inv, o[r][4 * i + 1] * inv, o[r][4 * i + 2] * inv,
+                        o[r][4 * i + 3] * inv);
+      if (lane == 0) a.part_lse[srow] = m[r] + __log2f(lt);
+    }
+  }
+}
+
+// Merge the K/V splits of flash_f32: one block per (bh, query row).
+__global__ void __launch_bounds__(128)
+flash_merge_f32(const F32Args a, int rows) {
+  const long long prow = blockIdx.x;
+  float mx = -INFINITY;
+  for (int s = 0; s < a.splits; ++s) mx = fmaxf(mx, a.part_lse[s * (long long)rows + prow]);
+  float w[kMaxSplits], den = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    w[s] = s < a.splits ? exp2f(a.part_lse[s * (long long)rows + prow] - mx) : 0.f;
+    den += w[s];
+  }
+  float* orow = a.o + prow * a.d;
+  for (int c = threadIdx.x; c < a.d; c += blockDim.x) {
+    float num = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < a.splits) num += w[s] * a.part_o[(s * (long long)rows + prow) * kF32D + c];
+    orow[c] = num / den;
+  }
+}
+
 // ---- host side ---------------------------------------------------------------
 
 // Above 48 KB a block's shared memory must be asked for: once per kernel.
@@ -858,10 +1215,11 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// K/V splits of flash_wide: as many as fill the SMs, at most kMaxSplits,
-// none empty. force > 0 asks for that many (capped the same way).
-void wide_plan(int bh, int lq, int lk, int bk, int force, int* splits, int* per) {
-  const int blocks = bh * ((lq + kWideQ - 1) / kWideQ);
+// K/V splits of flash_wide and flash_f32 (bq query rows a block): as many as
+// fill the SMs, at most kMaxSplits, none empty. force > 0 asks for that many
+// (capped the same way).
+void split_plan(int bh, int lq, int lk, int bq, int bk, int force, int* splits, int* per) {
+  const int blocks = bh * ((lq + bq - 1) / bq);
   const int ntiles = (lk + bk - 1) / bk;
   int want = force > 0 ? force : sm_count() / blocks;
   want = want < 1 ? 1 : (want > kMaxSplits ? kMaxSplits : want);
@@ -874,7 +1232,7 @@ int launch_wide(Args a, int bh, int force_splits, void* scratch, cudaStream_t s)
   constexpr int bytes = wide_smem_bytes<DK, BK>();
   static const cudaError_t attr = allow_smem(flash_wide<DK, BK>, bytes);
   if (attr != cudaSuccess) return (int)attr;
-  wide_plan(bh, a.lq, a.lk, BK, force_splits, &a.splits, &a.tiles_per_split);
+  split_plan(bh, a.lq, a.lk, kWideQ, BK, force_splits, &a.splits, &a.tiles_per_split);
   if (a.splits > 1) {
     if (!scratch) return (int)cudaErrorInvalidValue;
     a.part_o = static_cast<float*>(scratch);
@@ -888,77 +1246,131 @@ int launch_wide(Args a, int bh, int force_splits, void* scratch, cudaStream_t s)
   return (int)cudaGetLastError();
 }
 
-// K or V, a (batch, len, heads, d) view with 16-byte rows, as a 4-d TMA map
-// whose box is 8 columns x `rows` rows; the strides of dimensions of size 1
-// are made up. False if the encoding fails.
+// K or V, a (batch, len, heads, d) view with 16-byte rows, as a TMA map for
+// flash_wg. sw32 = 0: 5-d, each row viewed as d / 8 chunks of 8 columns 16
+// bytes apart, with a box of `rows` rows x every chunk: it lands chunk-major,
+// [chunk][row][8 columns], no swizzle. sw32 = 1 (d a multiple of 16): the same
+// with planes of 16 columns, 32 bytes apart, and the 32-byte swizzle. sw32 = 2:
+// 4-d, a box of 16 columns x `rows` rows (a plane), the 32-byte swizzle; a box
+// reaching past d is zero-filled. Each 32-byte row of a plane is one whole
+// sector; an 8-column box reads half of each sector it touches, twice. The
+// strides of dimensions of size 1 are made up. False if the encoding fails.
 bool make_tmap(CUtensorMap* m, const void* base, const Strides& st, int batch, int len,
-               int heads, int d, int rows) {
+               int heads, int d, int rows, int sw32) {
   const TmapEncode enc = tmap_encode();
   if (!enc) return false;
   const cuuint64_t sl = len > 1 ? st.l * 2 : ((cuuint64_t)d * 2 + 15) / 16 * 16;
   const cuuint64_t sh = heads > 1 ? st.h * 2 : sl * len;
   const cuuint64_t sb = batch > 1 ? st.b * 2 : sh * heads;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {sl, sh, sb};
-  const cuuint32_t box[4] = {8, (cuuint32_t)rows, 1, 1}, elem[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+  if (sw32 == 1) {  // 5-d, pairs of chunks, one box a tile
+    const cuuint32_t pairs = d / 16;
+    const cuuint64_t dims[5] = {16, (cuuint64_t)len, pairs, (cuuint64_t)heads, (cuuint64_t)batch};
+    const cuuint64_t strides[4] = {sl, 32, sh, sb};
+    const cuuint32_t box[5] = {16, (cuuint32_t)rows, pairs, 1, 1}, elem[5] = {1, 1, 1, 1, 1};
+    return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+  }
+  if (sw32 == 2) {  // 4-d, one box a pair of chunks
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)len, (cuuint64_t)heads,
+                                (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {sl, sh, sb};
+    const cuuint32_t box[4] = {16, (cuuint32_t)rows, 1, 1}, elem[4] = {1, 1, 1, 1};
+    return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+           CUDA_SUCCESS;
+  }
+  const cuuint32_t chunks = (d + 7) / 8;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)len, chunks, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[4] = {sl, 16, sh, sb};
+  const cuuint32_t box[5] = {8, (cuuint32_t)rows, chunks, 1, 1}, elem[5] = {1, 1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DK, int DV, int BK, int R, int NWG, bool PP = false>
+// SW32: K and V tiles in the 32-byte swizzle, one box a tile where d is a
+// multiple of 16, else one a 16-column plane (TMA zero-fills past d)
+template <int DK, int DV, int BK, int R, int NWG, bool PP = false, bool SW32 = false>
 int launch_wg(Args a, int bh, cudaStream_t s) {
+  static_assert(!SW32 || (DK % 16 == 0 && DV % 16 == 0), "the swizzle takes 16-column planes");
   constexpr int bytes = wg_smem_bytes<DK, DV, BK, R, NWG>();
-  static const cudaError_t attr = allow_smem(flash_wg<DK, DV, BK, R, NWG, PP>, bytes);
+  static const cudaError_t attr = allow_smem(flash_wg<DK, DV, BK, R, NWG, PP, SW32>, bytes);
   if (attr != cudaSuccess) return (int)attr;
   a.splits = 1;
+  a.box5 = SW32 && a.d % 16 == 0;
+  const int mode = !SW32 ? 0 : (a.box5 ? 1 : 2);
   CUtensorMap tmk{}, tmv{};
   const int batch = bh / a.heads;
-  if (a.vec && !(make_tmap(&tmk, a.k, a.sk, batch, a.lk, a.heads, a.d, BK) &&
-                 make_tmap(&tmv, a.v, a.sv, batch, a.lk, a.heads, a.d, BK)))
+  if (a.vec && !(make_tmap(&tmk, a.k, a.sk, batch, a.lk, a.heads, a.d, BK, mode) &&
+                 make_tmap(&tmv, a.v, a.sv, batch, a.lk, a.heads, a.d, BK, mode)))
     return (int)cudaErrorNotSupported;
   const dim3 grid((a.lq + 64 * NWG - 1) / (64 * NWG), bh);
-  flash_wg<DK, DV, BK, R, NWG, PP><<<grid, 128 * NWG, bytes, s>>>(a, tmk, tmv);
+  flash_wg<DK, DV, BK, R, NWG, PP, SW32><<<grid, 128 * NWG, bytes, s>>>(a, tmk, tmv);
   return (int)cudaGetLastError();
 }
 
-int padded_dim(int d) {
-  if (d <= 64) return (d + 15) / 16 * 16;
-  return d <= 128 ? 128 : (d <= 256 ? 256 : 512);
+// flash_wg for 64 < d <= 256 at the default tiles of its padded head dim:
+// four warpgroups up to DK = 80, three up to 128, two above (O takes DK / 2
+// registers a thread beside S's 32), issuing in turns (ping-pong); 64-row
+// K/V tiles up to DK = 176, 32-row above (Q and 4 ring stages within 227 KB)
+template <int DK>
+int launch_mid(Args a, int bh, cudaStream_t s) {
+  constexpr int NWG = DK <= 80 ? 4 : (DK <= 128 ? 3 : 2), BK = DK <= 176 ? 64 : 32;
+  static_assert(wg_smem_bytes<DK, DK, BK, 4, NWG>() <= 232448, "flash_wg tiles exceed 227 KB");
+  return launch_wg<DK, DK, BK, 4, NWG, true, true>(a, bh, s);
 }
 
-// The tile variants. -1 picks by head dim (kDefaultSmall / kDefaultWide);
-// a variant with dk = 0 takes any head dim of its kind, the others exist at
-// one padded head dim each, for the sweep.
+int padded_dim(int d) {
+  if (d <= 256) return (d + 15) / 16 * 16;
+  return 512;
+}
+
+// The three bf16 kernels by head dim: 0 flash_wg (d <= 64), 1 flash_wg
+// (64 < d <= 256), 2 flash_wide (d <= 512)
+int kind_of(int d) { return d <= 64 ? 0 : (d <= 256 ? 1 : 2); }
+
+// The tile variants. -1 picks by head dim (kDefault[kind]); a variant with
+// dk = 0 takes any head dim of its kind, the others exist at one padded head
+// dim each, for the sweep.
 struct Variant {
   const char* name;
-  int wide;    // 0: d <= 64 (flash_wg), 1: flash_wide
+  int kind;    // kind_of(d) it takes
   int dk;      // the padded head dim it is compiled for (0: any)
   int bk;      // K/V rows a tile
   int splits;  // flash_wide: 0 = fill the SMs
 };
 constexpr Variant kVariants[] = {
-    {"small wgmma bq256 bk64 ring4", 0, 0, 64, 0},            // 0: the default for d <= 64
+    {"small wgmma bq256 bk64 ring4 pingpong", 0, 0, 64, 0},   // 0: the default for d <= 64
     {"small wgmma bq256 bk64 ring5", 0, 48, 64, 0},           // 1
     {"small wgmma bq128 bk64 ring4", 0, 48, 64, 0},           // 2
     {"small wgmma bq128 bk128 ring4", 0, 48, 128, 0},         // 3
     {"small wgmma bq192 bk128 ring4", 0, 48, 128, 0},         // 4
-    {"small wgmma bq256 bk64 ring4 pingpong", 0, 48, 64, 0},  // 5
-    {"wide bq64 bk64 split auto", 1, 0, 64, 0},               // 6: the default for d > 64
-    {"wide bq64 bk64 split 1", 1, 512, 64, 1},                // 7
-    {"wide bq64 bk32 split auto", 1, 512, 32, 0},             // 8
-    {"wide bq64 bk32 split 1", 1, 512, 32, 1},                // 9
+    {"small wgmma bq256 bk64 ring4", 0, 48, 64, 0},           // 5
+    {"mid wgmma by head dim", 1, 0, 0, 0},                    // 6: the default for d <= 256
+    {"mid wgmma d80 bq256 bk64 ring4", 1, 80, 64, 0},         // 7: no ping-pong
+    {"mid wgmma d80 bq256 bk64 ring5 pingpong", 1, 80, 64, 0},  // 8
+    {"mid wgmma d160 bq64 bk64 ring4 2 blocks an SM", 1, 160, 64, 0},  // 9
+    {"mid wgmma d160 bq128 bk32 ring6 pingpong", 1, 160, 32, 0},  // 10
+    {"wide bq64 bk64 split auto", 2, 0, 64, 0},               // 11: the default for d > 256
+    {"wide bq64 bk64 split 1", 2, 512, 64, 1},                // 12
+    {"wide bq64 bk32 split auto", 2, 512, 32, 0},             // 13
+    {"wide bq64 bk32 split 1", 2, 512, 32, 1},                // 14
+    {"mid wgmma d80 no swizzle", 1, 80, 64, 0},               // 15: 8-column boxes
+    {"mid wgmma d160 no swizzle", 1, 160, 64, 0},             // 16
 };
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
-constexpr int kDefaultSmall = 0, kDefaultWide = 6;
+constexpr int kDefault[3] = {0, 6, 11};
 
 // Resolve `variant` for head dim d; -1 when it does not apply.
 int resolve(int variant, int d) {
   if (d < 1 || d > 512) return -1;
-  if (variant < 0) return d <= 64 ? kDefaultSmall : kDefaultWide;
+  if (variant < 0) return kDefault[kind_of(d)];
   if (variant >= kNumVariants) return -1;
   const Variant& v = kVariants[variant];
-  if ((d > 64) != (v.wide == 1)) return -1;
+  if (v.kind != kind_of(d)) return -1;
   if (v.dk != 0 && v.dk != padded_dim(d)) return -1;
   return variant;
 }
@@ -975,25 +1387,41 @@ int run(int variant, Args a, int bh, void* scratch, cudaStream_t s) {
   switch (variant) {
     case 0:
       switch (dk) {
-        case 16: return launch_wg<16, 16, 64, 4, 4>(a, bh, s);
-        case 32: return launch_wg<32, 32, 64, 4, 4>(a, bh, s);
-        case 48: return launch_wg48<64, 4, 4>(a, bh, s);
-        default: return launch_wg<64, 64, 64, 4, 4>(a, bh, s);
+        case 16: return launch_wg<16, 16, 64, 4, 4, true>(a, bh, s);
+        case 32: return launch_wg<32, 32, 64, 4, 4, true>(a, bh, s);
+        case 48: return launch_wg48<64, 4, 4, true>(a, bh, s);
+        default: return launch_wg<64, 64, 64, 4, 4, true>(a, bh, s);
       }
     case 1: return launch_wg48<64, 5, 4>(a, bh, s);
     case 2: return launch_wg48<64, 4, 2>(a, bh, s);
     case 3: return launch_wg48<128, 4, 2>(a, bh, s);
     case 4: return launch_wg48<128, 4, 3>(a, bh, s);
-    case 5: return launch_wg48<64, 4, 4, true>(a, bh, s);
+    case 5: return launch_wg48<64, 4, 4>(a, bh, s);
     case 6:
       switch (dk) {
-        case 128: return launch_wide<128, 64>(a, bh, 0, scratch, s);
-        case 256: return launch_wide<256, 64>(a, bh, 0, scratch, s);
-        default: return launch_wide<512, 64>(a, bh, 0, scratch, s);
+        case 80: return launch_mid<80>(a, bh, s);
+        case 96: return launch_mid<96>(a, bh, s);
+        case 112: return launch_mid<112>(a, bh, s);
+        case 128: return launch_mid<128>(a, bh, s);
+        case 144: return launch_mid<144>(a, bh, s);
+        case 160: return launch_mid<160>(a, bh, s);
+        case 176: return launch_mid<176>(a, bh, s);
+        case 192: return launch_mid<192>(a, bh, s);
+        case 208: return launch_mid<208>(a, bh, s);
+        case 224: return launch_mid<224>(a, bh, s);
+        case 240: return launch_mid<240>(a, bh, s);
+        default: return launch_mid<256>(a, bh, s);
       }
-    case 7: return launch_wide<512, 64>(a, bh, 1, scratch, s);
-    case 8: return launch_wide<512, 32>(a, bh, 0, scratch, s);
-    case 9: return launch_wide<512, 32>(a, bh, 1, scratch, s);
+    case 7: return launch_wg<80, 80, 64, 4, 4, false, true>(a, bh, s);
+    case 8: return launch_wg<80, 80, 64, 5, 4, true, true>(a, bh, s);
+    case 9: return launch_wg<160, 160, 64, 4, 1, false, true>(a, bh, s);
+    case 10: return launch_wg<160, 160, 32, 6, 2, true, true>(a, bh, s);
+    case 11: return launch_wide<512, 64>(a, bh, 0, scratch, s);
+    case 12: return launch_wide<512, 64>(a, bh, 1, scratch, s);
+    case 13: return launch_wide<512, 32>(a, bh, 0, scratch, s);
+    case 14: return launch_wide<512, 32>(a, bh, 1, scratch, s);
+    case 15: return launch_wg<80, 80, 64, 4, 4, true>(a, bh, s);
+    case 16: return launch_wg<160, 160, 64, 4, 2, true>(a, bh, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1010,6 +1438,23 @@ int launch_simt(const float* q, const float* k, const float* v, float* o, int bh
   const int bytes = simt_smem_floats<BQ, BK>(d) * (int)sizeof(float);
   const dim3 grid((lq + BQ - 1) / BQ, bh);
   kernel<<<grid, kSimtThreads, bytes, stream>>>(q, k, v, o, lq, lk, d, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(F32Args a, int bh, void* scratch, cudaStream_t s) {
+  static const cudaError_t attr = allow_smem(flash_f32, kF32SmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  split_plan(bh, a.lq, a.lk, kF32Q, kF32K, 0, &a.splits, &a.tiles_per_split);
+  if (a.splits > 1) {
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    a.part_o = static_cast<float*>(scratch);
+    a.part_lse = a.part_o + (long long)a.splits * bh * a.lq * kF32D;
+  }
+  const dim3 grid((a.lq + kF32Q - 1) / kF32Q, bh, a.splits);
+  flash_f32<<<grid, kF32Threads, kF32SmemBytes, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return (int)e;
+  flash_merge_f32<<<bh * a.lq, 128, 0, s>>>(a, bh * a.lq);
   return (int)cudaGetLastError();
 }
 
@@ -1054,9 +1499,9 @@ extern "C" long long sr_flash_attention_bf16_scratch(int bh, int lq, int lk, int
                                                       int variant) {
   const int which = resolve(variant, d);
   if (which < 0 || bh < 1 || lq < 1 || lk < 1) return -1;
-  if (!kVariants[which].wide) return 0;
+  if (kVariants[which].kind != 2) return 0;
   int splits, per;
-  wide_plan(bh, lq, lk, kVariants[which].bk, kVariants[which].splits, &splits, &per);
+  split_plan(bh, lq, lk, kWideQ, kVariants[which].bk, kVariants[which].splits, &splits, &per);
   if (splits == 1) return 0;
   return (long long)splits * bh * lq * (padded_dim(d) + 1) * (long long)sizeof(float);
 }
@@ -1069,17 +1514,48 @@ extern "C" const char* sr_flash_attention_bf16_variant(int i) {
   return i >= 0 && i < kNumVariants ? kVariants[i].name : nullptr;
 }
 
-// f32: contiguous (bh, l, d) tensors on the current device (the SIMT kernel).
+// f32: contiguous (bh, l, d) tensors on the current device; scratch:
+// sr_flash_attention_f32_scratch bytes, or null when that is 0.
 extern "C" int sr_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                      int bh, int lq, int lk, int d, float scale,
+                                      void* scratch, int bh, int lq, int lk, int d, float scale,
                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
-  if (d >= 1 && d <= 64) return launch_simt<64, 64, 64>(qf, kf, vf, of, bh, lq, lk, d, scale, s);
-  if (d >= 1 && d <= 512) return launch_simt<32, 64, 512>(qf, kf, vf, of, bh, lq, lk, d, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (bh < 1 || lq < 1 || lk < 1 || d < 1 || d > kF32D) return (int)cudaErrorInvalidValue;
+  if (d <= 64) return launch_simt<64, 64, 64>(qf, kf, vf, of, bh, lq, lk, d, scale, s);
+  F32Args a{};
+  a.q = qf;
+  a.k = kf;
+  a.v = vf;
+  a.o = of;
+  a.lq = lq;
+  a.lk = lk;
+  a.d = d;
+  a.vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  a.sl2 = scale * 1.4426950408889634f;
+  return launch_f32(a, bh, scratch, s);
+}
+
+// Scratch bytes sr_flash_attention_f32 needs for these sizes (flash_f32's
+// K/V-split partials), or -1 outside its sizes.
+extern "C" long long sr_flash_attention_f32_scratch(int bh, int lq, int lk, int d) {
+  if (bh < 1 || lq < 1 || lk < 1 || d < 1 || d > kF32D) return -1;
+  if (d <= 64) return 0;
+  int splits, per;
+  split_plan(bh, lq, lk, kF32Q, kF32K, 0, &splits, &per);
+  if (splits == 1) return 0;
+  return (long long)splits * bh * lq * (kF32D + 1) * (long long)sizeof(float);
+}
+
+// The kernel that sr_flash_attention_bf16 (variant -1) or, with f32,
+// sr_flash_attention_f32 launches for head dim d; null outside 1..512.
+extern "C" const char* sr_flash_attention_route(int d, int f32) {
+  if (d < 1 || d > 512) return nullptr;
+  if (f32) return d <= 64 ? "flash_simt_f32" : "flash_f32";
+  const char* names[3] = {"flash_wg d<=64", "flash_wg 64<d<=256", "flash_wide"};
+  return names[kind_of(d)];
 }
 
 extern "C" const char* sr_cuda_error_string(int code) {

@@ -26,7 +26,9 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
 // columns; warp w of the warpgroup holds rows 16w..16w+15); a: the A fragment
 // of this warp's 16 rows, the mma.sync m16n8k16 (bf16) or m16n8k32 (s8) A
 // layout; desc: B in shared memory; acc = 0 overwrites d, 1 accumulates.
-// WgmmaRS<N>: bf16 x bf16 -> f32, K = 16, TB = 1 for an MN-major B.
+// WgmmaRS<N>: bf16 x bf16 -> f32, K = 16, TB = 1 for an MN-major B; N = 16,
+// 32, 40, 48 and every multiple of 16 from 64 to 256 (flash attention's
+// P.V widths: the head dim padded to 16).
 // WgmmaRS8<N>: s8 x s8 -> s32, K = 32 (K-major B only). The operand lists
 // are written out: inline asm takes no pack expansion.
 #define SR_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
@@ -118,6 +120,58 @@ struct WgmmaRS<64> {
 };
 
 template <>
+struct WgmmaRS<80> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39 "
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F4(32), SR_F4(36)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<96> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<112> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55 "
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, %62;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32), SR_F4(48), SR_F4(52)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
 struct WgmmaRS<128> {
   template <int TB>
   __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
@@ -131,6 +185,25 @@ struct WgmmaRS<128> {
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
         "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<144> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71 "
+        "}, {%72, %73, %74, %75}, %76, p, 1, 1, %78;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48), SR_F4(64), SR_F4(68)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
   }
 };
@@ -150,6 +223,110 @@ struct WgmmaRS<160> {
         "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79 "
         "}, {%80, %81, %82, %83}, %84, p, 1, 1, %86;\n}\n"
         : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48), SR_F16(64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<176> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %93, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87 "
+        "}, {%88, %89, %90, %91}, %92, p, 1, 1, %94;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48), SR_F16(64), SR_F4(80), SR_F4(84)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<192> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48), SR_F16(64), SR_F16(80)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<208> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %109, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103 "
+        "}, {%104, %105, %106, %107}, %108, p, 1, 1, %110;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48), SR_F16(64), SR_F16(80), SR_F4(96), SR_F4(100)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<224> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111 "
+        "}, {%112, %113, %114, %115}, %116, p, 1, 1, %118;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48), SR_F16(64), SR_F16(80), SR_F16(96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaRS<240> {
+  template <int TB>
+  __device__ static __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %125, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119 "
+        "}, {%120, %121, %122, %123}, %124, p, 1, 1, %126;\n}\n"
+        : SR_F16(0), SR_F16(16), SR_F16(32), SR_F16(48), SR_F16(64), SR_F16(80), SR_F16(96), SR_F4(112), SR_F4(116)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
   }
 };
@@ -304,6 +481,15 @@ __device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// the same for the 32-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_32B): rows of
+// 32 bytes, 8-row atoms of 256 bytes (SBO), the atom 256-byte aligned. K-major:
+// a k16 step is one whole row, so lbo is unused (16); MN-major: lbo is the
+// stride between 16-column atoms
+__device__ __forceinline__ uint64_t smem_desc_sw32(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
 // ---- mbarriers in shared memory ----------------------------------------------------
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
@@ -323,7 +509,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 }
 
 // ---- TMA ---------------------------------------------------------------------------
-// One box of a 4-d or 2-d tensor map into shared memory, completing on bar.
+// One box of a 4-d, 5-d or 2-d tensor map into shared memory, completing on bar.
 // Coordinates in elements, innermost first; a box reaching outside the
 // tensor is zero-filled there.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
@@ -333,6 +519,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(c4), "r"(smem_u32(bar))
       : "memory");
 }
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,

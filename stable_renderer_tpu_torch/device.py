@@ -3,6 +3,12 @@
 Entry points run on the card: a ``device`` left as ``None`` means the first
 CUDA device, and raises where there is none. Running on the CPU is asked for
 by name (``device="cpu"``), as the tests do.
+
+f32 stays f32: the card entry points (``DiffusionPipeline`` construction,
+``Engine`` construction, ``bench_torch.main``) call ``keep_f32``, which turns
+off TF32 for matmuls and cuDNN convolutions. torch's default runs f32 convs
+on the card as TF32 (about three decimal digits), which the JAX package's
+f32 towers (the loaded VAE, the ControlNet hint towers) never do.
 """
 
 from __future__ import annotations
@@ -10,6 +16,19 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+
+def keep_f32() -> None:
+    """Turn off TF32 for f32 matmuls and cuDNN convolutions (process-wide
+    switches; torch's card default for convolutions is on)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def tf32_switches() -> str:
+    """The two TF32 switches, as the card entry points print them."""
+    return (f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+            f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
 
 def resolve_device(device=None) -> torch.device:

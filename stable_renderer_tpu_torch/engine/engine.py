@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from stable_renderer_tpu_torch.device import resolve_device
+from stable_renderer_tpu_torch.device import keep_f32, resolve_device
 from stable_renderer_tpu_torch.engine.managers import (
     DiffusionManager,
     InputManager,
@@ -100,6 +100,7 @@ class Engine:
             raise NotImplementedError("EDITOR mode needs the editor server (server.py), "
                                       "which is not ported yet")
         self.device = _run_device(pipeline, device)
+        keep_f32()  # Run and Bake construct through here
         Engine._instance = self
         self.Mode = mode
         self.disableComfyUI = disableComfyUI or pipeline is None

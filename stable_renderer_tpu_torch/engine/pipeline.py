@@ -33,7 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from stable_renderer_tpu_torch.data.engine_data import EngineData
-from stable_renderer_tpu_torch.device import resolve_device, to_device
+from stable_renderer_tpu_torch.device import keep_f32, resolve_device, to_device
 from stable_renderer_tpu_torch.models.clip import (
     SD15_CLIP_CONFIG,
     TINY_CLIP_CONFIG,
@@ -89,6 +89,7 @@ class DiffusionPipeline:
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
+        keep_f32()  # from_random and from_checkpoint construct through here
         self._cond_cache: dict = {}
         self._prep_cond_cache: dict = {}
         self._sigma_cache: Optional[Tuple[tuple, torch.Tensor]] = None

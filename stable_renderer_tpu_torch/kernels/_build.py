@@ -151,8 +151,13 @@ def load_library() -> ctypes.CDLL:
             lib.sr_flash_attention_bf16_default.restype = i32
             lib.sr_flash_attention_bf16_variant.argtypes = [i32]
             lib.sr_flash_attention_bf16_variant.restype = ctypes.c_char_p
-            lib.sr_flash_attention_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
+            # q, k, v, out, scratch, bh, lq, lk, d, scale, stream
+            lib.sr_flash_attention_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, *[i32] * 4, f32, ptr]
             lib.sr_flash_attention_f32.restype = i32
+            lib.sr_flash_attention_f32_scratch.argtypes = [i32] * 4
+            lib.sr_flash_attention_f32_scratch.restype = ctypes.c_longlong
+            lib.sr_flash_attention_route.argtypes = [i32, i32]  # head dim, f32
+            lib.sr_flash_attention_route.restype = ctypes.c_char_p
             # clip, vertices, tris, tris int64, triangles, height, width, cull,
             # constants out, tile ranges out, stream
             lib.sr_raster_setup.argtypes = [ptr, i32, ptr, *[i32] * 5, ptr, ptr, ptr]

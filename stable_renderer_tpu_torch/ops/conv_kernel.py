@@ -105,7 +105,8 @@ def conv_tiles(n: int, h: int, w: int, cin: int, cout: int, int8: bool) -> ConvT
 def conv3x3_kernel_reference(x, w, bias=None, *, act=None, pre_scale=None, pre_shift=None,
                              pre_act=None, a_scale=None, w_scale=None, out_dtype=None):
     """Plain PyTorch with the kernel's exact semantics (see the module
-    docstring). Float mode sums in f32 (TF32 must be off on the card)."""
+    docstring). Float mode sums in f32: on the card TF32 must be off, as
+    ``device.keep_f32`` leaves it."""
     from stable_renderer_tpu_torch.models.quant import int_conv
 
     out_dtype = out_dtype or x.dtype

@@ -4,13 +4,14 @@ Counterpart of stable_renderer_tpu/ops/flash_attention.py. The kernels are in
 ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a); see its header for the
 design. Routes, by dtype, for CUDA tensors:
 
-* bf16: the tensor-core kernels (d <= 64: wgmma with K and V by TMA;
-  d > 64: mma.sync with cp.async). They read q, k and v as strided
+* bf16: the tensor-core kernels (d <= 256: wgmma with K and V by TMA;
+  256 < d <= 512: mma.sync with cp.async). They read q, k and v as strided
   (B, L, H, D) views and write (B, L, H*D), so ``attention_pallas`` hands
   them the UNet's fused-QKV chunks without a layout copy. A view whose rows
   the kernels cannot read with 16-byte copies is made contiguous first
   (``needs_copy``).
-* f32: the SIMT kernel (f32 FMA pipes) over contiguous (BH, L, D).
+* f32: the f32 FMA pipes over contiguous (BH, L, D) (d <= 64: a SIMT
+  kernel; above: register tiles with a K/V split), never TF32.
 
 CPU tensors take the plain einsum-softmax ``flash_attention_reference``.
 Nothing on the card falls back: an input the kernels do not take raises.
@@ -114,32 +115,44 @@ def _launch_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The f32 FMA-pipe kernels on (BH, L, D) -> (BH, Lq, D), on contiguous
+    copies."""
+    from stable_renderer_tpu_torch.kernels import _build
+
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    lib = _build.load_library()
+    out = torch.empty_like(q)
+    scratch_bytes = lib.sr_flash_attention_f32_scratch(bh, lq, lk, d)
+    scratch: Optional[torch.Tensor] = None
+    if scratch_bytes:
+        scratch = torch.empty((scratch_bytes,), dtype=torch.uint8, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.sr_flash_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        None if scratch is None else scratch.data_ptr(),
+                                        bh, lq, lk, d, 1.0 / math.sqrt(d),
+                                        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Non-causal attention over a merged batch-head axis: (BH, Lq, D) x
     (BH, Lk, D) -> (BH, Lq, D). CUDA tensors launch a kernel (bf16: the
-    tensor-core kernel, which takes strided views; f32: the SIMT kernel, on
-    contiguous copies); CPU tensors take the plain version."""
+    tensor-core kernels, which take strided views; f32: the FMA-pipe
+    kernels, on contiguous copies); CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 3:
             raise ValueError(f"flash_attention: {name} must be a (BH, L, D) tensor")
     _check(q[:, :, None], k[:, :, None], v[:, :, None])
-    bh, lq, d = q.shape
     if q.dtype == torch.bfloat16:
         return _launch_bf16(q[:, :, None], k[:, :, None], v[:, :, None])
-    from stable_renderer_tpu_torch.kernels import _build
-
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    lib = _build.load_library()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.sr_flash_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                        bh, lq, k.shape[1], d, 1.0 / math.sqrt(d),
-                                        torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _launch_f32(q, k, v)
 
 
 flash_attention.launches = 0

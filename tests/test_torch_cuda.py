@@ -40,7 +40,10 @@ K1_FOLD_REL_TOL = 2e-2
     ((1, 4096, 4096, 512), torch.bfloat16, 1e-2),   # VAE mid-block attention
     ((4, 300, 2100, 40), torch.bfloat16, 1e-2),     # ragged q and K/V tiles
     ((2, 2049, 2049, 64), torch.bfloat16, 1e-2),
-    ((3, 77, 2049, 80), torch.bfloat16, 1e-2),      # the wide kernel at d = 80
+    ((3, 77, 2049, 80), torch.bfloat16, 1e-2),      # the mid wgmma route at d = 80
+    ((8, 8192, 8192, 80), torch.bfloat16, 1e-2),    # all-frames level 1 (mid route)
+    ((8, 2048, 2048, 160), torch.bfloat16, 1e-2),   # all-frames level 2 (mid route)
+    ((2, 300, 2100, 256), torch.bfloat16, 1e-2),    # the mid route's widest, 32-row K/V tiles
     ((1, 300, 2100, 512), torch.bfloat16, 1e-2),    # ragged, split K/V
     ((4, 1, 2100, 40), torch.bfloat16, 1e-2),       # lq = 1
     ((2, 1, 2049, 512), torch.bfloat16, 1e-2),
@@ -49,6 +52,8 @@ K1_FOLD_REL_TOL = 2e-2
     ((2, 100, 150, 100), torch.bfloat16, 1e-2),
     ((3, 77, 2049, 80), torch.float32, 1e-4),
     ((2, 130, 333, 512), torch.float32, 1e-4),
+    ((1, 4096, 4096, 512), torch.float32, 1e-4),    # the loaded f32 VAE's attention, split K/V
+    ((1, 300, 2100, 160), torch.float32, 1e-4),     # ragged, d below the tiles' 512
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype, tol):
     """bf16 bound: output rounding (2^-8 relative) plus the plain path's bf16
@@ -94,7 +99,8 @@ def _plain_packed(q, k, v, heads):
     return tfa.flash_attention_reference(qh, kh, vh).transpose(1, 2).reshape(b, lq, hd)
 
 
-@pytest.mark.parametrize("b,l,heads,d", [(2, 4096, 8, 40), (1, 2100, 2, 64), (2, 2049, 3, 80)])
+@pytest.mark.parametrize("b,l,heads,d", [(2, 4096, 8, 40), (1, 2100, 2, 64), (2, 2049, 3, 80),
+                                         (1, 8192, 8, 80), (1, 2048, 8, 160)])
 def test_attention_pallas_reads_fused_qkv_views(cuda_device, b, l, heads, d):
     """The UNet's q, k and v: column chunks of one (B, L, 3*H*D) product,
     read in place (no copy) and written as (B, L, H*D)."""
@@ -128,26 +134,64 @@ def test_attention_pallas_copies_an_unaligned_view(cuda_device):
     assert (out.float() - _plain_packed(q, k, v, 8).float()).abs().max().item() < K1_BF16_TOL
 
 
+# head dims for the tile variants: each runs at every one it takes (the
+# small route's, the mid route's 80 and 160 and padded ones, the wide route's)
+VARIANT_HEAD_DIMS = (40, 80, 100, 160, 200, 256, 512)
+
+
 def test_flash_attention_tile_variants_match_plain(cuda_device):
     """Every compiled tile variant (scripts/sweep_torch_attention.py times
-    them) at its head dim, on ragged lengths."""
+    them) at every head dim of VARIANT_HEAD_DIMS it takes, on ragged
+    lengths."""
     from stable_renderer_tpu_torch.kernels import _build
 
     lib = _build.load_library()
     g = torch.Generator(device=cuda_device).manual_seed(4)
-    i = 0
+    i, runs = 0, 0
     while lib.sr_flash_attention_bf16_variant(i) is not None:
         name = lib.sr_flash_attention_bf16_variant(i).decode()
-        bh, d = (3, 40) if name.startswith("small") else (1, 512)
-        q = torch.randn((bh, 1100, 1, d), generator=g, device=cuda_device).bfloat16()
-        k = torch.randn((bh, 2100, 1, d), generator=g, device=cuda_device).bfloat16()
-        v = torch.randn((bh, 2100, 1, d), generator=g, device=cuda_device).bfloat16()
-        out = tfa._launch_bf16(q, k, v, variant=i).view(bh, 1100, d)
-        ref = tfa.flash_attention_reference(q[:, :, 0], k[:, :, 0], v[:, :, 0])
-        err = (out.float() - ref.float()).abs().max().item()
-        assert err < K1_BF16_TOL, (name, err)
+        dims = [d for d in VARIANT_HEAD_DIMS
+                if lib.sr_flash_attention_bf16_scratch(2, 1100, 2100, d, i) >= 0]
+        assert dims, name
+        for d in dims:
+            q = torch.randn((2, 1100, 1, d), generator=g, device=cuda_device).bfloat16()
+            k = torch.randn((2, 2100, 1, d), generator=g, device=cuda_device).bfloat16()
+            v = torch.randn((2, 2100, 1, d), generator=g, device=cuda_device).bfloat16()
+            out = tfa._launch_bf16(q, k, v, variant=i).view(2, 1100, d)
+            ref = tfa.flash_attention_reference(q[:, :, 0], k[:, :, 0], v[:, :, 0])
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err < K1_BF16_TOL, (name, d, err)
+            runs += 1
         i += 1
-    assert i >= 6
+    assert i >= 12 and runs >= i
+
+
+def test_entry_points_keep_f32_convs_f32(cuda_device):
+    """Queue 3.1: with both TF32 switches at torch's card defaults (this
+    file turns one off), a pipeline built by ``from_random`` in f32 decodes
+    through its full-width VAE (3x3 convs of 128-512 channels in cuDNN) as
+    f32: the decode against the same VAE on the CPU within 2e-4 of the
+    largest |output|. The same decode with TF32 turned back on misses that
+    bar, so the check can tell the two apart."""
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's default
+    torch.backends.cudnn.allow_tf32 = True         # torch's default
+    pipe = DiffusionPipeline.from_random(tiny=False, dtype=torch.float32, device=cuda_device)
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    assert pipe.vae_params["decoder"]["conv_in"]["weight"].dtype == torch.float32
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    z = torch.randn((1, 16, 16, 4), generator=g, device=cuda_device)
+    ref = pipe.vae.decode(chip_smoke._to_cpu(pipe.vae_params), z.cpu())
+    bar = 2e-4 * ref.abs().max().item()
+    err = (pipe.vae.decode(pipe.vae_params, z).cpu() - ref).abs().max().item()
+    assert err <= bar, err
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        err_tf32 = (pipe.vae.decode(pipe.vae_params, z).cpu() - ref).abs().max().item()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert err_tf32 > bar, err_tf32
 
 
 def test_flash_attention_rejects_unsupported_inputs(cuda_device):

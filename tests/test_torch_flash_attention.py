@@ -36,7 +36,10 @@ def _qkv(rng, bh, lq, lk, d):
             rng.standard_normal((bh, lk, d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("lq,lk,d", [(256, 256, 64), (256, 77, 64), (130, 333, 40)])
+# d = 80 and 160: the all-frames levels 1 and 2 (the mid wgmma route on the
+# card); d = 512: the VAE's (the f32 route at the loaded VAE's attention)
+@pytest.mark.parametrize("lq,lk,d", [(256, 256, 64), (256, 77, 64), (130, 333, 40),
+                                     (130, 333, 80), (130, 333, 160), (130, 333, 512)])
 def test_plain_matches_jax_flash(interpret_mode, rng, lq, lk, d):
     q, k, v = _qkv(rng, 2, lq, lk, d)
     ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -57,6 +60,36 @@ def test_routing_matches_attention_pallas(interpret_mode, rng, lk):
     out = tfa.attention_pallas(*(torch.from_numpy(a) for a in (q, k, v)), heads)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     assert tfa.FLASH_MIN_KV_LEN == 2048
+
+
+@pytest.mark.parametrize("n,l,d", [(2, 1024, 80), (4, 256, 80), (8, 256, 160), (2, 256, 160)])
+def test_folded_cross_frame_routing_matches_jax(interpret_mode, monkeypatch, rng, n, l, d):
+    """cross_frame_attention's folded all-frames shapes at 8 heads, level 1
+    (d = 80) and level 2 (d = 160): the frames fold into one (1, n l, 8 d)
+    sequence for attention_pallas, which sends n l >= 2048 keys to the
+    kernel's wrapper (here its plain version) and shorter ones to the plain
+    path, as the JAX package routes them; both sides against JAX's
+    attention_pallas (its Pallas kernel in interpret mode) and the port's
+    dense cross_frame_attention_reference."""
+    from stable_renderer_tpu_torch.parallel.ring_attention import (
+        cross_frame_attention_reference,
+    )
+
+    heads = 8
+    calls = []
+    wrapper = tfa.flash_attention
+    monkeypatch.setattr(tfa, "flash_attention",
+                        lambda q, k, v: calls.append(tuple(q.shape)) or wrapper(q, k, v))
+    qkv = rng.standard_normal((n, l, 3 * heads * d)).astype(np.float32)
+    q, k, v = (a.reshape(1, n * l, heads * d) for a in np.split(qkv, 3, axis=-1))
+    ref = jfa.attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads)
+    out = tfa.attention_pallas(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (q, k, v)),
+                               heads)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    assert calls == ([(heads, n * l, d)] if n * l >= tfa.FLASH_MIN_KV_LEN else [])
+    tq, tk, tv = (torch.from_numpy(a) for a in np.split(qkv, 3, axis=-1))
+    dense = cross_frame_attention_reference(tq, tk, tv, heads)
+    np.testing.assert_allclose(out.reshape(n, l, heads * d).numpy(), dense.numpy(), **TOL)
 
 
 def test_routing_sends_long_kv_to_the_wrapper(monkeypatch, rng):
