@@ -174,6 +174,23 @@ Phases, one line each; any failure exits non-zero:
                 frames; the adapter's K3 launches under the switch). A
                 2-vector textual-inversion file: a prompt with
                 embedding:name encoded on the card against the CPU.
+ 21. left-outs — (a) the bench scene with a second prompted sprite (a cube)
+                through Engine.Run with scene conditioning: (512, 512, 4)
+                uint8 frames, K1 22 a frame with the UNet's level-0
+                self-attention at BH 32 (SCENE_K1_SHAPE, timed beside SDPA
+                as a K1 row), frame 0 identical to frame_step's at the
+                engine's inputs, moved from the same scene with one prompt;
+                (b) LEFT_OUT_SAMPLERS at full width, one frame_step each,
+                K1 5 an evaluation + 2; (c) the 19 samplers on the tiny f32
+                UNet, 4 steps, card against CPU with the same draws and
+                Brownian increments (SAMPLER_TOL), and the Brownian bridge on
+                the card (repeat, additivity, unit variance); (d) phase 20's
+                trees with conv_in widened to 9 channels, written and loaded
+                by from_checkpoint (in_channels 9, every leaf the file's), a
+                keep_background frame whose background latent is kept bit
+                for bit; (e) user shaders through Engine.Run: identity vertex
+                and fragment shaders give the fixed pipeline's frames bit for
+                bit, Shader.DefaultDebug() moves the G-buffer color.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
@@ -352,6 +369,19 @@ HBM_BYTES_S = 3.35e12
 # the clock at which the data sheet's 989 TFLOP/s holds (132 SMs x 4 tensor
 # cores x 1024 bf16 operations a clock): ~3.9 T exponentials a second
 EXP_PER_S = 16 * 132 * 1.83e9
+# phase 21: the scene frame's UNet batch is (S + 2) x B = 4 rows (two prompted
+# sprites, the environment prompt, the uncond), so its level-0
+# self-attention runs at BH 32
+SCENE_K1_SHAPE = (32, 4096, 4096, 40)
+# phase 21's full-width sampler frames: (sampler, scheduler, steps, cfg, UNet
+# evaluations a frame); K1 launches 5 an evaluation + 2 (VAE encode, decode).
+# The two-stage samplers skip their second evaluation at the last step.
+LEFT_OUT_SAMPLERS = (("dpmpp_2m", "karras", 20, 7.0, 20),
+                     ("euler_ancestral", "normal", 4, 2.0, 4),
+                     ("dpmpp_2m_sde", "karras", 4, 2.0, 4),
+                     ("heun", "exponential", 4, 2.0, 7),
+                     ("uni_pc", "simple", 4, 2.0, 4))
+SAMPLER_TOL = 1e-3  # phase 21: a tiny f32 run of each sampler, card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -984,7 +1014,8 @@ def main() -> None:
     sigs = ((DrawUniforms(sprite_id=1, material_id=1), (512, 512), None, None),)
     pp = PostProcessParams()
 
-    def run_frame(pipe, size, frame, corr, bg, step_noise=None, mats=None, stream=None):
+    def run_frame(pipe, size, frame, corr, bg, step_noise=None, mats=None, stream=None,
+                  draw_sigs=sigs):
         """The bench frame ``frame`` through frame_step, with the pipeline's
         ControlNets' hint sources; ``stream`` = (state, kv) runs the stream
         branch, (None, None) as its stream_init frame."""
@@ -996,8 +1027,8 @@ def main() -> None:
         key = torch.Generator(device=d).manual_seed(cfg.seed + frame)
         cn_sources = tuple(spec.source for _, _, spec in pipe.controlnets)
         state, kv = stream if stream is not None else (None, None)
-        return frame_step(pipe, corr, (), sigs, size, size, True, False, pp, cn_sources, True,
-                          draws, proj, bg, None, ctx, nctx, pipe.scheduler_sigmas(), key,
+        return frame_step(pipe, corr, (), draw_sigs, size, size, True, False, pp, cn_sources,
+                          True, draws, proj, bg, None, ctx, nctx, pipe.scheduler_sigmas(), key,
                           *pipe.compute_params(), step_noise=step_noise, stream_state=state,
                           stream_init=stream is not None and state is None, stream_kv=kv)
 
@@ -1806,6 +1837,9 @@ def main() -> None:
     checkpoint = checkpoint_phase(pipe, dev, card, k1, run_frame, run_engine_phase, engine_ms,
                                   bg)
 
+    # --- 21. the frame's left-outs -------------------------------------------------------
+    left_outs = left_outs_phase(pipe, dev, card, k1, run_frame, bg)
+
     wall_s = time.perf_counter() - t_start
     print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
@@ -1813,7 +1847,7 @@ def main() -> None:
                       "host_syncs_a_frame": frame_syncs,
                       "engine_frame_ms": engine_ms, **bake, "taesd": taesd,
                       "options": options, "bench": bench, "checkpoint": checkpoint,
-                      "wall_s": wall_s, "card": card}))
+                      "left_outs": left_outs, "wall_s": wall_s, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -2825,6 +2859,374 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
               f"prompt without them | {card}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def scene_two_sprites():
+    """The bench scene with a second prompted sprite (config 5's primitives,
+    scripts/multi_obj_example.py): the ball moved left and a cube on the
+    right, each with its own SpriteInfo prompt, and an environment prompt.
+    Returns the Camera component, the ball and the box."""
+    from stable_renderer_tpu_torch.engine import GameObject, Mesh, MeshRenderer, SpriteInfo
+
+    camera, ball = bench_scene()
+    camera.env_prompt.prompt = "a sunny garden"
+    ball.transform.position = [-0.6, 0.0, 0.0]
+    box = GameObject("box")
+    box.addComponent(SpriteInfo, prompt="a wooden box")
+    box.addComponent(MeshRenderer, mesh=Mesh.Cube(0.9))
+    box.transform.position = [0.8, 0.0, 0.0]
+    return camera, ball, box
+
+
+def left_outs_phase(pipe, dev, card: str, k1: dict, run_frame, bg) -> dict:
+    """Phase 21: the frame's left-outs on the card (see the module
+    docstring). ``pipe`` is phase 6's bf16 pipeline, ``run_frame`` main's,
+    ``bg`` phase 6's background noise; the scene frame's K1 row joins
+    ``k1["shapes"]``. The inpaint file goes to a temporary directory under
+    build/, removed at the end."""
+    import shutil
+    import tempfile
+    from dataclasses import replace as dc_replace
+    from pathlib import Path
+
+    import torch
+    import torch.nn.functional as F
+
+    from stable_renderer_tpu_torch.data.sprite import EnvPrompt, Sprite
+    from stable_renderer_tpu_torch.engine import MeshRenderer, SpriteInfo, frame_program
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.engine.shader import Shader
+    from stable_renderer_tpu_torch.models.sampling import samplers as smp
+    from stable_renderer_tpu_torch.models.sampling.cfg import make_denoiser
+    from stable_renderer_tpu_torch.models.sampling.schedules import ModelSampling, calculate_sigmas
+    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, TINY_UNET_CONFIG, UNetModel
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder, latent_vertex_ids
+    from stable_renderer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+    from stable_renderer_tpu_torch.ops.gbuffer import RENDER_MODE_BAKING, DrawUniforms
+    from stable_renderer_tpu_torch.ops.raster import vertex_stage
+    from stable_renderer_tpu_torch.ops.raster_kernel import rasterize_kernel
+
+    def corr():
+        return OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        flash_attention.launches = rasterize_kernel.launches = 0
+
+    def checked_display(disp, what: str):
+        host = disp.cpu()
+        if host.shape != (SIZE, SIZE, 4) or host.dtype != torch.uint8:
+            fail(f"phase 21 {what}: display {tuple(host.shape)} {host.dtype}")
+        if int(host[..., :3].max()) == int(host[..., :3].min()):
+            fail(f"phase 21 {what}: constant display")
+        return host
+
+    cfg, out = pipe.config, {}
+    t_phase = time.perf_counter()
+
+    # --- 21a. the scene frame: two prompted sprites, scene conditioning ------------
+    if not cfg.scene_conditioning:
+        fail("phase 21: phase 6's config has scene_conditioning off")
+    n_eng = ENGINE_WARM + FRAMES_TIMED + PRESENT_DEPTH
+    first, calls = {}, []
+
+    def keep_first(eng, when):
+        if when == "end" and eng.RuntimeManager.FrameCount == 0:
+            first["images"] = eng.RenderManager.last_diffusion_frames.float().clone()
+
+    engine_step = frame_program.frame_step
+
+    def recorded(*a, **kw):  # the managers look frame_step up on the module
+        if not calls:
+            calls.append((a, kw))
+        return engine_step(*a, **kw)
+
+    zero_counts()
+    frame_program.frame_step = recorded
+    try:
+        with k1_shape_tally() as seen:
+            t0 = time.perf_counter()
+            eng, presented = run_engine(pipe, SIZE, n_eng, corr(), keep_first,
+                                        scene=scene_two_sprites)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    finally:
+        frame_program.frame_step = engine_step
+    k1_count = flash_attention.launches
+    _, ball, box = eng.scene
+    want_ids = tuple(o.getComponent(SpriteInfo).sprite.spriteID for o in (ball, box))
+    a, kw = calls[0]
+    sprite_ids, ctx = a[2], a[15]
+    if sorted(sprite_ids) != sorted(want_ids) or tuple(ctx.shape[:2]) != (3, 1):
+        fail(f"phase 21 scene: sprite ids {sprite_ids} (want {want_ids}), contexts "
+             f"{tuple(ctx.shape)} (want (3, 1, L, D))")
+    for _, i, frame in presented:
+        if frame.shape != (SIZE, SIZE, 4) or frame.dtype.name != "uint8":
+            fail(f"phase 21 scene frame {i}: presented {frame.shape} {frame.dtype}")
+        if int(frame[..., :3].max()) == int(frame[..., :3].min()):
+            fail(f"phase 21 scene frame {i}: constant frame")
+    if [i for _, i, _ in presented] != list(range(n_eng)) or eng.device.type != "cuda":
+        fail(f"phase 21 scene: device {eng.device}, presented {[i for _, i, _ in presented]}")
+    want_seen = {SCENE_K1_SHAPE: (K1_CALLS_PER_FRAME - 2) * n_eng, VAE_ATTN_SHAPE: 2 * n_eng}
+    if dict(seen) != want_seen or k1_count != K1_CALLS_PER_FRAME * n_eng:
+        fail(f"phase 21 scene: K1 launches {k1_count} over {n_eng} frames by shape {dict(seen)}, "
+             f"want {want_seen}")
+    if not torch.isfinite(first["images"]).all():
+        fail("phase 21 scene: non-finite decoded frame 0")
+    # frame 0 again through frame_step at the engine's inputs, its generator
+    # seeded as the engine seeds frame 0's
+    def replay(ctx_, nctx_, ids_):
+        key = torch.Generator(device=dev).manual_seed(cfg.seed)
+        args = a[:2] + (ids_,) + a[3:15] + (ctx_, nctx_, a[17], key) + a[19:]
+        return frame_program.frame_step(*args, **kw)
+
+    times = []
+    for _ in range(1 + FRAMES_TIMED):
+        t0 = time.perf_counter()
+        disp, _, _, images, _, _ = replay(ctx, a[16], sprite_ids)
+        checked_display(disp, "scene frame_step")
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(first["images"], images.float()):
+        fail(f"phase 21 scene: engine frame 0 differs from frame_step's, max abs "
+             f"{(first['images'] - images.float()).abs().max().item():.3e}")
+    # the same scene with one prompt: the box unprompted joins no scene
+    one = {want_ids[0]: Sprite(spriteID=want_ids[0], prompt="a shiny ball"),
+           want_ids[1]: Sprite(spriteID=want_ids[1], prompt="")}
+    one_ids, one_ctx, one_nctx, _, _ = pipe.prepare_conditioning(
+        one, (EnvPrompt("a sunny garden"),), 1, image_size=(SIZE, SIZE))
+    one_images = replay(one_ctx, one_nctx, one_ids)[3]
+    moved = (one_images.float() - images.float()).abs().mean().item()
+    if one_ids != () or not moved > CONTROL_DIFF_FLOOR:
+        fail(f"phase 21 scene: one-prompt frame (ids {one_ids}) moved by {moved:.3e} "
+             f"(floor {CONTROL_DIFF_FLOOR})")
+    lo = ENGINE_WARM
+    stamps = [t for t, _, _ in presented[lo - 1:lo + FRAMES_TIMED]]
+    gaps = sorted((b - a_) * 1e3 for a_, b in zip(stamps, stamps[1:]))
+    out["scene"] = {"frame_step_ms": statistics.median(times[1:]), "warm_ms": times[0],
+                    "engine_median_ms": statistics.median(gaps),
+                    "engine_p90_ms": statistics.quantiles(gaps, n=10, method="inclusive")[-1],
+                    "engine_frames": n_eng, "engine_run_s": run_s,
+                    "k1_a_frame": k1_count // n_eng, "one_prompt_mean_abs": moved}
+    # K1 at the scene frame's level-0 shape, timed beside SDPA
+    bh, lq, lk, d = SCENE_K1_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k_, v = (torch.randn((bh, lq, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(3))
+    row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} bfloat16 (scene frame, 2 sprites)",
+           "route": k1_route(d)}
+    _k1_case(row, torch.bfloat16, K1_BF16_TOL, lambda: flash_attention(q, k_, v),
+             lambda: flash_attention_reference(q, k_, v),
+             lambda: F.scaled_dot_product_attention(q[None], k_[None], v[None]),
+             k1_bound(bh, lq, lk, d))
+    row["launches_a_frame"] = {"scene": seen[SCENE_K1_SHAPE] // n_eng}
+    k1["shapes"].append(row)
+    k1.setdefault("launches_a_frame", {})["scene"] = k1_count // n_eng
+    del q, k_, v
+    print(f"[21 left-outs] scene frame (two prompted sprites + environment, scene "
+          f"conditioning, bf16 {SIZE}x{SIZE}): frame_step median "
+          f"{out['scene']['frame_step_ms']:.1f} ms (warm {times[0]:.1f}); Engine.Run of "
+          f"{n_eng} frames, present-to-present median {out['scene']['engine_median_ms']:.1f} ms, "
+          f"p90 {out['scene']['engine_p90_ms']:.1f} ms; K1 {k1_count // n_eng} a frame, "
+          f"{seen[SCENE_K1_SHAPE] // n_eng} at BH {bh}; frame 0 identical to frame_step's; "
+          f"one-prompt frame moved {moved:.3e}; K1 at BH {bh}: {row} | {card}", flush=True)
+
+    # --- 21b. samplers at full width ----------------------------------------------------
+    out["samplers"] = {}
+    for name, sched, steps, cfg_scale, evals in LEFT_OUT_SAMPLERS:
+        p_ = dc_replace(pipe, config=dc_replace(cfg, sampler=name, scheduler=sched, steps=steps,
+                                                cfg_scale=cfg_scale),
+                        model_sampling=ModelSampling())
+        zero_counts()
+        t0 = time.perf_counter()
+        disp, _, _, images, _, _ = run_frame(p_, SIZE, 0, corr(), bg)
+        host = checked_display(disp, name)
+        f_ms = (time.perf_counter() - t0) * 1e3
+        want = 5 * evals + 2
+        if not torch.isfinite(images).all() or flash_attention.launches != want:
+            fail(f"phase 21 {name}: finite {bool(torch.isfinite(images).all())}, K1 "
+                 f"{flash_attention.launches} launches (want {want})")
+        out["samplers"][name] = {"scheduler": sched, "steps": steps, "cfg": cfg_scale,
+                                 "frame_ms": f_ms, "k1": flash_attention.launches}
+        del p_, host
+    print(f"[21 left-outs] full-width sampler frames (bf16 {SIZE}x{SIZE}, one frame_step each, "
+          f"warm-up included): " + ", ".join(
+              f"{n_} + {v_['scheduler']} {v_['steps']} steps cfg {v_['cfg']}: "
+              f"{v_['frame_ms']:.1f} ms, K1 {v_['k1']}" for n_, v_ in out["samplers"].items())
+          + f" | {card}", flush=True)
+
+    # --- 21c. the 19 samplers at the tiny size, card against CPU ----------------------
+    unet = UNetModel(TINY_UNET_CONFIG)
+    p_gpu = unet.init(torch.Generator(device=dev).manual_seed(21), device=dev)
+    p_cpu = _to_cpu(p_gpu)
+    g = torch.Generator().manual_seed(21)
+    lat = (1, 16, 16, 4)
+    ctx_c, unc_c, noise_c, latent_c = (torch.randn(s_, generator=g) for s_ in (
+        (1, 77, TINY_UNET_CONFIG.context_dim), (1, 77, TINY_UNET_CONFIG.context_dim), lat, lat))
+    ms_ = ModelSampling()
+    log_sigmas = torch.as_tensor(ms_.log_sigmas)
+    sig = torch.as_tensor(calculate_sigmas(ms_, "karras", 4))
+    s_host = [float(s_) for s_ in sig]
+    bridge = smp.BrownianBridge(7, s_host[-2], s_host[0], lat)
+    dens = {d_: make_denoiser(unet, p_, c_, u_, log_sigmas, cfg_scale=2.0) for d_, p_, c_, u_ in (
+        ("cpu", p_cpu, ctx_c, unc_c), ("cuda", p_gpu, ctx_c.to(dev), unc_c.to(dev)))}
+    sampler_err = {}
+    for name in smp.SAMPLER_NAMES:
+        draws = []
+        for i in range(4):
+            s_, sn = s_host[i], s_host[i + 1]
+            if name.endswith("sde"):  # the Brownian increments the sites would draw
+                mid = math.exp(-(-math.log(s_) + 0.5 * (-math.log(max(sn, 1e-10))
+                                                        + math.log(s_))))
+                draws.append((bridge.increment(s_, mid if name == "dpmpp_sde" else sn),
+                               bridge.increment(s_, sn)))
+            else:
+                draws.append((torch.randn(lat, generator=g), torch.randn(lat, generator=g)))
+        on_cpu = smp.sample(dens["cpu"], noise_c, sig, latent_c, sampler=name, step_noise=draws)
+        on_card = smp.sample(dens["cuda"], noise_c.to(dev), sig, latent_c.to(dev), sampler=name,
+                             step_noise=[tuple(t_.to(dev) for t_ in d_) for d_ in draws])
+        err = (on_card.cpu() - on_cpu).abs().max().item()
+        if not (torch.isfinite(on_card).all() and err <= SAMPLER_TOL):
+            fail(f"phase 21 tiny {name}: card vs CPU max abs {err:.3e} (tol {SAMPLER_TOL})")
+        sampler_err[name] = err
+    # the Brownian bridge drawn on the card: deterministic, additive, unit variance
+    br = smp.BrownianBridge(1234, s_host[-2], s_host[0], (1, 64, 64, 4), device=dev)
+    br2 = smp.BrownianBridge(1234, s_host[-2], s_host[0], (1, 64, 64, 4), device=dev)
+    a_, b_, c_ = s_host[0], s_host[1], s_host[3]
+    inc = br.increment(a_, b_)
+    add_err = (br.increment(a_, c_) * math.sqrt(a_ - c_)
+               - (inc * math.sqrt(a_ - b_) + br.increment(b_, c_) * math.sqrt(b_ - c_))
+               ).abs().max().item()
+    std = inc.std().item()
+    if not (torch.equal(inc, br2.increment(a_, b_)) and torch.equal(inc, br.increment(a_, b_))
+            and add_err < 1e-4 and abs(std - 1.0) < 0.05 and inc.device.type == "cuda"):
+        fail(f"phase 21 Brownian bridge on the card: additivity err {add_err:.3e}, std {std:.4f}")
+    out["tiny_samplers_max_abs_err"] = sampler_err
+    out["bridge"] = {"additivity_err": add_err, "std": std}
+    print(f"[21 left-outs] the {len(sampler_err)} samplers at the tiny f32 size, 4 karras "
+          f"steps, card vs CPU with the same draws: max abs err "
+          f"{max(sampler_err.values()):.3e} (tol {SAMPLER_TOL}; by sampler "
+          f"{ {k: float(f'{v:.2e}') for k, v in sampler_err.items()} }); Brownian bridge on the "
+          f"card: repeat identical, additivity err {add_err:.2e}, std {std:.4f} | {card}",
+          flush=True)
+    del p_gpu, p_cpu, dens
+
+    # --- 21d. a 9-channel inpaint file --------------------------------------------------
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="inpaint-", dir=root))
+    try:
+        w4 = pipe.unet_params["input_blocks"]["0"]["0"]["weight"]
+        extra = torch.randn((w4.shape[0], 5) + tuple(w4.shape[2:]),
+                            generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+        w9 = torch.cat([w4.float(), extra / math.sqrt(9 * 9)], 1).to(torch.bfloat16)
+        flat = {prefix + k_: v_.to(torch.bfloat16) for prefix, tree in (
+            ("model.diffusion_model.", pipe.unet_params), ("first_stage_model.", pipe.vae_params),
+            ("cond_stage_model.transformer.", pipe.clip_params))
+            for k_, v_ in flatten(tree).items()}
+        flat["model.diffusion_model.input_blocks.0.0.weight"] = w9
+        path = tmp / "sd15-inpaint.safetensors"
+        write_safetensors(flat, path)
+        pipe_in = DiffusionPipeline.from_checkpoint(
+            str(path), config=dc_replace(cfg, keep_background=True), device=dev)
+        if pipe_in.unet.config != dc_replace(SD15_UNET_CONFIG, in_channels=9):
+            fail(f"phase 21 inpaint: detected {pipe_in.unet.config}")
+        n_leaves = 0
+        for prefix, tree, dt in (("model.diffusion_model.", pipe_in.unet_params, torch.bfloat16),
+                                 ("first_stage_model.", pipe_in.vae_params, torch.float32),
+                                 ("cond_stage_model.transformer.", pipe_in.clip_params,
+                                  torch.float32)):
+            for k_, v_ in flatten(tree).items():
+                n_leaves += 1
+                want_v = flat.get(prefix + k_)
+                if want_v is None or not same_bits(v_, want_v.to(dt)):
+                    fail(f"phase 21 inpaint: loaded leaf {prefix + k_} is not the file's")
+        if n_leaves != len(flat):
+            fail(f"phase 21 inpaint: {len(flat) - n_leaves} keys of the file left unconsumed")
+        seen_lat = {}
+        encode, decode = pipe_in._encode, pipe_in._decode
+
+        def enc(*a_):
+            seen_lat["in"] = encode(*a_)
+            return seen_lat["in"]
+
+        def dec(vp, latent, dt):
+            seen_lat["out"] = latent
+            return decode(vp, latent, dt)
+
+        pipe_in._encode, pipe_in._decode = enc, dec
+        # drawn in BAKING mode, so the ball's pixels are AI pixels (in NORMAL
+        # mode every pixel keeps its latent)
+        baking = ((DrawUniforms(sprite_id=1, material_id=1, render_mode=RENDER_MODE_BAKING),
+                   (512, 512), None, None),)
+        zero_counts()
+        t0 = time.perf_counter()
+        disp, _, pack, images, _, _ = run_frame(pipe_in, SIZE, 0, corr(), bg, draw_sigs=baking)
+        checked_display(disp, "inpaint")
+        in_ms = (time.perf_counter() - t0) * 1e3
+        _, valid = latent_vertex_ids(pack["id"][None], *seen_lat["in"].shape[1:3])
+        background = ~valid
+        kept = torch.equal(seen_lat["out"][background], seen_lat["in"][background])
+        ai_moved = (seen_lat["out"][valid] - seen_lat["in"][valid]).abs().mean().item()
+        if not (torch.isfinite(images).all() and kept and background.any() and ai_moved > 1e-3
+                and flash_attention.launches == K1_CALLS_PER_FRAME):
+            fail(f"phase 21 inpaint: finite {bool(torch.isfinite(images).all())}, background "
+                 f"latent kept {kept} ({int(background.sum())} pixels), AI pixels moved "
+                 f"{ai_moved:.3e}, K1 {flash_attention.launches}")
+        out["inpaint"] = {"frame_ms": in_ms, "background_latent_pixels": int(background.sum()),
+                          "ai_latent_moved": ai_moved, "tensors": len(flat)}
+        print(f"[21 left-outs] 9-channel inpaint file ({len(flat)} tensors, conv_in widened by 5 "
+              f"seeded channels): from_checkpoint detected in_channels 9, every leaf the file's; "
+              f"keep_background frame {in_ms:.1f} ms (warm-up included), finite, "
+              f"{int(background.sum())} background latent pixels kept bit for bit, AI pixels "
+              f"moved {ai_moved:.3e}, K1 {flash_attention.launches} | {card}", flush=True)
+        del pipe_in, flat, seen_lat
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # --- 21e. user shaders through Engine.Run -------------------------------------------
+    def shaded(shader):
+        def scene():
+            camera, ball = bench_scene()
+            if shader is not None:
+                ball.getComponent(MeshRenderer).materials[0].shader = shader
+            return camera, ball
+        return scene
+
+    def run_shaded(shader):
+        colors = []
+
+        def keep_color(eng, when):
+            if when == "end":
+                colors.append(eng.RenderManager.last_gbuffer.color.clone())
+
+        zero_counts()
+        _, presented_ = run_engine(pipe, SIZE, 2, corr(), keep_color, scene=shaded(shader))
+        torch.cuda.synchronize()
+        return [f_ for _, _, f_ in presented_], colors, rasterize_kernel.launches
+
+    identity = Shader("chip_smoke_identity", fragment_fn=lambda frag, u: frag.color,
+                      vertex_fn=lambda p_, n_, mv, proj: vertex_stage(p_, n_, mv, proj))
+    fixed, fixed_color, _ = run_shaded(None)
+    same, same_color, k2_same = run_shaded(identity)
+    debug_frames, debug_color, _ = run_shaded(Shader.DefaultDebug())
+    bit_equal = (len(same) == len(fixed) == 2
+                 and all((x == y).all() for x, y in zip(same, fixed))
+                 and all(torch.equal(x, y) for x, y in zip(same_color, fixed_color)))
+    debug_moved = (debug_color[0] - fixed_color[0]).abs().mean().item()
+    if not bit_equal or k2_same != 2 or not debug_moved > 1e-3:
+        fail(f"phase 21 shaders: identity frames equal to the fixed pipeline's {bit_equal}, "
+             f"K2 {k2_same} launches in 2 frames, debug G-buffer color moved {debug_moved:.3e}")
+    out["shaders"] = {"identity_bit_equal": bit_equal, "debug_color_mean_abs": debug_moved}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[21 left-outs] user shaders through Engine.Run (2 frames each): identity vertex + "
+          f"fragment shaders equal to the fixed pipeline bit for bit (K2 on the user vertex "
+          f"stage, {k2_same} launches), DefaultDebug's G-buffer color moved "
+          f"{debug_moved:.3f}; phase 21 in {out['phase_s']:.1f} s | {card}", flush=True)
     return out
 
 

@@ -48,9 +48,8 @@ class Material:
         self.render_order = render_order
         self.textures: Dict[DefaultTextureType, object] = {}
         self.variables: Dict[str, object] = {}
-        # user-programmable shading (engine/shader.py, not ported yet: a draw
-        # with a shader raises); None = fixed pipeline
-        # (the reference Material holds a Shader program, material.py)
+        # user-programmable shading (an engine/shader.py Shader); None = fixed
+        # pipeline (the reference Material holds a Shader program, material.py)
         self.shader = None
 
     def addDefaultTexture(self, texture, ttype: DefaultTextureType) -> None:

@@ -11,17 +11,18 @@ counterpart of ``_jit_render_stream``, the StreamDiffusion-style program
 lag-1 K/V correspondence).
 
 Ported so far: the SD1.x family from random weights or from a checkpoint
-(``from_checkpoint``: an ldm file or a diffusers folder, with LoRAs merged),
-plain (non-scene) conditioning with textual inversion, the sequential and
-stream programs, ControlNets, control-LoRAs and T2I-Adapters
+(``from_checkpoint``: an ldm file or a diffusers folder, with LoRAs merged,
+9-channel inpaint UNets included), plain and per-sprite scene conditioning
+with textual inversion, every sampler and scheduler of the JAX package, the
+sequential and stream programs, ControlNets, control-LoRAs and T2I-Adapters
 (``add_controlnet``, ``add_random_controlnet``, ``add_control_lora``,
 ``add_t2i_adapter``, ``add_control_from_state_dict``), the calibrated int8
 conv path (``quantize_convs``), the TAESD autoencoder for realtime frames
 (``with_taesd``, ``RenderConfig.realtime_taesd``) and per-vertex starting
 noise (``RenderConfig.vertex_noise`` without noise maps). Other model
-families (ROADMAP 1.11), scene conditioning (1.7) and the multi-device stream
-mesh (1.14) raise until their slices are ported. The pipeline's tensors live
-on the card unless ``device`` names another device.
+families (ROADMAP 1.11) and the multi-device stream mesh (1.14) raise until
+their slices are ported. The pipeline's tensors live on the card unless
+``device`` names another device.
 """
 
 from __future__ import annotations
@@ -42,8 +43,16 @@ from stable_renderer_tpu_torch.models.clip import (
     encode_token_weights_batch,
 )
 from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
-from stable_renderer_tpu_torch.models.sampling import ModelSampling, calculate_sigmas, sample
-from stable_renderer_tpu_torch.models.sampling.assemble import build_denoiser
+from stable_renderer_tpu_torch.models.sampling import (
+    SAMPLER_NAMES,
+    ModelSampling,
+    calculate_sigmas,
+    sample,
+)
+from stable_renderer_tpu_torch.models.sampling.assemble import (
+    build_denoiser,
+    inpaint_concat_channels,
+)
 from stable_renderer_tpu_torch.models.sampling.cfg import make_denoiser, timestep_from_sigma
 from stable_renderer_tpu_torch.models.taesd import TAESD
 from stable_renderer_tpu_torch.models.unet import (
@@ -117,8 +126,8 @@ class DiffusionPipeline:
         the JAX package's types: the UNet in ``dtype``, the VAE and the CLIP
         in f32. ``config.int8_conv`` quantizes the convs afterwards. Other
         families raise naming ROADMAP 1.11 (so a diffusers folder loads SD1.x
-        only, as in the JAX package), inpaint UNets naming 1.7. The merged
-        module counts are kept in ``lora_modules_applied``."""
+        only, as in the JAX package); a 9-channel inpaint UNet loads. The
+        merged module counts are kept in ``lora_modules_applied``."""
         from stable_renderer_tpu_torch.models.lora import merge_lora
         from stable_renderer_tpu_torch.models.weights import (
             load_checkpoint_flat,
@@ -440,14 +449,18 @@ class DiffusionPipeline:
         image_size: Optional[Tuple[int, int]] = None,
     ):
         """Host-side prompt assembly + encoding for a frame batch of size n.
-        Returns (sprite_ids, ctx, nctx, y_cond, y_uncond): the sprite prompts
-        and the camera's environment prompt join into one prompt (the
-        non-scene path), ctx is (n, L, D), and the SDXL ADM vectors are None."""
+        Returns (sprite_ids, ctx, nctx, y_cond, y_uncond). With
+        ``scene_conditioning``, two or more prompted sprites and id maps,
+        sprite_ids lists those sprites and ctx is (S+1, n, L, D): each
+        sprite's prompt, then the environment prompt, with one uncond a frame
+        (SceneTextEncode, conditions.py:52-110). Otherwise sprite_ids is ()
+        and the sprite prompts and the environment prompt join into one
+        prompt, ctx (n, L, D). The ADM vectors are None (SD1.x)."""
         cfg = self.config
         pc_key = (
             tuple(sorted((sid, sp.prompt, sp.negative_prompt) for sid, sp in sprite_infos.items())),
             tuple((p.prompt, p.negative_prompt) for p in env_prompts),
-            n, have_id_maps,
+            n, have_id_maps, image_size,
             None if prompts is None else tuple(prompts),
             None if negatives is None else tuple(negatives),
             cfg.prompt, cfg.negative_prompt, cfg.clip_skip, cfg.scene_conditioning,
@@ -463,13 +476,21 @@ class DiffusionPipeline:
             negatives = [neg] * n
         sprited = [(sid, sp.prompt) for sid, sp in sprite_infos.items() if sp.prompt]
         env_text = ", ".join([p.prompt for p in env_prompts if p.prompt]) or cfg.prompt
+        sprite_ids: tuple = ()
         if prompts is None and cfg.scene_conditioning and len(sprited) >= 2 and have_id_maps:
-            raise NotImplementedError("per-sprite scene conditioning is not ported yet")
-        if prompts is None:
-            text = ", ".join([t for _, t in sprited] + ([env_text] if env_text else [])) or cfg.prompt
-            prompts = [text] * n
-        ctx, nctx, _, _ = self._encode_prompts_full(prompts, negatives)
-        result = ((), ctx, nctx, None, None)
+            sprite_ids = tuple(sid for sid, _ in sprited)
+            scene_prompts = [t for _, t in sprited] + [env_text]
+            ctx_s, nctx_s, _, _ = self._encode_prompts_full(scene_prompts,
+                                                            [neg] * len(scene_prompts))
+            ctx = ctx_s[:, None].expand(ctx_s.shape[0], n, *ctx_s.shape[1:])
+            nctx = nctx_s[:1].expand(n, *nctx_s.shape[1:])
+        else:
+            if prompts is None:
+                text = ", ".join([t for _, t in sprited] + ([env_text] if env_text else [])) \
+                    or cfg.prompt
+                prompts = [text] * n
+            ctx, nctx, _, _ = self._encode_prompts_full(prompts, negatives)
+        result = (sprite_ids, ctx, nctx, None, None)
         if len(self._prep_cond_cache) > 64:
             self._prep_cond_cache.clear()
         self._prep_cond_cache[pc_key] = result
@@ -528,11 +549,15 @@ class DiffusionPipeline:
     ) -> torch.Tensor:
         """VAE encode -> CFG denoise with the corresponder's hooks -> VAE
         decode, for a frame batch (N, H, W, 3) in [0, 1]. ``key`` is the
-        sampler's generator; ``step_noise`` optionally replaces its draws.
-        ``hints`` (aligned with ``self.controlnets``) feed the ControlNets."""
+        sampler's generator; ``step_noise`` optionally replaces its draws
+        (``samplers.sample``). ``hints`` (aligned with ``self.controlnets``)
+        feed the ControlNets. With ``sprite_ids``, ctx is the (S+1, N, L, D)
+        scene conditioning and each sprite's latent pixels take their own
+        prompt (``sprite_masks`` of ``id_maps``); ``keep_background`` then
+        applies only through a 9-channel UNet's mask channel, as in the JAX
+        package. A UNet with more input channels than the latent (inpaint)
+        takes the mask and the masked latent as its extra channels."""
         cfg = self.config
-        if sprite_ids or y_cond is not None or y_uncond is not None:
-            raise NotImplementedError("scene conditioning and ADM vectors are not ported yet")
         vae_dtype = vae_params["quant_conv"]["weight"].dtype  # kept out of int8 by the skip list
         latent = self._encode(vae_params, color, vae_dtype)
         lh, lw = latent.shape[1], latent.shape[2]
@@ -560,14 +585,25 @@ class DiffusionPipeline:
             _, valid = latent_vertex_ids(id_maps, lh, lw)
             inpaint_mask = valid.float()[..., None]
             inpaint_latent = latent
+        concat_latent = None
         if self.unet.config.in_channels > latent.shape[-1]:
-            raise NotImplementedError("inpaint-model checkpoints are not ported yet")
+            # 9-channel inpaint UNet: [mask, masked-image latent] as extra inputs
+            concat_latent = inpaint_concat_channels(latent, inpaint_mask)
+        scene_masks = None
+        if sprite_ids:
+            from stable_renderer_tpu_torch.models.sampling.scene_cond import sprite_masks
+
+            scene_masks = sprite_masks(id_maps, sprite_ids, lh, lw)
         den = build_denoiser(
-            self.unet, unet_params, cond_context=ctx, uncond_context=uncond,
-            log_sigmas=log_sigmas, cfg_scale=cfg.cfg_scale,
+            self.unet, unet_params,
+            cond_context=None if sprite_ids else ctx,
+            scene_contexts=ctx if sprite_ids else None, scene_masks=scene_masks,
+            uncond_context=uncond, log_sigmas=log_sigmas, cfg_scale=cfg.cfg_scale,
             prediction=self.model_sampling.prediction, hooks=hooks,
             control_fn=self._make_control_fn(hints, cn_params),
-            inpaint_mask=inpaint_mask, inpaint_latent=inpaint_latent,
+            inpaint_mask=None if sprite_ids else inpaint_mask,
+            inpaint_latent=None if sprite_ids else inpaint_latent,
+            concat_latent=concat_latent, y_cond=y_cond, y_uncond=y_uncond,
         )
         out_latent = sample(den, noise, sigmas, latent_image=latent, sampler=cfg.sampler,
                             generator=key, step_callback=step_cb, step_noise=step_noise)
@@ -603,11 +639,18 @@ class DiffusionPipeline:
 
         ``key`` is the frame's generator: the initial noise when there are no
         noise maps, then the LCM re-noise draws, which ``step_noise`` of
-        shape (S, h, w, 4) replaces. Samplers: lcm and euler. Returns
+        shape (S, h, w, 4) replaces. ``lcm`` re-noises each stage; every
+        other sampler name takes an Euler step, as in the JAX package. The
+        stream takes one conditioning a frame: a scene's (S+1, B, L, D)
+        contexts raise (the JAX package's stream fails on them too). Returns
         (image (1, H, W, 3), new state, captured contexts or None)."""
         cfg = self.config
-        if cfg.sampler not in ("lcm", "euler"):
-            raise NotImplementedError(f"the stream runs lcm and euler, not {cfg.sampler!r}")
+        if cfg.sampler not in SAMPLER_NAMES:
+            raise ValueError(f"Unknown sampler '{cfg.sampler}' (have {SAMPLER_NAMES})")
+        if ctx.dim() != 3:
+            raise ValueError("the stream program takes one (B, L, D) conditioning, not per-sprite "
+                             f"scene contexts of shape {tuple(ctx.shape)}; render a scene with "
+                             "two prompted sprites sequentially or with scene_conditioning=False")
         vae_dtype = vae_params["quant_conv"]["weight"].dtype
         latent = self._encode(vae_params, color, vae_dtype)
         lh, lw = latent.shape[1], latent.shape[2]
@@ -686,7 +729,7 @@ class DiffusionPipeline:
             else:
                 fresh = torch.randn(denoised.shape, generator=key, device=dev)
             stepped = denoised + sn * fresh
-        else:  # euler
+        else:  # every other sampler: an Euler step
             stepped = xs + (xs - denoised) / torch.clamp(sv, min=1e-8) * (sn - sv)
         # the last stage's sigma is a host value: choosing the output is a
         # host branch, not a device sync

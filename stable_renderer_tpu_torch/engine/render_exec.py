@@ -54,10 +54,11 @@ def _draw_pass(
     fragment_fn=None,
     vertex_fn=None,
 ):
-    """One draw: vertex stage -> rasterize (K2 on the card) -> shade -> compose."""
-    if vertex_fn is not None:
-        raise NotImplementedError("user vertex shaders are not ported yet")
-    clip, view_pos, view_normal = vertex_stage(buffers["positions"], buffers["normals"], mv, proj)
+    """One draw: vertex stage -> rasterize (K2 on the card) -> shade ->
+    compose. ``vertex_fn`` and ``fragment_fn`` are a user shader's stages
+    (engine/shader.py); None keeps the fixed stage."""
+    stage = vertex_stage if vertex_fn is None else vertex_fn
+    clip, view_pos, view_normal = stage(buffers["positions"], buffers["normals"], mv, proj)
     vis = rasterize_auto(clip, buffers["tris"], height, width, cull_backface=True)
     gbuf = shade_draw(
         vis, buffers["tris"], view_pos, view_normal, buffers["uvs"], buffers["colors"],

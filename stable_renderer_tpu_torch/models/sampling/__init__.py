@@ -1,4 +1,7 @@
-from stable_renderer_tpu_torch.models.sampling.assemble import build_denoiser
+from stable_renderer_tpu_torch.models.sampling.assemble import (
+    build_denoiser,
+    inpaint_concat_channels,
+)
 from stable_renderer_tpu_torch.models.sampling.samplers import SAMPLER_NAMES, sample
 from stable_renderer_tpu_torch.models.sampling.schedules import (
     SCHEDULER_NAMES,
@@ -13,4 +16,5 @@ __all__ = [
     "sample",
     "SAMPLER_NAMES",
     "build_denoiser",
+    "inpaint_concat_channels",
 ]

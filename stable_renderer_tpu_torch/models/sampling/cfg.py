@@ -53,6 +53,24 @@ def calculate_denoised(prediction: str, x: torch.Tensor, model_out: torch.Tensor
     raise ValueError(f"unknown prediction type {prediction}")
 
 
+def unet_extras(y_cond: Optional[torch.Tensor], y_uncond: Optional[torch.Tensor],
+                concat_latent: Optional[torch.Tensor], cond_groups: int, use_cfg: bool,
+                dtype: torch.dtype):
+    """The UNet's ``y`` and extra input channels for a batch of
+    ``cond_groups`` positive groups of B rows, plus one negative group with
+    CFG: (y, extra). ``y`` is ``y_cond`` once a positive group, then
+    ``y_uncond`` (default ``y_cond``); ``extra`` is ``concat_latent`` in
+    ``dtype`` tiled to every group, for the caller to append to the UNet's
+    input channels. Each is None where its input is."""
+    y = extra = None
+    if y_cond is not None:
+        yu = y_uncond if y_uncond is not None else y_cond
+        y = torch.cat([y_cond] * cond_groups + ([yu] if use_cfg else []), 0)
+    if concat_latent is not None:
+        extra = torch.cat([concat_latent.to(dtype)] * (cond_groups + int(use_cfg)), 0)
+    return y, extra
+
+
 def make_denoiser(
     unet: UNetModel,
     params: dict,
@@ -65,16 +83,22 @@ def make_denoiser(
     control_fn: Optional[Callable] = None,  # (x_in, t, batched_context) -> control dict
     mask: Optional[torch.Tensor] = None,           # (B, h, w, 1) inpaint mask (1 = denoise)
     masked_latent: Optional[torch.Tensor] = None,
+    y_cond: Optional[torch.Tensor] = None,         # (B, ...) the UNet's y, positive rows
+    y_uncond: Optional[torch.Tensor] = None,       # negative rows' y (default: y_cond)
+    concat_latent: Optional[torch.Tensor] = None,  # (B, h, w, E) inpaint-model channels
 ) -> Callable:
     """Build the (x, sigma) -> denoised closure for samplers.sample().
 
     CFG: uncond + (cond - uncond) * cfg_scale (samplers.py:329-358); with
     uncond_context=None the UNet runs cond-only. ``control_fn`` sees the
     batched UNet input, timesteps and contexts; its residual dict goes into
-    ``UNetModel.apply``."""
+    ``UNetModel.apply``. ``concat_latent`` (a 9-channel inpaint UNet's mask
+    and masked-image latent, comfy model_base.py:93-126) is appended to the
+    UNet's input only: the controls see the latent channels."""
     use_cfg = uncond_context is not None
     log_sigmas = torch.as_tensor(log_sigmas, dtype=torch.float32).cpu()
     compute_dtype = params["time_embed"]["0"]["weight"].dtype
+    y, extra = unet_extras(y_cond, y_uncond, concat_latent, 1, use_cfg, compute_dtype)
 
     def wrap_hooks(batch: int) -> AttnHooks:
         """User hooks per the reference's slicing: pre on the positive rows'
@@ -148,7 +172,8 @@ def make_denoiser(
             x_b, ctx = x_in, cond_context
         ctx = ctx.to(compute_dtype)
         control = control_fn(x_b, tb, ctx) if control_fn is not None else None
-        out = unet.apply(params, x_b, tb, ctx, control=control, hooks=wrap_hooks(b)).float()
+        x_u = x_b if extra is None else torch.cat([x_b, extra], -1)
+        out = unet.apply(params, x_u, tb, ctx, control=control, hooks=wrap_hooks(b), y=y).float()
         x32 = x.float()
         if use_cfg:
             den_c = calculate_denoised(prediction, x32, out[:b], sigma, t)

@@ -2,8 +2,10 @@
 
 Counterpart of stable_renderer_tpu/models/sampling/schedules.py (reference
 comfy/model_sampling.py ModelSamplingDiscrete, comfy/samplers.py
-calculate_sigmas). Schedules are tiny host numpy arrays, computed once per
-(scheduler, steps, denoise). Ported so far: the ``sgm_uniform`` scheduler.
+calculate_sigmas and its karras / exponential / sgm_uniform / simple /
+ddim_uniform schedules, comfy/k_diffusion/sampling.py get_sigmas_*).
+Schedules are tiny host numpy arrays, computed once per (scheduler, steps,
+denoise), in both packages, so they agree to float32 rounding.
 """
 
 from __future__ import annotations
@@ -12,7 +14,14 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-SCHEDULER_NAMES = ["sgm_uniform"]
+SCHEDULER_NAMES = [
+    "normal",
+    "karras",
+    "exponential",
+    "sgm_uniform",
+    "simple",
+    "ddim_uniform",
+]
 
 
 @dataclass
@@ -60,11 +69,68 @@ class ModelSampling:
                       + w * self.log_sigmas[high_idx]).astype(np.float32)
 
 
+def sigmas_karras(n: int, sigma_min: float, sigma_max: float, rho: float = 7.0) -> np.ndarray:
+    """The Karras ramp between explicit sigma bounds (KarrasScheduler)."""
+    ramp = np.linspace(0, 1, n, dtype=np.float64)
+    min_inv_rho = sigma_min ** (1 / rho)
+    max_inv_rho = sigma_max ** (1 / rho)
+    sigmas = (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho
+    return np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+
+def sigmas_exponential(n: int, sigma_min: float, sigma_max: float) -> np.ndarray:
+    sigmas = np.exp(np.linspace(np.log(sigma_max), np.log(sigma_min), n))
+    return np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+
+def sigmas_polyexponential(n: int, sigma_min: float, sigma_max: float,
+                           rho: float = 1.0) -> np.ndarray:
+    """k_diffusion get_sigmas_polyexponential: a polynomial ramp in log sigma."""
+    ramp = np.linspace(1, 0, n, dtype=np.float64) ** rho
+    sigmas = np.exp(ramp * (np.log(sigma_max) - np.log(sigma_min)) + np.log(sigma_min))
+    return np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+
+def sigmas_vp(n: int, beta_d: float = 19.9, beta_min: float = 0.1,
+              eps_s: float = 1e-3) -> np.ndarray:
+    """k_diffusion get_sigmas_vp: the continuous VP-SDE schedule."""
+    t = np.linspace(1, eps_s, n, dtype=np.float64)
+    sigmas = np.sqrt(np.exp(beta_d * t ** 2 / 2 + beta_min * t) - 1)
+    return np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+
+def sigmas_sd_turbo(ms: ModelSampling, steps: int, denoise: float = 1.0) -> np.ndarray:
+    """SDTurboScheduler: 1-10 steps on fixed high timesteps."""
+    start_step = 10 - int(10 * denoise)
+    timesteps = np.flip(np.arange(1, 11) * 100 - 1)[start_step:start_step + steps]
+    sigs = ms.sigma(timesteps.astype(np.float32))
+    return np.concatenate([sigs, [0.0]]).astype(np.float32)
+
+
+def _sigmas_normal(ms: ModelSampling, n: int) -> np.ndarray:
+    start = ms.timestep(np.asarray(ms.sigma_max))
+    end = ms.timestep(np.asarray(ms.sigma_min))
+    ts = np.linspace(start, end, n, dtype=np.float64)
+    return np.asarray([float(ms.sigma(np.asarray(t))) for t in ts] + [0.0], np.float32)
+
+
 def _sigmas_sgm_uniform(ms: ModelSampling, n: int) -> np.ndarray:
     start = ms.timestep(np.asarray(ms.sigma_max))
     end = ms.timestep(np.asarray(ms.sigma_min))
     ts = np.linspace(start, end, n + 1, dtype=np.float64)[:-1]
     return np.asarray([float(ms.sigma(np.asarray(t))) for t in ts] + [0.0], np.float32)
+
+
+def _sigmas_simple(ms: ModelSampling, n: int) -> np.ndarray:
+    ss = len(ms.sigmas) / n
+    sigs = [float(ms.sigmas[-(1 + int(x * ss))]) for x in range(n)]
+    return np.asarray(sigs + [0.0], np.float32)
+
+
+def _sigmas_ddim_uniform(ms: ModelSampling, n: int) -> np.ndarray:
+    ss = max(len(ms.sigmas) // n, 1)
+    sigs = [float(ms.sigmas[x]) for x in range(1, len(ms.sigmas), ss)][-n:]
+    return np.asarray(sigs[::-1] + [0.0], np.float32)
 
 
 def calculate_sigmas(ms: ModelSampling, scheduler: str, steps: int,
@@ -75,6 +141,16 @@ def calculate_sigmas(ms: ModelSampling, scheduler: str, steps: int,
         raise ValueError("denoise must be in (0, 1]")
     if denoise < 1.0 - 1e-6:
         return calculate_sigmas(ms, scheduler, int(steps / denoise), 1.0)[-(steps + 1):]
+    if scheduler == "karras":
+        return sigmas_karras(steps, ms.sigma_min, ms.sigma_max)
+    if scheduler == "exponential":
+        return sigmas_exponential(steps, ms.sigma_min, ms.sigma_max)
+    if scheduler == "normal":
+        return _sigmas_normal(ms, steps)
     if scheduler == "sgm_uniform":
         return _sigmas_sgm_uniform(ms, steps)
-    raise NotImplementedError(f"scheduler {scheduler!r} is not ported yet (have {SCHEDULER_NAMES})")
+    if scheduler == "simple":
+        return _sigmas_simple(ms, steps)
+    if scheduler == "ddim_uniform":
+        return _sigmas_ddim_uniform(ms, steps)
+    raise ValueError(f"Unknown scheduler '{scheduler}' (have {SCHEDULER_NAMES})")

@@ -47,6 +47,11 @@ class UNetConfig:
     transformer_depth: int = 1
     num_heads: int = 8
     context_dim: int = 768
+    # class-label embedding table (num_classes, time_embed_dim), indexed by
+    # an integer y (openaimodel num_classes=int path)
+    num_classes: Optional[int] = None
+    # ADM vector width: label_emb is the MLP adm -> time_embed_dim -> same
+    adm_in_channels: Optional[int] = None
 
     @property
     def time_embed_dim(self) -> int:
@@ -239,13 +244,20 @@ class UNetModel:
         """``control`` holds ControlNet residuals (``models/controlnet.py``):
         ``input`` entries are added after their input block (None: none),
         ``middle`` after the middle block, and ``output`` entries are popped
-        onto the skip connections, last first."""
-        if y is not None:
-            raise NotImplementedError("ADM / class conditioning (y) is not ported yet")
+        onto the skip connections, last first. ``y`` joins the time
+        embedding through ``label_emb``: a class-table row when the config
+        has ``num_classes``, the ADM MLP when it has ``adm_in_channels``; a
+        UNet with neither ignores it, as the JAX package's does."""
         cfg = self.config
         t_emb = timestep_embedding(timesteps, cfg.model_channels).to(x.dtype)
         emb = linear(params["time_embed"]["0"], t_emb)
         emb = linear(params["time_embed"]["2"], silu(emb))
+        if cfg.num_classes is not None and y is not None:
+            table = params["label_emb"]["weight"]
+            emb = emb + table[torch.as_tensor(y).to(table.device).long().reshape(-1)].to(emb.dtype)
+        elif cfg.adm_in_channels is not None and y is not None:
+            y_emb = linear(params["label_emb"]["0"]["0"], y.to(x.dtype))
+            emb = emb + linear(params["label_emb"]["0"]["2"], silu(y_emb))
         middle_depth = max(cfg.transformer_depth, 1)
 
         plan_in, plan_out, _ = self.block_plan()
@@ -364,6 +376,11 @@ class UNetModel:
             "middle_block": {},
             "output_blocks": {},
         }
+        if cfg.num_classes is not None:
+            params["label_emb"] = {"weight": randn(cfg.num_classes, cfg.time_embed_dim).to(dtype)}
+        elif cfg.adm_in_channels is not None:
+            params["label_emb"] = {"0": {"0": lin(cfg.adm_in_channels, cfg.time_embed_dim),
+                                         "2": lin(cfg.time_embed_dim, cfg.time_embed_dim)}}
         ch = cfg.model_channels
         chs = [ch]
         for i, (kind, out_ch, depth) in enumerate(plan_in):

@@ -18,8 +18,8 @@ instead of copying it; ``.ckpt`` / ``.pt`` files through
 Detection keeps the JAX package's whole walk (``detect_unet_layout``, which
 fills a ``UNetLayout`` with every field the JAX ``UNetConfig`` gets) and its
 family rule (``detect_model_family``). The port's UNet is the SD1.x one, so
-``detect_unet_config`` maps an SD1.x layout to ``UNetConfig`` and raises for
-the other families (ROADMAP 1.11) and for 9-channel inpaint UNets (1.7).
+``detect_unet_config`` maps an SD1.x layout, 9-channel inpaint UNets
+included, to ``UNetConfig`` and raises for the other families (ROADMAP 1.11).
 """
 
 from __future__ import annotations
@@ -384,15 +384,13 @@ def sd1_unet_config(layout: UNetLayout, family: dict) -> UNetConfig:
     """The port's ``UNetConfig`` for an SD1.x layout: the same res-block
     count at every level, transformers of depth 1 at ``attention_levels``
     (every block of such a level, in and out) and in the middle, context
-    768, 8 heads, no ADM or classes. Other families raise naming ROADMAP
-    1.11; a 9-channel (inpaint) UNet raises naming 1.7."""
+    768, 8 heads, no ADM or classes; 4 input channels, or 9 for an inpaint
+    UNet (the latent, then the mask and the masked image's latent). Other
+    families raise naming ROADMAP 1.11."""
     if family["family"] != "sd1" or layout.temporal:
         raise NotImplementedError(
             f"{family['family']} checkpoints are not ported yet (ROADMAP 1.11); the port loads "
             "the SD1.x family, from files and diffusers folders alike")
-    if layout.in_channels == 9:
-        raise NotImplementedError("inpaint-model checkpoints (9 input channels) are not ported "
-                                  "yet (ROADMAP 1.7)")
     res = layout.num_res_blocks_per_level
     levels = len(layout.channel_mult)
     attention_levels = tuple(lvl for lvl in range(levels)
@@ -401,7 +399,7 @@ def sd1_unet_config(layout: UNetLayout, family: dict) -> UNetConfig:
                     for _ in range(res[0]))
     want_out = tuple(1 if lvl in attention_levels else 0 for lvl in reversed(range(levels))
                      for _ in range(res[0] + 1))
-    sd1 = (layout.in_channels == 4 and layout.adm_in_channels is None
+    sd1 = (layout.in_channels in (4, 9) and layout.adm_in_channels is None
            and layout.num_classes is None and layout.disable_self_attn_levels is None
            and layout.head_dim is None and len(set(res)) == 1
            and layout.transformer_depth_blocks == want_in

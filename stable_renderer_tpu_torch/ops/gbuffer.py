@@ -14,7 +14,8 @@ produces / composes the 6-attachment GBuffer:
 
 Render modes: 0 = NORMAL, 1 = BAKED (sample corrmap), 2 = BAKING (shades
 like NORMAL but packs view-binned AI ids, the net semantics of the
-reference's two-pass bake). User fragment shaders are not ported yet.
+reference's two-pass bake). A user fragment shader (engine/shader.py)
+replaces the color stage on the pixels a draw covers.
 """
 
 from __future__ import annotations
@@ -98,11 +99,11 @@ def shade_draw(
     noise_tex: Optional[torch.Tensor] = None,      # (Hn, Wn, 4)
     corrmap_values: Optional[torch.Tensor] = None,  # (k*k, Hc*Wc, C)
     corrmap_size: Tuple[int, int] = (512, 512),
-    fragment_fn=None,
+    fragment_fn=None,  # a user shader's fragment stage (engine/shader.py)
 ) -> GBuffer:
-    """Shade one draw into a standalone GBuffer (no composition yet)."""
-    if fragment_fn is not None:
-        raise NotImplementedError("user fragment shaders are not ported yet")
+    """Shade one draw into a standalone GBuffer (no composition yet).
+    ``fragment_fn(FragmentInputs) -> (H, W, 4 or 3)`` replaces the fixed
+    color on the covered pixels."""
     covered = vis.tri_id >= 0
     cov3 = covered[..., None]
     h, w = vis.z.shape
@@ -176,6 +177,15 @@ def shade_draw(
     else:
         color = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
     color = _where(cov3, color, 0.0)
+
+    if fragment_fn is not None:
+        from stable_renderer_tpu_torch.engine.shader import FragmentInputs
+
+        user = fragment_fn(FragmentInputs(view_pos=pos, normal=n, uv=uv_px, vertex_color=vcol,
+                                          color=color, covered=covered))
+        if user.shape[-1] == 3:
+            user = torch.cat([user, torch.ones_like(user[..., :1])], dim=-1)
+        color = _where(cov3, user, 0.0)
 
     canny = _where(cov3, canny_from_normal(n), 0.0)
     pos = _where(cov3, pos, 0.0)

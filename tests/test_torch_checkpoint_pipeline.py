@@ -232,23 +232,41 @@ def test_loaded_frame_matches_jax(tmp_path, tiny_towers):
 
 @pytest.mark.parametrize("case", ["sd2", "inpaint", "sd2_diffusers_folder"])
 def test_other_families_raise(tmp_path, tiny_towers, case):
-    """A 1024-context (SD2) checkpoint raises naming ROADMAP 1.11, a
-    9-channel inpaint one naming 1.7, before any tensor moves; a diffusers
-    folder of another family raises too (naming 1.11), as the JAX package
-    loads SD1.x folders only."""
+    """A 1024-context (SD2) checkpoint raises naming ROADMAP 1.11 before
+    any tensor moves; a diffusers folder of another family raises too, as
+    the JAX package loads SD1.x folders only. A 9-channel inpaint SD1.x
+    file loads in both packages: the port detects ``in_channels=9`` and its
+    three trees equal JAX's bit for bit."""
+    from stable_renderer_tpu.engine.pipeline import DiffusionPipeline as JPipe
+    from stable_renderer_tpu.models.weights import flatten as j_flatten
+
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
-    from stable_renderer_tpu_torch.models.weights import write_safetensors
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
 
     ucfg = _unet_config(in_channels=9) if case == "inpaint" else _unet_config(context_dim=1024)
     flat = _write_checkpoint(tmp_path / "m.safetensors", ucfg)
     path = tmp_path / "m.safetensors"
+    if case == "inpaint":
+        jpipe = JPipe.from_checkpoint(str(path))
+        pipe = DiffusionPipeline.from_checkpoint(str(path), device="cpu")
+        assert pipe.unet.config == ucfg
+        assert jpipe.unet.config.in_channels == pipe.unet.config.in_channels == 9
+        assert pipe.model_family == jpipe.model_family == "sd1"
+        for mine, ref in ((pipe.unet_params, jpipe.unet_params),
+                          (pipe.vae_params, jpipe.vae_params),
+                          (pipe.clip_params, jpipe.clip_params)):
+            mine, ref = flatten(mine), j_flatten(ref)
+            assert sorted(mine) == sorted(ref)
+            for k, v in mine.items():
+                assert _bits(v) == _bits(ref[k]), k
+        return
     if case == "sd2_diffusers_folder":  # the tiny UNet's keys are left as they are
         (tmp_path / "folder" / "unet").mkdir(parents=True)
         unet = {k[len("model.diffusion_model."):]: v for k, v in flat.items()
                 if k.startswith("model.diffusion_model.")}
         write_safetensors(unet, tmp_path / "folder" / "unet" / "m.safetensors")
         path = tmp_path / "folder"
-    match = {"sd2": "ROADMAP 1.11", "inpaint": "ROADMAP 1.7",
+    match = {"sd2": "ROADMAP 1.11",
              "sd2_diffusers_folder": "ROADMAP 1.11.*diffusers folders"}[case]
     with pytest.raises(NotImplementedError, match=match):
         DiffusionPipeline.from_checkpoint(str(path), device="cpu")
@@ -272,3 +290,29 @@ def test_from_checkpoint_int8_and_the_card(tmp_path, tiny_towers, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DiffusionPipeline.from_checkpoint(str(tmp_path / "absent.safetensors"))
+
+
+def test_inpaint_frame_matches_jax(tmp_path, tiny_towers):
+    """The bench frame through both packages' loaded 9-channel inpaint
+    pipelines with ``keep_background=True`` (the UNet takes the mask and the
+    masked latent as its extra channels; the background latent is kept),
+    4-step LCM with cfg 2.0, within the f32 bars of
+    tests/test_torch_frame.py."""
+    from stable_renderer_tpu.engine.pipeline import DiffusionPipeline as JPipe
+    from stable_renderer_tpu.workflow.config import RenderConfig as JConfig
+
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.workflow.config import RenderConfig
+
+    ckpt = tmp_path / "inpaint.safetensors"
+    _write_checkpoint(ckpt, _unet_config(in_channels=9))
+    kw = dict(prompt="a ball", steps=4, cfg_scale=2.0, sampler="lcm", scheduler="sgm_uniform",
+              keep_background=True)
+    jpipe = JPipe.from_checkpoint(str(ckpt), JConfig(**kw), dtype=jnp.float32)
+    pipe = DiffusionPipeline.from_checkpoint(str(ckpt), RenderConfig(**kw), dtype=torch.float32,
+                                             device="cpu")
+    assert pipe.unet.config.in_channels == 9
+    images, jimages = _bench_frame(jpipe, pipe)
+    assert images.shape == (1, SIZE, SIZE, 3) and torch.isfinite(images).all()
+    np.testing.assert_allclose(images.numpy(), np.asarray(jimages), **TOL)
+    assert float(images.std()) > 1e-3

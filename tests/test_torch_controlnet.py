@@ -333,10 +333,13 @@ def test_zero_init_controlnet_leaves_frame_unchanged():
 
 
 def test_unported_control_paths_raise():
-    """What the control path still leaves out raises: ADM / class
-    conditioning (``y``, the SDXL family's, ROADMAP 1.11). The control
-    checkpoints that raised before their slice now build controls
-    (tests/test_torch_control_checkpoints.py holds them to JAX)."""
+    """The control checkpoints that raised before their slice now build
+    controls (tests/test_torch_control_checkpoints.py holds them to JAX).
+    ``y`` on a UNet with neither class labels nor an ADM width is ignored,
+    as the JAX package's UNet ignores it: the output with ``y`` equals the
+    output without, and JAX's with the same params."""
+    from stable_renderer_tpu.models.unet import TINY_UNET_CONFIG as JTINY, UNetModel as JUNet
+
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.workflow.config import ControlNetSpec
 
@@ -349,7 +352,11 @@ def test_unported_control_paths_raise():
     pipe.add_control_from_state_dict({"conv_in.weight": torch.zeros(32, 192, 3, 3),
                                       "body.0.block2.weight": torch.zeros(32, 32, 1, 1)}, spec)
     assert [type(c).__name__ for c, _, _ in pipe.controlnets] == ["ControlNet", "T2IAdapter"]
-    x = torch.zeros((1, 8, 8, 4))
-    with pytest.raises(NotImplementedError, match="y"):
-        pipe.unet.apply(pipe.unet_params, x, torch.zeros(1), torch.zeros((1, 77, 64)),
-                        y=torch.zeros(1))
+    x, _, ctx = _inputs(1, 8, seed=3)
+    args = (torch.from_numpy(x), torch.full((1,), 500.0), torch.from_numpy(ctx))
+    with_y = pipe.unet.apply(pipe.unet_params, *args, y=torch.ones(1, 16))
+    torch.testing.assert_close(with_y, pipe.unet.apply(pipe.unet_params, *args), rtol=0, atol=0)
+    jp = _jnp_tree(_np_tree(pipe.unet_params))
+    ref = JUNet(JTINY).apply(jp, jnp.asarray(x), jnp.full((1,), 500.0), jnp.asarray(ctx),
+                             y=jnp.ones((1, 16)))
+    np.testing.assert_allclose(with_y.numpy(), np.asarray(ref), **TOL)

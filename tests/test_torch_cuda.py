@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke
 from stable_renderer_tpu_torch.engine.mesh import Mesh
+from stable_renderer_tpu_torch.models.sampling.samplers import SAMPLER_NAMES
 from stable_renderer_tpu_torch.ops import flash_attention as tfa
 from stable_renderer_tpu_torch.ops import raster as tr
 from stable_renderer_tpu_torch.ops import raster_kernel as trk
@@ -679,3 +680,127 @@ def test_segment_means_repeat_exactly(cuda_device, fn):
                                                                          4096, 2)}[fn]
     first = call()
     assert all(torch.equal(call(), first) for _ in range(9))
+
+
+def _tiny_denoisers(device):
+    """The tiny f32 UNet's CFG denoiser on the CPU and on ``device``, with
+    one param tree (the port's init on the CPU, seeded) and one pair of
+    contexts. f32 stays f32 on the card, as the entry points keep it: cuDNN's
+    default TF32 convolutions move the tiny run by ~1e-2."""
+    from stable_renderer_tpu_torch.device import keep_f32
+    from stable_renderer_tpu_torch.models.sampling.cfg import make_denoiser
+    from stable_renderer_tpu_torch.models.sampling.schedules import ModelSampling
+    from stable_renderer_tpu_torch.models.unet import TINY_UNET_CONFIG, UNetModel
+
+    unet = UNetModel(TINY_UNET_CONFIG)
+    g = torch.Generator().manual_seed(21)
+    params = unet.init(g)
+    ctx, unc = (torch.randn((1, 77, TINY_UNET_CONFIG.context_dim), generator=g)
+                for _ in range(2))
+    log_sigmas = torch.as_tensor(ModelSampling().log_sigmas)
+    keep_f32()
+
+    def on(dev):
+        return make_denoiser(unet, _tree_to(params, dev), ctx.to(dev), unc.to(dev), log_sigmas,
+                             cfg_scale=2.0)
+
+    return on("cpu"), on(device)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("sampler", SAMPLER_NAMES)
+def test_samplers_on_the_card_match_the_cpu(cuda_device, sampler):
+    """Each sampler, 4 karras steps over the tiny f32 UNet, the same draws
+    (per-step gaussians, or Brownian increments from one CPU bridge) handed
+    to both devices: within chip_smoke.SAMPLER_TOL."""
+    import math
+
+    from stable_renderer_tpu_torch.models.sampling import samplers as smp
+    from stable_renderer_tpu_torch.models.sampling.schedules import (
+        ModelSampling,
+        calculate_sigmas,
+    )
+
+    den_cpu, den_card = _tiny_denoisers(cuda_device)
+    sig = torch.as_tensor(calculate_sigmas(ModelSampling(), "karras", 4))
+    s = [float(v) for v in sig]
+    g = torch.Generator().manual_seed(3)
+    lat = (1, 16, 16, 4)
+    noise, latent = torch.randn(lat, generator=g), torch.randn(lat, generator=g)
+    bridge = smp.BrownianBridge(7, s[-2], s[0], lat)
+    draws = []
+    for i in range(4):
+        if sampler.endswith("sde"):
+            mid = math.exp(0.5 * (math.log(s[i]) + math.log(max(s[i + 1], 1e-10))))
+            draws.append((bridge.increment(s[i], mid if sampler == "dpmpp_sde" else s[i + 1]),
+                          bridge.increment(s[i], s[i + 1])))
+        else:
+            draws.append((torch.randn(lat, generator=g), torch.randn(lat, generator=g)))
+    ref = smp.sample(den_cpu, noise, sig, latent, sampler=sampler, step_noise=draws)
+    out = smp.sample(den_card, noise.to(cuda_device), sig, latent.to(cuda_device),
+                     sampler=sampler, step_noise=[tuple(t.to(cuda_device) for t in d)
+                                                  for d in draws])
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+    assert (out.cpu() - ref).abs().max().item() <= chip_smoke.SAMPLER_TOL
+
+
+def test_brownian_bridge_on_the_card(cuda_device):
+    """The bridge drawn on the card: one interval twice gives the same bits,
+    adjacent increments add up, unit variance."""
+    import math
+
+    from stable_renderer_tpu_torch.models.sampling.samplers import BrownianBridge
+
+    shape = (1, 64, 64, 4)
+    br = BrownianBridge(1234, 0.03, 14.6, shape, device=cuda_device)
+    a, b, c = 14.6, 5.0, 0.7
+    inc = br.increment(a, b)
+    assert inc.device.type == "cuda"
+    assert torch.equal(inc, BrownianBridge(1234, 0.03, 14.6, shape,
+                                           device=cuda_device).increment(a, b))
+    whole = br.increment(a, c) * math.sqrt(a - c)
+    parts = inc * math.sqrt(a - b) + br.increment(b, c) * math.sqrt(b - c)
+    assert (whole - parts).abs().max().item() < 1e-4
+    assert abs(inc.std().item() - 1.0) < 0.05 and abs(inc.mean().item()) < 0.05
+
+
+def test_user_shaders_on_the_card(cuda_device):
+    """The draw pass with identity vertex and fragment shaders equals the
+    fixed pipeline bit for bit on the card, K2 rasterizing after the user
+    vertex stage; the debug shader's color matches the CPU's."""
+    from stable_renderer_tpu_torch.data.framebuffers import GBuffer
+    from stable_renderer_tpu_torch.engine.render_exec import _draw_pass, mesh_device_buffers
+    from stable_renderer_tpu_torch.engine.shader import Shader
+    from stable_renderer_tpu_torch.ops.gbuffer import DrawUniforms
+
+    mv, proj = chip_smoke.bench_matrices(0)
+
+    def draw(dev, vertex_fn=None, fragment_fn=None):
+        bufs = mesh_device_buffers(Mesh.Sphere(1.0, 48), dev)
+        gbuf, _ = _draw_pass(GBuffer.empty(512, 512, device=dev),
+                             torch.ones((512, 512), device=dev), bufs,
+                             torch.from_numpy(mv).to(dev), torch.from_numpy(proj).to(dev),
+                             DrawUniforms(sprite_id=1), 512, 512, fragment_fn=fragment_fn,
+                             vertex_fn=vertex_fn)
+        return gbuf
+
+    ident = Shader("card_identity", fragment_fn=lambda f, u: f.color,
+                   vertex_fn=lambda p, n, m, pr: tr.vertex_stage(p, n, m, pr))
+    fixed = draw(cuda_device)
+    before = trk.rasterize_kernel.launches
+    same = draw(cuda_device, ident.vertex_fn, ident.bound_fragment())
+    assert trk.rasterize_kernel.launches == before + 1
+    for a, b in zip(same, fixed):
+        assert chip_smoke.same_bits(a, b)
+    debug = Shader.DefaultDebug().bound_fragment()
+    on_card = draw(cuda_device, None, debug).color
+    assert (on_card - fixed.color).abs().mean().item() > 1e-3
+    covered = fixed.id[..., 0] > 0
+    on_cpu = draw("cpu", None, debug).color
+    agree = (on_card.cpu() - on_cpu).abs().amax(-1) < 1e-4
+    assert agree[covered.cpu()].float().mean().item() > 0.99  # edge pixels may flip

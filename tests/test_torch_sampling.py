@@ -110,6 +110,9 @@ def test_sample_matches_jax_with_its_draws(rng, sampler):
 
 
 def test_sampler_draws_from_generator(rng):
+    """Draws from one generator seed repeat; an unknown sampler name
+    raises ``ValueError`` as in the JAX package; ``dpmpp_2m`` (no draws)
+    runs and equals JAX's."""
     sig = torch.tensor([2.0, 1.0, 0.5, 0.0])
     x = _t(rng.standard_normal((1, 4, 4, 4)).astype(np.float32))
     a = tsamplers.sample(_toy_denoiser(torch), x, sig, sampler="lcm",
@@ -117,8 +120,15 @@ def test_sampler_draws_from_generator(rng):
     b = tsamplers.sample(_toy_denoiser(torch), x, sig, sampler="lcm",
                          generator=torch.Generator().manual_seed(1))
     torch.testing.assert_close(a, b)
-    with pytest.raises(NotImplementedError):
-        tsamplers.sample(_toy_denoiser(torch), x, sig, sampler="dpmpp_2m")
+    with pytest.raises(ValueError, match="Unknown sampler"):
+        tsamplers.sample(_toy_denoiser(torch), x, sig, sampler="dpmpp_2n")
+    with pytest.raises(ValueError, match="Unknown sampler"):
+        jsamplers.sample(_toy_denoiser(jnp), jnp.asarray(x.numpy()), jnp.asarray(sig.numpy()),
+                         sampler="dpmpp_2n")
+    out = tsamplers.sample(_toy_denoiser(torch), x, sig, sampler="dpmpp_2m")
+    ref = jsamplers.sample(_toy_denoiser(jnp), jnp.asarray(x.numpy()), jnp.asarray(sig.numpy()),
+                           sampler="dpmpp_2m")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
 def test_cfg_denoiser_with_overlap_hooks_matches_jax(rng):

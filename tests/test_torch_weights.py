@@ -217,8 +217,8 @@ def test_detection_matches_jax(case):
     """``detect_unet_layout`` reads every field JAX's ``detect_unet_config``
     reads, and ``detect_model_family`` gives JAX's family and prediction
     (the SD2 out-layer statistic decides eps or v). SD1.x dicts map to the
-    port's ``UNetConfig``; SD2 and SDXL raise naming ROADMAP 1.11, the
-    9-channel inpaint UNet naming 1.7."""
+    port's ``UNetConfig``, the 9-channel inpaint UNet included (its
+    ``in_channels`` JAX's); SD2 and SDXL raise naming ROADMAP 1.11."""
     from stable_renderer_tpu.models.weights import (
         detect_model_family as j_family,
         detect_unet_config as j_detect,
@@ -249,12 +249,15 @@ def test_detection_matches_jax(case):
         assert detect_unet_config(flat) == UNetConfig(
             model_channels=32, num_res_blocks=1, channel_mult=(1, 2), attention_levels=(0, 1),
             num_heads=8, context_dim=768)
+    elif case == "sd15_inpaint":
+        assert fam == {"family": "sd1", "prediction": "eps", "noise_aug_dim": None}
+        got = detect_unet_config(flat)
+        assert got == replace(SD15_UNET_CONFIG, in_channels=9)
+        assert got.in_channels == ref.in_channels == 9
     else:
-        assert fam["family"] == {"sd2_eps": "sd2", "sd2_v": "sd2", "sdxl": "sdxl",
-                                 "sd15_inpaint": "sd1"}[case]
+        assert fam["family"] == {"sd2_eps": "sd2", "sd2_v": "sd2", "sdxl": "sdxl"}[case]
         assert fam["prediction"] == ("v" if case == "sd2_v" else "eps")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP 1.7" if case == "sd15_inpaint" else "ROADMAP 1.11"):
+        with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
             detect_unet_config(flat)
 
 
