@@ -191,6 +191,27 @@ Phases, one line each; any failure exits non-zero:
                 for bit; (e) user shaders through Engine.Run: identity vertex
                 and fragment shaders give the fixed pipeline's frames bit for
                 bit, Shader.DefaultDebug() moves the G-buffer color.
+ 22. files    — meshes from files, the command line and the scripts, with
+                phase 20's checkpoint file: the bench sphere written by
+                write_mesh as OBJ (vt, vn, two usemtl groups), binary and
+                ascii STL, binary PLY, GLB, DAE and ascii FBX, and
+                Sphere(1.0, 256) (130,560 triangles) as OBJ and GLB, each
+                read by Mesh.Load (check_loaded_mesh: corners, uvs, normals,
+                materials); the OBJs by the native parser, equal to load_obj
+                array for array, both load times printed. K2 on the big OBJ
+                from the bench camera at 512x512, bit for bit against its
+                plain versions, timed as in phase 4 (a row joining K2's
+                "shapes"). `python -m stable_renderer_tpu_torch render --obj
+                <big OBJ> --checkpoint <file>` as its own process: exit 0, its
+                fps line, six 512x512 frames not constant, K2 one call and K1
+                phase 20's 22 a frame by its launch line; the big mesh with
+                two materials through Engine.Run (two K2 calls a frame). In
+                process: the CLI's bake (8 frames, k 3: cells written) and
+                replay of its map (frames that differ from the unbaked
+                raster frame); the five scripts/*_torch.py at 512x512 (the
+                checkpoint where the script takes one; miku's two random
+                ControlNets, K1 38 a frame); scripts/diffusion_ab_torch.py
+                with the checkpoint at 512x512, both runs' metrics finite.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
@@ -209,10 +230,13 @@ import collections
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 SIZE = 512
 FRAMES_TIMED = 4
@@ -382,6 +406,35 @@ LEFT_OUT_SAMPLERS = (("dpmpp_2m", "karras", 20, 7.0, 20),
                      ("heun", "exponential", 4, 2.0, 7),
                      ("uni_pc", "simple", 4, 2.0, 4))
 SAMPLER_TOL = 1e-3  # phase 21: a tiny f32 run of each sampler, card vs CPU
+# phase 22: the big mesh (Sphere(1.0, 256): 130,560 triangles), the plain
+# rasterizers' chunk of triangles there (ties still go to the lowest index),
+# and the frames of the CLI's render, bake and replay
+BIG_MESH_SEGMENTS = 256
+K2_REF_CHUNK = 256
+CLI_FRAMES = 6
+BAKE_CLI_FRAMES = 8
+REPLAY_CLI_FRAMES = 4
+
+
+def counts() -> tuple:
+    """(K1, K2, K3, K4) launches since the counters were last set to 0."""
+    import torch
+
+    from stable_renderer_tpu_torch.cli import kernel_counters
+
+    torch.cuda.synchronize()
+    return tuple(f.launches for f in kernel_counters().values())
+
+
+def zero_counts() -> None:
+    """Set the four kernels' launch counters to 0."""
+    import torch
+
+    from stable_renderer_tpu_torch.cli import kernel_counters
+
+    torch.cuda.synchronize()
+    for f in kernel_counters().values():
+        f.launches = 0
 
 
 def fail(msg: str) -> None:
@@ -1834,11 +1887,21 @@ def main() -> None:
     bench = bench_phase(card)
 
     # --- 20. checkpoint: phase 6's trees through files and from_checkpoint ------------
-    checkpoint = checkpoint_phase(pipe, dev, card, k1, run_frame, run_engine_phase, engine_ms,
-                                  bg)
+    # the checkpoint file stays for phase 22, in a directory removed at the end
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="checkpoint-", dir=build_dir))
+    try:
+        checkpoint = checkpoint_phase(pipe, dev, card, k1, run_frame, run_engine_phase,
+                                      engine_ms, bg, ckpt_dir)
 
-    # --- 21. the frame's left-outs -------------------------------------------------------
-    left_outs = left_outs_phase(pipe, dev, card, k1, run_frame, bg)
+        # --- 21. the frame's left-outs ---------------------------------------------------
+        left_outs = left_outs_phase(pipe, dev, card, k1, run_frame, bg)
+
+        # --- 22. meshes from files, the command line and the scripts ------------------------
+        files = files_phase(dev, card, k1, k2, checkpoint["path"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     wall_s = time.perf_counter() - t_start
     print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
@@ -1847,7 +1910,8 @@ def main() -> None:
                       "host_syncs_a_frame": frame_syncs,
                       "engine_frame_ms": engine_ms, **bake, "taesd": taesd,
                       "options": options, "bench": bench, "checkpoint": checkpoint,
-                      "left_outs": left_outs, "wall_s": wall_s, "card": card}))
+                      "left_outs": left_outs, "files": files, "wall_s": wall_s,
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -2484,16 +2548,14 @@ def bench_phase(card: str) -> dict:
 
 
 def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase,
-                     engine_ms: dict, bg) -> dict:
+                     engine_ms: dict, bg, tmp) -> dict:
     """Phase 20: weights from files, at full SD1.5 widths (see the module
     docstring). ``pipe`` is phase 6's bf16 pipeline; ``run_frame`` and
     ``run_engine_phase`` are main's; K1's f32 row joins ``k1["shapes"]``
-    and the engine run ``engine_ms``. The files go to a temporary directory
-    under build/, removed at the end."""
-    import shutil
-    import tempfile
+    and the engine run ``engine_ms``. The files go to ``tmp``; all but the
+    checkpoint (``out["path"]``, which phase 22 reads) are removed at the
+    end."""
     from dataclasses import replace as dc_replace
-    from pathlib import Path
 
     import torch
 
@@ -2513,25 +2575,12 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
         tree_to,
         write_safetensors,
     )
-    from stable_renderer_tpu_torch.ops.conv_kernel import conv3x3_kernel, use_pallas_conv
+    from stable_renderer_tpu_torch.ops.conv_kernel import use_pallas_conv
     from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
-    from stable_renderer_tpu_torch.ops.flash_attention import flash_attention
-    from stable_renderer_tpu_torch.ops.group_norm_kernel import group_norm_kernel
-    from stable_renderer_tpu_torch.ops.raster_kernel import rasterize_kernel
     from stable_renderer_tpu_torch.workflow.config import ControlNetSpec
 
     def corr():
         return OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
-
-    def zero_counts():
-        torch.cuda.synchronize()
-        flash_attention.launches = rasterize_kernel.launches = 0
-        conv3x3_kernel.launches = group_norm_kernel.launches = 0
-
-    def counts():
-        torch.cuda.synchronize()
-        return (flash_attention.launches, rasterize_kernel.launches, conv3x3_kernel.launches,
-                group_norm_kernel.launches)
 
     def frame0(p_):
         """The decoded frame 0 of frame_step with pipeline ``p_``, f32."""
@@ -2541,15 +2590,14 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
         return images.float()
 
     cfg, out = pipe.config, {}
-    root = Path(__file__).resolve().parent / "build"
-    root.mkdir(exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="checkpoint-", dir=root))
+    tmp = Path(tmp)
+    path = tmp / "sd15.safetensors"
     try:
         # --- 20.1 the checkpoint file: write, then read back -----------------------
         flat = {prefix + k: v.to(torch.bfloat16) for prefix, tree in (
             ("model.diffusion_model.", pipe.unet_params), ("first_stage_model.", pipe.vae_params),
             ("cond_stage_model.transformer.", pipe.clip_params)) for k, v in flatten(tree).items()}
-        path = tmp / "sd15.safetensors"
+        out["path"] = str(path)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         size = write_safetensors(flat, path)
@@ -2858,7 +2906,472 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
               f"encoding max abs {ti_err:.3e} (tol {TI_TOL}), moved {ti_moved:.3f} from the "
               f"prompt without them | {card}", flush=True)
     finally:
+        for f in tmp.iterdir():
+            if f != path:
+                shutil.rmtree(f) if f.is_dir() else f.unlink()
+    return out
+
+
+# --- phase 22: mesh files -----------------------------------------------------------
+# the formats chip_smoke writes a mesh in, with their suffixes; Mesh.Load
+# reads each by its suffix
+MESH_WRITERS = {"obj": ".obj", "stl": ".stl", "stl-ascii": ".stl", "ply": ".ply",
+                "glb": ".glb", "dae": ".dae", "fbx-ascii": ".fbx"}
+
+
+def _num(x) -> str:
+    """A float32 as the shortest decimal of its exact double value: strtof
+    and float() then float32 both read it back to the same float32."""
+    return repr(float(x))
+
+
+def write_mesh(mesh, path, fmt: str):
+    """Write ``mesh`` (positions, uvs, normals, tris) as ``fmt`` (a key of
+    MESH_WRITERS) at ``path``; returns the path. OBJ carries vt and vn and
+    two usemtl groups (the first half of the triangles matA, the rest matB);
+    GLB one primitive with normals, uvs and uint32 indices; DAE two
+    <triangles> (matA, matB) with normals and uvs; ascii FBX the vertices,
+    the polygon indices and per-corner normals and uvs; STL and PLY the
+    positions and triangles only."""
+    import struct
+
+    import numpy as np
+
+    path = Path(path)
+    pos = np.asarray(mesh.positions, np.float32)
+    uv = np.asarray(mesh.uvs, np.float32)
+    nrm = np.asarray(mesh.normals, np.float32)
+    tris = np.asarray(mesh.tris, np.int64)
+    half = len(tris) // 2
+    if fmt == "obj":
+        lines = [f"v {_num(a)} {_num(b)} {_num(c)}" for a, b, c in pos]
+        lines += [f"vt {_num(a)} {_num(b)}" for a, b in uv]
+        lines += [f"vn {_num(a)} {_num(b)} {_num(c)}" for a, b, c in nrm]
+        for name, part in (("matA", tris[:half]), ("matB", tris[half:])):
+            lines.append(f"usemtl {name}")
+            lines += [f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}" for a, b, c in part + 1]
+        path.write_text("\n".join(lines) + "\n")
+    elif fmt == "stl":
+        rec = np.zeros(len(tris), [("n", "<f4", 3), ("v", "<f4", (3, 3)), ("a", "<u2")])
+        rec["v"] = pos[tris]
+        path.write_bytes(b"\x00" * 80 + struct.pack("<I", len(tris)) + rec.tobytes())
+    elif fmt == "stl-ascii":
+        lines = ["solid mesh"]
+        for corners in pos[tris]:
+            lines += ["facet normal 0 0 0", "outer loop"]
+            lines += [f"vertex {_num(a)} {_num(b)} {_num(c)}" for a, b, c in corners]
+            lines += ["endloop", "endfacet"]
+        path.write_text("\n".join(lines + ["endsolid mesh"]) + "\n")
+    elif fmt == "ply":
+        header = "\n".join(["ply", "format binary_little_endian 1.0",
+                            f"element vertex {len(pos)}", "property float x",
+                            "property float y", "property float z", f"element face {len(tris)}",
+                            "property list uchar int vertex_indices", "end_header"]) + "\n"
+        faces = np.zeros(len(tris), [("n", "u1"), ("i", "<i4", 3)])
+        faces["n"], faces["i"] = 3, tris
+        path.write_bytes(header.encode() + pos.astype("<f4").tobytes() + faces.tobytes())
+    elif fmt == "glb":
+        import json
+
+        blobs = [pos.tobytes(), nrm.tobytes(), uv.tobytes(), tris.astype("<u4").tobytes()]
+        views, off = [], 0
+        for b in blobs:
+            views.append({"buffer": 0, "byteOffset": off, "byteLength": len(b)})
+            off += len(b)
+        acc = [{"bufferView": 0, "componentType": 5126, "count": len(pos), "type": "VEC3"},
+               {"bufferView": 1, "componentType": 5126, "count": len(pos), "type": "VEC3"},
+               {"bufferView": 2, "componentType": 5126, "count": len(pos), "type": "VEC2"},
+               {"bufferView": 3, "componentType": 5125, "count": tris.size, "type": "SCALAR"}]
+        gltf = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+                "nodes": [{"mesh": 0}], "materials": [{"name": "matA"}],
+                "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "NORMAL": 1,
+                                                           "TEXCOORD_0": 2},
+                                            "indices": 3, "material": 0}]}],
+                "buffers": [{"byteLength": off}], "bufferViews": views, "accessors": acc}
+        js = json.dumps(gltf).encode()
+        js += b" " * (-len(js) % 4)
+        blob = b"".join(blobs)
+        blob += b"\x00" * (-len(blob) % 4)
+        with open(path, "wb") as f:
+            f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(blob)))
+            f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+            f.write(struct.pack("<II", len(blob), 0x004E4942) + blob)
+    elif fmt == "dae":
+        def floats(a):
+            return " ".join(_num(x) for x in np.asarray(a).ravel())
+
+        prims = "".join(
+            f'<triangles material="{name}" count="{len(part)}">'
+            '<input semantic="VERTEX" source="#m-verts" offset="0"/>'
+            '<input semantic="NORMAL" source="#m-nrm" offset="1"/>'
+            '<input semantic="TEXCOORD" source="#m-uv" offset="2"/>'
+            f'<p>{" ".join(str(i) for i in np.repeat(part.ravel(), 3))}</p></triangles>'
+            for name, part in (("matA", tris[:half]), ("matB", tris[half:])))
+        path.write_text(
+            '<?xml version="1.0" encoding="utf-8"?>\n'
+            '<COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema" version="1.4.1">'
+            "<asset><up_axis>Y_UP</up_axis></asset><library_geometries>"
+            '<geometry id="m"><mesh>'
+            f'<source id="m-pos"><float_array count="{pos.size}">{floats(pos)}</float_array>'
+            '<technique_common><accessor stride="3"/></technique_common></source>'
+            f'<source id="m-nrm"><float_array count="{nrm.size}">{floats(nrm)}</float_array>'
+            '<technique_common><accessor stride="3"/></technique_common></source>'
+            f'<source id="m-uv"><float_array count="{uv.size}">{floats(uv)}</float_array>'
+            '<technique_common><accessor stride="2"/></technique_common></source>'
+            '<vertices id="m-verts"><input semantic="POSITION" source="#m-pos"/></vertices>'
+            f"{prims}</mesh></geometry></library_geometries></COLLADA>\n")
+    elif fmt == "fbx-ascii":
+        pvi = tris.copy()
+        pvi[:, 2] = -pvi[:, 2] - 1  # a polygon ends at its negative index
+
+        def arr(name, a, indent="\t\t"):
+            flat = np.asarray(a).ravel()
+            body = ",".join(str(int(x)) if flat.dtype.kind == "i" else _num(x) for x in flat)
+            return f"{indent}{name}: *{flat.size} {{\n{indent}\ta: {body}\n{indent}}}\n"
+
+        layer = ("\t\tLayerElement{0}: 0 {{\n"
+                 '\t\t\tMappingInformationType: "ByPolygonVertex"\n'
+                 '\t\t\tReferenceInformationType: "Direct"\n{1}\t\t}}\n')
+        path.write_text(
+            "; FBX 7.4.0 project file\nObjects:  {\n"
+            '\tGeometry: 1, "Geometry::mesh", "Mesh" {\n'
+            + arr("Vertices", pos) + arr("PolygonVertexIndex", pvi)
+            + layer.format("Normal", arr("Normals", nrm[tris], "\t\t\t"))
+            + layer.format("UV", arr("UV", uv[tris], "\t\t\t"))
+            + "\t}\n}\n")
+    else:
+        raise ValueError(f"no writer for {fmt!r} (have {sorted(MESH_WRITERS)})")
+    return path
+
+
+def check_loaded_mesh(src, loaded, fmt: str) -> list:
+    """What is wrong with ``loaded`` (Mesh.Load of ``write_mesh(src, ...,
+    fmt)``), as a list of strings (empty: nothing). Triangle corners are
+    compared, so each format's own vertex dedup or per-corner vertices do
+    not matter: every corner's position equal to the source's within the
+    printed precision (1e-6), and where the format carries them its uvs and
+    normals, and for OBJ and DAE the two materials."""
+    import numpy as np
+
+    bad = []
+    if loaded.tris.dtype != np.int32 or loaded.tris.shape != src.tris.shape:
+        return [f"{fmt}: triangles {loaded.tris.dtype} {loaded.tris.shape}, want int32 "
+                f"{src.tris.shape}"]
+    for field in ("positions",) + (("uvs", "normals") if fmt in ("obj", "glb", "dae",
+                                                                 "fbx-ascii") else ()):
+        got = getattr(loaded, field)[loaded.tris]
+        want = getattr(src, field)[src.tris]
+        err = float(np.abs(got - want).max())
+        if err > 1e-6:
+            bad.append(f"{fmt}: corner {field} differ by {err:.3e}")
+    if fmt in ("obj", "dae"):
+        half = len(src.tris) // 2
+        want_mat = np.repeat(np.int32([0, 1]), [half, len(src.tris) - half])
+        if (loaded.material_names != ["matA", "matB"]
+                or not np.array_equal(loaded.tri_material, want_mat)):
+            bad.append(f"{fmt}: materials {loaded.material_names}, "
+                       f"{np.bincount(loaded.tri_material + 1)}")
+    if not np.isfinite(loaded.normals).all() or not np.isfinite(loaded.tangents).all():
+        bad.append(f"{fmt}: non-finite normals or tangents")
+    return bad
+
+
+def _png_frames(d):
+    """The frame_*.png under ``d`` in frame order, as uint8 numpy arrays."""
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    files = sorted(Path(d).glob("frame_*.png"), key=lambda f: int(f.stem.split("_")[1]))
+    return [np.asarray(Image.open(f)) for f in files]
+
+
+def _check_frames(what: str, frames, n: int, size: int) -> None:
+    if len(frames) != n:
+        fail(f"phase 22 {what}: {len(frames)} frames written, want {n}")
+    for i, f in enumerate(frames):
+        if f.shape != (size, size, 3) or int(f.max()) == int(f.min()):
+            fail(f"phase 22 {what}: frame {i} {f.shape} constant {int(f.max()) == int(f.min())}")
+
+
+def files_phase(dev, card: str, k1: dict, k2: dict, ckpt: str) -> dict:
+    """Phase 22: meshes from files, the command line and the scripts (see the
+    module docstring). ``ckpt`` is phase 20's checkpoint file, and
+    ``k1["launches_a_frame"]["checkpoint"]`` its loaded frame's K1 launches;
+    K2's row at the big mesh joins ``k2``. The files go to a temporary
+    directory under build/, removed at the end."""
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from stable_renderer_tpu_torch import cli, native
+    from stable_renderer_tpu_torch.engine import Engine, Mesh
+    from stable_renderer_tpu_torch.engine.mesh import load_obj
+    from stable_renderer_tpu_torch.engine.render_exec import mesh_device_buffers
+    from stable_renderer_tpu_torch.ops.raster import rasterize, vertex_stage
+    from stable_renderer_tpu_torch.ops.raster_kernel import (
+        rasterize_kernel,
+        rasterize_tiles_reference,
+        tile_ranges,
+        triangle_setup,
+        triangle_setup_kernel,
+    )
+    from stable_renderer_tpu_torch.utils import paths
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="files-", dir=root / "build"))
+    out = {}
+    ckpt_args = ["--checkpoint", str(ckpt)]
+    t_phase = time.perf_counter()
+    try:
+        # --- 22.1 files: the bench sphere in every format, the big sphere as OBJ and GLB ---
+        small, big = Mesh.Sphere(1.0, 48), Mesh.Sphere(1.0, BIG_MESH_SEGMENTS)
+        loads = {}
+        for label, mesh, fmts in (("bench sphere", small, list(MESH_WRITERS)),
+                                  ("big sphere", big, ["obj", "glb"])):
+            for fmt in fmts:
+                path = write_mesh(mesh, tmp / f"{label.split()[0]}-{fmt}{MESH_WRITERS[fmt]}", fmt)
+                parses = native.parses
+                t0 = time.perf_counter()
+                loaded = Mesh.Load(path)
+                load_s = time.perf_counter() - t0
+                bad = check_loaded_mesh(mesh, loaded, fmt)
+                if fmt == "obj":
+                    if native.parses != parses + 1:
+                        fail(f"phase 22: Mesh.Load of the {label} OBJ did not use the native "
+                             f"parser ({native.library_path()})")
+                    t0 = time.perf_counter()
+                    py = load_obj(path)
+                    py_s = time.perf_counter() - t0
+                    bad += [f"{fmt}: {f} differs from load_obj's" for f in (
+                        "positions", "normals", "uvs", "colors", "tris", "tri_material",
+                        "tangents", "bitangents") if not np.array_equal(getattr(loaded, f),
+                                                                         getattr(py, f))]
+                    if loaded.material_names != py.material_names:
+                        bad.append(f"{fmt}: materials {loaded.material_names} vs load_obj's")
+                    loads[label] = {"native_s": load_s, "python_s": py_s,
+                                    "bytes": path.stat().st_size}
+                if bad:
+                    fail(f"phase 22 {label} {fmt}: {bad}")
+                if label == "big sphere" and fmt == "obj":
+                    big_obj, big_loaded = path, loaded
+        out["files"] = {"formats": list(MESH_WRITERS), "obj_load_s": loads,
+                        "big_mesh": {"triangles": int(big_loaded.triangle_count),
+                                     "vertices": int(big_loaded.vertex_count)}}
+        print(f"[22 files] the bench sphere ({small.triangle_count} triangles) as "
+              f"{', '.join(MESH_WRITERS)} and the big sphere ({big_loaded.triangle_count} "
+              f"triangles, {big_loaded.vertex_count} vertices) as OBJ and GLB, each through "
+              f"Mesh.Load: corners, uvs, normals and materials as written; OBJ by the native "
+              f"parser, equal to load_obj array for array; big OBJ "
+              f"({loads['big sphere']['bytes'] / 2**20:.1f} MiB) loaded in "
+              f"{loads['big sphere']['native_s']:.3f} s native, "
+              f"{loads['big sphere']['python_s']:.3f} s by load_obj | {card}", flush=True)
+
+        # --- 22.2 K2 on the big mesh, from the bench camera --------------------------------
+        bufs = mesh_device_buffers(big_loaded, dev)
+        mv, proj = bench_matrices(0)
+        clip, _, _ = vertex_stage(bufs["positions"], bufs["normals"],
+                                  torch.from_numpy(mv).to(dev), torch.from_numpy(proj).to(dev))
+        tris = bufs["tris"]
+        call = lambda: rasterize_kernel(clip, tris, SIZE, SIZE, cull_backface=True)  # noqa: E731
+        vis = call()
+        tri_ref = triangle_setup(clip, tris, SIZE, SIZE, True)
+        tri_k, ranges_k = triangle_setup_kernel(clip, tris, SIZE, SIZE, True)
+        exact = rasterize_tiles_reference(tri_ref, SIZE, SIZE, chunk=K2_REF_CHUNK)
+        checks = {"setup": same_bits(tri_k, tri_ref),
+                  "ranges": torch.equal(ranges_k, tile_ranges(tri_ref, SIZE, SIZE)),
+                  **{f: same_bits(a, b) for f, a, b in zip(vis._fields, vis, exact)}}
+        if not all(checks.values()):
+            fail(f"phase 22 K2 ({tris.shape[0]} triangles): not bit for bit against its "
+                 f"plain versions: {checks}")
+        del tri_ref, tri_k, ranges_k, exact
+        ndc = clip[:, :2] / clip[:, 3:4]
+        tri_xy = ((ndc * 0.5 + 0.5) * SIZE)[tris.long()]
+        lo = tri_xy.amin(1).floor().clamp(0, SIZE)
+        hi = tri_xy.amax(1).ceil().clamp(0, SIZE)
+        pairs = ((hi - lo).clamp(min=0).prod(-1)).sum().item()
+        b = bound(nbytes(clip, tris, vis.z, vis.tri_id, vis.bary), 10.0 * pairs, "f32")
+        row = {"shape": f"{tris.shape[0]} triangles {SIZE}x{SIZE}",
+               "ms": graph_ms(call, calls=SHORT_CALLS_A_GRAPH),
+               "ms_with_host": cuda_ms(call, 20),
+               "plain_ms": cuda_ms(lambda: rasterize(clip, tris, SIZE, SIZE,
+                                                     chunk=K2_REF_CHUNK,
+                                                     cull_backface=True), 1, warmup=1),
+               "plain_chunk": K2_REF_CHUNK, "bound_ms": b[0], "bound_by": b[1],
+               "library_ms": None, "covered_pixels": int((vis.tri_id >= 0).sum()),
+               "bit_exact": True}
+        # culling reads every triangle's tile range once a tile
+        row["range_bytes_read"] = (SIZE // 16) ** 2 * tris.shape[0] * 8
+        k2.setdefault("shapes", []).append(row)
+        out["k2"] = row
+        print(f"[22 K2] {row} (setup, ranges, z, tri_id and bary bit for bit against "
+              f"triangle_setup, tile_ranges and rasterize_tiles_reference) | {card}",
+              flush=True)
+
+        # --- 22.3 the command line as its own process: render the big OBJ ---------------------
+        frames = CLI_FRAMES
+        render_dir = tmp / "render"
+        cmd = [sys.executable, "-m", "stable_renderer_tpu_torch", "render", "--obj",
+               str(big_obj), "--size", str(SIZE), "--frames", str(frames), *ckpt_args,
+               "--out", str(render_dir)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, SR_TPU_OUTPUT_DIR=str(tmp / "outputs")))
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 22 CLI render exited {proc.returncode}: {' '.join(cmd)}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        fps_line = next((ln for ln in proc.stdout.splitlines()
+                         if ln.startswith(f"{frames} frames -> ") and "(fps " in ln), None)
+        launch_line = next((ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("kernel launches over ")), None)
+        if fps_line is None or launch_line is None:
+            fail(f"phase 22 CLI render printed no fps or launch line:\n{proc.stdout[-2000:]}")
+        launches = json.loads(launch_line.split(": ", 1)[1])
+        _check_frames("CLI render", _png_frames(render_dir), frames, SIZE)
+        want_k1 = k1["launches_a_frame"]["checkpoint"]
+        if (launches["rasterize_kernel"] != frames
+                or launches["flash_attention"] != want_k1 * frames):
+            fail(f"phase 22 CLI render: launches {launches} over {frames} frames, want K2 1 "
+                 f"and K1 {want_k1} a frame (phase 20's loaded frame)")
+        out["cli_render"] = {"seconds": cli_s, "fps_line": fps_line, "launches": launches,
+                             "frames": frames}
+        print(f"[22 CLI] python -m stable_renderer_tpu_torch render --obj <big OBJ> --size "
+              f"{SIZE} --frames {frames} --checkpoint <phase 20 file>: exit 0 "
+              f"in {cli_s:.1f} s (process, imports and checkpoint load included); "
+              f"{fps_line!r}; launches {launches}, K1 {want_k1} and K2 1 a frame, as phase 20's "
+              f"loaded frame; {frames} frames of {SIZE}x{SIZE}, none constant | {card}",
+              flush=True)
+
+        # a mesh given two materials: one draw, and one K2 call, a material a frame
+        from stable_renderer_tpu_torch.engine import Camera, GameObject, Material, MeshRenderer
+
+        def two_material_scene():
+            cam = GameObject("camera")
+            cam.addComponent(Camera)
+            cam.transform.position = [0.0, 0.5, 3.0]
+            cam.transform.lookAt([0.0, 0.0, 0.0])
+            GameObject("subject").addComponent(
+                MeshRenderer, mesh=big_loaded, materials=[Material("matA"), Material("matB")])
+
+        Engine._reset()
+        zero_counts()
+        run_engine(None, SIZE, 2, None, scene=two_material_scene, disableComfyUI=True,
+                   device=dev)
+        two_mat = counts()[1]
+        if two_mat != 4:
+            fail(f"phase 22: two materials over 2 frames launched K2 {two_mat} times, want 4")
+        out["k2_calls_a_frame_two_materials"] = two_mat / 2
+        print(f"[22 materials] the big mesh with two materials: {two_mat / 2:g} K2 calls a "
+              f"frame, each over all {big_loaded.triangle_count} triangles (MeshRenderer "
+              f"draws the whole mesh once a material, as the JAX package does) | {card}",
+              flush=True)
+
+        # --- 22.3b bake, then replay its map, in process -----------------------------------
+        bake_dir = tmp / "bake"
+        Engine._reset()
+        zero_counts()
+        t0 = time.perf_counter()
+        cli.main(["bake", "--size", str(SIZE), "--frames", str(BAKE_CLI_FRAMES), "--k", "3",
+                  *ckpt_args, "--out", str(bake_dir)])
+        bake_s = time.perf_counter() - t0
+        bake_counts = counts()
+        from stable_renderer_tpu_torch.data.corrmap import CorrespondMap
+
+        cmap = CorrespondMap.Load(bake_dir / "bake", device=dev)
+        written = int(cmap.written.sum())
+        if written == 0 or bake_counts[1] != BAKE_CLI_FRAMES:
+            fail(f"phase 22 CLI bake: {written} cells written, launches {bake_counts}")
+        _check_frames("CLI bake", _png_frames(bake_dir / "frames"), BAKE_CLI_FRAMES, SIZE)
+        Engine._reset()
+        cli.main(["render", "--no-diffusion", "--size", str(SIZE), "--frames", "1",
+                  "--out", str(tmp / "plain")])
+        Engine._reset()
+        zero_counts()
+        cli.main(["replay", "--size", str(SIZE), "--frames", str(REPLAY_CLI_FRAMES), "--map",
+                  str(bake_dir / "bake"), "--out", str(tmp / "replay")])
+        replay_counts = counts()
+        replayed = _png_frames(tmp / "replay")
+        _check_frames("CLI replay", replayed, REPLAY_CLI_FRAMES, SIZE)
+        plain0 = _png_frames(tmp / "plain")[0]
+        shows_map = float((np.abs(replayed[0].astype(int) - plain0.astype(int)).max(-1)
+                           > 2).mean())
+        if shows_map < 0.01 or replay_counts[1] != REPLAY_CLI_FRAMES:
+            fail(f"phase 22 CLI replay: {shows_map:.4f} of the pixels differ from the unbaked "
+                 f"frame; launches {replay_counts}")
+        out["cli_bake"] = {"seconds": bake_s, "written": written, "launches": bake_counts,
+                           "replay_launches": replay_counts, "replay_share_moved": shows_map}
+        print(f"[22 CLI] bake --frames {BAKE_CLI_FRAMES} --k 3: {written} cells written in "
+              f"{bake_s:.1f} s, launches {bake_counts}; replay --frames {REPLAY_CLI_FRAMES}: "
+              f"launches {replay_counts}, {shows_map:.3f} of frame 0's pixels show the map "
+              f"(differ from the unbaked raster frame) | {card}", flush=True)
+
+        # --- 22.4 the five example scripts, in process -------------------------------------
+        paths.OUTPUT_DIR = tmp / "outputs"
+
+        def script(name):
+            spec = importlib.util.spec_from_file_location(name, root / "scripts" / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+
+        runs = {}
+        for name, frames_, extra, k1_a_frame in (
+                ("bake_ball_torch", 4, ckpt_args, None),
+                ("boat_example_torch", 2, ckpt_args, None),
+                ("corrmap_render_example_torch", 2, [], 0),
+                ("miku_controlnet_example_torch", 2, ckpt_args, K1_CONTROL_CALLS_PER_FRAME),
+                ("multi_obj_example_torch", 2, [], 0)):
+            Engine._reset()
+            zero_counts()
+            t0 = time.perf_counter()
+            run_dir = script(name).main(["--size", str(SIZE), "--frames", str(frames_),
+                                         *extra])
+            c = counts()
+            secs = time.perf_counter() - t0
+            frames_dir = run_dir / "frames" if name == "bake_ball_torch" else run_dir
+            _check_frames(name, _png_frames(frames_dir), frames_, SIZE)
+            draws = 3 if name == "multi_obj_example_torch" else 1
+            if c[1] != draws * frames_ or (k1_a_frame is not None
+                                          and c[0] != k1_a_frame * frames_):
+                fail(f"phase 22 {name}: launches {c} over {frames_} frames")
+            if name == "miku_controlnet_example_torch" and (
+                    len(Engine._instance.DiffusionManager.pipeline.controlnets) != 2):
+                fail("phase 22 miku: not two ControlNets")
+            runs[name] = {"frames": frames_, "seconds": secs, "launches": c}
+            print(f"[22 scripts] {name} --size {SIZE} --frames {frames_}"
+                  f"{' --checkpoint <phase 20 file>' if extra else ''}: {secs:.1f} s, launches "
+                  f"K1, K2, K3, K4 = {c}, frames written, none constant | {card}", flush=True)
+        out["scripts"] = runs
+
+        # --- 22.5 the correspondence A/B ------------------------------------------------------
+        Engine._reset()
+        t0 = time.perf_counter()
+        ab = script("diffusion_ab_torch").main(["--ckpt", str(ckpt), "--size", str(SIZE),
+                                                "--out", str(tmp / "ab")])
+        ab_s = time.perf_counter() - t0
+        values = [v for r in ("overlap_off", "overlap_on") for v in ab[r].values()]
+        values += [ab["latent_level"][r]["vertex_flicker_latent"]
+                   for r in ("overlap_off", "overlap_on")]
+        if not all(math.isfinite(v) for v in values):
+            fail(f"phase 22 diffusion_ab: non-finite metrics {ab}")
+        out["diffusion_ab"] = {"seconds": ab_s, **{k: ab[k] for k in (
+            "overlap_off", "overlap_on", "latent_level")}}
+        print(f"[22 diffusion_ab] --size {SIZE} --ckpt <phase 20 file> in "
+              f"{ab_s:.1f} s: flicker_l1 off {ab['overlap_off']['flicker_l1']:.5f} on "
+              f"{ab['overlap_on']['flicker_l1']:.5f}, vertex_flicker off "
+              f"{ab['overlap_off']['vertex_flicker']:.5f} on "
+              f"{ab['overlap_on']['vertex_flicker']:.5f} (random weights: no sign judged) | "
+              f"{card}", flush=True)
+    finally:
+        Engine._reset()
         shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[22 files] phase 22 in {out['phase_s']:.1f} s | {card}", flush=True)
     return out
 
 
@@ -2913,10 +3426,6 @@ def left_outs_phase(pipe, dev, card: str, k1: dict, run_frame, bg) -> dict:
 
     def corr():
         return OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
-
-    def zero_counts():
-        torch.cuda.synchronize()
-        flash_attention.launches = rasterize_kernel.launches = 0
 
     def checked_display(disp, what: str):
         host = disp.cpu()

@@ -1,17 +1,25 @@
-"""Procedural meshes as host numpy vertex/index buffers.
+"""Meshes as host numpy vertex/index buffers: procedural and from files.
 
 Counterpart of stable_renderer_tpu/engine/mesh.py: the ``Mesh`` dataclass with
-the procedural ``Plane``, ``Sphere`` and ``Cube`` (reference mesh.py:448-470).
-Vertex IDs are the vertex's index in the mesh (vertexID 0 is valid). OBJ and
-glTF loading are not ported yet.
+the procedural ``Plane``, ``Sphere`` and ``Cube`` (reference mesh.py:448-470)
+and ``Mesh.Load``, which reads OBJ (the native C++ parser in ``native/``,
+else ``load_obj``) and the formats of ``mesh_formats.py`` (glTF/GLB, STL,
+PLY, DAE, FBX). The arrays are the JAX package's, array for array: the same
+numpy arithmetic. Vertex IDs are the vertex's index in the mesh (vertexID 0
+is valid).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import cached_property
+from pathlib import Path
 
 import numpy as np
+
+from stable_renderer_tpu_torch.utils.log import get_logger
+
+logger = get_logger("sr_tpu_torch.mesh")
 
 
 @dataclass
@@ -148,6 +156,61 @@ class Mesh:
             name="cube",
         )
 
+    # --- loading from files (the assimp replacement) ---
+
+    @classmethod
+    def Load(cls, path: str | Path, name: str | None = None) -> "Mesh":
+        """A mesh from a file, by its suffix: ``.obj`` through the native
+        parser (``load_obj`` where it cannot be built), else ``LOADERS``.
+        Sets ``material_names``, the names ``tri_material`` indexes."""
+        path = Path(path)
+        suffix = path.suffix.lower()
+        if suffix != ".obj":
+            from stable_renderer_tpu_torch.engine.mesh_formats import LOADERS
+
+            if suffix not in LOADERS:
+                raise ValueError(
+                    f"Unsupported mesh format '{suffix}' "
+                    f"(have .obj {' '.join(sorted(LOADERS))}; export FBX/DAE "
+                    "assets to glTF)")
+            pos, uv, nrm, colors, tris, tri_mat, names = LOADERS[suffix](path)
+            mesh = cls(
+                positions=pos,
+                normals=nrm,
+                uvs=uv,
+                colors=colors,
+                tris=tris,
+                tri_material=tri_mat,
+                name=name or path.stem,
+            )
+            mesh.material_names = names  # type: ignore[attr-defined]
+            return mesh
+        from stable_renderer_tpu_torch import native
+
+        try:
+            parsed = native.load_obj_native(path)
+        except FileNotFoundError:
+            raise
+        except Exception as e:  # noqa: BLE001 - any native issue falls back
+            logger.warning(f"native OBJ parser failed on {path} ({e}); using load_obj")
+            parsed = None
+        if parsed is None:
+            return load_obj(path, name=name or path.stem)
+        pos, uv, nrm, tris, tri_mat, names = parsed
+        if not np.any(nrm):
+            nrm = _face_normals_to_vertices(pos, tris)
+        mesh = cls(
+            positions=pos,
+            normals=nrm,
+            uvs=uv,
+            colors=np.ones_like(pos),
+            tris=tris,
+            tri_material=tri_mat,
+            name=name or path.stem,
+        )
+        mesh.material_names = names  # type: ignore[attr-defined]
+        return mesh
+
 
 def _tangent_space(
     positions: np.ndarray, uvs: np.ndarray, tris: np.ndarray
@@ -174,3 +237,88 @@ def _tangent_space(
     norm = np.linalg.norm(bit, axis=-1, keepdims=True)
     bit = np.where(norm > 1e-12, bit / np.maximum(norm, 1e-12), [0, 1.0, 0])
     return tan.astype(np.float32), bit.astype(np.float32)
+
+
+def load_obj(path: str | Path, name: str | None = None) -> Mesh:
+    """Minimal OBJ reader: v / vn / vt / f (polygon fan-triangulated), usemtl.
+
+    Produces one unique vertex per distinct (v, vt, vn) triple, like assimp's
+    JoinIdenticalVertices + Triangulate flags in the reference (mesh.py:155-180).
+    """
+    positions_in: list[list[float]] = []
+    normals_in: list[list[float]] = []
+    uvs_in: list[list[float]] = []
+    vert_map: dict[tuple, int] = {}
+    positions: list[list[float]] = []
+    normals: list[list[float]] = []
+    uvs: list[list[float]] = []
+    tris: list[list[int]] = []
+    tri_mat: list[int] = []
+    materials: list[str] = []
+    cur_mat = -1
+
+    def vid(token: str) -> int:
+        parts = token.split("/")
+        pi = int(parts[0])
+        ti = int(parts[1]) if len(parts) > 1 and parts[1] else 0
+        ni = int(parts[2]) if len(parts) > 2 and parts[2] else 0
+        pi = pi - 1 if pi > 0 else len(positions_in) + pi
+        ti = ti - 1 if ti > 0 else (len(uvs_in) + ti if ti else -1)
+        ni = ni - 1 if ni > 0 else (len(normals_in) + ni if ni else -1)
+        key = (pi, ti, ni)
+        if key not in vert_map:
+            vert_map[key] = len(positions)
+            positions.append(positions_in[pi])
+            uvs.append(uvs_in[ti] if ti >= 0 and uvs_in else [0.0, 0.0])
+            normals.append(normals_in[ni] if ni >= 0 and normals_in else [0.0, 0.0, 0.0])
+        return vert_map[key]
+
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            tok = line.split()
+            if tok[0] == "v":
+                positions_in.append([float(x) for x in tok[1:4]])
+            elif tok[0] == "vn":
+                normals_in.append([float(x) for x in tok[1:4]])
+            elif tok[0] == "vt":
+                uvs_in.append([float(tok[1]), float(tok[2]) if len(tok) > 2 else 0.0])
+            elif tok[0] == "usemtl":
+                mat_name = tok[1] if len(tok) > 1 else ""
+                if mat_name not in materials:
+                    materials.append(mat_name)
+                cur_mat = materials.index(mat_name)
+            elif tok[0] == "f":
+                idx = [vid(t) for t in tok[1:]]
+                for k in range(1, len(idx) - 1):
+                    tris.append([idx[0], idx[k], idx[k + 1]])
+                    tri_mat.append(cur_mat)
+
+    pos = np.asarray(positions, np.float32)
+    nrm = np.asarray(normals, np.float32)
+    if not normals_in or not np.any(nrm):
+        nrm = _face_normals_to_vertices(pos, np.asarray(tris, np.int32))
+    mesh = Mesh(
+        positions=pos,
+        normals=nrm,
+        uvs=np.asarray(uvs, np.float32) if uvs else np.zeros((pos.shape[0], 2), np.float32),
+        colors=np.ones_like(pos),
+        tris=np.asarray(tris, np.int32),
+        tri_material=np.asarray(tri_mat, np.int32),
+        name=name or Path(path).stem,
+    )
+    mesh.material_names = materials  # type: ignore[attr-defined]
+    return mesh
+
+
+def _face_normals_to_vertices(pos: np.ndarray, tris: np.ndarray) -> np.ndarray:
+    """Per-vertex normals: the sum of the incident triangles' area-weighted
+    face normals, normalized."""
+    nrm = np.zeros_like(pos, dtype=np.float64)
+    fn = np.cross(pos[tris[:, 1]] - pos[tris[:, 0]], pos[tris[:, 2]] - pos[tris[:, 0]])
+    for k in range(3):
+        np.add.at(nrm, tris[:, k], fn)
+    n = np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return (nrm / np.maximum(n, 1e-12)).astype(np.float32)

@@ -2,10 +2,11 @@
 
 Counterpart of stable_renderer_tpu/workflow/config.py, field for field: one
 frozen config selects one render program (sampler, scheduler, steps, cfg,
-denoise, prompts, corresponder-related knobs). The port runs the sequential
-path, in bf16 or with the calibrated int8 convs (``int8_conv``); the stream,
-TAESD and ControlNet knobs are carried so configs round-trip, and the port
-raises where it meets one it does not run yet.
+denoise, prompts, corresponder-related knobs). The port runs every knob: the
+sequential path in bf16 or with the calibrated int8 convs (``int8_conv``),
+the stream pipeline with lag-1 K/V, TAESD, ControlNets, scene conditioning
+and every sampler and scheduler. ``workflow/loader.py`` maps the reference's
+workflow JSON onto it.
 """
 
 from __future__ import annotations
