@@ -16,7 +16,9 @@ Phases, one line each; any failure exits non-zero:
                 checks, and attention_pallas on the UNet's fused-QKV chunk
                 views (read in place) at batch 2 (the sequential frame) and 8
                 (the stream frame), and on an unaligned view (copied by the
-                wrapper). Each row names its kernel (k1_route).
+                wrapper), and phase 23's two executor shapes (its VAE's two frames
+                at d = 512, its UNet level 0 with PerpNeg's third group). Each row
+                names its kernel (k1_route).
   4. K2       — the setup kernel and the binned tile kernel (two launches a
                 call, by torch.profiler) at 512x512, bit for bit against their
                 plain versions (triangle_setup, tile_ranges,
@@ -212,6 +214,29 @@ Phases, one line each; any failure exits non-zero:
                 checkpoint where the script takes one; miku's two random
                 ControlNets, K1 38 a frame); scripts/diffusion_ab_torch.py
                 with the checkpoint at 512x512, both runs' metrics finite.
+ 23. executor — the workflow executor with phase 20's file: two full-width ControlNet
+                files (zero convs perturbed) beside it, a miku-control-shaped workflow
+                (checkpoint, two prompts, EngineData, two ControlNetApplyAdvanced from
+                its normal and depth maps, VAEEncode, KSampler lcm / sgm_uniform 4
+                steps cfg 2, VAEDecode) and two frames of 512x512 dumped maps.
+                `python -m stable_renderer_tpu_torch execute` as its own process: exit
+                0, two 512x512 frames, not constant. In process: the full-width UNet
+                and VAE loaded in bf16 on the card, 1 warm + EXEC_TIMED executes, the
+                loader outputs the same objects across executes, K1 EXEC_K1 an
+                execute by the counters and by torch.profiler and EXEC_K1_SHAPES
+                by shape, the ControlNet file reads inside an execute timed. Seven
+                2-step variants (FreeU, HyperTile, SAG, PerpNeg, DifferentialDiffusion
+                on an inpaint encode, CorrespondSampler with OverlapCorresponder and
+                ddim, KSamplerAdvanced in two windows): frames finite and not
+                constant, K1 by shape and ms printed (PerpNeg's shapes required).
+                Every K1 shape of the phase that no phase held yet is held against
+                its plain version and timed beside SDPA. A tiny graph at 128x128,
+                the same params in a card and a CPU executor, within REF_TOL.
+                decode_tiled with the graph's loaded VAE tree in f32: one tile
+                against decode within TILED_REL_TOL relative, a 128x128 latent in
+                TILED_TILES tiles, flash_f32 once a tile.
+The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
+variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
 one call, from a CUDA-graph replay that leaves out the host's launch cost,
 K2's and K4's over SHORT_CALLS_A_GRAPH calls a graph, with the per-call event
@@ -263,6 +288,9 @@ K1_F32_CALLS_LOADED = 2  # the f32 VAE's mid-block attention, encode and decode
 # the first kernel of each K1 launch, by name (a K/V-split launch adds a merge)
 K1_KERNELS = ("flash_wg", "flash_wide", "flash_simt_f32", "flash_f32")
 VAE_ATTN_SHAPE = (1, 4096, 4096, 512)  # (BH, Lq, Lk, d) at 512x512
+# the K1 shapes, as k1_shape_tally keys them, that a phase has held against
+# flash_attention_reference; phase 23 holds the rest of what it launches
+HELD_K1 = set()
 # the all-frames bake submit's folded levels 1 and 2 (in K1_ALL_FRAMES_SHAPES),
 # timed in phase 3 on K1's mid wgmma route
 K1_LEVEL_SHAPES = ((8, 8192, 8192, 80), (8, 2048, 2048, 160))
@@ -414,6 +442,26 @@ K2_REF_CHUNK = 256
 CLI_FRAMES = 6
 BAKE_CLI_FRAMES = 8
 REPLAY_CLI_FRAMES = 4
+# phase 23: the miku-control-shaped workflow over two 512x512 frames (one
+# batch of 2): K1 an execute is the UNet's 5 level-0 self-attentions and
+# the two ControlNets' 2 each, at each of 4 steps, plus the bf16 VAE's
+# mid-block attention in encode and decode (flash_wide, d = 512)
+EXEC_FRAMES = 2
+EXEC_TIMED = 3
+EXEC_UNET_K1_SHAPE = (2 * EXEC_FRAMES * 8, 4096, 4096, 40)  # (BH, Lq, Lk, d), CFG
+EXEC_PERP_NEG_K1_SHAPE = (3 * EXEC_FRAMES * 8, 4096, 4096, 40)  # PerpNeg's third group
+EXEC_VAE_K1_SHAPE = (EXEC_FRAMES, 4096, 4096, 512)  # bf16, both frames in one batch
+EXEC_K1_SHAPES = {EXEC_UNET_K1_SHAPE: (5 + 2 * 2) * 4, EXEC_VAE_K1_SHAPE: 2}
+EXEC_K1 = sum(EXEC_K1_SHAPES.values())
+EXEC_VARIANT_STEPS = 2
+# HyperTile draws its tile split from random.Random(hash(<a string>)), as the
+# JAX package does, so the split (and the variant's K1 work) follows
+# PYTHONHASHSEED: main() runs the script under this one
+HASH_SEED = "0"
+# decode_tiled of a 128x128 latent: 3 x 3 tiles of 64 (stride 48), each one
+# mid-block attention of the f32 VAE (flash_f32); one tile against decode
+TILED_TILES = 9
+TILED_REL_TOL = 1e-5
 
 
 def counts() -> tuple:
@@ -851,6 +899,11 @@ def engine_frame_kernels(pipe, size: int, corr):
 
 
 def main() -> None:
+    import os
+
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  dict(os.environ, PYTHONHASHSEED=HASH_SEED))
     import torch
     import torch.nn.functional as F
 
@@ -916,6 +969,8 @@ def main() -> None:
     # runs them (the loaded VAE's attention)
     cases = [((16, 4096, 4096, 40), torch.bfloat16, K1_BF16_TOL, True),   # UNet level 0
              ((1, 4096, 4096, 512), torch.bfloat16, K1_BF16_TOL, True),   # VAE mid block
+             (EXEC_VAE_K1_SHAPE, torch.bfloat16, K1_BF16_TOL, True),     # the executor's VAE
+             (EXEC_PERP_NEG_K1_SHAPE, torch.bfloat16, K1_BF16_TOL, True),  # ... with PerpNeg
              ((16, 4096, 2100, 40), torch.bfloat16, K1_BF16_TOL, True),   # ragged K/V tile
              *((shape, torch.bfloat16, K1_BF16_TOL, True) for shape in K1_LEVEL_SHAPES),
              (VAE_ATTN_SHAPE, torch.float32, K1_F32_TOL, True),           # the loaded f32 VAE
@@ -937,6 +992,7 @@ def main() -> None:
                        plain_repeats=5 if f32 else 10)
         if not f32:
             k1_err = max(k1_err, err)
+        HELD_K1.add((bh, lq, lk, d) + (("f32",) if f32 else ()))
         k1["shapes"].append(row)
         print(f"[3 K1] {row} (tol {tol:g})", flush=True)
         del q, k, v, qb, kb, vb
@@ -965,6 +1021,7 @@ def main() -> None:
                  lambda: flash_attention_reference(*split).transpose(1, 2).reshape(b, l, heads * d),
                  lambda: F.scaled_dot_product_attention(*split), k1_bound(b * heads, l, l, d))
         k1_err = max(k1_err, row["max_abs_err"])
+        HELD_K1.add((b * heads, l, l, d))
         k1["shapes"].append(row)
         print(f"[3 K1] {row} (tol {K1_BF16_TOL:g})", flush=True)
     del views, qkv, unaligned, q, k, v, qh, split
@@ -1900,6 +1957,9 @@ def main() -> None:
 
         # --- 22. meshes from files, the command line and the scripts ------------------------
         files = files_phase(dev, card, k1, k2, checkpoint["path"])
+
+        # --- 23. the workflow executor ---------------------------------------------------------
+        executor = executor_phase(dev, card, k1, checkpoint["path"])
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -1910,7 +1970,8 @@ def main() -> None:
                       "host_syncs_a_frame": frame_syncs,
                       "engine_frame_ms": engine_ms, **bake, "taesd": taesd,
                       "options": options, "bench": bench, "checkpoint": checkpoint,
-                      "left_outs": left_outs, "files": files, "wall_s": wall_s,
+                      "left_outs": left_outs, "files": files, "executor": executor,
+                      "wall_s": wall_s,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3533,6 +3594,7 @@ def left_outs_phase(pipe, dev, card: str, k1: dict, run_frame, bg) -> dict:
              lambda: F.scaled_dot_product_attention(q[None], k_[None], v[None]),
              k1_bound(bh, lq, lk, d))
     row["launches_a_frame"] = {"scene": seen[SCENE_K1_SHAPE] // n_eng}
+    HELD_K1.add(SCENE_K1_SHAPE)
     k1["shapes"].append(row)
     k1.setdefault("launches_a_frame", {})["scene"] = k1_count // n_eng
     del q, k_, v
@@ -3736,6 +3798,408 @@ def left_outs_phase(pipe, dev, card: str, k1: dict, run_frame, bg) -> dict:
           f"fragment shaders equal to the fixed pipeline bit for bit (K2 on the user vertex "
           f"stage, {k2_same} launches), DefaultDebug's G-buffer color moved "
           f"{debug_moved:.3f}; phase 21 in {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
+def ui_workflow(rows) -> dict:
+    """A ComfyUI UI-format workflow (what ``Workflow.Load`` reads) from rows
+    (id, type, widgets, {input: (source id, slot)})."""
+    links, inputs = [], {}
+    for nid, _, _, ins in rows:
+        for name, (src, slot) in ins.items():
+            links.append([len(links) + 1, src, slot, nid, 0, "*"])
+            inputs.setdefault(nid, []).append({"name": name, "link": len(links)})
+    return {"nodes": [{"id": nid, "type": t, "widgets_values": list(w),
+                       "inputs": inputs.get(nid, [])} for nid, t, w, _ in rows],
+            "links": links}
+
+
+def miku_rows(ckpt_name: str, steps: int = 4, seed: int = 7) -> list:
+    """The miku-control graph's shape: a checkpoint, two prompts, EngineData,
+    two ControlNet files applied from its normal and depth maps
+    (ControlNetApplyAdvanced), VAEEncode of its colour, KSampler (lcm,
+    sgm_uniform, cfg 2), VAEDecode, InferenceOutput. The negative prompt
+    reaches the applies and the KSampler from its CLIPTextEncode: both
+    packages' specs declare one output for ControlNetApplyAdvanced."""
+    return [
+        (1, "CheckpointLoaderSimple", [ckpt_name], {}),
+        (2, "CLIPTextEncode", ["hatsune miku, masterpiece, best quality"], {"clip": (1, 1)}),
+        (3, "CLIPTextEncode", ["lowres, bad anatomy, blurry"], {"clip": (1, 1)}),
+        (4, "EngineData", [], {}),
+        (5, "ControlNetLoader", ["cn_normal.safetensors"], {}),
+        (6, "ControlNetLoader", ["cn_depth.safetensors"], {}),
+        (7, "ControlNetApplyAdvanced", [0.6, 0.0, 1.0],
+         {"positive": (2, 0), "negative": (3, 0), "control_net": (5, 0), "image": (4, 3)}),
+        (8, "ControlNetApplyAdvanced", [0.6, 0.0, 1.0],
+         {"positive": (7, 0), "negative": (3, 0), "control_net": (6, 0), "image": (4, 4)}),
+        (9, "VAEEncode", [], {"pixels": (4, 0), "vae": (1, 2)}),
+        (10, "KSampler", [seed, "fixed", steps, 2.0, "lcm", "sgm_uniform", 1.0],
+         {"model": (1, 0), "positive": (8, 0), "negative": (3, 0), "latent_image": (9, 0)}),
+        (11, "VAEDecode", [], {"samples": (10, 0), "vae": (1, 2)}),
+        (12, "InferenceOutput", [], {"images": (11, 0)}),
+    ]
+
+
+def variant_rows(base: list, variant: str) -> list:
+    """``base`` (miku_rows at EXEC_VARIANT_STEPS) with one change: a model
+    patch node between the checkpoint and the KSampler, the KSampler
+    replaced, or an inpaint latent."""
+    rows = {r[0]: r for r in base}
+    ks = rows[10]
+    patch = {"freeu": ("FreeU", [1.3, 1.4, 0.9, 0.2], {}),
+             "hypertile": ("HyperTile", [256, 2, 0], {}),
+             "sag": ("SelfAttentionGuidance", [0.5, 2.0], {}),
+             "perp_neg": ("PerpNeg", [1.0], {"empty_conditioning": (14, 0)}),
+             "diff_diffusion": ("DifferentialDiffusion", [], {})}.get(variant)
+    if patch is not None:
+        rows[13] = (13, patch[0], patch[1], {"model": (1, 0), **patch[2]})
+        rows[10] = (10, ks[1], ks[2], {**ks[3], "model": (13, 0)})
+    if variant == "perp_neg":
+        rows[14] = (14, "CLIPTextEncode", [""], {"clip": (1, 1)})
+    if variant == "diff_diffusion":  # the background (EngineData's masks) inpainted
+        rows[9] = (9, "VAEEncodeForInpaint", [6], {"pixels": (4, 0), "vae": (1, 2),
+                                                     "mask": (4, 7)})
+    if variant == "correspond":
+        rows[15] = (15, "OverlapCorresponder", [], {})
+        rows[10] = (10, "CorrespondSampler", [EXEC_VARIANT_STEPS, 2.0, "ddim", "sgm_uniform",
+                                              1.0], {**ks[3], "corresponder": (15, 0)})
+    if variant == "advanced_windows":
+        io = {k: v for k, v in ks[3].items() if k != "latent_image"}
+        n = 2 * EXEC_VARIANT_STEPS
+        rows[10] = (10, "KSamplerAdvanced", ["enable", 7, "fixed", n, 2.0, "lcm", "sgm_uniform",
+                                             0, EXEC_VARIANT_STEPS, "enable"],
+                    {**io, "latent_image": (9, 0)})
+        rows[16] = (16, "KSamplerAdvanced", ["disable", 7, "fixed", n, 2.0, "lcm",
+                                             "sgm_uniform", EXEC_VARIANT_STEPS, 10000, "disable"],
+                    {**io, "latent_image": (10, 0)})
+        rows[11] = (11, "VAEDecode", [], {"samples": (16, 0), "vae": (1, 2)})
+    return [rows[k] for k in sorted(rows)]
+
+
+def write_engine_maps(d: Path, frames: int, size: int, seed: int = 0) -> dict:
+    """Dumped maps in the layout ``data.loaders.virtual_engine_data`` reads:
+    color, normal and depth frame_<i>.png, id and noise frame_<i>.npy (ids: a
+    sprite disc whose pixels carry vertex ids; noise at full resolution, 4
+    channels). Returns {kind: directory}."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: d / k for k in ("color", "id", "noise", "normal", "depth")}
+    for p in dirs.values():
+        p.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i in range(frames):
+        cx, cy = size * (0.45 + 0.1 * i), size * 0.5
+        disc = (xx - cx) ** 2 + (yy - cy) ** 2 < (size * 0.3) ** 2
+        ids = np.zeros((size, size, 4), np.int32)
+        ids[disc, 0], ids[disc, 1] = 1, 1
+        ids[disc, 3] = ((yy[disc] // 4) * (size // 4) + (xx[disc] - int(cx) + size) // 4)
+        np.save(dirs["id"] / f"frame_{i}.npy", ids)
+        np.save(dirs["noise"] / f"frame_{i}.npy",
+                rng.standard_normal((size, size, 4)).astype(np.float32))
+        shade = np.clip(1.0 - ((xx - cx) ** 2 + (yy - cy) ** 2) / (size * 0.3) ** 2, 0, 1)
+        color = np.where(disc[..., None], np.stack([shade, 0.4 * shade, 0.7 + 0.3 * shade], -1),
+                         rng.uniform(0.2, 0.3, (size, size, 3)))
+        nx, ny = (xx - cx) / (size * 0.3), (yy - cy) / (size * 0.3)
+        nz = np.sqrt(np.clip(1 - nx ** 2 - ny ** 2, 0, 1))
+        normal = np.where(disc[..., None], np.stack([nx, ny, nz], -1) * 0.5 + 0.5, 0.5)
+        depth = np.repeat(np.where(disc, 0.3 + 0.7 * nz, 0.0)[..., None], 3, -1)
+        for kind, img in (("color", color), ("normal", normal), ("depth", depth)):
+            Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+                dirs[kind] / f"frame_{i}.png")
+    return dirs
+
+
+def _check_exec_frames(what: str, frames, n: int, size: int) -> None:
+    import torch
+
+    if isinstance(frames, torch.Tensor):
+        if not torch.isfinite(frames).all():
+            fail(f"phase 23 {what}: non-finite output")
+        frames = [(f.float().cpu().numpy() * 255).round() for f in frames]
+    if len(frames) != n:
+        fail(f"phase 23 {what}: {len(frames)} frames, want {n}")
+    for i, f in enumerate(frames):
+        if tuple(f.shape) != (size, size, 3) or float(f.max()) == float(f.min()):
+            fail(f"phase 23 {what}: frame {i} {tuple(f.shape)}, constant "
+                 f"{float(f.max()) == float(f.min())}")
+
+
+def executor_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
+    """Phase 23: the workflow executor (see the module docstring), with
+    phase 20's checkpoint file; the ControlNet files go beside it, the maps
+    and outputs to a temporary directory under build/, removed at the end.
+    K1's launches an execute join ``k1["launches_a_frame"]``."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_renderer_tpu_torch.data.loaders import virtual_engine_data
+    from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
+    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG
+    from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, VAE
+    from stable_renderer_tpu_torch.models.weights import flatten, tree_to, write_safetensors
+    from stable_renderer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+    from stable_renderer_tpu_torch.workflow import Workflow
+    from stable_renderer_tpu_torch.workflow import executor as wex
+
+    root = Path(__file__).resolve().parent
+    model_dir = Path(ckpt).parent
+    tmp = Path(tempfile.mkdtemp(prefix="executor-", dir=root / "build"))
+    out = {}
+    t_phase = time.perf_counter()
+    try:
+        # --- 23.1 files: two ControlNets, the workflow, the maps ---------------------------
+        t0 = time.perf_counter()
+        cn_bytes = 0
+        for name, seed in (("cn_normal", 23), ("cn_depth", 24)):
+            params = ControlNet(ControlNetConfig(unet=SD15_UNET_CONFIG)).init(
+                torch.Generator(device=dev).manual_seed(seed), dtype=torch.bfloat16, device=dev)
+            perturb_zero_convs(params, seed + 100)
+            cn_bytes += write_safetensors(
+                {"control_model." + k: v for k, v in flatten(params).items()},
+                model_dir / f"{name}.safetensors")
+            del params
+        wf_path = tmp / "miku_control.json"
+        wf_path.write_text(json.dumps(ui_workflow(miku_rows(Path(ckpt).name))))
+        dirs = write_engine_maps(tmp / "maps", EXEC_FRAMES, SIZE)
+        out["files_s"] = time.perf_counter() - t0
+        print(f"[23 files] two full-width ControlNet files ({cn_bytes / 2**30:.2f} GiB BF16, "
+              f"zero convs perturbed), the miku-control-shaped workflow and {EXEC_FRAMES} "
+              f"frames of {SIZE}x{SIZE} maps written in {out['files_s']:.1f} s | {card}",
+              flush=True)
+
+        # --- 23.2 the command line as its own process ---------------------------------------
+        exec_out = tmp / "cli_out"
+        map_args = [a for k, d in dirs.items() for a in (f"--{k}-dir", str(d))]
+        cmd = [sys.executable, "-m", "stable_renderer_tpu_torch", "execute", "--workflow",
+               str(wf_path), *map_args, "--model-dir", str(model_dir), "--out", str(exec_out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, SR_TPU_OUTPUT_DIR=str(tmp / "outputs")))
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"phase 23 CLI execute exited {proc.returncode}: {' '.join(cmd)}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        if f"{EXEC_FRAMES} frames -> " not in proc.stdout:
+            fail(f"phase 23 CLI execute printed no frames line:\n{proc.stdout[-2000:]}")
+        _check_exec_frames("CLI execute", _png_frames(exec_out), EXEC_FRAMES, SIZE)
+        out["cli_execute_s"] = cli_s
+        print(f"[23 CLI] python -m stable_renderer_tpu_torch execute --workflow <miku-control "
+              f"shape> --color/id/noise/normal/depth-dir ... --model-dir <phase 20 dir>: exit 0 "
+              f"in {cli_s:.1f} s (process, imports, checkpoint and ControlNet loads included); "
+              f"{EXEC_FRAMES} frames of {SIZE}x{SIZE}x3, none constant | {card}", flush=True)
+
+        # --- 23.3 in process: 1 warm + EXEC_TIMED timed executes ------------------------------
+        ed = virtual_engine_data(color_dir=dirs["color"], id_dir=dirs["id"],
+                                 noise_dir=dirs["noise"], normal_dir=dirs["normal"],
+                                 depth_dir=dirs["depth"], device=dev)
+        t0 = time.perf_counter()
+        ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(model_dir),),
+                                device=dev)
+        model, _, vae = ex.execute(engine_data=ed).outputs[1]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if (model["unet"].config != SD15_UNET_CONFIG
+                or model["params"]["time_embed"]["0"]["weight"].dtype != torch.bfloat16
+                or vae["params"]["quant_conv"]["weight"].dtype != torch.bfloat16
+                or model["params"]["time_embed"]["0"]["weight"].device.type != "cuda"):
+            fail("phase 23: the graph did not load the full-width SD1.5 UNet and VAE "
+                 "(bf16, on the card) from the checkpoint file")
+        load_control = wex.load_control
+        reads = []
+
+        def timed_load(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = load_control(*a, **kw)
+            torch.cuda.synchronize()
+            reads.append((time.perf_counter() - t) * 1e3)
+            return r
+
+        times, first = [], None
+        wex.load_control = timed_load
+        try:
+            for i in range(EXEC_TIMED):
+                reads.clear()
+                zero_counts()
+                with k1_shape_tally() as seen:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    ctx = ex.execute(engine_data=ed)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+                c = counts()
+                if c[0] != EXEC_K1 or dict(seen) != EXEC_K1_SHAPES:
+                    fail(f"phase 23: an execute launched K1 {c[0]} times, by shape "
+                         f"{dict(seen)}; want {EXEC_K1}, {EXEC_K1_SHAPES}")
+                if ctx.outputs[1] is not ex._cache[1] or (first and first is not ctx.outputs[1]):
+                    fail("phase 23: the loader outputs were not the same objects across "
+                         "executes")
+                first = ctx.outputs[1]
+                read_ms = sum(reads)
+        finally:
+            wex.load_control = load_control
+        _check_exec_frames("execute", ctx.final_output, EXEC_FRAMES, SIZE)
+        for attempt in range(PROFILE_ATTEMPTS):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ex.execute(engine_data=ed)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+            prof_k1 = sum(any(k in n for k in K1_KERNELS) for n in names)
+            if not tracer_dropped("phase 23 execute", (prof_k1,), (EXEC_K1,), attempt):
+                break
+        k1["launches_a_frame"]["executor"] = EXEC_K1
+        med = statistics.median(times)
+        out["execute"] = {"ms": times, "median_ms": med, "warm_s": warm_s,
+                          "k1_launches": c[0], "k1_profiled": prof_k1,
+                          "k1_by_shape": {str(key): n for key, n in seen.items()},
+                          "k1_routes": k1_routes(seen),
+                          "controlnet_read_ms": read_ms,
+                          "controlnet_read_share": read_ms / med}
+        print(f"[23 execute] {EXEC_FRAMES} frames a batch at {SIZE}x{SIZE}, lcm 4 steps, cfg 2, "
+              f"two ControlNets: first execute (checkpoint load included) {warm_s:.2f} s; "
+              f"{EXEC_TIMED} executes {', '.join(f'{t:.1f}' for t in times)} ms (median "
+              f"{med:.1f}); K1 {c[0]} an execute by the counters and {prof_k1} by torch.profiler "
+              f"(predicted {EXEC_K1}), by (BH, Lq, Lk, d) {dict(seen)}, by kernel "
+              f"{k1_routes(seen)}; the ControlNet files read again in each execute: "
+              f"{read_ms:.1f} ms ({100 * read_ms / med:.1f}% of it); loader outputs the same "
+              f"objects across executes | {card}", flush=True)
+
+        # --- 23.4 variants, one execute each, EXEC_VARIANT_STEPS steps ------------------------
+        base = miku_rows(Path(ckpt).name, steps=EXEC_VARIANT_STEPS)
+        out["variants"] = {}
+        launched = collections.Counter(seen)  # K1's shapes over phase 23's executes
+        for variant in ("freeu", "hypertile", "sag", "perp_neg", "diff_diffusion", "correspond",
+                        "advanced_windows"):
+            vpath = tmp / f"{variant}.json"
+            vpath.write_text(json.dumps(ui_workflow(variant_rows(base, variant))))
+            vex = wex.PromptExecutor(Workflow.Load(vpath), model_dirs=(str(model_dir),),
+                                     device=dev)
+            vex._cache[1] = ex._cache[1]  # the loaded models, not read again
+            vex.execute(engine_data=ed)  # warm
+            zero_counts()
+            with k1_shape_tally() as vseen:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                vctx = vex.execute(engine_data=ed)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+            vk1 = counts()[0]
+            _check_exec_frames(variant, vctx.final_output, EXEC_FRAMES, SIZE)
+            if variant == "perp_neg" and dict(vseen) != {
+                    EXEC_PERP_NEG_K1_SHAPE: (5 + 2 * 2) * EXEC_VARIANT_STEPS,
+                    EXEC_VAE_K1_SHAPE: 2}:
+                fail(f"phase 23 perp_neg: K1 by shape {dict(vseen)}")
+            launched.update(vseen)
+            out["variants"][variant] = {"ms": ms, "k1_launches": vk1,
+                                        "k1_by_shape": {str(key): n for key, n in vseen.items()}}
+            print(f"[23 variant] {variant}: K1 {vk1}, by (BH, Lq, Lk, d) {dict(vseen)}, "
+                  f"{ms:.1f} ms an execute, frames finite and not constant | {card}",
+                  flush=True)
+        # every K1 shape of phase 23 against flash_attention_reference: those
+        # no earlier phase held are held here, timed beside SDPA
+        gen = torch.Generator(device=dev).manual_seed(23)
+        for key in sorted(set(launched) - HELD_K1, key=str):
+            bh, lq, lk, d = key[:4]
+            f32 = len(key) == 5
+            dt = torch.float32 if f32 else torch.bfloat16
+            q, k_, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(dt)
+                        for n in (lq, lk, lk))
+            row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')} "
+                            f"(phase 23)", "route": k1_route(d, f32),
+                   "launches_in_phase_23": launched[key]}
+            _k1_case(row, dt, K1_F32_TOL if f32 else K1_BF16_TOL,
+                     lambda: flash_attention(q, k_, v),
+                     lambda: flash_attention_reference(q, k_, v),
+                     lambda: F.scaled_dot_product_attention(q[None], k_[None], v[None]),
+                     k1_bound(bh, lq, lk, d, f32), timed=True)
+            HELD_K1.add(key)
+            k1["shapes"].append(row)
+            print(f"[23 K1] {row}", flush=True)
+            del q, k_, v
+        out["k1_shapes_held"] = len(launched)
+
+        # --- 23.5 the executor on the card against the executor on the CPU -------------------
+        tiny_rows = [(1, "CheckpointLoaderSimple", ["absent.safetensors"], {}),
+                     (2, "CLIPTextEncode", ["a red boat"], {"clip": (1, 1)}),
+                     (3, "CLIPTextEncode", ["blurry"], {"clip": (1, 1)}),
+                     (4, "EngineData", [], {}),
+                     (5, "KSampler", [3, "fixed", 3, 2.0, "euler", "karras", 1.0],
+                      {"model": (1, 0), "positive": (2, 0), "negative": (3, 0),
+                       "latent_image": (4, 6)}),
+                     (6, "VAEDecode", [], {"samples": (5, 0), "vae": (1, 2)}),
+                     (7, "InferenceOutput", [], {"images": (6, 0)})]
+        tiny_path = tmp / "tiny.json"
+        tiny_path.write_text(json.dumps(ui_workflow(tiny_rows)))
+        models = wex.tiny_models(torch.device("cpu"), torch.Generator().manual_seed(0))
+        small = 128  # the tiny VAE downsamples by 2: a 64x64 latent
+        g = torch.Generator().manual_seed(5)
+        maps = dict(color_maps=torch.rand((1, small, small, 3), generator=g),
+                    noise_maps=torch.randn((1, small // 2, small // 2, 4), generator=g),
+                    id_maps=torch.zeros((1, small, small, 4), dtype=torch.int32))
+        finals = []
+        from stable_renderer_tpu_torch.data.engine_data import EngineData
+
+        for d in (torch.device("cpu"), dev):
+            tex = wex.PromptExecutor(Workflow.Load(tiny_path), device=d)
+            tex._cache[1] = tuple({k: (tree_to(v, d) if k == "params" else v)
+                                   for k, v in m.items()} for m in models)
+            ed_t = EngineData(frame_indices=torch.arange(1),
+                              **{k: v.to(d) for k, v in maps.items()})
+            finals.append(tex.execute(engine_data=ed_t).final_output.float().cpu())
+        tiny_err = float((finals[1] - finals[0]).abs().max())
+        if not (torch.isfinite(finals[1]).all() and tiny_err < REF_TOL):
+            fail(f"phase 23: the tiny graph on the card against the CPU: max abs err "
+                 f"{tiny_err:.3e} (tol {REF_TOL})")
+        out["tiny_card_vs_cpu_max_abs_err"] = tiny_err
+        print(f"[23 tiny] the tiny graph at {small}x{small} (the same tiny params in both "
+              f"executors' caches, EngineData's noise as the latent and its noise): card "
+              f"against CPU max abs err {tiny_err:.3e} (tol {REF_TOL}) | {card}", flush=True)
+
+        # --- 23.6 decode_tiled with the loaded VAE in f32 ------------------------------------
+        vae_f32 = VAE(SD15_VAE_CONFIG)
+        vparams = tree_to(vae["params"], dev, torch.float32)  # the graph's loaded tree
+        z1 = torch.randn((1, 64, 64, 4), generator=torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+        whole = vae_f32.decode(vparams, z1)
+        one = vae_f32.decode_tiled(vparams, z1)
+        rel = float((one - whole).abs().max() / whole.abs().max())
+        if not rel < TILED_REL_TOL:
+            fail(f"phase 23: decode_tiled of one tile against decode: {rel:.3e} relative "
+                 f"(tol {TILED_REL_TOL})")
+        z9 = torch.randn((1, 128, 128, 4), generator=torch.Generator(device=dev).manual_seed(4),
+                         device=dev)
+        vae_f32.decode_tiled(vparams, z9)  # warm
+        with k1_shape_tally() as seen:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            img9 = vae_f32.decode_tiled(vparams, z9)
+            torch.cuda.synchronize()
+            tiled_ms = (time.perf_counter() - t) * 1e3
+        routes = k1_routes(seen)
+        if (not torch.isfinite(img9).all() or tuple(img9.shape) != (1, 1024, 1024, 3)
+                or routes != {"flash_f32": TILED_TILES}):
+            fail(f"phase 23: decode_tiled of a 128x128 latent: shape {tuple(img9.shape)}, "
+                 f"finite {bool(torch.isfinite(img9).all())}, K1 {routes} (want flash_f32 "
+                 f"{TILED_TILES})")
+        out["decode_tiled"] = {"one_tile_rel_err": rel, "ms_128": tiled_ms,
+                               "k1_routes": routes}
+        print(f"[23 decode_tiled] the loaded f32 VAE: one 64x64 tile against decode {rel:.2e} "
+              f"relative (tol {TILED_REL_TOL}); a 128x128 latent in {TILED_TILES} tiles "
+              f"-> 1024x1024 in {tiled_ms:.1f} ms, finite, K1 {routes} | {card}", flush=True)
+        del vparams
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[23 executor] phase 23 in {out['phase_s']:.1f} s | {card}", flush=True)
     return out
 
 

@@ -12,7 +12,9 @@ Subcommands:
   bench    — the headline benchmark (bench_torch.py)
   validate — the five example scripts and the two parity scripts with a
              checkpoint, the record written to <--out>/PARITY.json
-  execute, serve — need the workflow executor and the server (ROADMAP 1.12)
+  execute  — run a workflow JSON through the workflow executor on dumped
+             maps (color, id, noise, normal, depth directories)
+  serve    — needs the HTTP server (ROADMAP 1.12b)
   upscale  — needs the model zoo (ROADMAP 1.13)
 
 ``render`` prints, after its fps line, the launches of each kernel over the
@@ -206,14 +208,48 @@ def cmd_replay(args) -> int:
     return 0
 
 
+def _model_dirs(args):
+    """--model-dir dirs + extra_model_paths.yaml expansion (reference
+    comfyUI/main.py:202-236 load_extra_path_config; the file is read from
+    the working directory when no --extra-model-paths is given, as the
+    reference reads it next to its entry point)."""
+    from stable_renderer_tpu_torch.utils.model_paths import (
+        auto_extra_model_paths,
+        load_extra_model_paths,
+    )
+
+    dirs = list(args.model_dir or ())
+    if getattr(args, "extra_model_paths", None):
+        dirs += list(load_extra_model_paths(args.extra_model_paths))
+    else:
+        dirs += list(auto_extra_model_paths())
+    return tuple(dict.fromkeys(dirs))
+
+
 def cmd_execute(args) -> int:
-    raise NotImplementedError("execute needs the workflow executor "
-                              "(workflow/executor.py), which waits for ROADMAP 1.12")
+    from stable_renderer_tpu_torch.data.loaders import virtual_engine_data
+    from stable_renderer_tpu_torch.utils.media import write_png_sequence
+    from stable_renderer_tpu_torch.utils.paths import new_run_dir
+    from stable_renderer_tpu_torch.workflow import Workflow
+    from stable_renderer_tpu_torch.workflow.executor import PromptExecutor
+
+    ed = virtual_engine_data(
+        color_dir=args.color_dir, id_dir=args.id_dir, noise_dir=args.noise_dir,
+        normal_dir=args.normal_dir, depth_dir=args.depth_dir,
+        prompt=args.prompt, device=args.device,
+    )
+    ex = PromptExecutor(Workflow.Load(args.workflow), model_dirs=_model_dirs(args),
+                        device=args.device)
+    ctx = ex.execute(engine_data=ed)
+    out = args.out or str(new_run_dir("execute"))
+    paths = write_png_sequence(ctx.final_output.detach().float().cpu().numpy(), out)
+    print(f"{len(paths)} frames -> {out}")
+    return 0
 
 
 def cmd_serve(args) -> int:
-    raise NotImplementedError("serve needs the HTTP server and the workflow executor "
-                              "(server.py, workflow/executor.py), which wait for ROADMAP 1.12")
+    raise NotImplementedError("serve needs the HTTP server (server.py, editor_page.py), "
+                              "which waits for ROADMAP 1.12b")
 
 
 def cmd_upscale(args) -> int:
@@ -310,7 +346,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--map", type=str, required=True)
     p.set_defaults(fn=cmd_replay)
 
-    p = sub.add_parser("execute", help="run a workflow JSON on dumped maps (ROADMAP 1.12)")
+    p = sub.add_parser("execute", help="run a workflow JSON on dumped maps")
     _add_common(p)
     p.add_argument("--color-dir", type=str, default=None)
     p.add_argument("--id-dir", type=str, default=None)
@@ -319,10 +355,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth-dir", type=str, default=None)
     p.add_argument("--model-dir", action="append", default=[])
     p.add_argument("--extra-model-paths", type=str, default=None,
-                   help="reference-format extra_model_paths.yaml")
+                   help="reference-format extra_model_paths.yaml (read from "
+                        "./extra_model_paths.yaml when present)")
     p.set_defaults(fn=cmd_execute)
 
-    p = sub.add_parser("serve", help="HTTP viewer + prompt server (ROADMAP 1.12)")
+    p = sub.add_parser("serve", help="HTTP viewer + prompt server (ROADMAP 1.12b)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8188)
     p.add_argument("--prompt", type=str, default="")

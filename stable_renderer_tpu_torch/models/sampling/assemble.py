@@ -4,10 +4,10 @@ Counterpart of stable_renderer_tpu/models/sampling/assemble.py (reference
 comfy/samplers.py:175-358, the one path every comfy sampler call takes):
 dispatch to the scene, cond-list or plain CFG denoiser, with ControlNet
 residuals, the corresponder's hooks, the inpaint keep-mask, a 9-channel
-inpaint UNet's extra input channels and the UNet's ``y``. The JAX package's
-model patches that only workflow nodes reach (PerpNeg, SAG, RescaleCFG,
-denoise-mask and timestep functions, named extra inputs) come with the
-workflow slice (ROADMAP 1.12).
+inpaint UNet's extra input channels and the UNet's ``y``. The model
+patches' extras (PerpNeg, SAG, RescaleCFG, the denoise-mask and timestep
+functions, named extra inputs) ride the plain CFG path only, as in the JAX
+package: the scene and cond-list denoisers drop them.
 """
 
 from __future__ import annotations
@@ -52,10 +52,18 @@ def build_denoiser(
     concat_latent: Optional[torch.Tensor] = None,    # inpaint-model channels
     y_cond: Optional[torch.Tensor] = None,
     y_uncond: Optional[torch.Tensor] = None,
+    denoise_mask_fn: Optional[Callable] = None,      # DifferentialDiffusion
+    **patch_opts,
 ) -> Callable:
     """(x, sigma) -> denoised. Priority: scene conditioning > cond list >
     plain. The inpaint keep-mask wraps any of them (KSamplerX0Inpaint,
-    comfy samplers.py:363-430)."""
+    comfy samplers.py:363-430), through ``denoise_mask_fn`` when given.
+    ``patch_opts`` are ``make_denoiser``'s other model-patch keywords
+    (``nocond_context``, ``perp_neg_scale``, ``sag``, ``t_fn``,
+    ``rescale_cfg_multiplier``, ``model_extra_cond``,
+    ``model_extra_uncond``): they and ``denoise_mask_fn`` reach the plain CFG
+    path only, as comfy's model patches are defined on the simple
+    cond/uncond batch."""
     common = dict(cfg_scale=cfg_scale, prediction=prediction, hooks=hooks,
                   control_fn=control_fn, y_cond=y_cond, y_uncond=y_uncond,
                   concat_latent=concat_latent)
@@ -67,13 +75,16 @@ def build_denoiser(
                                  list(cond_masks), uncond_context, log_sigmas, **common)
     else:
         ctx0 = cond_context if cond_context is not None else cond_contexts[0]
-        return make_denoiser(unet, params, ctx0, uncond_context, log_sigmas, mask=inpaint_mask,
-                             masked_latent=inpaint_latent, **common)
+        return make_denoiser(
+            unet, params, ctx0, uncond_context, log_sigmas, mask=inpaint_mask,
+            masked_latent=inpaint_latent, denoise_mask_fn=denoise_mask_fn, **patch_opts,
+            **common)
     if inpaint_mask is None or inpaint_latent is None:
         return den
 
     def keep(x, sigma):
-        return den(x, sigma) * inpaint_mask + inpaint_latent * (1.0 - inpaint_mask)
+        m = denoise_mask_fn(sigma, inpaint_mask) if denoise_mask_fn is not None else inpaint_mask
+        return den(x, sigma) * m + inpaint_latent * (1.0 - m)
 
     return keep
 

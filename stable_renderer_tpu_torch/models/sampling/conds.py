@@ -104,7 +104,8 @@ def make_cond_denoiser(
     n_full = nf + (1 if use_cfg else 0)
     ctx_b = torch.cat([contexts[i] for i in full_idx] + ([uncond_context] if use_cfg else []),
                       0).to(compute_dtype)
-    y_b, extra = unet_extras(y_cond, y_uncond, concat_latent, nf, use_cfg, compute_dtype)
+    y_b, extra = unet_extras(y_cond, y_uncond, concat_latent, nf, int(use_cfg),
+                           compute_dtype)
 
     def denoise(x: torch.Tensor, sigma) -> torch.Tensor:
         b, h, w, _ = x.shape

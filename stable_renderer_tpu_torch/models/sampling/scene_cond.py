@@ -17,7 +17,7 @@ import torch
 
 from stable_renderer_tpu_torch.models.sampling.cfg import (
     calculate_denoised, timestep_from_sigma, unet_extras)
-from stable_renderer_tpu_torch.models.unet import AttnHooks, UNetModel
+from stable_renderer_tpu_torch.models.unet import PATCH_HOOKS, AttnHooks, UNetModel
 
 
 def sprite_masks(
@@ -53,10 +53,12 @@ def group_hooks(user: AttnHooks, groups: int, batch: int, use_cfg: bool,
     and never to the uncond rows: those keep their own K/V contexts (tiled
     to the length the hook gave the groups), plain attention and their mid
     activations. ``attn_mid=False`` wraps ``pre`` and ``post`` only, as the
-    cond-list denoiser does."""
+    cond-list denoiser does. The model-patch points pass through unchanged:
+    they act on the whole batch."""
+    passthru = {f: getattr(user, f) for f in PATCH_HOOKS}
     if user.pre is None and user.post is None and (
             not attn_mid or (user.attn is None and user.mid is None)):
-        return AttnHooks()
+        return AttnHooks(**passthru)
     nc = groups * batch
 
     def split(t: torch.Tensor):
@@ -96,7 +98,7 @@ def group_hooks(user: AttnHooks, groups: int, batch: int, use_cfg: bool,
         def mid(x, layer):
             return torch.cat([user.mid(g, layer) for g in split(x)] + [x[nc:]], 0)
 
-    return AttnHooks(pre=pre, post=post, attn=attn, mid=mid)
+    return AttnHooks(pre=pre, post=post, attn=attn, mid=mid, **passthru)
 
 
 def make_scene_denoiser(
@@ -129,7 +131,8 @@ def make_scene_denoiser(
     if use_cfg:
         ctx_flat = torch.cat([ctx_flat, uncond_context], 0)
     ctx_flat = ctx_flat.to(compute_dtype)
-    y, extra = unet_extras(y_cond, y_uncond, concat_latent, s1, use_cfg, compute_dtype)
+    y, extra = unet_extras(y_cond, y_uncond, concat_latent, s1, int(use_cfg),
+                           compute_dtype)
 
     def denoise(x: torch.Tensor, sigma) -> torch.Tensor:
         sigma = torch.as_tensor(sigma, dtype=torch.float32).cpu()

@@ -60,6 +60,22 @@ class ModelSampling:
         log_sigma = np.log(np.maximum(sigma, 1e-10))
         return np.abs(log_sigma[..., None] - self.log_sigmas[None]).argmin(-1).astype(np.float32)
 
+    def percent_to_sigma(self, percent: float) -> float:
+        """Sampling-progress percent -> sigma threshold
+        (ModelSamplingDiscrete.percent_to_sigma: 0 -> 999999999.9, 1 -> 0)."""
+        if percent <= 0.0:
+            return 999999999.9
+        if percent >= 1.0:
+            return 0.0
+        return float(self.sigma(np.asarray((1.0 - percent) * (self.num_timesteps - 1))))
+
+    def set_sigmas(self, sigmas: np.ndarray) -> None:
+        """Replace the sigma table (ModelSamplingDiscrete.set_sigmas), e.g.
+        after zero-terminal-SNR rescaling."""
+        self.sigmas = np.asarray(sigmas, np.float32)
+        self.log_sigmas = np.log(np.maximum(self.sigmas, 1e-20))
+        self.num_timesteps = len(self.sigmas)
+
     def sigma(self, timestep: np.ndarray) -> np.ndarray:
         t = np.clip(timestep, 0, self.num_timesteps - 1)
         low_idx = np.floor(t).astype(np.int64)
@@ -67,6 +83,19 @@ class ModelSampling:
         w = t - low_idx
         return np.exp((1 - w) * self.log_sigmas[low_idx]
                       + w * self.log_sigmas[high_idx]).astype(np.float32)
+
+
+def rescale_zero_terminal_snr_sigmas(sigmas: np.ndarray) -> np.ndarray:
+    """Zero-terminal-SNR rescale (comfy_extras/nodes_model_advanced.py
+    rescale_zero_terminal_snr_sigmas, Lin et al. 2023): shift and scale the
+    alpha-bar square roots so the last timestep has zero SNR."""
+    sigmas = np.asarray(sigmas, np.float64)
+    alphas_bar_sqrt = np.sqrt(1.0 / (sigmas * sigmas + 1.0))
+    a0, a_t = alphas_bar_sqrt[0].copy(), alphas_bar_sqrt[-1].copy()
+    alphas_bar_sqrt = (alphas_bar_sqrt - a_t) * (a0 / (a0 - a_t))
+    alphas_bar = alphas_bar_sqrt ** 2
+    alphas_bar[-1] = 4.8973451890853435e-08
+    return np.sqrt((1.0 - alphas_bar) / alphas_bar).astype(np.float32)
 
 
 def sigmas_karras(n: int, sigma_min: float, sigma_max: float, rho: float = 7.0) -> np.ndarray:

@@ -84,14 +84,38 @@ class AttnHooks(NamedTuple):
     attn: (q, k, v, heads, layer_idx) -> values, replacing self-attention.
     mid:  (x, layer_idx) -> x, after the attn1 residual add.
 
-    The JAX package's model-patch points (pre_all, pre_cross, attn_all,
-    out_block, in_block, in_block_after) come with the workflow slice.
+    The model-patch points (comfy ModelPatcher set_model_* API). The CFG
+    wrapper passes them through unchanged: they act on the full cond+uncond
+    batch, as the reference's model patches do.
+
+    pre_all:   (q_ctx, k_ctx, v_ctx, layer_idx) -> (q_ctx, k_ctx, v_ctx),
+               after ``pre`` (set_model_attn1_patch, e.g. hypernetworks).
+    pre_cross: (n, ctx_k, ctx_v, layer_idx) -> (n, ctx_k, ctx_v), on the
+               cross-attention's inputs (set_model_attn2_patch).
+    attn_all:  (q, k, v, heads, layer_idx) -> values, replacing
+               self-attention when ``attn`` is None (e.g. HyperTile).
+    out_block: (h, hsp, block_idx) -> (h, hsp), before each output block's
+               skip concat (set_model_output_block_patch, e.g. FreeU).
+    in_block:  (h, block_idx, t) -> h, after each input block, before its
+               skip is stored; ``t`` is the (B,) timestep batch.
+    in_block_after: (h, block_idx, t) -> h, the same after the skip is
+               stored (set_model_input_block_patch_after_skip).
     """
 
     pre: Optional[Callable] = None
     post: Optional[Callable] = None
     attn: Optional[Callable] = None
     mid: Optional[Callable] = None
+    pre_all: Optional[Callable] = None
+    pre_cross: Optional[Callable] = None
+    attn_all: Optional[Callable] = None
+    out_block: Optional[Callable] = None
+    in_block: Optional[Callable] = None
+    in_block_after: Optional[Callable] = None
+
+
+# the model-patch points, which act on the whole batch
+PATCH_HOOKS = ("pre_all", "pre_cross", "attn_all", "out_block", "in_block", "in_block_after")
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +147,8 @@ def basic_transformer_block(
     q_ctx = k_ctx = v_ctx = n
     if hooks.pre is not None:
         q_ctx, k_ctx, v_ctx = hooks.pre(q_ctx, k_ctx, v_ctx, layer_idx)
+    if hooks.pre_all is not None:
+        q_ctx, k_ctx, v_ctx = hooks.pre_all(q_ctx, k_ctx, v_ctx, layer_idx)
     a1 = p["attn1"]
     if q_ctx is k_ctx and k_ctx is v_ctx:
         # fused QKV: one (L, C) x (C, 3C) product instead of three
@@ -134,6 +160,8 @@ def basic_transformer_block(
         v = linear(a1["to_v"], v_ctx)
     if hooks.attn is not None:
         attn_out = hooks.attn(q, k, v, heads, layer_idx)
+    elif hooks.attn_all is not None:
+        attn_out = hooks.attn_all(q, k, v, heads, layer_idx)
     else:
         attn_out = attention(q, k, v, heads)
     if hooks.post is not None:
@@ -146,9 +174,15 @@ def basic_transformer_block(
     # cross-attention (attn2) over the text context, fused KV projection
     n = layer_norm(p["norm2"], x)
     a2 = p["attn2"]
+    ctx_k = ctx_v = context
+    if hooks.pre_cross is not None:
+        n, ctx_k, ctx_v = hooks.pre_cross(n, ctx_k, ctx_v, layer_idx)
     q = linear(a2["to_q"], n)
-    w_kv = torch.cat([a2["to_k"]["weight"], a2["to_v"]["weight"]], 0)
-    k, v = linear({"weight": w_kv}, context).chunk(2, dim=-1)
+    if ctx_k is ctx_v:
+        w_kv = torch.cat([a2["to_k"]["weight"], a2["to_v"]["weight"]], 0)
+        k, v = linear({"weight": w_kv}, ctx_k).chunk(2, dim=-1)
+    else:
+        k, v = linear(a2["to_k"], ctx_k), linear(a2["to_v"], ctx_v)
     x = x + linear(a2["to_out"]["0"], attention(q, k, v, heads))
 
     n = layer_norm(p["norm3"], x)
@@ -278,7 +312,11 @@ class UNetModel:
                         p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks)
             if ctrl_in is not None and i < len(ctrl_in) and ctrl_in[i] is not None:
                 h = h + ctrl_in[i].to(h.dtype)
+            if hooks.in_block is not None:
+                h = hooks.in_block(h, i, timesteps)
             hs.append(h)
+            if hooks.in_block_after is not None:
+                h = hooks.in_block_after(h, i, timesteps)
 
         mp = params["middle_block"]
         h = res_block(mp["0"], h, emb)
@@ -294,6 +332,8 @@ class UNetModel:
             skip = hs.pop()
             if ctrl_out:
                 skip = skip + ctrl_out.pop().to(h.dtype)
+            if hooks.out_block is not None:
+                h, skip = hooks.out_block(h, skip, i)
             h = torch.cat([h, skip], dim=-1)
             h = res_block(p["0"], h, emb)
             if kind == "res_attn":

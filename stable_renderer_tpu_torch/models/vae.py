@@ -111,6 +111,56 @@ class VAE:
                 h = conv2d(lvl["upsample"]["conv"], upsample_nearest_2x(h), padding=1)
         return conv2d(d["conv_out"], silu(group_norm(d["norm_out"], h)), padding=1)
 
+    # --- tiled variants (reference comfy/sd.py VAE tiled fallback) ----------
+
+    def _tiled(self, fn, x: torch.Tensor, tile: int, overlap: int, scale: float,
+               channels: int) -> torch.Tensor:
+        """Run ``fn`` over overlapping (tile x tile) windows of ``x`` (B, H, W,
+        C) and blend the outputs, whose sides are ``scale`` times the
+        window's, with linear ramps of ``overlap * scale`` pixels and the
+        JAX package's tile walk and 1e-6 weight floor. The sums stay on the
+        tensors' device in f32."""
+        b, h, w, _ = x.shape
+        oh, ow = int(h * scale), int(w * scale)
+        out = torch.zeros((b, oh, ow, channels), dtype=torch.float32, device=x.device)
+        weight = torch.zeros((1, oh, ow, 1), dtype=torch.float32, device=x.device)
+        n = int(tile * scale)
+        ramp = torch.clamp(torch.arange(1, n + 1, dtype=torch.float64)
+                           / max(int(overlap * scale), 1), max=1.0)
+        tile_w = torch.minimum(ramp, ramp.flip(0)).float().to(x.device)
+        step = max(tile - overlap, 1)
+        y = 0
+        while y < h:
+            y0 = min(y, max(h - tile, 0))
+            xc = 0
+            while xc < w:
+                x0 = min(xc, max(w - tile, 0))
+                part = fn(x[:, y0: y0 + tile, x0: x0 + tile]).float()
+                th, tw = part.shape[1], part.shape[2]
+                wgt = (tile_w[:th, None] * tile_w[None, :tw])[None, ..., None]
+                oy, ox = int(y0 * scale), int(x0 * scale)
+                out[:, oy: oy + th, ox: ox + tw] += part * wgt
+                weight[:, oy: oy + th, ox: ox + tw] += wgt
+                xc += step
+            y += step
+        return out / torch.clamp(weight, min=1e-6)
+
+    def decode_tiled(self, params: dict, z: torch.Tensor, tile: int = 64,
+                     overlap: int = 16) -> torch.Tensor:
+        """Decode in overlapping latent tiles with a linear blend, f32 (the
+        reference's out-of-memory fallback, comfy/sd.py:245-280)."""
+        f = 2 ** (len(self.config.ch_mult) - 1)
+        overlap = min(overlap, tile // 2)  # keep the stride positive
+        return self._tiled(lambda zt: self.decode(params, zt), z, tile, overlap, f, 3)
+
+    def encode_tiled(self, params: dict, x: torch.Tensor, tile: int = 512,
+                     overlap: int = 64) -> torch.Tensor:
+        """Encode in overlapping pixel tiles, f32 (comfy/sd.py encode_tiled)."""
+        f = 2 ** (len(self.config.ch_mult) - 1)
+        overlap = min(overlap, tile // 2)
+        return self._tiled(lambda xt: self.encode(params, xt), x, tile, overlap, 1.0 / f,
+                           self.config.embed_dim)
+
     def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
              device=None) -> dict:
         """Random init with the checkpoint param tree and shapes."""

@@ -5,7 +5,8 @@ raster-only ``render`` of a mesh file draws the same frames as the JAX CLI
 within the raster bars of the port's K2 comparisons: tri_id exact, z 1e-4,
 bary 2e-4, and the presented uint8 colour within one step wherever tri_id
 agrees. ``render`` with the tiny pipeline, ``bake`` then ``replay``,
-``bench`` and ``validate`` run on the CPU; the commands that wait for later
+``bench`` and ``validate`` run on the CPU; ``execute`` runs a tiny workflow
+on dumped maps as the JAX CLI's does; the commands that wait for later
 slices raise naming their ROADMAP items.
 """
 
@@ -190,14 +191,84 @@ def test_bake_then_replay(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["execute", "--workflow", "wf.json"], "ROADMAP 1.12"),
-    (["serve"], "ROADMAP 1.12"),
+    (["serve"], "ROADMAP 1.12b"),
     (["upscale", "--model", "m.pth", "--image", "i.png"], "ROADMAP 1.13"),
     (["render", "--editor", "--no-diffusion", "--device", "cpu"], "ROADMAP 1.12b"),
 ])
 def test_later_commands_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.") + r"\b"):
         pcli.main(argv)
+
+
+def test_execute_matches_jax(tmp_path, monkeypatch, capsys):
+    """``execute --device cpu`` of a tiny workflow (the checkpoint's tiny
+    fallback models, EngineData from dumped colour, id, noise, normal and
+    depth maps, a KSampler) writes the JAX CLI's frames within one uint8
+    step: the JAX fallback models and its draws are handed to the port."""
+    from test_torch_executor import jax_noise, port_loader_outputs
+    from test_torch_workflow_loader import ENGINE_DATA_OUTPUTS, _graph
+
+    import stable_renderer_tpu.workflow.executor as je
+    import stable_renderer_tpu_torch.workflow.executor as pe
+
+    rng = np.random.default_rng(0)
+    dirs = {k: tmp_path / k for k in ("color", "id", "noise", "normal", "depth")}
+    for d in dirs.values():
+        d.mkdir()
+    for i in range(2):
+        for k in ("color", "normal", "depth"):
+            Image.fromarray((rng.uniform(size=(32, 32, 3)) * 255).astype(np.uint8)).save(
+                dirs[k] / f"{k}_{i}.png")
+        ids = np.zeros((32, 32, 4), np.int32)
+        ids[8:24, 8:24] = [1, 1, 0, 3]
+        np.save(dirs["id"] / f"id_{i}.npy", ids)
+        np.save(dirs["noise"] / f"noise_{i}.npy",
+                rng.standard_normal((32, 32, 4)).astype(np.float32))
+    wf = _graph([(1, "CheckpointLoaderSimple", ["absent.safetensors"], ["MODEL", "CLIP", "VAE"]),
+                 (2, "CLIPTextEncode", ["a boat"], ["CONDITIONING"]),
+                 (3, "CLIPTextEncode", ["blurry"], ["CONDITIONING"]),
+                 (4, "EngineData", [], ENGINE_DATA_OUTPUTS),
+                 (5, "VAEEncode", [], ["LATENT"]),
+                 (6, "KSampler", [3, "fixed", 2, 2.0, "euler", "normal", 1.0], ["LATENT"]),
+                 (7, "VAEDecode", [], ["IMAGE"]),
+                 (8, "InferenceOutput", [], [])],
+                [(1, 1, 2, "clip"), (1, 1, 3, "clip"), (4, 0, 5, "pixels"), (1, 2, 5, "vae"),
+                 (1, 0, 6, "model"), (2, 0, 6, "positive"), (3, 0, 6, "negative"),
+                 (5, 0, 6, "latent_image"), (6, 0, 7, "samples"), (1, 2, 7, "vae"),
+                 (7, 0, 8, "images")])
+    (tmp_path / "wf.json").write_text(json.dumps(wf))
+    node = pe.WorkflowNode(id=1, type="CheckpointLoaderSimple", widgets=[], inputs={},
+                           output_names=[])
+    models = port_loader_outputs(*je.checkpoint_loader(je.InferenceContext(), node))
+    monkeypatch.setattr(pe, "tiny_models", lambda device, generator: models)
+    jax_noise(monkeypatch, {3})
+    args = ["execute", "--workflow", str(tmp_path / "wf.json"),
+            *[a for k, d in dirs.items() for a in (f"--{k}-dir", str(d))]]
+    assert jcli.main(args + ["--out", str(tmp_path / "jax")]) == 0
+    assert pcli.main(args + ["--out", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    assert "2 frames -> " in capsys.readouterr().out
+    port, ref = _frames(tmp_path / "port", 2), _frames(tmp_path / "jax", 2)
+    for a, b in zip(port, ref):
+        assert a.shape == (32, 32, 3) and a.max() > a.min()
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def test_model_dirs_read_extra_model_paths(tmp_path, monkeypatch):
+    """``--model-dir`` plus an extra_model_paths.yaml (given, or found in the
+    working directory) expand as in the JAX CLI."""
+    (tmp_path / "base" / "ckpt").mkdir(parents=True)
+    (tmp_path / "base" / "lora").mkdir()
+    yml = tmp_path / "paths.yaml"
+    yml.write_text(f"a111:\n  base_path: {tmp_path / 'base'}\n  checkpoints: ckpt\n"
+                   "  loras: |\n    lora\n    missing\n")
+    for extra in (["--extra-model-paths", str(yml)], []):
+        argv = ["execute", "--workflow", "wf.json", "--model-dir", "m1", *extra]
+        monkeypatch.chdir(tmp_path)
+        (tmp_path / "extra_model_paths.yaml").write_text(yml.read_text())
+        got = pcli._model_dirs(pcli.build_parser().parse_args(argv))
+        want = jcli._model_dirs(_jax_parser().parse_args(argv))
+        assert got == want == ("m1", str(tmp_path / "base" / "ckpt"),
+                               str(tmp_path / "base" / "lora"))
 
 
 def test_bench_runs_bench_torch(monkeypatch, capsys):

@@ -1,0 +1,172 @@
+"""The model-patch nodes (workflow/nodes_extra.py) through both packages'
+executors, on the CPU at tiny widths: FreeU, HyperTile and
+SelfAttentionGuidance chained; FreeU_V2, a hypernetwork file and PerpNeg
+chained; and the patch kinds whose nodes wait for ROADMAP 1.12b (ToMe,
+RescaleCFG, Deep Shrink's downscale, the linear cfg ramp), their patch
+dicts built here. Each KSampler output agrees with JAX's (its draws handed
+in) and moved from the unpatched graph's. f32: TOL.
+
+HyperTile's and ToMe's splits come from ``random.Random(hash(sig))``, which
+changes with PYTHONHASHSEED from one process to the next; in one process
+both packages pick the same splits."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_executor import assert_close, graphs, run_both
+
+import stable_renderer_tpu.workflow.executor as je
+import stable_renderer_tpu_torch.workflow.executor as pe
+
+torch.set_num_threads(1)
+
+LOADER = (1, "CheckpointLoaderSimple", ["missing.safetensors"], {})
+LATENT = np.random.default_rng(4).standard_normal((1, 16, 16, 4)).astype(np.float32)
+
+
+@pytest.fixture(autouse=True)
+def latent_node():
+    for mod in (je, pe):
+        mod.register_node("_Latent")(lambda ctx, node, _m=mod: ({"samples": (
+            jnp.asarray(LATENT) if _m is je else torch.from_numpy(LATENT.copy()))},))
+    yield
+    for mod in (je, pe):
+        mod.NODE_REGISTRY.pop("_Latent", None)
+
+
+def patched_graph(patches, sampler=("euler_ancestral", "karras", 3, 3.0), batch_latent=None):
+    """Loader, prompts, the latent, ``patches`` (rows whose model input is
+    the previous model, ids from 10), a KSampler on the last model."""
+    name, sched, steps, cfg = sampler
+    rows, model = [], (1, 0)
+    for i, (ntype, widgets, extra) in enumerate(patches):
+        nid = 10 + i
+        rows.append((nid, ntype, widgets, {"model": model, **extra}))
+        model = (nid, 0)
+    return [LOADER,
+            (2, "CLIPTextEncode", ["a red boat"], {"clip": (1, 1)}),
+            (3, "CLIPTextEncode", ["blurry"], {"clip": (1, 1)}),
+            (4, "CLIPTextEncode", [""], {"clip": (1, 1)}),
+            (5, "_Latent", [], {}),
+            *rows,
+            (30, "KSampler", [9, "fixed", steps, cfg, name, sched, 1.0],
+             {"model": model, "positive": (2, 0), "negative": (3, 0), "latent_image": (5, 0)})]
+
+
+def port_rerun(pex, spec_without, monkeypatch):
+    """The port's KSampler output for ``spec_without`` with the same loader
+    outputs and draws (its loader output copied from ``pex``)."""
+    _, pwf = graphs(spec_without)
+    ex = pe.PromptExecutor(pwf, device="cpu")
+    ex._cache[1] = pex._cache[1]
+    return ex.execute().outputs[30][0]["samples"]
+
+
+def _check(spec, monkeypatch, n_patches):
+    jctx, pctx, _, pex = run_both(spec, monkeypatch, seeds=(9,))
+    assert_close(pctx.outputs[30][0], jctx.outputs[30][0])
+    patched = pctx.outputs[30][0]["samples"]
+    assert len(pctx.outputs[10 + n_patches - 1][0]["patches"]) == n_patches
+    without = [r for r in spec if not 10 <= r[0] < 30]
+    without = [(i, t, w, {**inp, "model": (1, 0)} if t == "KSampler" else inp)
+               for i, t, w, inp in without]
+    assert float((patched - port_rerun(pex, without, monkeypatch)).abs().max()) > 1e-3
+
+
+def test_freeu_hypertile_sag_match_jax(monkeypatch):
+    spec = patched_graph([("FreeU", [1.3, 1.4, 0.7, 0.5], {}),
+                          ("HyperTile", [32, 2, 0, "false"], {}),
+                          ("SelfAttentionGuidance", [0.9, 1.5], {})])
+    _check(spec, monkeypatch, 3)
+
+
+def write_hypernetwork(path) -> None:
+    """A tiny A1111-style hypernetwork .pt: per context width, a k-net and a
+    v-net of linear -> layer norm -> linear, relu, layer norm on; small
+    weights, as a trained hypernetwork's residual MLPs have."""
+    rng = np.random.default_rng(8)
+
+    def net(dim):
+        t = {}
+        for name, shape in (("linear.0", (dim * 2, dim)), ("linear.1", (dim * 2,)),
+                            ("linear.2", (dim, dim * 2))):
+            t[name + ".weight"] = torch.from_numpy(
+                (rng.standard_normal(shape) * (0.05 if len(shape) == 2 else 0.1)
+                 + (1.0 if len(shape) == 1 else 0.0)).astype(np.float32))
+            t[name + ".bias"] = torch.from_numpy(
+                (rng.standard_normal(shape[:1]) * 0.05).astype(np.float32))
+        return t
+
+    sd = {32: [net(32), net(32)], 64: [net(64), net(64)], "activation_func": "relu",
+          "is_layer_norm": True, "activate_output": False, "name": "tiny"}
+    torch.save(sd, path)
+
+
+def test_freeu_v2_hypernetwork_perp_neg_match_jax(monkeypatch, tmp_path):
+    write_hypernetwork(tmp_path / "hn.pt")
+    spec = patched_graph([("FreeU_V2", [1.2, 1.1, 0.8, 0.6], {}),
+                          ("HypernetworkLoader", ["hn.pt", 0.7], {}),
+                          ("PerpNeg", [0.8], {"empty_conditioning": (4, 0)})])
+    jctx, pctx, _, pex = run_both(spec, monkeypatch, seeds=(9,), model_dirs=(tmp_path,))
+    assert_close(pctx.outputs[30][0], jctx.outputs[30][0])
+    assert sorted(pctx.outputs[11][0]["patches"][1]["nets"]) == [32, 64]
+    # each patch moved the output: rerun without it
+    for drop in (10, 11, 12):
+        rows = [r for r in spec if r[0] != drop]
+        rows = [(i, t, w, {**inp, "model": (drop - 1 if drop > 10 else 1, 0)}
+                 if inp.get("model") == (drop, 0) else inp) for i, t, w, inp in rows]
+        _, pwf = graphs(rows)
+        ex = pe.PromptExecutor(pwf, model_dirs=(str(tmp_path),), device="cpu")
+        ex._cache[1] = pex._cache[1]
+        moved = ex.execute().outputs[30][0]["samples"] - pctx.outputs[30][0]["samples"]
+        assert float(moved.abs().max()) > 1e-3, drop
+
+
+@pytest.fixture
+def direct_patches():
+    """The patch kinds whose nodes wait for ROADMAP 1.12b, as dicts."""
+    def make(mod):
+        def node(ctx, node, model=None):
+            from importlib import import_module
+
+            extra = import_module(mod.__name__.rsplit(".", 1)[0] + ".nodes_extra")
+            for p in ({"kind": "tomesd", "sig": ("tomesd", 0.4), "ratio": 0.4},
+                      {"kind": "rescale_cfg", "sig": ("rescale_cfg", 0.6), "multiplier": 0.6},
+                      {"kind": "downscale", "sig": ("downscale", 1), "block_number": 1,
+                       "downscale_factor": 2.0, "start_percent": 0.0, "end_percent": 0.6,
+                       "downscale_method": "bicubic", "upscale_method": "bilinear"},
+                      {"kind": "downscale", "sig": ("downscale", 2), "block_number": 2,
+                       "downscale_factor": 1.5, "start_percent": 0.2, "end_percent": 1.0,
+                       "after_skip": False, "downscale_method": "bilinear",
+                       "upscale_method": "nearest-exact"},
+                      {"kind": "linear_cfg", "sig": ("linear_cfg", 1.2), "min_cfg": 1.2}):
+                model = extra._add_patch(model, p)
+            return (model,)
+
+        return node
+
+    for mod in (je, pe):
+        mod.register_node("_DirectPatches")(make(mod))
+    yield
+    for mod in (je, pe):
+        mod.NODE_REGISTRY.pop("_DirectPatches", None)
+
+
+def test_tome_rescale_downscale_linear_cfg_match_jax(monkeypatch, direct_patches):
+    global LATENT
+    saved = LATENT
+    LATENT = np.random.default_rng(6).standard_normal((2, 16, 16, 4)).astype(np.float32)
+    try:
+        spec = patched_graph([("_DirectPatches", [], {})], sampler=("euler", "normal", 3, 3.0))
+        jctx, pctx, _, pex = run_both(spec, monkeypatch, seeds=(9,))
+        assert_close(pctx.outputs[30][0], jctx.outputs[30][0])
+        without = [r for r in spec if r[0] != 10]
+        without = [(i, t, w, {**inp, "model": (1, 0)} if t == "KSampler" else inp)
+                   for i, t, w, inp in without]
+        moved = pctx.outputs[30][0]["samples"] - port_rerun(pex, without, monkeypatch)
+        assert float(moved.abs().max()) > 1e-3
+    finally:
+        LATENT = saved
