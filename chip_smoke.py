@@ -235,6 +235,23 @@ Phases, one line each; any failure exits non-zero:
                 decode_tiled with the graph's loaded VAE tree in f32: one tile
                 against decode within TILED_REL_TOL relative, a 128x128 latent in
                 TILED_TILES tiles, flash_f32 once a tile.
+ 24. server   — serving, with phase 20's checkpoint and LoRA files and phase 23's
+                ControlNet files and maps. `python -m stable_renderer_tpu_torch serve
+                --max-prompts 3` as its own process on a free port: the miku-shaped
+                workflow (with a SaveImage) POSTed twice; /history shows success,
+                success; /view serves the saved 512x512 frame (not constant); then a
+                bad prompt, the third and last, whose "error" comes over /events;
+                /system_stats names the card; /events carries 4 progress events a good
+                prompt, each with a JPEG preview; exit 0, its launch line K1 EXEC_K1 a
+                prompt; both executes timed from the events. In process, FrameServer + serve_workflows(device="cuda") on a
+                workflow of the new nodes (server_rows): the frame finite and not
+                constant, K1 by shape (new shapes held as in phase 23), SaveLatent ->
+                LoadLatent bit for bit through a second prompt, /interrupt during a
+                third prompt gives "interrupted", /free with unload_models and
+                free_memory lowers memory_allocated by at least the UNet's bytes.
+                Engine.RunEditor of the bench scene (EDITOR_FRAMES frames): K1 22 and
+                K2 1 call a frame by the counters, /frame.png 512x512, /stream one MJPEG
+                part, /scene lists the ball.
 The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
 variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
@@ -462,6 +479,8 @@ HASH_SEED = "0"
 # mid-block attention of the f32 VAE (flash_f32); one tile against decode
 TILED_TILES = 9
 TILED_REL_TOL = 1e-5
+# phase 24: EDITOR mode's frames
+EDITOR_FRAMES = 3
 
 
 def counts() -> tuple:
@@ -823,9 +842,10 @@ def bench_scene():
 
 
 def run_engine(pipe, size: int, frames: int, corr, on_frame=None, scene=bench_scene,
-               bake: bool = False, **kw):
+               bake: bool = False, editor: bool = False, **kw):
     """``scene()`` (bench.py's by default) through the port's Engine.Bake
-    (``bake``) or Engine.Run with ``debug=True``, its result kept as the
+    (``bake``), Engine.RunEditor (``editor``) or Engine.Run with
+    ``debug=True``, its result kept as the
     engine's ``scene``; ``on_frame(engine, "begin" | "end")`` runs at each
     frame's beforeFrameBegin and beforeFrameEnd; ``kw`` goes to the engine.
     Returns the engine and its presents as (host time, frame index, uint8
@@ -846,7 +866,7 @@ def run_engine(pipe, size: int, frames: int, corr, on_frame=None, scene=bench_sc
 
     presented = []
     Engine._reset()
-    eng = (App.Bake if bake else App.Run)(
+    eng = (App.Bake if bake else App.RunEditor if editor else App.Run)(
         winSize=(size, size), pipeline=pipe, corresponder=corr, max_frames=frames, debug=True,
         frame_callback=lambda f, i: presented.append((time.perf_counter(), i, f)), **kw)
     return eng, presented
@@ -1960,6 +1980,10 @@ def main() -> None:
 
         # --- 23. the workflow executor ---------------------------------------------------------
         executor = executor_phase(dev, card, k1, checkpoint["path"])
+
+        # --- 24. serving: the prompt server, the new nodes, EDITOR mode --------------------------
+        server = server_phase(pipe, dev, card, k1, k2, checkpoint["path"],
+                              checkpoint["lora_path"], corr)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -1971,6 +1995,7 @@ def main() -> None:
                       "engine_frame_ms": engine_ms, **bake, "taesd": taesd,
                       "options": options, "bench": bench, "checkpoint": checkpoint,
                       "left_outs": left_outs, "files": files, "executor": executor,
+                      "server": server,
                       "wall_s": wall_s,
                       "card": card}))
     print(card)
@@ -2614,8 +2639,8 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
     docstring). ``pipe`` is phase 6's bf16 pipeline; ``run_frame`` and
     ``run_engine_phase`` are main's; K1's f32 row joins ``k1["shapes"]``
     and the engine run ``engine_ms``. The files go to ``tmp``; all but the
-    checkpoint (``out["path"]``, which phase 22 reads) are removed at the
-    end."""
+    checkpoint (``out["path"]``, which phases 22-24 read) and the LoRA
+    (``out["lora_path"]``, phase 24's) are removed at the end."""
     from dataclasses import replace as dc_replace
 
     import torch
@@ -2821,7 +2846,7 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
               f"sampled leaves equal to the plain f32 merge on the CPU bit for bit | {card}",
               flush=True)
         del pipe_lora, unet_cpu, lora_cpu, merged, lora
-        lora_path.unlink()
+        out["lora_path"] = str(lora_path)  # phase 24's LoraLoader reads it
 
         # --- 20.6 the loaded pipeline quantized -------------------------------------------
         pipe_q = dc_replace(pipe_l, config=dc_replace(cfg, int8_conv=True))
@@ -2968,7 +2993,7 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
               f"prompt without them | {card}", flush=True)
     finally:
         for f in tmp.iterdir():
-            if f != path:
+            if f not in (path, tmp / "lcm-lora-shaped.safetensors"):
                 shutil.rmtree(f) if f.is_dir() else f.unlink()
     return out
 
@@ -3928,8 +3953,9 @@ def _check_exec_frames(what: str, frames, n: int, size: int) -> None:
 
 def executor_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
     """Phase 23: the workflow executor (see the module docstring), with
-    phase 20's checkpoint file; the ControlNet files go beside it, the maps
-    and outputs to a temporary directory under build/, removed at the end.
+    phase 20's checkpoint file; the ControlNet files and the maps go beside
+    it (phase 24 reads them), the outputs to a temporary directory under
+    build/, removed at the end.
     K1's launches an execute join ``k1["launches_a_frame"]``."""
     import os
 
@@ -3969,7 +3995,7 @@ def executor_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
             del params
         wf_path = tmp / "miku_control.json"
         wf_path.write_text(json.dumps(ui_workflow(miku_rows(Path(ckpt).name))))
-        dirs = write_engine_maps(tmp / "maps", EXEC_FRAMES, SIZE)
+        dirs = write_engine_maps(model_dir / "maps", EXEC_FRAMES, SIZE)  # phase 24 reads them
         out["files_s"] = time.perf_counter() - t0
         print(f"[23 files] two full-width ControlNet files ({cn_bytes / 2**30:.2f} GiB BF16, "
               f"zero convs perturbed), the miku-control-shaped workflow and {EXEC_FRAMES} "
@@ -4106,25 +4132,7 @@ def executor_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
                   flush=True)
         # every K1 shape of phase 23 against flash_attention_reference: those
         # no earlier phase held are held here, timed beside SDPA
-        gen = torch.Generator(device=dev).manual_seed(23)
-        for key in sorted(set(launched) - HELD_K1, key=str):
-            bh, lq, lk, d = key[:4]
-            f32 = len(key) == 5
-            dt = torch.float32 if f32 else torch.bfloat16
-            q, k_, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(dt)
-                        for n in (lq, lk, lk))
-            row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')} "
-                            f"(phase 23)", "route": k1_route(d, f32),
-                   "launches_in_phase_23": launched[key]}
-            _k1_case(row, dt, K1_F32_TOL if f32 else K1_BF16_TOL,
-                     lambda: flash_attention(q, k_, v),
-                     lambda: flash_attention_reference(q, k_, v),
-                     lambda: F.scaled_dot_product_attention(q[None], k_[None], v[None]),
-                     k1_bound(bh, lq, lk, d, f32), timed=True)
-            HELD_K1.add(key)
-            k1["shapes"].append(row)
-            print(f"[23 K1] {row}", flush=True)
-            del q, k_, v
+        hold_new_k1_shapes(launched, 23, dev, card, k1)
         out["k1_shapes_held"] = len(launched)
 
         # --- 23.5 the executor on the card against the executor on the CPU -------------------
@@ -4201,6 +4209,398 @@ def executor_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[23 executor] phase 23 in {out['phase_s']:.1f} s | {card}", flush=True)
     return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(url: str, payload=None, timeout: float = 5.0):
+    """(status, body) of a GET, or of a JSON POST when ``payload`` is given."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _sse_reader(url: str, events: list, timeout: float = 60.0):
+    """A daemon thread appending (host time, event) for each server-sent
+    event of ``url`` until the stream ends."""
+    import threading
+    import urllib.request
+
+    def read():
+        try:
+            with urllib.request.urlopen(url, timeout=timeout) as r:
+                for line in r:
+                    if line.startswith(b"data: "):
+                        events.append((time.perf_counter(), json.loads(line[6:])))
+        except OSError:
+            return  # the server went away
+
+    t = threading.Thread(target=read, daemon=True)
+    t.start()
+    return t
+
+
+def _png_array(body: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)))
+
+
+def server_rows(ckpt_name: str, lora_name: str, seed: int) -> list:
+    """Phase 24's workflow of the new nodes: CheckpointLoader, LoraLoader,
+    ModelMergeSimple (the LoRA'd model with the plain one), RescaleCFG,
+    PatchModelAddDownscale, TomePatchModel, two SamplerCustom (dpmpp_2m
+    from KSamplerSelect) over a KarrasScheduler's 4 steps cut by
+    SplitSigmas (the second without noise), LatentBlend, VAEDecodeTiled,
+    InferenceOutput, then SaveLatent last (so that its entry is the node
+    boundary after the decode)."""
+    return [
+        (1, "CheckpointLoader", ["v1-inference.yaml", ckpt_name], {}),
+        (2, "LoraLoader", [lora_name, 1.0, 1.0], {"model": (1, 0), "clip": (1, 1)}),
+        (3, "ModelMergeSimple", [0.5], {"model1": (2, 0), "model2": (1, 0)}),
+        (4, "RescaleCFG", [0.7], {"model": (3, 0)}),
+        (5, "PatchModelAddDownscale", [3, 2.0, 0.0, 0.35, True, "bicubic", "bicubic"],
+         {"model": (4, 0)}),
+        (6, "TomePatchModel", [0.3], {"model": (5, 0)}),
+        (7, "CLIPTextEncode", ["a shiny ball, masterpiece"], {"clip": (2, 1)}),
+        (8, "CLIPTextEncode", ["lowres, blurry"], {"clip": (2, 1)}),
+        (9, "KSamplerSelect", ["dpmpp_2m"], {}),
+        (10, "KarrasScheduler", [4, 14.614642, 0.0291675, 7.0], {}),
+        (11, "SplitSigmas", [2], {"sigmas": (10, 0)}),
+        (12, "EmptyLatentImage", [SIZE, SIZE, 1], {}),
+        (13, "SamplerCustom", [True, seed, "fixed", 2.0],
+         {"model": (6, 0), "positive": (7, 0), "negative": (8, 0), "sampler": (9, 0),
+          "sigmas": (11, 0), "latent_image": (12, 0)}),
+        (14, "SamplerCustom", [False, seed, "fixed", 2.0],
+         {"model": (6, 0), "positive": (7, 0), "negative": (8, 0), "sampler": (9, 0),
+          "sigmas": (11, 1), "latent_image": (13, 0)}),
+        (15, "LatentBlend", [0.75], {"samples1": (14, 0), "samples2": (13, 1)}),
+        (16, "VAEDecodeTiled", [512], {"samples": (15, 0), "vae": (1, 2)}),
+        (17, "InferenceOutput", [], {"images": (16, 0)}),
+        (18, "SaveLatent", ["latents/phase24"], {"samples": (15, 0)}),
+    ]
+
+
+def server_phase(pipe, dev, card: str, k1: dict, k2: dict, ckpt: str, lora: str,
+                 corr) -> dict:
+    """Phase 24: serving (see the module docstring). ``ckpt`` and ``lora``
+    are phase 20's files; phase 23's ControlNet files and maps lie beside
+    them. ``pipe`` and ``corr`` are phase 6's, for EDITOR mode. Outputs go
+    to a temporary directory under build/, removed at the end."""
+    import base64
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from stable_renderer_tpu_torch.models.weights import flatten
+    from stable_renderer_tpu_torch.server import FrameServer, serve_workflows
+    from stable_renderer_tpu_torch.utils import paths as ppaths
+
+    root = Path(__file__).resolve().parent
+    model_dir = Path(ckpt).parent
+    dirs = {k: model_dir / "maps" / k for k in ("color", "id", "noise", "normal", "depth")}
+    tmp = Path(tempfile.mkdtemp(prefix="server-", dir=root / "build"))
+    out = {}
+    t_phase = time.perf_counter()
+    saved_output_dir = ppaths.OUTPUT_DIR
+    try:
+        # --- 24.1 `serve` as its own process: two miku-shaped prompts and a bad one -----
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        map_args = [a for k, d in dirs.items() for a in (f"--{k}-dir", str(d))]
+        cmd = [sys.executable, "-m", "stable_renderer_tpu_torch", "serve", "--port", str(port),
+               "--max-prompts", "3", "--model-dir",
+               str(model_dir), *map_args]
+        t0 = time.perf_counter()
+        with open(tmp / "serve.out", "w") as so, open(tmp / "serve.err", "w") as se:
+            proc = subprocess.Popen(cmd, cwd=root, stdout=so, stderr=se,
+                                    env=dict(os.environ, SR_TPU_OUTPUT_DIR=str(tmp / "serve")))
+
+        def served(what: str) -> str:
+            return (f"{what}\n{(tmp / 'serve.out').read_text()[-3000:]}\n"
+                    f"{(tmp / 'serve.err').read_text()[-3000:]}")
+
+        try:
+            while True:
+                try:
+                    _http(base + "/status", timeout=1.0)
+                    break
+                except OSError:
+                    if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                        fail(served(f"phase 24: `serve` did not answer (exit {proc.poll()})"))
+                    time.sleep(0.1)
+            up_s = time.perf_counter() - t0
+            events: list = []
+            reader = _sse_reader(base + "/events", events)
+            stats = json.loads(_http(base + "/system_stats")[1])
+            devs = stats["devices"]
+            if not (devs and devs[0]["type"] == "cuda" and devs[0]["vram_total"] > 0
+                    and devs[0]["name"] == torch.cuda.get_device_name(0)):
+                fail(f"phase 24: /system_stats {devs} does not name the card")
+            rows = miku_rows(Path(ckpt).name) + [(13, "SaveImage", ["phase24"],
+                                                  {"images": (11, 0)})]
+            good = ui_workflow(rows)
+            bad = {"nodes": [{"id": 1, "type": "NopeNode", "widgets_values": []}], "links": []}
+            # the two good prompts first: their history and frame are read while
+            # the server still answers; the bad one, the last it takes, ends it
+            pids = [json.loads(_http(base + "/prompt", {"prompt": wf})[1])["prompt_id"]
+                    for wf in (good, good)]
+            while True:
+                hist = {h["prompt_id"]: h["status"]
+                        for h in json.loads(_http(base + "/history")[1])}
+                if len(hist) == 2:
+                    break
+                if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                    fail(served(f"phase 24: `serve` history {hist} (exit {proc.poll()})"))
+                time.sleep(0.05)
+            statuses = [hist[p] for p in pids]
+            if statuses != ["success", "success"]:
+                fail(served(f"phase 24: `serve` history {statuses}, want success, success"))
+            png = _png_array(_http(base + "/view?filename=frame_0.png&subfolder=workflow")[1])
+            if png.shape != (SIZE, SIZE, 3) or int(png.max()) == int(png.min()):
+                fail(f"phase 24: /view of the saved frame: {png.shape}, constant "
+                     f"{int(png.max()) == int(png.min())}")
+            pids.append(json.loads(_http(base + "/prompt", {"prompt": bad})[1])["prompt_id"])
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        reader.join(timeout=5)
+        stdout = (tmp / "serve.out").read_text()
+        if rc != 0:
+            fail(served(f"phase 24: `serve` exited {rc}"))
+        bad_done = [e["data"] for _, e in events if e["type"] == "executed"
+                    and e["data"].get("prompt_id") == pids[2]]
+        if [d["status"] for d in bad_done] != ["error"]:
+            fail(served(f"phase 24: the bad prompt's `executed` events {bad_done}, want one "
+                        f"with status error"))
+        statuses.append("error")
+        line = [ln for ln in stdout.splitlines()
+                if ln.startswith("kernel launches over 2 successful prompts: ")]
+        launches = json.loads(line[0].split(": ", 1)[1]) if line else {}
+        if launches.get("flash_attention") != 2 * EXEC_K1:
+            fail(served(f"phase 24: `serve`'s launch line {line}: want K1 {EXEC_K1} a prompt"))
+        exec_s = []
+        for pid in pids[:2]:
+            mine = [(t, e) for t, e in events if e.get("data", {}).get("prompt_id") == pid]
+            prog = [e["data"] for _, e in mine if e["type"] == "progress"]
+            if len(prog) != 4 or not all(
+                    base64.b64decode(p.get("preview", ""))[:2] == b"\xff\xd8" for p in prog):
+                fail(f"phase 24: prompt {pid}: {len(prog)} progress events over /events, want "
+                     f"4 with a JPEG preview each")
+            start = [t for t, e in mine if e["type"] == "execution_start"]
+            done = [t for t, e in mine if e["type"] == "executed"]
+            exec_s.append(done[0] - start[0])
+        out["serve"] = {"up_s": up_s, "process_s": time.perf_counter() - t0,
+                        "execute_s": exec_s, "statuses": statuses, "launches": launches}
+        print(f"[24 serve] python -m stable_renderer_tpu_torch serve --max-prompts 3 as its own "
+              f"process: answering after {up_s:.1f} s; history {statuses[:2]}, then the bad "
+              f"prompt's {statuses[2]!r} over /events; /view frame_0.png "
+              f"{png.shape}, not constant; /system_stats names {devs[0]['name']!r}, "
+              f"{devs[0]['vram_total'] / 2**30:.1f} GiB; 4 progress events a good prompt with "
+              f"JPEG previews; executes (SSE start to done, host clock) first {exec_s[0]:.2f} s "
+              f"(checkpoint and ControlNet loads included), second {exec_s[1]:.2f} s (the "
+              f"executor reused); exit 0 after {out['serve']['process_s']:.1f} s; launches {launches}: K1 {EXEC_K1} a prompt | {card}",
+              flush=True)
+
+        # --- 24.2 in process: FrameServer + serve_workflows on the new nodes ------------
+        ppaths.OUTPUT_DIR = tmp / "outputs"
+        server = FrameServer(port=0).start()
+        base = f"http://127.0.0.1:{server.port}"
+        bus = server._subscribe()
+        mdirs = (str(model_dir),)
+        wf_b = ui_workflow(server_rows(Path(ckpt).name, Path(lora).name, seed=24))
+        key_b = json.dumps(wf_b, sort_keys=True, default=str)
+        try:
+            pid = json.loads(_http(base + "/prompt", {"prompt": wf_b})[1])["prompt_id"]
+            zero_counts()
+            with k1_shape_tally() as seen:
+                t0 = time.perf_counter()
+                serve_workflows(server, model_dirs=mdirs, max_prompts=1, poll_timeout=0.1,
+                                device="cuda")
+                first_s = time.perf_counter() - t0
+            c = counts()
+            hist = server.queue.get_history_item(pid)
+            if hist["status"] != "success":
+                fail(f"phase 24: the new-node workflow: {hist['status']} {hist['messages']}")
+            ex = server.executor_cache[key_b]
+            img = ex._cache[16][0]
+            frame = server._frame
+            if (tuple(img.shape) != (1, SIZE, SIZE, 3) or not torch.isfinite(img).all()
+                    or float(img.max()) == float(img.min()) or frame.shape != (SIZE, SIZE, 3)
+                    or int(frame.max()) == int(frame.min())):
+                fail(f"phase 24: the new-node workflow's frame {tuple(img.shape)}, finite "
+                     f"{bool(torch.isfinite(img).all())}, published {frame.shape}")
+            unet_bytes = sum(t.numel() * t.element_size()
+                             for t in flatten(ex._cache[1][0]["params"]).values())
+            blended = ex._cache[15][0]["samples"]
+            latent_file = ex._cache[18][0]
+            # SaveLatent -> LoadLatent, through a second prompt
+            wf_load = ui_workflow([(1, "LoadLatent", [latent_file], {}),
+                                   (2, "InferenceOutput", [], {"value": (1, 0)})])
+            _http(base + "/prompt", {"prompt": wf_load})
+            serve_workflows(server, model_dirs=mdirs, max_prompts=1, poll_timeout=0.1,
+                            device="cuda")
+            loaded = server.executor_cache[json.dumps(wf_load, sort_keys=True,
+                                                      default=str)]._cache[1][0]["samples"]
+            if loaded.device.type != "cuda" or not same_bits(loaded, blended):
+                fail(f"phase 24: LoadLatent of SaveLatent's {latent_file} differs from the "
+                     f"saved latent (device {loaded.device})")
+            del ex, img, blended, loaded
+            k1_seen = {str(k_): n for k_, n in seen.items()}
+            out["workflow"] = {"first_s": first_s, "k1_launches": c[0], "k1_by_shape": k1_seen,
+                               "k1_routes": k1_routes(seen), "unet_bytes": unet_bytes}
+            print(f"[24 workflow] FrameServer + serve_workflows(device='cuda'): CheckpointLoader, "
+                  f"LoraLoader (phase 20's LoRA), ModelMergeSimple, RescaleCFG, "
+                  f"PatchModelAddDownscale, TomePatchModel, SamplerCustom x2 (dpmpp_2m, Karras 4 "
+                  f"steps split 2 + 2), LatentBlend, VAEDecodeTiled at {SIZE}x{SIZE}: success in "
+                  f"{first_s:.2f} s (loads and the host LoRA merge included); frame finite, not "
+                  f"constant; K1 {c[0]} by (BH, Lq, Lk, d) {dict(seen)}, by kernel "
+                  f"{k1_routes(seen)}; SaveLatent -> LoadLatent bit for bit on the card | {card}",
+                  flush=True)
+            out["k1_rows"] = [r["shape"] for r in hold_new_k1_shapes(seen, 24, dev, card, k1)]
+
+            # /interrupt during a prompt: the same graph at another seed (a new
+            # executor: its loads and merges run again); the interrupt lands at
+            # the first node entered after it, the positive CLIPTextEncode
+            wf_i = ui_workflow(server_rows(Path(ckpt).name, Path(lora).name, seed=25))
+            pid_i = json.loads(_http(base + "/prompt", {"prompt": wf_i})[1])["prompt_id"]
+            worker = threading.Thread(target=serve_workflows, daemon=True, args=(server,),
+                                      kwargs=dict(model_dirs=mdirs, max_prompts=1,
+                                                  poll_timeout=0.1, device="cuda"))
+            worker.start()
+            t0 = time.perf_counter()
+            while True:
+                evt = bus.get(timeout=60)
+                if evt["type"] == "execution_start" and evt["data"]["prompt_id"] == pid_i:
+                    break
+            _http(base + "/interrupt", {})
+            worker.join(timeout=300)
+            status_i = server.queue.get_history_item(pid_i)["status"]
+            if worker.is_alive() or status_i != "interrupted":
+                fail(f"phase 24: /interrupt during a prompt gave {status_i!r} "
+                     f"(worker alive {worker.is_alive()})")
+            interrupt_s = time.perf_counter() - t0
+
+            # /free: the executors and the models they hold on the card go
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            freed = json.loads(_http(base + "/free", {"unload_models": True,
+                                                     "free_memory": True}, timeout=60)[1])
+            after = torch.cuda.memory_allocated()
+            if before - after < unet_bytes or server.executor_cache:
+                fail(f"phase 24: /free lowered memory_allocated by {before - after} bytes, "
+                     f"want >= the UNet's {unet_bytes} ({freed})")
+            out["interrupt_s"], out["free"] = interrupt_s, {
+                "allocated_before": before, "allocated_after": after, **freed}
+            print(f"[24 interrupt, free] /interrupt after execution_start: history "
+                  f"'interrupted' {interrupt_s:.2f} s later; /free (unload_models, free_memory): "
+                  f"{freed}, memory_allocated {before / 2**30:.2f} -> {after / 2**30:.2f} GiB "
+                  f"(the UNet alone {unet_bytes / 2**30:.2f} GiB) | {card}", flush=True)
+        finally:
+            server.stop()
+
+        # --- 24.3 EDITOR mode: Engine.RunEditor of the bench scene -----------------------
+        zero_counts()
+        t0 = time.perf_counter()
+        eng, presented = run_engine(pipe, SIZE, EDITOR_FRAMES, corr, editor=True, editor_port=0)
+        editor_s = time.perf_counter() - t0
+        c = counts()
+        try:
+            base = f"http://127.0.0.1:{eng.editor_server.port}"
+            png = _png_array(_http(base + "/frame.png")[1])
+            got = {}
+
+            def stream():
+                import urllib.request
+
+                with urllib.request.urlopen(base + "/stream", timeout=5) as r:
+                    data = b""
+                    while data.count(b"\xff\xd8") < 1 or b"\r\n--" not in data[2:]:
+                        data += r.read(4096)
+                    got["part"] = data
+
+            t = threading.Thread(target=stream, daemon=True)
+            t.start()
+            t.join(timeout=10)
+            scene = json.loads(_http(base + "/scene")[1])["scene"]
+            ball = [n for n in scene if n["name"] == "ball"]
+        finally:
+            eng.editor_server.stop()
+        if (c[0] != K1_CALLS_PER_FRAME * EDITOR_FRAMES or c[1] != EDITOR_FRAMES
+                or len(presented) != EDITOR_FRAMES or png.shape[:2] != (SIZE, SIZE)
+                or b"image/jpeg" not in got.get("part", b"")
+                or not ball or "SpriteInfo" not in ball[0]["components"]):
+            fail(f"phase 24 EDITOR: K1 {c[0]}, K2 {c[1]} over {EDITOR_FRAMES} frames (want "
+                 f"{K1_CALLS_PER_FRAME} and 1 a frame), {len(presented)} presented, /frame.png "
+                 f"{png.shape}, /stream part {'part' in got}, /scene ball {ball}")
+        out["editor"] = {"s": editor_s, "k1": c[0], "k2_calls": c[1]}
+        print(f"[24 editor] Engine.RunEditor of the bench scene, {EDITOR_FRAMES} frames at "
+              f"{SIZE}x{SIZE} in {editor_s:.1f} s: K1 {c[0] // EDITOR_FRAMES} and K2 "
+              f"{c[1] // EDITOR_FRAMES} call a frame by the counters; /frame.png {png.shape}, "
+              f"/stream one MJPEG part, /scene lists the ball with its SpriteInfo | {card}",
+              flush=True)
+        k1["launches_a_frame"]["editor"] = c[0] // EDITOR_FRAMES
+        k2.setdefault("launches_a_frame", {})["editor"] = c[1] // EDITOR_FRAMES
+    finally:
+        ppaths.OUTPUT_DIR = saved_output_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[24 server] phase 24 in {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
+def hold_new_k1_shapes(launched, phase: int, dev, card: str, k1: dict) -> list:
+    """Each K1 shape of ``launched`` (k1_shape_tally's Counter) that no
+    phase held yet, against flash_attention_reference at K1's bar, timed
+    beside SDPA (seeded with ``phase``); its row joins ``k1["shapes"]``.
+    Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_renderer_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(phase)
+    rows = []
+    for key in sorted(set(launched) - HELD_K1, key=str):
+        bh, lq, lk, d = key[:4]
+        f32 = len(key) == 5
+        dt = torch.float32 if f32 else torch.bfloat16
+        q, k_, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(dt)
+                    for n in (lq, lk, lk))
+        row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')} "
+                        f"(phase {phase})", "route": k1_route(d, f32),
+               f"launches_in_phase_{phase}": launched[key]}
+        _k1_case(row, dt, K1_F32_TOL if f32 else K1_BF16_TOL,
+                 lambda: flash_attention(q, k_, v),
+                 lambda: flash_attention_reference(q, k_, v),
+                 lambda: F.scaled_dot_product_attention(q[None], k_[None], v[None]),
+                 k1_bound(bh, lq, lk, d, f32), timed=True)
+        HELD_K1.add(key)
+        k1["shapes"].append(row)
+        rows.append(row)
+        print(f"[{phase} K1] {row} | {card}", flush=True)
+        del q, k_, v
+    return rows
 
 
 def perturbed_controlnet(pipe, spec, seed: int) -> None:

@@ -14,11 +14,16 @@ Subcommands:
              checkpoint, the record written to <--out>/PARITY.json
   execute  — run a workflow JSON through the workflow executor on dumped
              maps (color, id, noise, normal, depth directories)
-  serve    — needs the HTTP server (ROADMAP 1.12b)
+  serve    — the HTTP viewer + prompt server: POST workflow JSON to /prompt,
+             read /history, /view, /events; executes on the card
   upscale  — needs the model zoo (ROADMAP 1.13)
 
-``render`` prints, after its fps line, the launches of each kernel over the
-run (``kernel launches ...``: K1 flash_attention, K2 rasterize_kernel, K3
+``render --editor`` runs the scene in EDITOR mode: the same HTTP server
+streams every presented frame (/stream, /frame.png) and serves the scene
+hierarchy (/scene, /hierarchy) and the graph editor (/editor).
+
+``render`` and ``serve`` print, at the end, the launches of each kernel over
+the run (``kernel launches ...``: K1 flash_attention, K2 rasterize_kernel, K3
 conv3x3_kernel, K4 group_norm_kernel; zero on the CPU, where no kernel runs).
 """
 
@@ -57,7 +62,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--taesd", action="store_true",
                    help="realtime TAESD autoencoder swap")
     p.add_argument("--editor", action="store_true",
-                   help="EDITOR mode: the live-view/graph-editor HTTP server (not ported)")
+                   help="EDITOR mode: the live-view/graph-editor HTTP server")
     p.add_argument("--editor-port", type=int, default=8188)
     _add_device(p)
 
@@ -126,9 +131,6 @@ def cmd_render(args) -> int:
     from stable_renderer_tpu_torch.engine import Engine
     from stable_renderer_tpu_torch.utils.paths import new_run_dir
 
-    if getattr(args, "editor", False):
-        raise NotImplementedError("--editor needs the editor server (server.py), which waits "
-                                  "for ROADMAP 1.12b")
     out = args.out or str(new_run_dir("render"))
     pipeline = None if args.no_diffusion else _build_pipeline(args)
 
@@ -139,7 +141,7 @@ def cmd_render(args) -> int:
     counters = kernel_counters()
     for f in counters.values():
         f.launches = 0
-    eng = App.Run(
+    eng = (App.RunEditor if args.editor else App.Run)(
         winSize=(args.size, args.size),
         pipeline=pipeline,
         disableComfyUI=args.no_diffusion,
@@ -147,6 +149,7 @@ def cmd_render(args) -> int:
         output_dir=out,
         keep_frames_in_memory=bool(args.gif),
         device=args.device,
+        editor_port=args.editor_port,
     )
     if args.gif:
         from stable_renderer_tpu_torch.utils.media import write_gif
@@ -155,6 +158,10 @@ def cmd_render(args) -> int:
     print(f"{args.frames} frames -> {out} (fps {eng.RuntimeManager.fps.fps:.2f})")
     launches = {name: f.launches for name, f in counters.items()}
     print(f"kernel launches over {args.frames} frames: {json.dumps(launches)}")
+    if eng.editor_server is not None:  # the run is over: so is its viewer
+        print(f"editor: served at http://{eng.editor_server.host}:{eng.editor_server.port}/ "
+              "during the run")
+        eng.editor_server.stop()
     return 0
 
 
@@ -248,8 +255,42 @@ def cmd_execute(args) -> int:
 
 
 def cmd_serve(args) -> int:
-    raise NotImplementedError("serve needs the HTTP server (server.py, editor_page.py), "
-                              "which waits for ROADMAP 1.12b")
+    """HTTP server mode (the reference main.run() server + PySide6 viewer
+    replacement): live MJPEG frame view + POST /prompt workflow execution on
+    the card (``--device cpu`` for the tests). Prints the kernels' launches
+    over the run at exit."""
+    from stable_renderer_tpu_torch.data.loaders import virtual_engine_data
+    from stable_renderer_tpu_torch.device import resolve_device
+    from stable_renderer_tpu_torch.server import FrameServer, serve_workflows
+
+    device = resolve_device(args.device)  # raises without a card unless asked for the CPU
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    server = FrameServer(host=args.host, port=args.port).start()
+    print(f"viewer: http://{args.host}:{server.port}/  "
+          f"(POST workflow JSON to /prompt; /history; /queue)", flush=True)
+
+    ed_fn = None
+    if args.color_dir or args.id_dir:
+        def ed_fn():
+            return virtual_engine_data(
+                color_dir=args.color_dir, id_dir=args.id_dir,
+                noise_dir=args.noise_dir, normal_dir=args.normal_dir,
+                depth_dir=args.depth_dir, prompt=args.prompt, device=device)
+
+    try:
+        serve_workflows(server, model_dirs=_model_dirs(args), engine_data_fn=ed_fn,
+                        max_prompts=args.max_prompts, device=device)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    launches = {name: f.launches for name, f in counters.items()}
+    done = [h for h in server.queue.get_history() if h["status"] == "success"]
+    print(f"kernel launches over {len(done)} successful prompts: {json.dumps(launches)}",
+          flush=True)
+    return 0
 
 
 def cmd_upscale(args) -> int:
@@ -359,7 +400,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "./extra_model_paths.yaml when present)")
     p.set_defaults(fn=cmd_execute)
 
-    p = sub.add_parser("serve", help="HTTP viewer + prompt server (ROADMAP 1.12b)")
+    p = sub.add_parser("serve", help="HTTP viewer + prompt server")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8188)
     p.add_argument("--prompt", type=str, default="")

@@ -21,8 +21,9 @@ Usage mirrors the reference example scripts (scripts/boat_example.py:81-111):
 The engine runs on one device: the pipeline's when it has one, else
 ``device`` (default: the card; it raises where there is none, and never falls
 back to the CPU). Headless: ``max_frames`` bounds the loop and frames stream
-to WindowManager's sink. EDITOR mode needs the editor server (server.py),
-which is not ported yet.
+to WindowManager's sink. EDITOR mode (``RunEditor``) also starts the
+live-view / prompt HTTP server (server.py) and streams every presented
+frame to it.
 """
 
 from __future__ import annotations
@@ -94,11 +95,10 @@ class Engine:
         verbose: bool = False,
         debug: bool = False,
         device=None,
+        editor_port: int = 8188,
+        editor_host: str = "127.0.0.1",
         **kwargs,
     ):
-        if mode == EngineMode.EDITOR:
-            raise NotImplementedError("EDITOR mode needs the editor server (server.py), "
-                                      "which is not ported yet")
         self.device = _run_device(pipeline, device)
         keep_f32()  # Run and Bake construct through here
         Engine._instance = self
@@ -131,6 +131,28 @@ class Engine:
         )
         self.SceneManager = SceneManager(self)
         self.ResourcesManager = ResourcesManager(self)
+
+        # EDITOR mode (reference engine.py:117-119 + comfyUI main.run editor
+        # branch): boot the live-view/prompt HTTP server and stream every
+        # presented frame to it (numpy uint8, already on the host) — the
+        # stand-in for the PySide6 editor + web graph UI. GAME mode stays
+        # headless.
+        self.editor_server = None
+        if mode == EngineMode.EDITOR:
+            from stable_renderer_tpu_torch.server import FrameServer
+
+            self.editor_server = FrameServer(host=editor_host, port=editor_port).start()
+            # scene hierarchy + inspector (/scene, /hierarchy) — the
+            # reference editor's left panel (ui/main.py gameobject list)
+            self.editor_server.attach_engine(self)
+            user_cb = self.WindowManager.frame_callback
+
+            def _editor_cb(frame, idx, _srv=self.editor_server, _user=user_cb):
+                _srv.publish(frame, idx)
+                if _user is not None:
+                    _user(frame, idx)
+
+            self.WindowManager.frame_callback = _editor_cb
 
     # --- user hooks (engine.py:227-283) ---
     def beforePrepare(self): ...
@@ -212,6 +234,9 @@ class Engine:
             for m in sorted(self._managers, key=lambda m: m.ReleaseFuncOrder):
                 m.release()
             self.afterRelease()
+            # the editor server survives the frame loop (the reference's
+            # editor window stays open after a run): stop it with
+            # engine.editor_server.stop()
             self._running = False
             EngineLogger.info(
                 "Engine released.\n" + self.RenderManager.timer.report()
@@ -238,7 +263,9 @@ class Engine:
 
     @classmethod
     def RunEditor(cls, **kwargs) -> "Engine":
-        """EDITOR mode (engine.py:106-125): raises until server.py is ported."""
+        """Create + run in EDITOR mode: the engine loop plus the live-view /
+        prompt HTTP server (the reference's editor-mode boot, engine.py:117-119
+        with comfyUI main.run server branch)."""
         kwargs["mode"] = EngineMode.EDITOR
         return cls.Run(**kwargs)
 

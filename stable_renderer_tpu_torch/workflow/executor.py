@@ -1423,25 +1423,10 @@ register_stubs(("CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning"), "
                "models/clip_vision.py")
 register_stubs(("ImageUpscaleWithModel", "UpscaleModelLoader"), "1.13",
                "the upscaler zoo (models/upscale.py)")
-# the JAX package's workflow/nodes_parity.py
-register_stubs((
-    "SetLatentNoiseMask", "LatentFromBatch", "RepeatLatentBatch", "LatentBlend",
-    "LatentRotate", "LatentFlip", "LatentCrop", "LatentInterpolate", "LatentBatch",
-    "LatentBatchSeedBehavior", "LatentCompositeMasked", "ImageCompositeMasked", "SaveLatent",
-    "LoadLatent", "EmptyImage", "ImageCrop", "RepeatImageBatch", "ImageFromBatch",
-    "ImageColorToMask", "CropMask", "LoadImageMask", "ImageScaleToTotalPixels", "Canny",
-    "SaveAnimatedWEBP", "SaveAnimatedPNG", "ConditioningAverage",
-    "ConditioningSetAreaStrength", "CLIPTextEncodeSDXL", "CLIPTextEncodeSDXLRefiner",
-    "CLIPTextEncodeControlnet", "VAELoader", "CLIPLoader", "DualCLIPLoader", "LoraLoader",
-    "CheckpointLoader", "unCLIPCheckpointLoader", "DiffusersLoader", "StyleModelLoader",
-    "StyleModelApply", "DiffControlNetLoader", "VAEDecodeTiled", "VAEEncodeTiled",
-    "ModelSamplingDiscrete", "ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
-    "RescaleCFG", "PatchModelAddDownscale", "StableCascade_StageC_VAEEncode",
-    "StableZero123_Conditioning_Batched",
-), "1.12b", "workflow/nodes_parity.py")
 
 
 # the node packs register themselves on import (at the module's end: they
 # import register_node from here)
 from stable_renderer_tpu_torch.workflow import nodes_extra as _nodes_extra  # noqa: E402,F401
+from stable_renderer_tpu_torch.workflow import nodes_parity as _nodes_parity  # noqa: E402,F401
 from stable_renderer_tpu_torch.workflow import nodes_sr as _nodes_sr  # noqa: E402,F401

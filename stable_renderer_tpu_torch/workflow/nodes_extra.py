@@ -1,8 +1,15 @@
-"""The model-patch nodes of the comfy_extras packs.
+"""The comfy_extras node packs.
 
-Counterpart of the model-patch part of stable_renderer_tpu/workflow/
-nodes_extra.py (reference source/comfyUI/comfy_extras/):
+Counterpart of stable_renderer_tpu/workflow/nodes_extra.py, node for node
+(reference source/comfyUI/comfy_extras/):
 
+  * nodes_custom_sampler.py — SamplerCustom + KSamplerSelect + the scheduler /
+    sigma-manipulation nodes (SIGMAS and SAMPLER as first-class values).
+  * nodes_model_merging.py  — Model/CLIP merge arithmetic + checkpoint saves
+    (through models/weights.py's writer).
+  * nodes_morphology.py, nodes_compositing.py, nodes_rebatch.py,
+    nodes_sdupscale.py, nodes_tomesd.py, nodes_video_model.py's CFG ramp,
+    nodes_stable_cascade.py's latents and stage-B conditioning.
   * nodes_freelunch.py      — FreeU / FreeU_V2 output-block patches.
   * nodes_hypertile.py      — HyperTile tiled self-attention.
   * nodes_hypernetwork.py   — HypernetworkLoader: attn k/v context MLPs.
@@ -13,9 +20,9 @@ nodes_extra.py (reference source/comfyUI/comfy_extras/):
 Patches ride the MODEL dict as ``model["patches"]``, an ordered tuple of
 {"kind", "sig", ...} entries that the KSampler translates through
 ``model_patch_options`` into AttnHooks fields and build_denoiser options.
-``model_patch_options`` also translates the kinds whose nodes wait for
-ROADMAP 1.12b (tomesd, rescale_cfg, downscale, linear_cfg). The pack's other
-names are registered as stubs naming 1.12b.
+``model_patch_options`` also translates the kinds of the patch nodes in
+nodes_parity.py and of TomePatchModel and VideoLinearCFGGuidance here
+(tomesd, rescale_cfg, downscale, linear_cfg).
 
 The JAX package picks HyperTile's and ToMe's random splits while it traces
 the denoiser, once per attention layer, and its compiled program keeps them
@@ -527,17 +534,577 @@ def _chain_out_blocks(fns):
     return chained
 
 
-# the pack's other nodes wait for ROADMAP 1.12b
-register_stubs((
-    "KSamplerSelect", "SamplerDPMPP_2M_SDE", "SamplerDPMPP_SDE", "BasicScheduler",
-    "KarrasScheduler", "ExponentialScheduler", "PolyexponentialScheduler", "VPScheduler",
-    "SDTurboScheduler", "SplitSigmas", "FlipSigmas", "SamplerCustom", "ModelMergeSimple",
-    "ModelMergeAdd", "ModelMergeSubtract", "ModelMergeBlocks", "CLIPMergeSimple",
-    "CheckpointSave", "CLIPSave", "VAESave", "Morphology", "PorterDuffImageComposite",
-    "SplitImageWithAlpha", "JoinImageWithAlpha", "RebatchLatents", "RebatchImages",
-    "SD_4XUpscale_Conditioning", "ImageOnlyCheckpointLoader", "SVD_img2vid_Conditioning",
-    "VideoLinearCFGGuidance", "ImageOnlyCheckpointSave", "TomePatchModel",
-    "StableZero123_Conditioning", "StableCascade_EmptyLatentImage",
-    "StableCascade_StageB_Conditioning", "CascadeStageLoader", "UNETLoader",
-    "PhotoMakerLoader", "PhotoMakerEncode",
-), "1.12b", "the rest of workflow/nodes_extra.py")
+# ---------------------------------------------------------------------------
+# custom sampler pack (nodes_custom_sampler.py)
+
+
+@register_node("KSamplerSelect")
+def ksampler_select(ctx: InferenceContext, node: WorkflowNode):
+    from stable_renderer_tpu_torch.models.sampling import SAMPLER_NAMES
+
+    name = str(node.widgets[0]) if node.widgets else "euler"
+    if name.endswith("_gpu"):  # gpu-noise variants are a torch device detail
+        name = name[: -len("_gpu")]
+    if name not in SAMPLER_NAMES:
+        raise ValueError(f"unknown sampler {name}")
+    return ({"name": name, "extra": {}},)
+
+
+@register_node("SamplerDPMPP_2M_SDE")
+def sampler_dpmpp_2m_sde(ctx: InferenceContext, node: WorkflowNode):
+    w = node.widgets
+    eta = float(w[1]) if len(w) > 1 else 1.0
+    return ({"name": "dpmpp_2m_sde", "extra": {"eta": eta}},)
+
+
+@register_node("SamplerDPMPP_SDE")
+def sampler_dpmpp_sde(ctx: InferenceContext, node: WorkflowNode):
+    w = node.widgets
+    eta = float(w[0]) if w else 1.0
+    return ({"name": "dpmpp_sde", "extra": {"eta": eta}},)
+
+
+@register_node("BasicScheduler")
+def basic_scheduler(ctx: InferenceContext, node: WorkflowNode, model=None):
+    from stable_renderer_tpu_torch.models.sampling import calculate_sigmas
+
+    w = node.widgets
+    scheduler = str(w[0]) if w else "normal"
+    steps = int(w[1]) if len(w) > 1 else 20
+    denoise = float(w[2]) if len(w) > 2 else 1.0
+    return (np.asarray(calculate_sigmas(model["sampling"], scheduler, steps, denoise)),)
+
+
+@register_node("KarrasScheduler")
+def karras_scheduler(ctx: InferenceContext, node: WorkflowNode):
+    from stable_renderer_tpu_torch.models.sampling.schedules import sigmas_karras
+
+    w = node.widgets
+    steps = int(w[0]) if w else 20
+    sigma_max = float(w[1]) if len(w) > 1 else 14.614642
+    sigma_min = float(w[2]) if len(w) > 2 else 0.0291675
+    rho = float(w[3]) if len(w) > 3 else 7.0
+    return (sigmas_karras(steps, sigma_min, sigma_max, rho),)
+
+
+@register_node("ExponentialScheduler")
+def exponential_scheduler(ctx: InferenceContext, node: WorkflowNode):
+    from stable_renderer_tpu_torch.models.sampling.schedules import sigmas_exponential
+
+    w = node.widgets
+    steps = int(w[0]) if w else 20
+    sigma_max = float(w[1]) if len(w) > 1 else 14.614642
+    sigma_min = float(w[2]) if len(w) > 2 else 0.0291675
+    return (sigmas_exponential(steps, sigma_min, sigma_max),)
+
+
+@register_node("PolyexponentialScheduler")
+def polyexponential_scheduler(ctx: InferenceContext, node: WorkflowNode):
+    from stable_renderer_tpu_torch.models.sampling.schedules import sigmas_polyexponential
+
+    w = node.widgets
+    steps = int(w[0]) if w else 20
+    sigma_max = float(w[1]) if len(w) > 1 else 14.614642
+    sigma_min = float(w[2]) if len(w) > 2 else 0.0291675
+    rho = float(w[3]) if len(w) > 3 else 1.0
+    return (sigmas_polyexponential(steps, sigma_min, sigma_max, rho),)
+
+
+@register_node("VPScheduler")
+def vp_scheduler(ctx: InferenceContext, node: WorkflowNode):
+    from stable_renderer_tpu_torch.models.sampling.schedules import sigmas_vp
+
+    w = node.widgets
+    steps = int(w[0]) if w else 20
+    beta_d = float(w[1]) if len(w) > 1 else 19.9
+    beta_min = float(w[2]) if len(w) > 2 else 0.1
+    eps_s = float(w[3]) if len(w) > 3 else 0.001
+    return (sigmas_vp(steps, beta_d, beta_min, eps_s),)
+
+
+@register_node("SDTurboScheduler")
+def sd_turbo_scheduler(ctx: InferenceContext, node: WorkflowNode, model=None):
+    from stable_renderer_tpu_torch.models.sampling.schedules import sigmas_sd_turbo
+
+    w = node.widgets
+    steps = int(w[0]) if w else 1
+    denoise = float(w[1]) if len(w) > 1 else 1.0
+    return (sigmas_sd_turbo(model["sampling"], steps, denoise),)
+
+
+@register_node("SplitSigmas")
+def split_sigmas(ctx: InferenceContext, node: WorkflowNode, sigmas=None):
+    step = int(node.widgets[0]) if node.widgets else 0
+    s = np.asarray(sigmas)
+    return (s[: step + 1], s[step:])
+
+
+@register_node("FlipSigmas")
+def flip_sigmas(ctx: InferenceContext, node: WorkflowNode, sigmas=None):
+    s = np.asarray(sigmas)[::-1].copy()
+    if s.shape[0] and s[0] == 0:
+        s[0] = 0.0001
+    return (s,)
+
+
+@register_node("SamplerCustom")
+def sampler_custom(ctx: InferenceContext, node: WorkflowNode, model=None, positive=None,
+                   negative=None, sampler=None, sigmas=None, latent_image=None):
+    """SamplerCustom: explicit SAMPLER + SIGMAS sampling
+    (nodes_custom_sampler.py SamplerCustom.sample), run eagerly. Returns
+    (output, denoised_output); without an x0 preview callback the reference
+    returns the same latent for both — matched here. The noise and the
+    sampler's draws come from a generator seeded with the seed widget on the
+    context's device."""
+    from stable_renderer_tpu_torch.models.sampling import build_denoiser
+    from stable_renderer_tpu_torch.ops.math import resize_nearest
+    from stable_renderer_tpu_torch.workflow import executor as _ex
+
+    w = node.widgets
+    add_noise = (str(w[0]).lower() not in ("false", "disable", "0")) if w else True
+    noise_seed = int(w[1]) % (2**31) if len(w) > 1 else 0
+    cfg_scale = float(w[-1]) if len(w) > 2 else 8.0
+
+    latent = _ex._on(ctx, latent_image["samples"] if isinstance(latent_image, dict)
+                     else latent_image)
+    b = latent.shape[0]
+    ctx_pos = positive["context"]
+    ctx_neg = negative["context"] if negative else None
+    if ctx_pos.shape[0] != b:
+        ctx_pos = ctx_pos[:1].expand((b,) + tuple(ctx_pos.shape[1:]))
+    if ctx_neg is not None and ctx_neg.shape[0] != b:
+        ctx_neg = ctx_neg[:1].expand((b,) + tuple(ctx_neg.shape[1:]))
+    sig = torch.as_tensor(np.asarray(sigmas, np.float32))
+    noise_mask = latent_image.get("noise_mask") if isinstance(latent_image, dict) else None
+    if noise_mask is not None:
+        nm = _ex._on(ctx, noise_mask)
+        if nm.dim() == 2:
+            nm = nm[None]
+        if tuple(nm.shape[1:3]) != tuple(latent.shape[1:3]):
+            nm = resize_nearest(nm[..., None], latent.shape[1], latent.shape[2])[..., 0]
+        noise_mask = nm[..., None]
+
+    unet = model["unet"]
+    ms = model["sampling"]
+    log_sigmas = torch.as_tensor(ms.log_sigmas)
+    hooks, patch_opts = model_patch_options(model, unet, sig, ms)
+    eta = float(sampler.get("extra", {}).get("eta", 1.0))
+    den = build_denoiser(
+        unet, model["params"], cond_context=ctx_pos,
+        uncond_context=None if cfg_scale == 1.0 else ctx_neg,
+        log_sigmas=log_sigmas, cfg_scale=cfg_scale,
+        prediction=ms.prediction, hooks=hooks,
+        inpaint_mask=noise_mask, inpaint_latent=None if noise_mask is None else latent,
+        **patch_opts,
+    )
+    noise = (torch.randn(tuple(latent.shape), generator=_ex._generator(ctx, noise_seed),
+                         device=ctx.device)
+             if add_noise else torch.zeros_like(latent))
+    out = _ex.sample(den, noise, sig, latent_image=latent, sampler=sampler["name"],
+                     generator=_ex._generator(ctx, noise_seed), eta=eta)
+    out_latent = {"samples": out}
+    return (out_latent, out_latent)
+
+
+# ---------------------------------------------------------------------------
+# model merging (nodes_model_merging.py)
+
+
+def _tree_combine(a: dict, b: dict, sa: float, sb: float, per_key=None) -> dict:
+    """new = a * sa + b * sb per leaf, in f32, cast back to a's dtype
+    (ModelPatcher.add_patches diff math). ``per_key(flat_key) -> (sa, sb)``
+    overrides per parameter."""
+    from stable_renderer_tpu_torch.models.weights import flatten, nest
+
+    fa, fb = flatten(a), flatten(b)
+    out = {}
+    for k, va in fa.items():
+        vb = fb.get(k)
+        wa, wb = (sa, sb) if per_key is None else per_key(k)
+        if vb is None or wb == 0.0:
+            # the scalar rounded to va's dtype first, as a JAX weak scalar is
+            out[k] = va if wa == 1.0 else va * torch.tensor(wa, dtype=va.dtype, device=va.device)
+        else:
+            out[k] = (va.float() * wa + vb.to(va.device).float() * wb).to(va.dtype)
+    return nest(out, "")
+
+
+@register_node("ModelMergeSimple")
+def model_merge_simple(ctx: InferenceContext, node: WorkflowNode, model1=None, model2=None):
+    ratio = float(node.widgets[0]) if node.widgets else 1.0
+    params = _tree_combine(model1["params"], model2["params"], 1.0 - ratio, ratio)
+    return ({**model1, "params": params},)
+
+
+@register_node("ModelMergeAdd")
+def model_merge_add(ctx: InferenceContext, node: WorkflowNode, model1=None, model2=None):
+    params = _tree_combine(model1["params"], model2["params"], 1.0, 1.0)
+    return ({**model1, "params": params},)
+
+
+@register_node("ModelMergeSubtract")
+def model_merge_subtract(ctx: InferenceContext, node: WorkflowNode, model1=None, model2=None):
+    mult = float(node.widgets[0]) if node.widgets else 1.0
+    params = _tree_combine(model1["params"], model2["params"], -mult, mult)
+    return ({**model1, "params": params},)
+
+
+@register_node("ModelMergeBlocks")
+def model_merge_blocks(ctx: InferenceContext, node: WorkflowNode, model1=None, model2=None):
+    """Per-section merge ratios (input/middle/out prefixes, longest match;
+    nodes_model_merging.py ModelMergeBlocks.merge)."""
+    w = node.widgets
+    ratios = {"input": float(w[0]) if w else 1.0,
+              "middle": float(w[1]) if len(w) > 1 else 1.0,
+              "out": float(w[2]) if len(w) > 2 else 1.0}
+    default = ratios["input"]
+
+    def per_key(k: str):
+        r, best = default, 0
+        for prefix, val in ratios.items():
+            if k.startswith(prefix) and len(prefix) > best:
+                r, best = val, len(prefix)
+        return (1.0 - r, r)
+
+    params = _tree_combine(model1["params"], model2["params"], 0.0, 0.0, per_key=per_key)
+    return ({**model1, "params": params},)
+
+
+@register_node("CLIPMergeSimple")
+def clip_merge_simple(ctx: InferenceContext, node: WorkflowNode, clip1=None, clip2=None):
+    ratio = float(node.widgets[0]) if node.widgets else 1.0
+
+    def per_key(k: str):
+        # position_ids / logit_scale keep clip1 (nodes_model_merging.py:88)
+        if k.endswith("position_ids") or k.endswith("logit_scale"):
+            return (1.0, 0.0)
+        return (1.0 - ratio, ratio)
+
+    params = _tree_combine(clip1["params"], clip2["params"], 0.0, 0.0, per_key=per_key)
+    return ({**clip1, "params": params},)
+
+
+def _save_file(prefix: str, default: str, sub: str) -> str:
+    """OUTPUT_DIR/<prefix's folder or ``sub``>/<prefix's name>.safetensors,
+    its folder made."""
+    import os
+
+    from stable_renderer_tpu_torch.utils import paths
+
+    d = os.path.join(str(paths.OUTPUT_DIR), os.path.dirname(prefix) or sub)
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, f"{os.path.basename(prefix) or default}.safetensors")
+
+
+def _f32_under(prefix: str, params: dict) -> dict:
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    return {prefix + k: v.float() for k, v in flatten(params).items()}
+
+
+@register_node("CheckpointSave")
+def checkpoint_save(ctx: InferenceContext, node: WorkflowNode, model=None, clip=None,
+                    vae=None):
+    """Write a merged checkpoint as reference-layout safetensors, f32
+    (nodes_model_merging.py CheckpointSave -> comfy sd.py save_checkpoint):
+    model.diffusion_model.* + first_stage_model.* + cond_stage_model.transformer.*"""
+    from stable_renderer_tpu_torch.models.weights import write_safetensors
+
+    path = _save_file(str(node.widgets[0]) if node.widgets else "checkpoints/sr_tpu",
+                      "sr_tpu", "checkpoints")
+    flat = _f32_under("model.diffusion_model.", model["params"])
+    if vae is not None:
+        flat.update(_f32_under("first_stage_model.", vae["params"]))
+    if clip is not None:
+        flat.update(_f32_under("cond_stage_model.transformer.", clip["params"]))
+    write_safetensors(flat, path)
+    logger.info(f"saved checkpoint {path} ({len(flat)} tensors)")
+    return (path,)
+
+
+@register_node("CLIPSave")
+def clip_save(ctx: InferenceContext, node: WorkflowNode, clip=None):
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
+
+    path = _save_file(str(node.widgets[0]) if node.widgets else "clip/sr_tpu", "sr_tpu",
+                      "clip")
+    write_safetensors(flatten(clip["params"]), path)
+    return (path,)
+
+
+@register_node("VAESave")
+def vae_save(ctx: InferenceContext, node: WorkflowNode, vae=None):
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
+
+    path = _save_file(str(node.widgets[0]) if node.widgets else "vae/sr_tpu_vae",
+                      "sr_tpu_vae", "vae")
+    write_safetensors(flatten(vae["params"]), path)
+    return (path,)
+
+
+@register_node("ImageOnlyCheckpointSave")
+def image_only_checkpoint_save(ctx: InferenceContext, node: WorkflowNode, model=None,
+                               clip_vision=None, vae=None):
+    """SVD-style checkpoint save, f32: diffusion model + VAE + clip-vision
+    under the SVD prefixes (nodes_video_model.py ImageOnlyCheckpointSave)."""
+    from stable_renderer_tpu_torch.models.weights import write_safetensors
+
+    path = _save_file(str(node.widgets[0]) if node.widgets else "checkpoints/sr_tpu_svd",
+                      "sr_tpu_svd", "checkpoints")
+    flat = _f32_under("model.diffusion_model.", model["params"])
+    if vae is not None:
+        flat.update(_f32_under("first_stage_model.", vae["params"]))
+    if clip_vision is not None:
+        inner = clip_vision["params"]
+        flat.update(_f32_under("conditioner.embedders.0.open_clip.model.visual.",
+                               inner.get("vision_model", inner)))
+    write_safetensors(flat, path)
+    return (path,)
+
+
+# ---------------------------------------------------------------------------
+# morphology (nodes_morphology.py, kornia semantics: edge-padded max / min)
+
+
+def _morph_pool(img: torch.Tensor, ksize: int, op: str) -> torch.Tensor:
+    r = ksize // 2
+    x = F.pad(img.permute(0, 3, 1, 2), (r, ksize - 1 - r, r, ksize - 1 - r), mode="replicate")
+    if op == "dilate":
+        out = F.max_pool2d(x, ksize, stride=1)
+    else:
+        out = -F.max_pool2d(-x, ksize, stride=1)
+    return out.permute(0, 2, 3, 1)
+
+
+@register_node("Morphology")
+def morphology(ctx: InferenceContext, node: WorkflowNode, image=None):
+    w = node.widgets
+    op = str(w[0]) if w else "erode"
+    ksize = int(w[1]) if len(w) > 1 else 3
+    img = image
+    if op == "erode":
+        out = _morph_pool(img, ksize, "erode")
+    elif op == "dilate":
+        out = _morph_pool(img, ksize, "dilate")
+    elif op == "open":
+        out = _morph_pool(_morph_pool(img, ksize, "erode"), ksize, "dilate")
+    elif op == "close":
+        out = _morph_pool(_morph_pool(img, ksize, "dilate"), ksize, "erode")
+    elif op == "gradient":
+        out = _morph_pool(img, ksize, "dilate") - _morph_pool(img, ksize, "erode")
+    elif op == "top_hat":
+        out = img - _morph_pool(_morph_pool(img, ksize, "erode"), ksize, "dilate")
+    elif op == "bottom_hat":
+        out = _morph_pool(_morph_pool(img, ksize, "dilate"), ksize, "erode") - img
+    else:
+        raise ValueError(f"invalid morphology operation {op}")
+    return (out,)
+
+
+# ---------------------------------------------------------------------------
+# compositing (nodes_compositing.py)
+
+def _porter_duff(src, sa, dst, da, mode: str):
+    if mode == "ADD":
+        return torch.clamp(src + dst, 0, 1), torch.clamp(sa + da, 0, 1)
+    if mode == "CLEAR":
+        return torch.zeros_like(dst), torch.zeros_like(da)
+    if mode == "DARKEN":
+        return (1 - da) * src + (1 - sa) * dst + torch.minimum(src, dst), sa + da - sa * da
+    if mode == "DST":
+        return dst, da
+    if mode == "DST_ATOP":
+        return sa * dst + (1 - da) * src, sa
+    if mode == "DST_IN":
+        return dst * sa, sa * da
+    if mode == "DST_OUT":
+        return (1 - sa) * dst, (1 - sa) * da
+    if mode == "DST_OVER":
+        return dst + (1 - da) * src, da + (1 - da) * sa
+    if mode == "LIGHTEN":
+        return (1 - da) * src + (1 - sa) * dst + torch.maximum(src, dst), sa + da - sa * da
+    if mode == "MULTIPLY":
+        return src * dst, sa * da
+    if mode == "OVERLAY":
+        return (torch.where(2 * dst < da, 2 * src * dst, sa * da - 2 * (da - src) * (sa - dst)),
+                sa + da - sa * da)
+    if mode == "SCREEN":
+        return src + dst - src * dst, sa + da - sa * da
+    if mode == "SRC":
+        return src, sa
+    if mode == "SRC_ATOP":
+        return da * src + (1 - sa) * dst, da
+    if mode == "SRC_IN":
+        return src * da, sa * da
+    if mode == "SRC_OUT":
+        return (1 - da) * src, (1 - da) * sa
+    if mode == "SRC_OVER":
+        return src + (1 - sa) * dst, sa + (1 - sa) * da
+    if mode == "XOR":
+        return (1 - da) * src + (1 - sa) * dst, (1 - da) * sa + (1 - sa) * da
+    raise ValueError(f"unknown PorterDuff mode {mode}")
+
+
+@register_node("PorterDuffImageComposite")
+def porter_duff_image_composite(ctx: InferenceContext, node: WorkflowNode, source=None,
+                                source_alpha=None, destination=None, destination_alpha=None):
+    mode = str(node.widgets[0]) if node.widgets else "DST"
+    src, dst = source[..., :3], destination[..., :3]
+    sa, da = source_alpha, destination_alpha
+    if sa.dim() == 3:
+        sa = sa[..., None]
+    if da.dim() == 3:
+        da = da[..., None]
+    out_img, out_a = _porter_duff(src, sa, dst, da, mode)
+    return (out_img, out_a[..., 0])
+
+
+@register_node("SplitImageWithAlpha")
+def split_image_with_alpha(ctx: InferenceContext, node: WorkflowNode, image=None):
+    rgb = image[..., :3]
+    alpha = image[..., 3] if image.shape[-1] > 3 else torch.ones_like(image[..., 0])
+    return (rgb, 1.0 - alpha)
+
+
+@register_node("JoinImageWithAlpha")
+def join_image_with_alpha(ctx: InferenceContext, node: WorkflowNode, image=None, alpha=None):
+    from stable_renderer_tpu_torch.ops.math import resize_nearest
+
+    img = image[..., :3]
+    a = alpha.to(img.device)
+    if a.dim() == 2:
+        a = a[None]
+    if tuple(a.shape[1:3]) != tuple(img.shape[1:3]):
+        a = resize_nearest(a[..., None], img.shape[1], img.shape[2])[..., 0]
+    return (torch.cat([img, (1.0 - a)[..., None]], -1),)
+
+
+# ---------------------------------------------------------------------------
+# rebatch (nodes_rebatch.py)
+
+
+@register_node("RebatchLatents")
+def rebatch_latents(ctx: InferenceContext, node: WorkflowNode, latents=None):
+    batch_size = int(node.widgets[0]) if node.widgets else 1
+    items = latents if isinstance(latents, list) else [latents]
+    samples = torch.cat([l["samples"] if isinstance(l, dict) else l for l in items], 0)
+    return ([{"samples": samples[i:i + batch_size]}
+             for i in range(0, samples.shape[0], batch_size)],)
+
+
+@register_node("RebatchImages")
+def rebatch_images(ctx: InferenceContext, node: WorkflowNode, images=None):
+    batch_size = int(node.widgets[0]) if node.widgets else 1
+    items = images if isinstance(images, list) else [images]
+    stacked = torch.cat(list(items), 0)
+    return ([stacked[i:i + batch_size] for i in range(0, stacked.shape[0], batch_size)],)
+
+
+# ---------------------------------------------------------------------------
+# SD 4x upscale conditioning (nodes_sdupscale.py)
+
+
+@register_node("SD_4XUpscale_Conditioning")
+def sd_4x_upscale_conditioning(ctx: InferenceContext, node: WorkflowNode, images=None,
+                               positive=None, negative=None):
+    """The x4 upscaler's conditioning: the image at a quarter of the target
+    size in [-1, 1] on both conds, and an empty latent of that size. The
+    KSampler raises naming ROADMAP 1.11 on it (the x4 UNet)."""
+    w = node.widgets
+    scale_ratio = float(w[0]) if w else 4.0
+    noise_aug = float(w[1]) if len(w) > 1 else 0.0
+    width = max(1, round(images.shape[2] * scale_ratio))
+    height = max(1, round(images.shape[1] * scale_ratio))
+    pixels = _resize_image(images * 2.0 - 1.0, height // 4, width // 4, "bilinear")
+    pos = {**(positive or {}), "concat_image": pixels, "noise_augmentation": noise_aug}
+    neg = {**(negative or {}), "concat_image": pixels, "noise_augmentation": noise_aug}
+    latent = {"samples": torch.zeros((images.shape[0], height // 4, width // 4, 4),
+                                     device=images.device)}
+    return (pos, neg, latent)
+
+
+@register_node("VideoLinearCFGGuidance")
+def video_linear_cfg_guidance(ctx: InferenceContext, node: WorkflowNode, model=None):
+    min_cfg = float(node.widgets[0]) if node.widgets else 1.0
+    return (_add_patch(model, {"kind": "linear_cfg", "sig": ("linear_cfg", min_cfg),
+                               "min_cfg": min_cfg}),)
+
+
+# ---------------------------------------------------------------------------
+# token merging (nodes_tomesd.py — ToMe for SD; the hook is _make_tome_attn)
+
+
+@register_node("TomePatchModel")
+def tome_patch_model(ctx: InferenceContext, node: WorkflowNode, model=None):
+    ratio = float(node.widgets[0]) if node.widgets else 0.3
+    return (_add_patch(model, {"kind": "tomesd", "sig": ("tomesd", ratio), "ratio": ratio}),)
+
+
+# ---------------------------------------------------------------------------
+# Stable Cascade (nodes_stable_cascade.py): the latents and the stage-B
+# conditioning are tensor work; the stages wait for ROADMAP 1.11
+
+
+@register_node("StableCascade_EmptyLatentImage")
+def stable_cascade_empty_latent(ctx: InferenceContext, node: WorkflowNode):
+    w = node.widgets
+    width = int(w[0]) if w else 1024
+    height = int(w[1]) if len(w) > 1 else 1024
+    compression = int(w[2]) if len(w) > 2 else 42
+    batch = int(w[3]) if len(w) > 3 else 1
+    dev = ctx.device
+    c_latent = torch.zeros((batch, height // compression, width // compression, 16), device=dev)
+    b_latent = torch.zeros((batch, height // 4, width // 4, 4), device=dev)
+    return ({"samples": c_latent}, {"samples": b_latent})
+
+
+@register_node("StableCascade_StageB_Conditioning")
+def stable_cascade_stage_b_conditioning(ctx: InferenceContext, node: WorkflowNode,
+                                        conditioning=None, stage_c=None):
+    prior = stage_c["samples"] if isinstance(stage_c, dict) else stage_c
+    return ({**(conditioning or {}), "stable_cascade_prior": prior},)
+
+
+@register_node("CascadeStageLoader", "UNETLoader")
+def cascade_stage_loader(ctx: InferenceContext, node: WorkflowNode):
+    """UNet-only checkpoint loader (comfy UNETLoader): a plain SD1.x UNet
+    file loads in bf16; other UNet families raise naming ROADMAP 1.11 in
+    ``detect_unet_config``. Stable Cascade stages (clip_txt_mapper -> Stage
+    C, effnet_mapper -> Stage B), and the JAX package's fallback without a
+    file (a tiny random Cascade stage), need models/cascade.py, which waits
+    for ROADMAP 1.11."""
+    from stable_renderer_tpu_torch.models.sampling import ModelSampling
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+    from stable_renderer_tpu_torch.models.weights import (
+        detect_unet_config,
+        load_state_dict,
+        nest,
+        tree_to,
+    )
+
+    name = str(node.widgets[0]) if node.widgets else ""
+    path = _find_model_file(ctx, name)
+    cascade = NotImplementedError(f"node type '{node.type}': Stable Cascade stages need "
+                                  "models/cascade.py, which waits for ROADMAP 1.11")
+    if not path:
+        raise cascade
+    flat = load_state_dict(path)
+    if any(k.startswith("model.diffusion_model.") for k in flat):
+        flat = {k[len("model.diffusion_model."):]: v for k, v in flat.items()
+                if k.startswith("model.diffusion_model.")}
+    if "clip_txt_mapper.weight" in flat or "effnet_mapper.0.weight" in flat:
+        raise cascade
+    ucfg = detect_unet_config({f"model.diffusion_model.{k}": v for k, v in flat.items()})
+    return ({"unet": UNetModel(ucfg), "params": tree_to(nest(flat, ""), ctx.device,
+                                                        torch.bfloat16),
+             "sampling": ModelSampling()},)
+
+
+# --- nodes whose only work is a model of ROADMAP 1.11 ------------------------
+
+register_stubs(("ImageOnlyCheckpointLoader", "SVD_img2vid_Conditioning"), "1.11",
+               "models/video_unet.py and models/clip_vision.py (SVD)")
+register_stubs(("StableZero123_Conditioning",), "1.11",
+               "models/clip_vision.py (the image embed)")
+register_stubs(("PhotoMakerLoader", "PhotoMakerEncode"), "1.11",
+               "models/clip_vision.py (PhotoMaker's ID encoder)")

@@ -548,7 +548,7 @@ def _declare_default_specs() -> None:
                   return_types=("CONDITIONING",),
                   widgets=(WidgetSpec("strength", "FLOAT", min=-10.0, max=10.0),
                            WidgetSpec("noise_augmentation", "FLOAT", min=0.0, max=1.0)))
-    # --- tier-2 comfy_extras packs (workflow/nodes_extra.py; ROADMAP 1.12b for all but the model patches) ---
+    # --- tier-2 comfy_extras packs (workflow/nodes_extra.py) ---
     register_spec("KSamplerSelect", return_types=("SAMPLER",),
                   widgets=(WidgetSpec("sampler_name", "STRING"),))
     register_spec("SamplerDPMPP_2M_SDE", "SamplerDPMPP_SDE",
@@ -715,7 +715,7 @@ def _declare_default_specs() -> None:
                   widgets=(WidgetSpec("scale_ratio", "FLOAT", min=0.0, max=10.0),
                            WidgetSpec("noise_augmentation", "FLOAT",
                                       min=0.0, max=1.0)))
-    # --- remaining builtin/extras parity nodes (workflow/nodes_parity.py; ROADMAP 1.12b) ---
+    # --- remaining builtin/extras parity nodes (workflow/nodes_parity.py) ---
     register_spec("SetLatentNoiseMask",
                   input_types={"samples": "LATENT", "mask": "MASK"},
                   return_types=("LATENT",))

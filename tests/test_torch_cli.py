@@ -191,9 +191,7 @@ def test_bake_then_replay(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["serve"], "ROADMAP 1.12b"),
     (["upscale", "--model", "m.pth", "--image", "i.png"], "ROADMAP 1.13"),
-    (["render", "--editor", "--no-diffusion", "--device", "cpu"], "ROADMAP 1.12b"),
 ])
 def test_later_commands_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.") + r"\b"):

@@ -670,8 +670,6 @@ def _ring_cross_frame_attention():
 
 _UNPORTED = {
     "stream": _stream_run,
-    "editor": lambda: P.Engine(mode=P.EngineMode.EDITOR, device="cpu"),
-    "run_editor": lambda: P.Engine.RunEditor(device="cpu", max_frames=1),
     "corrmap_update_batch": _corrmap_update_batch,
     "ring_cross_frame_attention": _ring_cross_frame_attention,
 }

@@ -1,10 +1,10 @@
 """The model-patch nodes (workflow/nodes_extra.py) through both packages'
 executors, on the CPU at tiny widths: FreeU, HyperTile and
 SelfAttentionGuidance chained; FreeU_V2, a hypernetwork file and PerpNeg
-chained; and the patch kinds whose nodes wait for ROADMAP 1.12b (ToMe,
-RescaleCFG, Deep Shrink's downscale, the linear cfg ramp), their patch
-dicts built here. Each KSampler output agrees with JAX's (its draws handed
-in) and moved from the unpatched graph's. f32: TOL.
+chained; and TomePatchModel, RescaleCFG, two PatchModelAddDownscale (Deep
+Shrink) and VideoLinearCFGGuidance (the linear cfg ramp) chained. Each
+KSampler output agrees with JAX's (its draws handed in) and moved from the
+unpatched graph's. f32: TOL.
 
 HyperTile's and ToMe's splits come from ``random.Random(hash(sig))``, which
 changes with PYTHONHASHSEED from one process to the next; in one process
@@ -125,48 +125,19 @@ def test_freeu_v2_hypernetwork_perp_neg_match_jax(monkeypatch, tmp_path):
         assert float(moved.abs().max()) > 1e-3, drop
 
 
-@pytest.fixture
-def direct_patches():
-    """The patch kinds whose nodes wait for ROADMAP 1.12b, as dicts."""
-    def make(mod):
-        def node(ctx, node, model=None):
-            from importlib import import_module
-
-            extra = import_module(mod.__name__.rsplit(".", 1)[0] + ".nodes_extra")
-            for p in ({"kind": "tomesd", "sig": ("tomesd", 0.4), "ratio": 0.4},
-                      {"kind": "rescale_cfg", "sig": ("rescale_cfg", 0.6), "multiplier": 0.6},
-                      {"kind": "downscale", "sig": ("downscale", 1), "block_number": 1,
-                       "downscale_factor": 2.0, "start_percent": 0.0, "end_percent": 0.6,
-                       "downscale_method": "bicubic", "upscale_method": "bilinear"},
-                      {"kind": "downscale", "sig": ("downscale", 2), "block_number": 2,
-                       "downscale_factor": 1.5, "start_percent": 0.2, "end_percent": 1.0,
-                       "after_skip": False, "downscale_method": "bilinear",
-                       "upscale_method": "nearest-exact"},
-                      {"kind": "linear_cfg", "sig": ("linear_cfg", 1.2), "min_cfg": 1.2}):
-                model = extra._add_patch(model, p)
-            return (model,)
-
-        return node
-
-    for mod in (je, pe):
-        mod.register_node("_DirectPatches")(make(mod))
-    yield
-    for mod in (je, pe):
-        mod.NODE_REGISTRY.pop("_DirectPatches", None)
-
-
-def test_tome_rescale_downscale_linear_cfg_match_jax(monkeypatch, direct_patches):
+def test_tome_rescale_downscale_linear_cfg_match_jax(monkeypatch):
     global LATENT
     saved = LATENT
     LATENT = np.random.default_rng(6).standard_normal((2, 16, 16, 4)).astype(np.float32)
     try:
-        spec = patched_graph([("_DirectPatches", [], {})], sampler=("euler", "normal", 3, 3.0))
-        jctx, pctx, _, pex = run_both(spec, monkeypatch, seeds=(9,))
-        assert_close(pctx.outputs[30][0], jctx.outputs[30][0])
-        without = [r for r in spec if r[0] != 10]
-        without = [(i, t, w, {**inp, "model": (1, 0)} if t == "KSampler" else inp)
-                   for i, t, w, inp in without]
-        moved = pctx.outputs[30][0]["samples"] - port_rerun(pex, without, monkeypatch)
-        assert float(moved.abs().max()) > 1e-3
+        spec = patched_graph([("TomePatchModel", [0.4], {}),
+                              ("RescaleCFG", [0.6], {}),
+                              ("PatchModelAddDownscale",
+                               [1, 2.0, 0.0, 0.6, True, "bicubic", "bilinear"], {}),
+                              ("PatchModelAddDownscale",
+                               [2, 1.5, 0.2, 1.0, False, "bilinear", "nearest-exact"], {}),
+                              ("VideoLinearCFGGuidance", [1.2], {})],
+                             sampler=("euler", "normal", 3, 3.0))
+        _check(spec, monkeypatch, 5)
     finally:
         LATENT = saved

@@ -1,7 +1,7 @@
 """The port's workflow validation (workflow/validation.py) and node registry
 against the JAX package's: the same 183 node names and 166 specs, each name
-the port leaves for a later slice a stub that raises NotImplementedError
-naming its ROADMAP item, and ``validate_workflow`` giving equal error lists
+the port leaves for a later slice (1.11, 1.13) a stub that raises
+NotImplementedError naming its ROADMAP item, and ``validate_workflow`` giving equal error lists
 and equal coerced widgets on the graphs of tests/test_validation.py (caught
 by running its tests with the validator wrapped), on string-typed widgets
 and on one node of every spec with widgets drawn in range, out of range and
@@ -26,18 +26,20 @@ torch.set_num_threads(1)
 
 LATER = {"GLIGENLoader": "1.11", "GLIGENTextBoxApply": "1.11", "CLIPVisionLoader": "1.11",
          "CLIPVisionEncode": "1.11", "unCLIPConditioning": "1.11",
-         "ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13"}
+         "ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13",
+         # the node packs' names whose only work is a model of ROADMAP 1.11
+         **dict.fromkeys((
+             "CLIPTextEncodeSDXL", "CLIPTextEncodeSDXLRefiner", "DualCLIPLoader",
+             "unCLIPCheckpointLoader", "StyleModelLoader", "StyleModelApply",
+             "ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
+             "StableCascade_StageC_VAEEncode", "StableZero123_Conditioning",
+             "StableZero123_Conditioning_Batched", "ImageOnlyCheckpointLoader",
+             "SVD_img2vid_Conditioning", "PhotoMakerLoader", "PhotoMakerEncode"), "1.11")}
 JAX_VALIDATE = jv.validate_workflow  # the validator itself, before any test wraps it
-PATCH_NODES = {"FreeU", "FreeU_V2", "HyperTile", "HypernetworkLoader", "SelfAttentionGuidance",
-               "PerpNeg", "DifferentialDiffusion"}
 
 
 def expected_item(name: str):
     """The ROADMAP item a node name waits for in the port, or None."""
-    module = je.NODE_REGISTRY[name].__module__
-    if module.endswith("nodes_parity") or (module.endswith("nodes_extra")
-                                           and name not in PATCH_NODES):
-        return "1.12b"
     return LATER.get(name)
 
 
@@ -53,7 +55,7 @@ def test_registries_and_specs_hold_the_same_names():
     assert pv.UNIQUE_NODE_TYPES == jv.UNIQUE_NODE_TYPES
     assert pv.type_matchings() == jv.type_matchings()
     implemented = [n for n in pe.NODE_REGISTRY if expected_item(n) is None]
-    assert len(implemented) == 88
+    assert len(implemented) == 161
 
 
 @pytest.mark.parametrize("name", sorted(je.NODE_REGISTRY))
@@ -68,15 +70,15 @@ def test_each_name_is_implemented_or_a_stub_naming_its_item(name):
 
 
 def test_running_a_stub_fails_with_the_structured_error():
-    wf = PWorkflow(nodes={1: PNode(id=1, type="Canny", widgets=[0.4, 0.8], inputs={},
+    wf = PWorkflow(nodes={1: PNode(id=1, type="DualCLIPLoader", widgets=["l", "g"], inputs={},
                                    output_names=[])}, unknown_types=[], path=None)
     ex = pe.PromptExecutor(wf, device="cpu")
     with pytest.raises(pe.NodeExecutionError) as ei:
         ex.execute()
     d = ei.value.details
-    assert d["node_id"] == 1 and d["node_type"] == "Canny"
+    assert d["node_id"] == 1 and d["node_type"] == "DualCLIPLoader"
     assert d["exception_type"] == "NotImplementedError"
-    assert "ROADMAP 1.12b" in d["exception_message"]
+    assert "ROADMAP 1.11" in d["exception_message"]
 
 
 def to_port(jwf):
