@@ -252,6 +252,26 @@ Phases, one line each; any failure exits non-zero:
                 Engine.RunEditor of the bench scene (EDITOR_FRAMES frames): K1 22 and
                 K2 1 call a frame by the counters, /frame.png 512x512, /stream one MJPEG
                 part, /scene lists the ball.
+ 25. families — SD2, SDXL and the refiner. (a) SDXL base at full width
+                (from_random(family="sdxl"): the 2.57 B-parameter UNet in bf16,
+                CLIP-L and CLIP-G in f32, SDXL_VAE_CONFIG) through Engine.Run
+                of the bench scene at 1024x1024 (4-step LCM over sgm_uniform,
+                cfg 2.0, the ADM vector at the frame's size): frames (1024,
+                1024, 4) uint8, finite, not constant; K1 42 a frame by shape
+                (XL_K1_SHAPES), K2 1 call; the present-to-present median, a
+                profiled frame's busy share, max_memory_allocated. (b) its
+                int8 frame (quantize_convs at the cfg batch of every sigma):
+                K3's classes a frame (k3_shape_tally), each new one held
+                exact against its plain version and timed. (c) an SD2 768-v
+                file written at full width (bf16, ~2.6 GB) by the port's
+                writer, loaded by from_checkpoint (v-prediction, SD2ClipH,
+                the f32 VAE) and drawn at 768x768: K1 42 a frame
+                (SD2_K1_SHAPES, the VAE's on flash_f32). (d) tiny SD2, SDXL
+                and refiner files through the executor
+                (CheckpointLoaderSimple -> the family's text encode ->
+                KSampler -> VAEDecode), card against CPU within REF_TOL.
+                Every new K1 shape is held against its plain version and
+                timed beside SDPA.
 The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
 variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
@@ -785,6 +805,21 @@ def raster_soup(height: int, width: int, seed: int = 0, tiny: int = 10_000):
         add(np.stack([a, b, (a + b) / 2]), rng.uniform(0, 1))
     clip = np.concatenate(tris).astype(np.float32)
     return clip, np.arange(len(clip), dtype=np.int32).reshape(-1, 3)
+
+
+def same_unet_layout(detected, preset) -> bool:
+    """A detected UNetConfig (per-block depths spelled out, as the JAX
+    package's detection gives them) builds ``preset``'s UNet: the same block
+    plan, input and output channels, context width, heads, ADM and class
+    widths."""
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+
+    def key(c):
+        return (UNetModel(c).block_plan(), c.in_channels, c.out_channels, c.context_dim,
+                c.middle_depth(), [c.heads_for(c.model_channels * m) for m in c.channel_mult],
+                c.adm_in_channels, c.num_classes)
+
+    return key(detected) == key(preset)
 
 
 def same_bits(a, b) -> bool:
@@ -1987,6 +2022,11 @@ def main() -> None:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
+    # --- 25. SD2, SDXL and the refiner -------------------------------------------------
+    del pipe
+    torch.cuda.empty_cache()
+    families = families_phase(dev, card, k1, k3)
+
     wall_s = time.perf_counter() - t_start
     print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
@@ -1995,7 +2035,7 @@ def main() -> None:
                       "engine_frame_ms": engine_ms, **bake, "taesd": taesd,
                       "options": options, "bench": bench, "checkpoint": checkpoint,
                       "left_outs": left_outs, "files": files, "executor": executor,
-                      "server": server,
+                      "server": server, "families": families,
                       "wall_s": wall_s,
                       "card": card}))
     print(card)
@@ -2711,7 +2751,8 @@ def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase
         pipe_l = DiffusionPipeline.from_checkpoint(str(path), config=cfg, device=dev)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-        if pipe_l.unet.config != SD15_UNET_CONFIG or pipe_l.model_family != "sd1":
+        if not same_unet_layout(pipe_l.unet.config, SD15_UNET_CONFIG) or \
+                pipe_l.model_family != "sd1":
             fail(f"phase 20: detected {pipe_l.unet.config}, family {pipe_l.model_family}")
         n_leaves = 0
         for prefix, tree, dt in (("model.diffusion_model.", pipe_l.unet_params, torch.bfloat16),
@@ -3729,7 +3770,7 @@ def left_outs_phase(pipe, dev, card: str, k1: dict, run_frame, bg) -> dict:
         write_safetensors(flat, path)
         pipe_in = DiffusionPipeline.from_checkpoint(
             str(path), config=dc_replace(cfg, keep_background=True), device=dev)
-        if pipe_in.unet.config != dc_replace(SD15_UNET_CONFIG, in_channels=9):
+        if not same_unet_layout(pipe_in.unet.config, dc_replace(SD15_UNET_CONFIG, in_channels=9)):
             fail(f"phase 21 inpaint: detected {pipe_in.unet.config}")
         n_leaves = 0
         for prefix, tree, dt in (("model.diffusion_model.", pipe_in.unet_params, torch.bfloat16),
@@ -4033,7 +4074,7 @@ def executor_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
         model, _, vae = ex.execute(engine_data=ed).outputs[1]
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
-        if (model["unet"].config != SD15_UNET_CONFIG
+        if (not same_unet_layout(model["unet"].config, SD15_UNET_CONFIG)
                 or model["params"]["time_embed"]["0"]["weight"].dtype != torch.bfloat16
                 or vae["params"]["quant_conv"]["weight"].dtype != torch.bfloat16
                 or model["params"]["time_embed"]["0"]["weight"].device.type != "cuda"):
@@ -4563,6 +4604,423 @@ def server_phase(pipe, dev, card: str, k1: dict, k2: dict, ckpt: str, lora: str,
         shutil.rmtree(tmp, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[24 server] phase 24 in {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
+# --- phase 25: SD2, SDXL and the refiner ------------------------------------------------
+
+# the text towers of the tiny family files (tests/test_torch_model_families.py
+# and phase 25d): the widths the family rule reads from the UNet's context,
+# one narrow layer each
+FAMILY_TOWERS = {
+    "h": dict(vocab_size=1000, width=1024, num_layers=1, num_heads=16, mlp_ratio=1,
+              projection_dim=64),
+    "l": dict(vocab_size=1000, hidden_size=1024, num_layers=1, num_heads=2,
+              intermediate_size=128),
+    "g": dict(vocab_size=1000, width=1024, num_layers=1, num_heads=2, mlp_ratio=1,
+              projection_dim=32),
+    "r": dict(vocab_size=1000, width=1280, num_layers=1, num_heads=2, mlp_ratio=1,
+              projection_dim=32),
+}
+FAMILY_V_STD = 0.2  # an SD2 file's out-layer statistic above 0.09 marks it 768-v
+XL_SIZE = 1024      # SDXL's published resolution
+SD2_SIZE = 768      # SD2 768-v's
+FAMILY_WARM = 1
+FAMILY_TIMED = 3
+# K1 launches a frame by (BH, Lq, Lk, d[, "f32"]). SDXL at 1024x1024 (128x128
+# latents): level 1's 10 self-attentions an evaluation (two transformers of
+# depth 2 in, three out) at 640 channels = 10 heads of 64, batch 2 (cfg), 4
+# evaluations; level 2 (1024 tokens) stays plain; the VAE's mid-block
+# attention in encode and decode at 16,384 tokens
+XL_K1_SHAPES = {(20, 4096, 4096, 64): 40, (1, 16384, 16384, 512): 2}
+# SD2 at 768x768 (96x96 latents): level 0's 5 self-attentions an evaluation
+# at 5 heads of 64 (9216 tokens), level 1's 5 at 10 heads (2304 tokens),
+# level 2 (576 tokens) plain; the loaded f32 VAE's mid-block at 9216 tokens
+SD2_K1_SHAPES = {(10, 9216, 9216, 64): 20, (20, 2304, 2304, 64): 20,
+                 (1, 9216, 9216, 512, "f32"): 2}
+FAMILY_GRAPH_SIZE = 64  # phase 25d's tiny graphs: 64x64 frames, 32x32 latents
+
+
+def family_configs(kind: str):
+    """(UNetConfig, CLIP-L config or None, OpenCLIP config) of a tiny
+    ``kind`` file: "sd2" (SD1.5's four levels at 32 channels, so output
+    block 11 carries the 768-v statistic), "sd2_small" (the tiny UNet's two
+    levels), "x4" (the class table, 7 input channels, self-attention off at
+    level 0), "sdxl" (the tiny SDXL UNet at context 2048 = L + G) or
+    "refiner" (context 1280, the 2560-style ADM)."""
+    from dataclasses import replace
+
+    from stable_renderer_tpu_torch.models.clip import CLIPConfig, OpenCLIPConfig
+    from stable_renderer_tpu_torch.models.unet import (
+        SD15_UNET_CONFIG,
+        TINY_SDXL_UNET_CONFIG,
+        TINY_UNET_CONFIG,
+        UNetConfig,
+    )
+
+    h = OpenCLIPConfig(**FAMILY_TOWERS["h"])
+    if kind == "sd2":
+        return replace(SD15_UNET_CONFIG, model_channels=32, context_dim=1024, head_dim=64), None, h
+    if kind == "sd2_small":
+        return replace(TINY_UNET_CONFIG, context_dim=1024, head_dim=64), None, h
+    if kind == "x4":
+        return (UNetConfig(in_channels=7, model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                           attention_levels=(0, 1), context_dim=1024, head_dim=64,
+                           disable_self_attn_levels=(True, False), num_classes=350), None, h)
+    if kind == "sdxl":
+        return (replace(TINY_SDXL_UNET_CONFIG, context_dim=2048, head_dim=64,
+                        adm_in_channels=32 + 6 * 256),
+                CLIPConfig(**FAMILY_TOWERS["l"]), OpenCLIPConfig(**FAMILY_TOWERS["g"]))
+    return (replace(TINY_SDXL_UNET_CONFIG, context_dim=1280, head_dim=64,
+                    adm_in_channels=32 + 5 * 256), None, OpenCLIPConfig(**FAMILY_TOWERS["r"]))
+
+
+def family_trees(kind: str, ucfg, lcfg, gcfg, vcfg, generator, dtype, device=None) -> dict:
+    """{key prefix: tree} of a ``kind`` checkpoint in its family's layout,
+    drawn from ``generator`` in ``dtype``: the UNet, the VAE, then the
+    towers (SD2 and x4: OpenCLIP-H at cond_stage_model.model.; SDXL: CLIP-L
+    at conditioner.embedders.0.transformer. and CLIP-G at
+    embedders.1.model.; the refiner: CLIP-G at embedders.0.model.)."""
+    from stable_renderer_tpu_torch.models.clip import CLIPTextModel, OpenCLIPTextModel
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+    from stable_renderer_tpu_torch.models.vae import VAE
+
+    trees = {"model.diffusion_model.": UNetModel(ucfg).init(generator, dtype=dtype, device=device),
+             "first_stage_model.": VAE(vcfg).init(generator, dtype=dtype, device=device)}
+    if kind == "sdxl":
+        trees["conditioner.embedders.0.transformer."] = CLIPTextModel(lcfg).init(
+            generator, dtype=dtype, device=device)
+    prefix = {"sdxl": "conditioner.embedders.1.model.",
+              "refiner": "conditioner.embedders.0.model."}.get(kind, "cond_stage_model.model.")
+    trees[prefix] = OpenCLIPTextModel(gcfg).init(generator, dtype=dtype, device=device)["model"]
+    return trees
+
+
+def mark_v(flat: dict, generator) -> None:
+    """Set an SD-topology file's out-layer statistic to 768-v's."""
+    import torch
+
+    key = "model.diffusion_model.output_blocks.11.1.transformer_blocks.0.norm1.bias"
+    t = flat[key]
+    flat[key] = (torch.randn(t.shape, generator=generator, device=t.device)
+                 * FAMILY_V_STD).to(t.dtype)
+
+
+def write_family_file(kind: str, path, dtype=None) -> dict:
+    """A tiny ``kind`` checkpoint (family_configs) written to ``path`` from
+    the port's inits (a CPU generator seeded with 0) in ``dtype`` (default
+    f16), the SD2 file marked 768-v. Returns the flat dict written."""
+    import torch
+
+    from stable_renderer_tpu_torch.models.vae import TINY_VAE_CONFIG
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
+
+    ucfg, lcfg, gcfg = family_configs(kind)
+    g = torch.Generator().manual_seed(0)
+    trees = family_trees(kind, ucfg, lcfg, gcfg, TINY_VAE_CONFIG, g, torch.float32)
+    flat = {p + k: v.to(dtype or torch.float16) for p, t in trees.items()
+            for k, v in flatten(t).items()}
+    if kind == "sd2":
+        mark_v(flat, g)
+    write_safetensors(flat, path)
+    return flat
+
+
+@contextlib.contextmanager
+def tiny_family_loaders(kind: str):
+    """The executor's loader configs, which it reads by module name at call
+    time, set to ``kind``'s tiny ones inside the block: SD1.x's VAE and
+    CLIP-L names (the tokenizer's; SDXL's L tower), SD2's OpenCLIP-H and
+    SDXL's CLIP-G."""
+    from stable_renderer_tpu_torch.models import clip as clip_mod
+    from stable_renderer_tpu_torch.models import vae as vae_mod
+
+    _, lcfg, gcfg = family_configs(kind)
+    names = [(clip_mod, "SD15_CLIP_CONFIG", lcfg or clip_mod.TINY_CLIP_CONFIG),
+             (clip_mod, "SD2_CLIP_H_CONFIG", clip_mod.OpenCLIPConfig(**FAMILY_TOWERS["h"])),
+             (clip_mod, "SDXL_CLIP_G_CONFIG", gcfg),
+             (vae_mod, "SD15_VAE_CONFIG", vae_mod.TINY_VAE_CONFIG)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
+    for mod, name, value in names:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def family_rows(kind: str, name: str) -> list:
+    """CheckpointLoaderSimple -> the family's text encodes (CLIPTextEncodeSDXL
+    with sizes and a crop, ...Refiner with aesthetic scores 6.0 and 2.5,
+    CLIPTextEncode for SD2) -> EngineData's latent and noise -> KSampler
+    (euler, karras, 3 steps, cfg 2.0) -> VAEDecode -> InferenceOutput."""
+    s = FAMILY_GRAPH_SIZE
+    if kind == "sdxl":
+        enc = [(2, "CLIPTextEncodeSDXL", [s, s, 0, 8, s, s, "a red boat", "a boat"],
+                {"clip": (1, 1)}),
+               (3, "CLIPTextEncodeSDXL", [s, s, 0, 0, s, s, "blurry", "blurry"], {"clip": (1, 1)})]
+    elif kind == "refiner":
+        enc = [(2, "CLIPTextEncodeSDXLRefiner", [6.0, s, s, "a red boat"], {"clip": (1, 1)}),
+               (3, "CLIPTextEncodeSDXLRefiner", [2.5, s, s, "blurry"], {"clip": (1, 1)})]
+    else:
+        enc = [(2, "CLIPTextEncode", ["a red boat"], {"clip": (1, 1)}),
+               (3, "CLIPTextEncode", ["blurry"], {"clip": (1, 1)})]
+    return [(1, "CheckpointLoaderSimple", [name], {}), *enc, (4, "EngineData", [], {}),
+            (5, "KSampler", [3, "fixed", 3, 2.0, "euler", "karras", 1.0],
+             {"model": (1, 0), "positive": (2, 0), "negative": (3, 0), "latent_image": (4, 6)}),
+            (6, "VAEDecode", [], {"samples": (5, 0), "vae": (1, 2)}),
+            (7, "InferenceOutput", [], {"images": (6, 0)})]
+
+
+def hold_new_k3_classes(per_frame: dict, phase: int, dev, card: str, k3: dict) -> list:
+    """Each int8 K3 class of ``per_frame`` ((N, H, W, Cin, Cout) -> launches
+    a frame) that phase 7 did not check, against conv3x3_kernel_reference
+    (exact, as phase 7's int8 rows), timed by graph replay beside the plain
+    version and its bound; its row joins ``k3["shapes"]`` with its launches
+    a frame. Returns the rows."""
+    import torch
+
+    from stable_renderer_tpu_torch.ops.conv_kernel import (
+        conv3x3_kernel,
+        conv3x3_kernel_reference,
+        conv_tiles,
+    )
+
+    checked = set(K3_INT8_FRAME_SHAPES) | set(K3_STREAM_FRAME_SHAPES)
+    gen = torch.Generator(device=dev).manual_seed(phase)
+    rows = []
+    for (n, h, w, cin, cout), launches in sorted(per_frame.items()):
+        if (n, h, w, cin, cout) in checked:
+            continue
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+        wf = torch.randn((3, 3, cin, cout), generator=gen, device=dev) / (3.0 * cin ** 0.5)
+        b = (torch.randn((cout,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        ws = wf.abs().amax((0, 1, 2)) / 127.0
+        wk = torch.clamp(torch.round(wf / ws), -127, 127).to(torch.int8)
+        kw = dict(a_scale=(x.float().abs().amax() / 127.0).reshape(()), w_scale=ws)
+        out = conv3x3_kernel(x, wk, b, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - conv3x3_kernel_reference(x, wk, b, **kw).float()).abs().max().item()
+        shape = f"{n}x{h}x{w}x{cin}->{cout} int8 (phase {phase})"
+        if err != 0.0:
+            fail(f"K3 {shape}: max abs err {err:.3e} (bar: exact)")
+        t = conv_tiles(n, h, w, cin, cout, True)
+        row = {"shape": shape, "max_abs_err": err, "bar": "exact", "tiles": f"bn {t.bn} rows "
+               f"{t.rows}", f"launches_a_frame_phase_{phase}": launches,
+               "ms": graph_ms(lambda: conv3x3_kernel(x, wk, b, **kw)),
+               "plain_ms": graph_ms(lambda: conv3x3_kernel_reference(x, wk, b, **kw), 5),
+               "library_ms": None,  # no PyTorch call convolves int8
+               "ms_with_host": cuda_ms(lambda: conv3x3_kernel(x, wk, b, **kw), 20)}
+        row["bound_ms"], row["bound_by"] = bound(nbytes(x, wk, b, out),
+                                                 2.0 * n * h * w * cout * 9 * cin, "int8")
+        k3["shapes"].append(row)
+        rows.append(row)
+        print(f"[{phase} K3] {row} | {card}", flush=True)
+        del x, wk, out
+    return rows
+
+
+def family_engine_run(label: str, pipe, size: int, want_k1: dict, card: str) -> dict:
+    """The bench scene through Engine.Run at ``size`` x ``size`` with
+    ``pipe``: FAMILY_WARM warm and FAMILY_TIMED timed presents (and
+    PRESENT_DEPTH more); each presented frame (size, size, 4) uint8, finite
+    and not constant; K1 launches by shape ``want_k1`` a frame, K2 one call a
+    frame. Returns (a summary: the present-to-present median, one profiled
+    frame's kernel ms and the busy share, K1 by shape and by kernel, K2 and
+    K3 a frame, the peak device memory; K1's tally; K3's tally by class,
+    k3_shape_tally's)."""
+    import torch
+
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
+
+    n = FAMILY_WARM + FAMILY_TIMED + PRESENT_DEPTH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with k1_shape_tally() as seen, k3_shape_tally() as k3_seen:
+        eng, presented = run_engine(pipe, size, n, OverlapCorresponder(
+            vertex_segments=4096, update_corrmap=False))
+        c = counts()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if dict(seen) != {k: v * n for k, v in want_k1.items()} or c[1] != n:
+        fail(f"phase 25 {label}: K1 by shape {dict(seen)} and K2 {c[1]} over {n} frames; "
+             f"want {want_k1} and 1 a frame")
+    if eng.device.type != "cuda" or [i for _, i, _ in presented] != list(range(n)):
+        fail(f"phase 25 {label}: device {eng.device}, presented {[i for _, i, _ in presented]}")
+    for _, i, frame in presented:
+        if frame.shape != (size, size, 4) or frame.dtype.name != "uint8" or int(
+                frame[..., :3].max()) == int(frame[..., :3].min()):
+            fail(f"phase 25 {label} frame {i}: {frame.shape} {frame.dtype}, or constant")
+    images = eng.RenderManager.last_diffusion_frames
+    if not torch.isfinite(images.float()).all():
+        fail(f"phase 25 {label}: non-finite decoded frame")
+    lo = FAMILY_WARM
+    stamps = [t for t, _, _ in presented[lo - 1:lo + FAMILY_TIMED]]
+    gaps = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    median = statistics.median(gaps)
+    # one frame's kernels by the profiler, after a warm frame: the busy share
+    _, device_ms = engine_frame_kernels(pipe, size, OverlapCorresponder(
+        vertex_segments=4096, update_corrmap=False))
+    if not device_ms > 0:
+        fail(f"phase 25 {label}: the profiled frame recorded no device time")
+    out = {"median_ms": median, "gaps_ms": gaps, "frames": n, "run_s": run_s,
+           "profiled_frame_device_ms": device_ms, "busy_share": device_ms / median,
+           "k1_a_frame": {str(k): v // n for k, v in seen.items()},
+           "k1_by_kernel": {k: v // n for k, v in k1_routes(seen).items()},
+           "k2_calls_a_frame": c[1] // n, "k3_a_frame": c[2] / n,
+           "max_memory_allocated_gib": peak / 2 ** 30}
+    print(f"[25 {label}] Engine.Run of the bench scene at {size}x{size}, {n} frames in "
+          f"{run_s:.1f} s: present-to-present median {median:.1f} ms over "
+          f"{FAMILY_TIMED} timed frames, one profiled frame's kernels {device_ms:.1f} ms (busy "
+          f"share {device_ms / median:.3f}); K1 a frame {out['k1_a_frame']} "
+          f"({out['k1_by_kernel']}), K2 {c[1] // n} call a frame, K3 {c[2] / n:g} a frame; "
+          f"max_memory_allocated {out['max_memory_allocated_gib']:.2f} GiB; frames "
+          f"({size}, {size}, 4) uint8, finite, not constant | {card}", flush=True)
+    return out, seen, k3_seen
+
+
+def families_phase(dev, card: str, k1: dict, k3: dict) -> dict:
+    """Phase 25: (a) SDXL base at full width from random weights through
+    Engine.Run at 1024x1024; (b) its int8 frame, K3's new classes held;
+    (c) SD2 768-v written to a full-width file, loaded by from_checkpoint and
+    drawn at 768x768; (d) tiny SD2, SDXL and refiner files through the
+    executor on the card against the CPU. Every new K1 shape is held."""
+    import torch
+    from dataclasses import replace as dc_replace
+
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.models.clip import SD2_CLIP_H_CONFIG
+    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG
+    from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG
+    from stable_renderer_tpu_torch.models.weights import flatten, tree_to, write_safetensors
+    from stable_renderer_tpu_torch.workflow import executor as wex
+    from stable_renderer_tpu_torch.workflow.config import RenderConfig
+    from stable_renderer_tpu_torch.workflow.loader import Workflow
+
+    t_phase = time.perf_counter()
+    out = {}
+    # --- 25a. SDXL base at full width ------------------------------------------------------
+    cfg = RenderConfig(prompt="a ball")  # 4-step LCM over sgm_uniform at cfg 2.0
+    t0 = time.perf_counter()
+    pipe = DiffusionPipeline.from_random(cfg, tiny=False, family="sdxl", device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    uc = pipe.unet.config
+    if not (pipe.is_sdxl and uc.adm_in_channels == 2816 and uc.context_dim == 2048
+            and pipe.clip_g.config.width == 1280 and pipe.clip.config.hidden_size == 768
+            and pipe.vae.config.scale_factor == 0.13025
+            and pipe.unet_params["time_embed"]["0"]["weight"].dtype == torch.bfloat16):
+        fail(f"phase 25a: the SDXL pipeline's widths or types ({uc})")
+    n_params = sum(v.numel() for v in flatten(pipe.unet_params).values())
+    out["sdxl"], seen, _ = family_engine_run("sdxl bf16", pipe, XL_SIZE, XL_K1_SHAPES, card)
+    out["sdxl"].update(init_s=init_s, unet_params=n_params)
+    hold_new_k1_shapes(seen, 25, dev, card, k1)
+
+    # --- 25b. the int8 SDXL frame --------------------------------------------------------
+    pipe_i8 = dc_replace(pipe, config=dc_replace(cfg, int8_conv=True))
+    t0 = time.perf_counter()
+    pipe_i8.quantize_convs(render_size=(XL_SIZE, XL_SIZE))  # the cfg batch of every sigma
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    out["sdxl_int8"], _, k3_seen = family_engine_run("sdxl int8", pipe_i8, XL_SIZE,
+                                                     XL_K1_SHAPES, card)
+    n_i8 = out["sdxl_int8"]["frames"]
+    classes = per_frame_classes(k3_seen, n_i8)
+    if not classes or sum(classes.values()) != out["sdxl_int8"]["k3_a_frame"]:
+        fail(f"phase 25b: K3 classes {classes}, {out['sdxl_int8']['k3_a_frame']} a frame")
+    out["sdxl_int8"].update(quantize_s=quantize_s,
+                            k3_classes={str(k): v for k, v in classes.items()})
+    held = hold_new_k3_classes(classes, 25, dev, card, k3)
+    out["sdxl_int8"]["k3_classes_held"] = len(held)
+    print(f"[25 sdxl int8] {len(classes)} K3 classes a frame, {len(held)} new ones held "
+          f"(exact) and timed | {card}", flush=True)
+    del pipe, pipe_i8
+    torch.cuda.empty_cache()
+
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="families-", dir=build_dir))
+    try:
+        # --- 25c. SD2 768-v from a written file --------------------------------------------
+        gen = torch.Generator(device=dev).manual_seed(25)
+        sd2_unet = dc_replace(SD15_UNET_CONFIG, context_dim=1024, head_dim=64)
+        trees = family_trees("sd2", sd2_unet, None, SD2_CLIP_H_CONFIG, SD15_VAE_CONFIG, gen,
+                             torch.bfloat16, dev)
+        flat = {p + k: v for p, t in trees.items() for k, v in flatten(t).items()}
+        del trees
+        mark_v(flat, gen)
+        path = tmp / "sd2_768_v.safetensors"
+        t0 = time.perf_counter()
+        size = write_safetensors(flat, path)
+        write_s = time.perf_counter() - t0
+        del flat
+        torch.cuda.empty_cache()
+        sd2_cfg = RenderConfig(prompt="a ball", sampler="euler")  # v-prediction, 4 steps
+        t0 = time.perf_counter()
+        pipe2 = DiffusionPipeline.from_checkpoint(str(path), sd2_cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if (pipe2.model_family, pipe2.model_sampling.prediction, type(pipe2.clip).__name__,
+                pipe2.vae_params["quant_conv"]["weight"].dtype,
+                pipe2.unet.config.head_dim) != ("sd2", "v", "SD2ClipH", torch.float32, 64):
+            fail(f"phase 25c: the loaded SD2 file: family {pipe2.model_family}, prediction "
+                 f"{pipe2.model_sampling.prediction}, tower {type(pipe2.clip).__name__}")
+        out["sd2"], seen, _ = family_engine_run("sd2 768-v", pipe2, SD2_SIZE, SD2_K1_SHAPES,
+                                                card)
+        if out["sd2"]["k1_by_kernel"].get("flash_f32") != 2:
+            fail(f"phase 25c: the f32 VAE's attention on {out['sd2']['k1_by_kernel']}")
+        out["sd2"].update(file_gb=size / 1e9, write_s=write_s, load_s=load_s)
+        print(f"[25 sd2] the file: {size / 1e9:.2f} GB (bf16) written in {write_s:.1f} s, "
+              f"loaded by from_checkpoint in {load_s:.1f} s: family sd2, v-prediction, "
+              f"SD2ClipH, f32 VAE | {card}", flush=True)
+        hold_new_k1_shapes(seen, 25, dev, card, k1)
+        del pipe2
+        path.unlink()
+        torch.cuda.empty_cache()
+
+        # --- 25d. tiny SD2, SDXL and refiner files: the executor, card against CPU ----------
+        s = FAMILY_GRAPH_SIZE
+        g = torch.Generator().manual_seed(6)
+        maps = dict(color_maps=torch.rand((1, s, s, 3), generator=g),
+                    noise_maps=torch.randn((1, s // 2, s // 2, 4), generator=g),
+                    id_maps=torch.zeros((1, s, s, 4), dtype=torch.int32))
+        from stable_renderer_tpu_torch.data.engine_data import EngineData
+
+        out["tiny_graphs"] = {}
+        for kind in ("sd2_small", "sdxl", "refiner"):
+            write_family_file(kind, tmp / f"{kind}.safetensors", torch.float32)
+            wf_path = tmp / f"{kind}.json"
+            wf_path.write_text(json.dumps(ui_workflow(family_rows(kind, f"{kind}.safetensors"))))
+            finals = []
+            with tiny_family_loaders(kind):
+                for d in (torch.device("cpu"), dev):
+                    ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(tmp),),
+                                            device=d)
+                    ed = EngineData(frame_indices=torch.arange(1),
+                                    **{k: v.to(d) for k, v in maps.items()})
+                    first = ex.execute(engine_data=ed).final_output  # as loaded: UNet, VAE bf16
+                    if not torch.isfinite(first.float()).all():
+                        fail(f"phase 25d {kind} on {d}: non-finite output as loaded")
+                    model, clip, vae = ex._cache[1]  # the loader is not re-run
+                    ex._cache = {1: ({**model, "params": tree_to(model["params"], d,
+                                                                  torch.float32)}, clip,
+                                     {**vae, "params": tree_to(vae["params"], d, torch.float32)})}
+                    finals.append(ex.execute(engine_data=ed).final_output.float().cpu())
+            err = float((finals[1] - finals[0]).abs().max())
+            if not (torch.isfinite(finals[1]).all() and err < REF_TOL
+                    and float(finals[1].std()) > 1e-3):
+                fail(f"phase 25d {kind}: card against CPU max abs err {err:.3e} (tol {REF_TOL})")
+            out["tiny_graphs"][kind] = err
+            print(f"[25 tiny] {kind}: CheckpointLoaderSimple -> {family_rows(kind, '')[1][1]} -> "
+                  f"KSampler -> VAEDecode at {s}x{s}, the loaded UNet and VAE widened to f32: "
+                  f"card against CPU max abs err {err:.3e} (tol {REF_TOL}) | {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[25 families] phase 25 in {out['phase_s']:.1f} s | {card}", flush=True)
     return out
 
 

@@ -10,19 +10,21 @@ counterpart of ``_jit_render_stream``, the StreamDiffusion-style program
 (S = steps frames in flight, one batched UNet evaluation an engine frame,
 lag-1 K/V correspondence).
 
-Ported so far: the SD1.x family from random weights or from a checkpoint
-(``from_checkpoint``: an ldm file or a diffusers folder, with LoRAs merged,
-9-channel inpaint UNets included), plain and per-sprite scene conditioning
-with textual inversion, every sampler and scheduler of the JAX package, the
-sequential and stream programs, ControlNets, control-LoRAs and T2I-Adapters
+Ported so far: SD1.x, SD2 (768-v and eps, 9-channel inpaint UNets included),
+SDXL and its refiner from a checkpoint (``from_checkpoint``: an ldm file, or a
+diffusers folder of the SD1.x family, with LoRAs merged), SD1.5 and SDXL from
+random weights, the dual-tower text conditioning and the ADM vectors of SDXL
+and the refiner, plain and per-sprite scene conditioning with textual
+inversion, every sampler and scheduler of the JAX package, the sequential and
+stream programs, ControlNets, control-LoRAs and T2I-Adapters
 (``add_controlnet``, ``add_random_controlnet``, ``add_control_lora``,
 ``add_t2i_adapter``, ``add_control_from_state_dict``), the calibrated int8
 conv path (``quantize_convs``), the TAESD autoencoder for realtime frames
 (``with_taesd``, ``RenderConfig.realtime_taesd``) and per-vertex starting
-noise (``RenderConfig.vertex_noise`` without noise maps). Other model
-families (ROADMAP 1.11) and the multi-device stream mesh (1.14) raise until
-their slices are ported. The pipeline's tensors live on the card unless
-``device`` names another device.
+noise (``RenderConfig.vertex_noise`` without noise maps). The
+image-conditioned and video families (ROADMAP 1.11b, 1.11c) and the
+multi-device stream mesh (1.14) raise until their slices are ported. The
+pipeline's tensors live on the card unless ``device`` names another device.
 """
 
 from __future__ import annotations
@@ -36,11 +38,18 @@ import torch
 from stable_renderer_tpu_torch.data.engine_data import EngineData
 from stable_renderer_tpu_torch.device import keep_f32, resolve_device, to_device
 from stable_renderer_tpu_torch.models.clip import (
+    SD2_CLIP_H_CONFIG,
     SD15_CLIP_CONFIG,
+    SDXL_CLIP_G_CONFIG,
     TINY_CLIP_CONFIG,
+    TINY_CLIP_G_CONFIG,
     CLIPTextModel,
+    OpenCLIPTextModel,
+    SD2ClipH,
     Tokenizer,
     encode_token_weights_batch,
+    encode_token_weights_batch_g,
+    encode_token_weights_batch_xl,
 )
 from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
 from stable_renderer_tpu_torch.models.sampling import (
@@ -55,13 +64,21 @@ from stable_renderer_tpu_torch.models.sampling.assemble import (
 )
 from stable_renderer_tpu_torch.models.sampling.cfg import make_denoiser, timestep_from_sigma
 from stable_renderer_tpu_torch.models.taesd import TAESD
+from stable_renderer_tpu_torch.models.sdxl import sdxl_adm_vector, sdxl_refiner_adm_vector
 from stable_renderer_tpu_torch.models.unet import (
     SD15_UNET_CONFIG,
+    SDXL_UNET_CONFIG,
+    TINY_SDXL_UNET_CONFIG,
     TINY_UNET_CONFIG,
     AttnHooks,
     UNetModel,
 )
-from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, TINY_VAE_CONFIG, VAE
+from stable_renderer_tpu_torch.models.vae import (
+    SD15_VAE_CONFIG,
+    SDXL_VAE_CONFIG,
+    TINY_VAE_CONFIG,
+    VAE,
+)
 from stable_renderer_tpu_torch.ops.correspondence import (
     Corresponder,
     default_corresponder,
@@ -88,8 +105,13 @@ class DiffusionPipeline:
     # TAESD tiny autoencoder for RenderConfig.realtime_taesd frames
     taesd: Optional[TAESD] = None
     taesd_params: Optional[dict] = None
+    # SDXL's second text tower (comfy sdxl_clip.py SDXLClipModel); None for
+    # SD1.x and SD2. A refiner has it and an empty clip_params (G only)
+    clip_g: Optional[OpenCLIPTextModel] = None
+    clip_g_params: Optional[dict] = None
     # set by from_checkpoint, as the JAX package sets them: the checkpoint's
-    # family ("sd1") and the SD2.1-unclip noise-augmentor width (None)
+    # family ("sd1", "sd2", "sdxl", ...) and the SD2.1-unclip
+    # noise-augmentor width (None otherwise)
     model_family: str = "sd1"
     noise_aug_dim: Optional[int] = None
     # from_checkpoint's LoRAs: {"path", "strength", "unet", "te"} with the
@@ -103,6 +125,17 @@ class DiffusionPipeline:
         self._prep_cond_cache: dict = {}
         self._sigma_cache: Optional[Tuple[tuple, torch.Tensor]] = None
 
+    @property
+    def is_sdxl(self) -> bool:
+        """The UNet takes an ADM vector (SDXL, the refiner, SD2.1-unclip)."""
+        return self.unet.config.adm_in_channels is not None
+
+    @property
+    def _clip_g_only(self) -> bool:
+        """The refiner's text path: no CLIP-L tower, G alone encodes
+        (comfy sdxl_clip.py SDXLRefinerClipModel)."""
+        return self.clip_g is not None and not self.clip_params
+
     # --- constructors --------------------------------------------------------
 
     @classmethod
@@ -114,29 +147,36 @@ class DiffusionPipeline:
         loras: Sequence[Tuple[str, float]] = (),
         device=None,
     ) -> "DiffusionPipeline":
-        """An SD1.x checkpoint (an ldm ``.safetensors`` / ``.ckpt`` file, or a
-        diffusers folder) with optional LoRAs, e.g. LCM (comfy sd.py:592-712
-        load_checkpoint_guess_config).
+        """A checkpoint (an ldm ``.safetensors`` / ``.ckpt`` file, or a
+        diffusers folder of the SD1.x family) with optional LoRAs, e.g. LCM
+        (comfy sd.py:592-712 load_checkpoint_guess_config).
 
         The state dict is read once (a mapped file) and threaded through
         detection, the split into towers and the LoRA merges
         (``loras=[(path, strength)]``: ``lora_unet_`` into the UNet,
-        ``lora_te_`` into the CLIP, in the files' dtypes). The trees then go
-        to ``device`` (default: the card; checked before anything is read) in
-        the JAX package's types: the UNet in ``dtype``, the VAE and the CLIP
-        in f32. ``config.int8_conv`` quantizes the convs afterwards. Other
-        families raise naming ROADMAP 1.11 (so a diffusers folder loads SD1.x
-        only, as in the JAX package); a 9-channel inpaint UNet loads. The
-        merged module counts are kept in ``lora_modules_applied``."""
+        ``lora_te_`` into the CLIP-L tree, in the files' dtypes). The family
+        (``weights.detect_model_family``) picks the prediction and the text
+        towers, as in the JAX package: SD2, SD2.1-unclip and the x4
+        upscaler take ``SD2ClipH`` at ``cond_stage_model.model.`` (the x4
+        its betas 1e-4 -> 2e-2); SDXL CLIP-L at ``conditioner.embedders.0``
+        and CLIP-G at ``embedders.1``, the refiner CLIP-G alone at
+        ``embedders.0``, both with ``SDXL_VAE_CONFIG``. An SD2 or SDXL
+        diffusers folder raises, as in the JAX package. The trees then go to
+        ``device`` (default: the card; checked before anything is read) in
+        the JAX package's types: the UNet in ``dtype``, the VAE and the
+        towers in f32. ``config.int8_conv`` quantizes the convs afterwards.
+        The merged module counts are kept in ``lora_modules_applied``."""
         from stable_renderer_tpu_torch.models.lora import merge_lora
         from stable_renderer_tpu_torch.models.weights import (
             load_checkpoint_flat,
             load_state_dict,
+            nest,
             tree_to,
         )
 
         device = resolve_device(device)
-        if Path(path).is_dir():
+        is_dir = Path(path).is_dir()
+        if is_dir:
             from stable_renderer_tpu_torch.models.diffusers_convert import load_diffusers_folder
 
             flat = load_diffusers_folder(str(path))
@@ -150,18 +190,39 @@ class DiffusionPipeline:
             clip_p, n_te = merge_lora(clip_p, lora_flat, strength, prefix="lora_te_")
             applied.append({"path": str(lora_path), "strength": strength, "unet": n_unet,
                             "te": n_te})
+        if is_dir and (ucfg.adm_in_channels is not None or ucfg.context_dim >= 1024):
+            raise NotImplementedError(
+                "diffusers folders are supported for the SD1.x family; "
+                "convert SDXL/SD2 diffusers repos to a single .safetensors")
         config = config or RenderConfig()
-        ms = ModelSampling(prediction=config.prediction or (
-            "lcm" if config.sampler == "lcm" else fam["prediction"]))
+        pred = config.prediction or ("lcm" if config.sampler == "lcm" else fam["prediction"])
+        if fam["family"] == "sd-x4-upscaler":
+            # SD_X4Upscaler's sampling settings (supported_models.py:326)
+            ms = ModelSampling(beta_start=0.0001, beta_end=0.02, prediction=pred)
+        else:
+            ms = ModelSampling(prediction=pred)
+        clip = CLIPTextModel(SD15_CLIP_CONFIG)
+        vcfg, clip_g, clip_g_p = SD15_VAE_CONFIG, None, None
+        if fam["family"] in ("sd2", "sd21-unclip", "sd-x4-upscaler"):
+            clip = SD2ClipH(SD2_CLIP_H_CONFIG)
+            clip_p = {"model": nest(flat, "cond_stage_model.model.")}
+        elif ucfg.adm_in_channels is not None:
+            if fam["family"] == "sdxl-refiner":  # CLIP-G alone, at embedders.0
+                g_prefix, clip_p = "conditioner.embedders.0.model.", {}
+            else:
+                g_prefix = "conditioner.embedders.1.model."
+                clip_p = nest(flat, "conditioner.embedders.0.transformer.")
+            clip_g = OpenCLIPTextModel(SDXL_CLIP_G_CONFIG)
+            clip_g_p = tree_to({"model": nest(flat, g_prefix)}, device, torch.float32)
+            vcfg = SDXL_VAE_CONFIG
         pipe = cls(
-            unet=UNetModel(ucfg), vae=VAE(SD15_VAE_CONFIG), clip=CLIPTextModel(SD15_CLIP_CONFIG),
-            tokenizer=Tokenizer(SD15_CLIP_CONFIG),
+            unet=UNetModel(ucfg), vae=VAE(vcfg), clip=clip, tokenizer=Tokenizer(SD15_CLIP_CONFIG),
             unet_params=tree_to(unet_p, device, dtype),
             vae_params=tree_to(vae_p, device, torch.float32),
             clip_params=tree_to(clip_p, device, torch.float32),
-            config=config, model_sampling=ms, device=device,
-            model_family=fam["family"], noise_aug_dim=fam["noise_aug_dim"],
-            lora_modules_applied=applied,
+            config=config, model_sampling=ms, device=device, clip_g=clip_g,
+            clip_g_params=clip_g_p, model_family=fam["family"],
+            noise_aug_dim=fam["noise_aug_dim"], lora_modules_applied=applied,
         )
         if config.int8_conv:
             pipe.quantize_convs()
@@ -177,18 +238,29 @@ class DiffusionPipeline:
         family: str = "sd15",
         device=None,
     ) -> "DiffusionPipeline":
-        """Random-weight pipeline: tiny f32 for tests, full-width bf16 SD1.5
-        UNet and VAE otherwise (the CLIP tower stays f32). Weights are drawn
-        on ``device`` (default: the card) from a generator seeded with
-        ``seed``. ``config.int8_conv`` quantizes the conv trees
+        """Random-weight pipeline: tiny f32 for tests, full-width bf16 UNet
+        and VAE otherwise (the text towers stay f32). ``family="sdxl"``
+        builds the SDXL pipeline: the ADM UNet, CLIP-L and CLIP-G (the
+        L tower's width is the UNet's context less G's), and
+        ``SDXL_VAE_CONFIG`` at full width; any other family SD1.5, as in the
+        JAX package. Weights are drawn on ``device`` (default: the card)
+        from a generator seeded with ``seed``: UNet, VAE, CLIP-L, then
+        CLIP-G. ``config.int8_conv`` quantizes the conv trees
         (``quantize_convs``)."""
-        if family != "sd15":
-            raise NotImplementedError(f"family {family!r} is not ported yet")
-        ucfg = TINY_UNET_CONFIG if tiny else SD15_UNET_CONFIG
-        vcfg = TINY_VAE_CONFIG if tiny else SD15_VAE_CONFIG
-        ccfg = TINY_CLIP_CONFIG if tiny else SD15_CLIP_CONFIG
-        if ccfg.hidden_size != ucfg.context_dim:
-            ccfg = replace(ccfg, hidden_size=ucfg.context_dim)
+        clip_g = None
+        if family == "sdxl":
+            ucfg = TINY_SDXL_UNET_CONFIG if tiny else SDXL_UNET_CONFIG
+            vcfg = TINY_VAE_CONFIG if tiny else SDXL_VAE_CONFIG
+            gcfg = TINY_CLIP_G_CONFIG if tiny else SDXL_CLIP_G_CONFIG
+            ccfg = replace(TINY_CLIP_CONFIG if tiny else SD15_CLIP_CONFIG,
+                           hidden_size=ucfg.context_dim - gcfg.width)
+            clip_g = OpenCLIPTextModel(gcfg)
+        else:
+            ucfg = TINY_UNET_CONFIG if tiny else SD15_UNET_CONFIG
+            vcfg = TINY_VAE_CONFIG if tiny else SD15_VAE_CONFIG
+            ccfg = TINY_CLIP_CONFIG if tiny else SD15_CLIP_CONFIG
+            if ccfg.hidden_size != ucfg.context_dim:
+                ccfg = replace(ccfg, hidden_size=ucfg.context_dim)
         if dtype is None:
             dtype = torch.float32 if tiny else torch.bfloat16
         device = resolve_device(device)
@@ -202,7 +274,8 @@ class DiffusionPipeline:
             unet_params=unet.init(gen, dtype=dtype, device=device),
             vae_params=vae.init(gen, dtype=dtype, device=device),
             clip_params=clip.init(gen, dtype=torch.float32, device=device),
-            config=config, model_sampling=ms, device=device,
+            config=config, model_sampling=ms, device=device, clip_g=clip_g,
+            clip_g_params=None if clip_g is None else clip_g.init(gen, device=device),
         )
         if config.int8_conv:
             pipe.quantize_convs()
@@ -252,6 +325,7 @@ class DiffusionPipeline:
         Static per-conv activation scales come from one eager run per model at
         the render resolution: for the UNet, a latent at each of the
         schedule's sigmas (but the last) times the cfg pair of conditionings;
+        an ADM UNet takes zero vectors (a class-table UNet class 0);
         for the VAE, a decode of random latents and an ``encode_moments`` of
         random pixels. Convs whose calibrated input is below 32 x 32 pixels
         stay in the float type, as do the first and last convs
@@ -278,8 +352,13 @@ class DiffusionPipeline:
         cp, cn = self.encode_prompts([self.config.prompt], [self.config.negative_prompt])
         ctx = torch.cat([cp[:1].expand((s,) + cp.shape[1:]),
                          cn[:1].expand((s,) + cn.shape[1:])], 0).to(dt)
+        y = None
+        if ucfg.num_classes is not None:
+            y = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        elif ucfg.adm_in_channels is not None:
+            y = torch.zeros((b, ucfg.adm_in_channels), dtype=dt, device=self.device)
         scales_u = calibrate_act_scales(lambda p, *a: self.unet.apply(p, *a),
-                                        self.unet_params, x, t, ctx)
+                                        self.unet_params, x, t, ctx, y)
         z = torch.randn((1, lh, lw, 4), generator=gen, device=self.device).to(dt)
         px = torch.tanh(torch.randn((1, rh, rw, 3), generator=gen, device=self.device).to(dt))
 
@@ -407,7 +486,16 @@ class DiffusionPipeline:
         ctx_p, ctx_n, _, _ = self._encode_prompts_full(prompts, negatives)
         return ctx_p, ctx_n
 
+    def encode_prompts_xl(self, prompts: List[str], negatives: List[str]):
+        """(ctx_p, ctx_n, pooled_p, pooled_n): ``encode_prompts`` and the
+        pooled embeddings that feed the ADM vector (CLIP-G's projection for
+        SDXL, sdxl_clip.py SDXLClipModel.encode_token_weights)."""
+        return self._encode_prompts_full(prompts, negatives)
+
     def _encode_prompts_full(self, prompts: List[str], negatives: List[str]):
+        """The towers by pipeline: CLIP-G alone for the refiner, CLIP-L +
+        CLIP-G for SDXL (clip skip -1 read as -2: SDXL conditions on the
+        penultimate layer), the one tower otherwise."""
         key = (tuple(prompts), tuple(negatives), self.config.clip_skip)
         hit = self._cond_cache.get(key)
         if hit is not None:
@@ -415,13 +503,24 @@ class DiffusionPipeline:
         np_b = len(prompts)
         ids, weights, custom = self.tokenizer.tokenize_weighted_batch(
             list(prompts) + list(negatives))
+        ids = torch.as_tensor(ids, device=self.device)
+        weights = torch.as_tensor(weights, device=self.device)
+        custom = None if custom is None else torch.as_tensor(custom, device=self.device)
+        skip = self.config.clip_skip
+        if self.clip_g is not None and skip == -1:
+            skip = -2
         with torch.no_grad():
-            ctx, pooled = encode_token_weights_batch(
-                self.clip, self.clip_params, torch.as_tensor(ids, device=self.device),
-                torch.as_tensor(weights, device=self.device),
-                custom_embeds=None if custom is None else torch.as_tensor(custom,
-                                                                          device=self.device),
-                clip_skip=self.config.clip_skip)
+            if self._clip_g_only:
+                ctx, pooled = encode_token_weights_batch_g(self.clip_g, self.clip_g_params, ids,
+                                                           weights, clip_skip=skip)
+            elif self.clip_g is not None:
+                ctx, pooled = encode_token_weights_batch_xl(
+                    self.clip, self.clip_g, self.clip_params, self.clip_g_params, ids, weights,
+                    custom_embeds=custom, clip_skip=skip)
+            else:
+                ctx, pooled = encode_token_weights_batch(self.clip, self.clip_params, ids,
+                                                         weights, custom_embeds=custom,
+                                                         clip_skip=skip)
         result = (ctx[:np_b], ctx[np_b:], pooled[:np_b], pooled[np_b:])
         if len(self._cond_cache) > 32:
             self._cond_cache.clear()
@@ -455,7 +554,12 @@ class DiffusionPipeline:
         sprite's prompt, then the environment prompt, with one uncond a frame
         (SceneTextEncode, conditions.py:52-110). Otherwise sprite_ids is ()
         and the sprite prompts and the environment prompt join into one
-        prompt, ctx (n, L, D). The ADM vectors are None (SD1.x)."""
+        prompt, ctx (n, L, D). The ADM vectors (model_base.py encode_adm),
+        None for a UNet without one: SDXL's from the pooled embeddings at
+        ``image_size`` (default 1024 x 1024) as original and target size,
+        the environment prompt's on the scene path; the refiner's with the
+        aesthetic scores 6.0 and 2.5; SD2.1-unclip's zeros (no image
+        conditioning)."""
         cfg = self.config
         pc_key = (
             tuple(sorted((sid, sp.prompt, sp.negative_prompt) for sid, sp in sprite_infos.items())),
@@ -480,17 +584,35 @@ class DiffusionPipeline:
         if prompts is None and cfg.scene_conditioning and len(sprited) >= 2 and have_id_maps:
             sprite_ids = tuple(sid for sid, _ in sprited)
             scene_prompts = [t for _, t in sprited] + [env_text]
-            ctx_s, nctx_s, _, _ = self._encode_prompts_full(scene_prompts,
-                                                            [neg] * len(scene_prompts))
+            ctx_s, nctx_s, pooled_s, npooled_s = self._encode_prompts_full(
+                scene_prompts, [neg] * len(scene_prompts))
             ctx = ctx_s[:, None].expand(ctx_s.shape[0], n, *ctx_s.shape[1:])
             nctx = nctx_s[:1].expand(n, *nctx_s.shape[1:])
+            # the scene path's ADM: the environment prompt's pooled embedding
+            pooled = pooled_s[-1:].expand(n, pooled_s.shape[-1])
+            npooled = npooled_s[:1].expand(n, npooled_s.shape[-1])
         else:
             if prompts is None:
                 text = ", ".join([t for _, t in sprited] + ([env_text] if env_text else [])) \
                     or cfg.prompt
                 prompts = [text] * n
-            ctx, nctx, _, _ = self._encode_prompts_full(prompts, negatives)
-        result = (sprite_ids, ctx, nctx, None, None)
+            ctx, nctx, pooled, npooled = self._encode_prompts_full(prompts, negatives)
+        y_cond = y_uncond = None
+        if self.model_family == "sd21-unclip":
+            # SD21UNCLIP.encode_adm without image conditioning: zeros
+            y_cond = y_uncond = torch.zeros((n, self.unet.config.adm_in_channels),
+                                            dtype=torch.float32, device=self.device)
+        elif self.is_sdxl:
+            size = tuple(image_size) if image_size is not None else (1024, 1024)
+            if (self.model_family == "sdxl-refiner"
+                    or self.unet.config.adm_in_channels == 2560):
+                y_cond = sdxl_refiner_adm_vector(pooled, original_size=size, aesthetic_score=6.0)
+                y_uncond = sdxl_refiner_adm_vector(npooled, original_size=size,
+                                                   aesthetic_score=2.5)
+            else:
+                y_cond = sdxl_adm_vector(pooled, original_size=size, target_size=size)
+                y_uncond = sdxl_adm_vector(npooled, original_size=size, target_size=size)
+        result = (sprite_ids, ctx, nctx, y_cond, y_uncond)
         if len(self._prep_cond_cache) > 64:
             self._prep_cond_cache.clear()
         self._prep_cond_cache[pc_key] = result

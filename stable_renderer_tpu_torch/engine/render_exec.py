@@ -68,6 +68,28 @@ def _draw_pass(
     return compose_draw(prev, prev_zbuf, gbuf, vis, uniforms.render_mode)
 
 
+def execute_draws(draws, camera, height: int, width: int, device=None) -> GBuffer:
+    """Run the sorted draw-call list into a fresh (height, width) G-buffer
+    on ``device`` (default: the card), the gbuffer pass of
+    renderManager.py:962-965; an empty G-buffer without a camera or draws."""
+    from stable_renderer_tpu_torch.engine.frame_program import draw_call_inputs
+
+    device = resolve_device(device)
+    gbuf = GBuffer.empty(height, width, device=device)
+    if camera is None or not draws:
+        return gbuf
+    zbuf = torch.ones((height, width), dtype=torch.float32, device=device)
+    proj = torch.as_tensor(camera.projectionMatrix(width / height), dtype=torch.float32)
+    inputs, sigs = draw_call_inputs(draws, camera.viewMatrix, device=device)
+    for d, (uniforms, corr_size, vertex_fn, fragment_fn) in zip(inputs, sigs):
+        gbuf, zbuf = _draw_pass(
+            gbuf, zbuf, d["buffers"], torch.as_tensor(d["mv"], dtype=torch.float32).to(device),
+            proj.to(device), uniforms, height, width, diffuse=d["diffuse"], noise=d["noise"],
+            corrmap_values=d["corrmap"], corrmap_size=corr_size, fragment_fn=fragment_fn,
+            vertex_fn=vertex_fn)
+    return gbuf
+
+
 def _pack_arrays(gbuf: GBuffer, bg_noise: torch.Tensor) -> dict:
     """_save_frame_data's tensor math (renderManager.py:877-948)."""
     color = gbuf.color

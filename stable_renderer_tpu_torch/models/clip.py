@@ -1,8 +1,12 @@
-"""CLIP text encoder (SD1.5's conditioner) + tokenizer.
+"""The text towers (SD1.x's CLIP-L, SD2's OpenCLIP-H, SDXL's CLIP-L + OpenCLIP-G)
+and the tokenizer.
 
 Counterpart of stable_renderer_tpu/models/clip.py (reference comfy/sd.py CLIP,
-comfy/sd1_clip.py SDClipModel / SDTokenizer). The param tree mirrors the
-transformers CLIPTextModel layout (``cond_stage_model.transformer.text_model.*``).
+comfy/sd1_clip.py SDClipModel / SDTokenizer, sd2_clip.py, sdxl_clip.py). The
+CLIP-L tree mirrors the transformers CLIPTextModel layout
+(``cond_stage_model.transformer.text_model.*``); the OpenCLIP trees mirror
+open_clip's (``cond_stage_model.model.*`` for SD2,
+``conditioner.embedders.N.model.*`` for SDXL).
 
 clip_skip follows comfy CLIPTextEncode: -1 = final hidden state, -2 =
 penultimate, with the final LayerNorm applied after truncation.
@@ -15,6 +19,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stable_renderer_tpu_torch.models.layers import attention, gelu_quick, layer_norm, linear
 
@@ -60,10 +65,7 @@ class CLIPTextModel:
             x = torch.where((tokens < 0)[..., None], custom_embeds[cidx].to(x.dtype), x)
         x = x + tm["embeddings"]["position_embedding"]["weight"][: tokens.shape[1]][None]
 
-        l = tokens.shape[1]  # noqa: E741
-        ar = torch.arange(l, device=tokens.device)
-        causal = torch.zeros((l, l), dtype=torch.float32, device=tokens.device)
-        causal = causal.masked_fill(ar[None, :] > ar[:, None], float("-inf"))[None, None]
+        causal = _causal_mask(tokens.shape[1], tokens.device)
 
         n_layers = cfg.num_layers if clip_skip == -1 else cfg.num_layers + 1 + clip_skip
         for i in range(n_layers):
@@ -121,6 +123,163 @@ class CLIPTextModel:
         }}
 
 
+def _causal_mask(length: int, device) -> torch.Tensor:
+    """(1, 1, L, L) f32: 0 on and below the diagonal, -inf above."""
+    ar = torch.arange(length, device=device)
+    causal = torch.zeros((length, length), dtype=torch.float32, device=device)
+    return causal.masked_fill(ar[None, :] > ar[:, None], float("-inf"))[None, None]
+
+
+@dataclass(frozen=True)
+class OpenCLIPConfig:
+    """An OpenCLIP text tower (SDXL's second encoder ViT-bigG, SD2's ViT-H)."""
+
+    vocab_size: int = 49408
+    max_length: int = 77
+    width: int = 1280
+    num_layers: int = 32
+    num_heads: int = 20
+    mlp_ratio: int = 4
+    projection_dim: int = 1280
+
+
+SDXL_CLIP_G_CONFIG = OpenCLIPConfig()
+TINY_CLIP_G_CONFIG = OpenCLIPConfig(vocab_size=1000, width=64, num_layers=2, num_heads=2,
+                                    projection_dim=32)
+SD2_CLIP_H_CONFIG = OpenCLIPConfig(width=1024, num_layers=24, num_heads=16, projection_dim=1024)
+TINY_CLIP_H_CONFIG = OpenCLIPConfig(vocab_size=1000, width=64, num_layers=3, num_heads=2,
+                                    projection_dim=64)
+
+
+class OpenCLIPTextModel:
+    """The OpenCLIP text transformer in the checkpoint layout (token_embedding,
+    positional_embedding, transformer.resblocks.N.{ln_1, attn.in_proj_*,
+    attn.out_proj, ln_2, mlp.c_fc, mlp.c_proj}, ln_final, text_projection)
+    with comfy sdxl_clip.py's semantics: the exact GELU (not CLIP-L's quick
+    GELU), the fused in_proj split into q, k and v at apply time, and
+    ``text_projection`` a bare (width, proj) matrix multiplied from the
+    right."""
+
+    def __init__(self, config: OpenCLIPConfig = SDXL_CLIP_G_CONFIG):
+        self.config = config
+
+    def apply(self, params: dict, tokens: torch.Tensor, clip_skip: int = -2):
+        """tokens -> (hidden (B, L, width) after layer ``clip_skip`` (-1 the
+        last, -2 the penultimate), pooled (B, proj)): the final-normed state
+        at the first EOS (49407 modulo the vocab), through the projection.
+        Negative (textual-inversion) ids are clamped to 0: the G tower has no
+        table of its own."""
+        cfg = self.config
+        m = params["model"] if "model" in params else params
+        tokens = torch.clamp(tokens.long(), min=0)
+        x = m["token_embedding"]["weight"][tokens]
+        x = x + m["positional_embedding"][: tokens.shape[1]][None]
+        causal = _causal_mask(tokens.shape[1], tokens.device)
+        n_layers = cfg.num_layers if clip_skip == -1 else cfg.num_layers + 1 + clip_skip
+        hidden = x
+        for i in range(cfg.num_layers):
+            blk = m["transformer"]["resblocks"][str(i)]
+            attn = blk["attn"]
+            h = linear({"weight": attn["in_proj_weight"], "bias": attn["in_proj_bias"]},
+                       layer_norm(blk["ln_1"], x))
+            q, k, v = h.chunk(3, dim=-1)
+            x = x + linear(attn["out_proj"], attention(q, k, v, cfg.num_heads, mask=causal))
+            h = F.gelu(linear(blk["mlp"]["c_fc"], layer_norm(blk["ln_2"], x)))
+            x = x + linear(blk["mlp"]["c_proj"], h)
+            if i + 1 == n_layers:
+                hidden = x
+        final = layer_norm(m["ln_final"], x)
+        eos_pos = torch.argmax((tokens == 49407 % cfg.vocab_size).int(), dim=1)
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        return hidden, final[rows, eos_pos] @ m["text_projection"]
+
+    def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
+             device=None) -> dict:
+        """Random init in the checkpoint layout: N(0, 0.02^2) weights (the
+        positional table N(0, 0.01^2)), zero biases, unit norm scales."""
+        cfg = self.config
+
+        def randn(std, *shape):
+            return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+        def zeros(n):
+            return torch.zeros(n, dtype=dtype, device=device)
+
+        def lin(i, o):
+            return {"weight": randn(0.02, o, i), "bias": zeros(o)}
+
+        def norm(c):
+            return {"weight": torch.ones(c, dtype=dtype, device=device), "bias": zeros(c)}
+
+        w = cfg.width
+        blocks = {
+            str(i): {
+                "ln_1": norm(w),
+                "ln_2": norm(w),
+                "attn": {"in_proj_weight": randn(0.02, 3 * w, w), "in_proj_bias": zeros(3 * w),
+                         "out_proj": lin(w, w)},
+                "mlp": {"c_fc": lin(w, w * cfg.mlp_ratio), "c_proj": lin(w * cfg.mlp_ratio, w)},
+            }
+            for i in range(cfg.num_layers)
+        }
+        return {"model": {
+            "token_embedding": {"weight": randn(0.02, cfg.vocab_size, w)},
+            "positional_embedding": randn(0.01, cfg.max_length, w),
+            "transformer": {"resblocks": blocks},
+            "ln_final": norm(w),
+            "text_projection": randn(0.02, w, cfg.projection_dim),
+        }}
+
+
+class SD2ClipH:
+    """SD2.x's text tower: OpenCLIP-H in the checkpoint layout
+    ``cond_stage_model.model.*`` behind CLIPTextModel's interface (comfy
+    sd2_clip.py SD2ClipHModel: the penultimate hidden state with ``ln_final``
+    applied). ``config`` is the CLIPConfig facade the tokenizer and the
+    weighted encoders read."""
+
+    def __init__(self, ocfg: OpenCLIPConfig = SD2_CLIP_H_CONFIG):
+        self._inner = OpenCLIPTextModel(ocfg)
+        self.config = CLIPConfig(vocab_size=ocfg.vocab_size, max_length=ocfg.max_length,
+                                 hidden_size=ocfg.width, num_layers=ocfg.num_layers,
+                                 num_heads=ocfg.num_heads,
+                                 intermediate_size=ocfg.width * ocfg.mlp_ratio)
+
+    def apply(self, params: dict, tokens: torch.Tensor, clip_skip: int = -1,
+              final_norm: bool = True,
+              custom_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """clip_skip -1 reads the penultimate layer (SD2's default); textual
+        inversion has no table here, so ``custom_embeds`` is not read."""
+        hidden, _ = self._inner.apply(params, tokens, clip_skip=-2 if clip_skip == -1
+                                      else clip_skip)
+        if final_norm:
+            m = params["model"] if "model" in params else params
+            hidden = layer_norm(m["ln_final"], hidden)
+        return hidden
+
+    def pooled(self, params: dict, tokens: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+        return self._inner.apply(params, tokens, clip_skip=-1)[1]
+
+    def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
+             device=None) -> dict:
+        return self._inner.init(generator, dtype=dtype, device=device)
+
+
+class SDXLClip:
+    """SDXL's dual-tower conditioning (comfy sdxl_clip.py SDXLClipModel):
+    context = [CLIP-L penultimate without the final norm (768) | CLIP-G
+    penultimate (1280)] = 2048 wide; pooled = CLIP-G's projection."""
+
+    def __init__(self, clip_l: "CLIPTextModel", clip_g: OpenCLIPTextModel):
+        self.clip_l = clip_l
+        self.clip_g = clip_g
+
+    def apply(self, params_l: dict, params_g: dict, tokens: torch.Tensor):
+        hidden_l = self.clip_l.apply(params_l, tokens, clip_skip=-2, final_norm=False)
+        hidden_g, pooled = self.clip_g.apply(params_g, tokens, clip_skip=-2)
+        return torch.cat([hidden_l, hidden_g], dim=-1), pooled
+
+
 class Tokenizer:
     """The CLIP BPE tokenizer over the bundled vocab, with ``(word:1.2)``
     weighting and ``embedding:name`` textual inversion from
@@ -150,6 +309,10 @@ class Tokenizer:
         ids = [cfg.bos_token % cfg.vocab_size] + body + [eos]
         ids += [eos] * (cfg.max_length - len(ids))
         return np.asarray(ids, np.int32)
+
+    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+        """texts -> (B, 77) int32, ``encode`` of each."""
+        return np.stack([self.encode(t) for t in texts])
 
     def tokenize_weighted(self, text: str):
         """text -> (ids (n_chunks, 77) i32, weights (n_chunks, 77) f32,
@@ -209,3 +372,64 @@ def encode_token_weights_batch(
     z = (z - z_empty[None]) * weights.reshape(b * c, length)[..., None] + z_empty[None]
     pooled = model.pooled(params, flat[::c], out[: b * c: c])
     return z.reshape(b, c * length, -1), pooled
+
+
+def clip_g_pad_ids(ids: torch.Tensor, eos: int = 49407) -> torch.Tensor:
+    """The G tower's ids from the L tower's: SDXLClipGTokenizer pads with 0
+    after the first EOS (pad_with_end=False, comfy sdxl_clip.py)."""
+    first_eos = torch.argmax((ids == eos).int(), dim=-1)
+    after = torch.arange(ids.shape[-1], device=ids.device) > first_eos[..., None]
+    return torch.where(after, torch.zeros_like(ids), ids)
+
+
+def _encode_g(clip_g: OpenCLIPTextModel, params_g: dict, ids: torch.Tensor,
+              weights: torch.Tensor, bos: int, eos: int, clip_skip: int):
+    """The G tower's weighted encoding of (B, C, L) L-tower ids: (context
+    (B, C*L, width), pooled of each prompt's first chunk (B, proj)). The G
+    ids and the empty chunk [BOS, EOS, 0...] are padded with 0."""
+    b, c, length = ids.shape
+    ids_g = clip_g_pad_ids(ids.reshape(b * c, length), eos)
+    empty = torch.zeros((1, length), dtype=ids.dtype, device=ids.device)
+    empty[0, 0], empty[0, 1] = bos, eos
+    hidden, pooled = clip_g.apply(params_g, torch.cat([ids_g, empty], 0), clip_skip=clip_skip)
+    zg, zg_empty = hidden[: b * c], hidden[b * c]
+    zg = (zg - zg_empty[None]) * weights.reshape(b * c, length)[..., None] + zg_empty[None]
+    return zg.reshape(b, c * length, -1), pooled[: b * c: c]
+
+
+def encode_token_weights_batch_g(
+    clip_g: OpenCLIPTextModel,
+    params_g: dict,
+    ids: torch.Tensor,      # (B, C, L) L-tower ids; the G ids are derived
+    weights: torch.Tensor,  # (B, C, L) f32
+    clip_skip: int = -2,
+):
+    """The SDXL refiner's single-tower encoding (comfy sdxl_clip.py
+    SDXLRefinerClipModel): the refiner carries only CLIP-G, so the context is
+    G's penultimate hidden state (1280 wide) and pooled G's projection."""
+    vocab = clip_g.config.vocab_size
+    return _encode_g(clip_g, params_g, ids, weights, 49406 % vocab, 49407 % vocab, clip_skip)
+
+
+def encode_token_weights_batch_xl(
+    clip_l: CLIPTextModel,
+    clip_g: OpenCLIPTextModel,
+    params_l: dict,
+    params_g: dict,
+    ids: torch.Tensor,      # (B, C, L) L-tower ids; the G ids are derived
+    weights: torch.Tensor,  # (B, C, L) f32
+    custom_embeds: Optional[torch.Tensor] = None,
+    clip_skip: int = -2,
+):
+    """SDXL's dual-tower weighted encoding (comfy sdxl_clip.py SDXLClipModel):
+    context = [CLIP-L hidden without the final norm | CLIP-G hidden] a chunk,
+    pooled = CLIP-G's projection of each prompt's first chunk. Both towers
+    take ClipTokenWeightEncoder's ``(z - z_empty) * w + z_empty``."""
+    cfg_l = clip_l.config
+    z_l, _ = encode_token_weights_batch(clip_l, params_l, ids, weights,
+                                        custom_embeds=custom_embeds, clip_skip=clip_skip,
+                                        final_norm=False)
+    vocab = clip_g.config.vocab_size
+    z_g, pooled = _encode_g(clip_g, params_g, ids, weights, cfg_l.bos_token % vocab,
+                            cfg_l.eos_token % vocab, clip_skip)
+    return torch.cat([z_l, z_g], dim=-1), pooled

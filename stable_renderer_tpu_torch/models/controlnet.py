@@ -89,7 +89,7 @@ class ControlNet:
         outs = []
         h = x
         layer_idx = 0
-        for i, (kind, _, depth) in enumerate(plan_in):
+        for i, (kind, _, depth, dis) in enumerate(plan_in):
             p = params["input_blocks"][str(i)]
             if kind == "conv":
                 h = conv2d(p["0"], h, padding=1) + guided_hint
@@ -99,13 +99,14 @@ class ControlNet:
                 h = res_block(p["0"], h, emb)
                 if kind == "res_attn":
                     h, layer_idx = spatial_transformer(
-                        p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks)
+                        p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks,
+                        disable_self_attn=dis)
             outs.append(conv2d(params["zero_convs"][str(i)]["0"], h))
 
         mp = params["middle_block"]
         h = res_block(mp["0"], h, emb)
         h, layer_idx = spatial_transformer(mp["1"], h, context, cfg.heads_for(h.shape[-1]),
-                                           max(cfg.transformer_depth, 1), layer_idx, hooks)
+                                           max(cfg.middle_depth(), 1), layer_idx, hooks)
         h = res_block(mp["2"], h, emb)
         mid = conv2d(params["middle_block_out"]["0"], h)
 
@@ -172,7 +173,7 @@ class ControlNet:
         plan_in, _, _ = self._unet.block_plan()
         zero_convs = {}
         cur = cfg.model_channels
-        for i, (kind, out_ch, _depth) in enumerate(plan_in):
+        for i, (kind, out_ch, _depth, _dis) in enumerate(plan_in):
             if kind not in ("conv", "down") and out_ch is not None:
                 cur = out_ch
             zero_convs[str(i)] = {"0": conv(cur, cur, k=1, zero=True)}

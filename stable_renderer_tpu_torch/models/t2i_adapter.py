@@ -18,7 +18,7 @@ switch a 3x3 conv that passes its gate runs on K3.
 The param tree mirrors the checkpoint names (conv_in, body.N.{in_conv,
 block1, block2, skep, down_opt.op}), so loading is re-nesting.
 ``StyleAdapter`` and ``load_style_model`` need the CLIP vision tower and wait
-for ROADMAP 1.11.
+for ROADMAP 1.11b.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 Counterpart of stable_renderer_tpu/models/tokenizer.py (reference
 comfy/sd1_clip.py:208-484). The JAX package runs transformers'
 CLIPTokenizer; the port carries its own byte-level BPE (``CLIPBPE``), which
-reads the same vocab and merges files in place from
-``stable_renderer_tpu/assets/clip_tokenizer/`` and reproduces that
+reads its own copy of the same vocab and merges files
+(``stable_renderer_tpu_torch/assets/clip_tokenizer/``) and reproduces that
 tokenizer's text cleanup (no ftfy: control-character removal, whitespace
 normalization, CJK spacing, NFC, lower case) and its pre-tokenizer pattern
 ``<|startoftext|>|<|endoftext|>|'s|'t|'re|'ve|'m|'ll|'d|\\p{L}+|\\p{N}|[^\\s\\p{L}\\p{N}]+``
@@ -33,8 +33,9 @@ from stable_renderer_tpu_torch.utils.log import get_logger
 
 logger = get_logger("sr_tpu.tokenizer")
 
-ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "stable_renderer_tpu", "assets", "clip_tokenizer")
+# the port's own copy of the CLIP vocab (assets/clip_tokenizer/PROVENANCE.md)
+ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "assets", "clip_tokenizer")
 
 _SPECIAL = ("<|startoftext|>", "<|endoftext|>")
 # the tower an embedding file's per-tower entry is read from (SD1.x's one)
@@ -323,6 +324,7 @@ class SDTokenizer:
         self.embedding_directory = embedding_directory
         self.embedding_identifier = "embedding:"
         self.embedding_size = embedding_size
+        self.inv_vocab = {v: k for k, v in self.tokenizer.encoder.items()}
 
     def _try_get_embedding(self, name: str):
         """(vectors or None, what is left of the word): a name that loads
@@ -382,6 +384,14 @@ class SDTokenizer:
         if self.pad_to_max_length:
             batch.extend([(pad_token, 1.0)] * (self.max_length - len(batch)))
         return batched
+
+
+    def untokenize(self, token_weight_pairs):
+        """[(token string, weight)] for the integer ids of ``token_weight_pairs``
+        (embedding vectors are left out; an id outside the vocab stays as it
+        is)."""
+        return [(self.inv_vocab.get(t, t), w) for t, w in token_weight_pairs
+                if isinstance(t, int)]
 
 
 def pack_chunks(chunks) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:

@@ -1,13 +1,13 @@
-"""SD1.5-class UNet as a function over a checkpoint-layout param dict, with
-correspondence hooks.
+"""The SD-family UNet (SD1.x, SD2, SDXL and its refiner, the x4 upscaler) as
+a function over a checkpoint-layout param dict, with correspondence hooks.
 
 Counterpart of stable_renderer_tpu/models/unet.py (reference:
 openaimodel.py UNetModel, attention.py SpatialTransformer /
 BasicTransformerBlock). The reference threads ``transformer_options`` through
 every block and calls ``corresponder.pre_atten_inject`` /
 ``post_atten_inject`` around each self-attention; here those hooks are the
-callables of ``AttnHooks``, called with the running transformer index
-(0..15 for SD1.5, in execution order).
+callables of ``AttnHooks``, called with the running SpatialTransformer
+index in execution order (0..15 for SD1.5, 0..10 for SDXL).
 
 Activations are NHWC; matmuls and convs run in the activation dtype (bf16 on
 the card) with f32 norm statistics. Self-attention at 64 x 64 latent (4096
@@ -38,6 +38,10 @@ from stable_renderer_tpu_torch.models.layers import (
 
 @dataclass(frozen=True)
 class UNetConfig:
+    """The JAX package's ``UNetConfig``, field for field: the uniform SD1.5
+    layout by default, and the per-level and per-block layouts that SD2,
+    SDXL, the refiner, the distilled SDXL family and the x4 upscaler need."""
+
     in_channels: int = 4
     out_channels: int = 4
     model_channels: int = 320
@@ -45,11 +49,28 @@ class UNetConfig:
     channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
     attention_levels: Tuple[int, ...] = (0, 1, 2)  # levels with SpatialTransformer
     transformer_depth: int = 1
-    num_heads: int = 8
-    context_dim: int = 768
+    # per-level transformer depth (SDXL); None = transformer_depth everywhere
+    transformer_depth_per_level: Optional[Tuple[int, ...]] = None
+    # per-res-block depths in input_blocks / output_blocks order (comfy
+    # model_detection's layout; SSD-1B, Vega, KOALA); None = the per-level rule
+    transformer_depth_blocks: Optional[Tuple[int, ...]] = None
+    transformer_depth_blocks_out: Optional[Tuple[int, ...]] = None
+    # the middle block (openaimodel.py:735-738): None = a transformer at the
+    # last level's depth; >= 0 = [res, transformer(d), res]; -1 = [res];
+    # <= -2 = no middle block
+    transformer_depth_middle: Optional[int] = None
+    # per-level res-block counts (KOALA); None = num_res_blocks everywhere
+    num_res_blocks_per_level: Optional[Tuple[int, ...]] = None
+    # per-level disable_self_attn (SD_X4Upscaler): attn1 cross-attends the
+    # text context instead of self-attending
+    disable_self_attn_levels: Optional[Tuple[bool, ...]] = None
     # class-label embedding table (num_classes, time_embed_dim), indexed by
-    # an integer y (openaimodel num_classes=int path)
+    # an integer y (openaimodel num_classes=int path, the x4 upscaler)
     num_classes: Optional[int] = None
+    num_heads: int = 8
+    # 64-wide heads (SD2, SDXL) instead of a fixed head count
+    head_dim: Optional[int] = None
+    context_dim: int = 768
     # ADM vector width: label_emb is the MLP adm -> time_embed_dim -> same
     adm_in_channels: Optional[int] = None
 
@@ -57,12 +78,48 @@ class UNetConfig:
     def time_embed_dim(self) -> int:
         return self.model_channels * 4
 
+    def depth_at(self, level: int) -> int:
+        if self.transformer_depth_per_level is not None:
+            return self.transformer_depth_per_level[level]
+        return self.transformer_depth
+
+    def res_blocks_at(self, level: int) -> int:
+        if self.num_res_blocks_per_level is not None:
+            return self.num_res_blocks_per_level[level]
+        return self.num_res_blocks
+
+    def middle_depth(self) -> int:
+        """The middle block's transformer depth (see transformer_depth_middle)."""
+        if self.transformer_depth_middle is not None:
+            return self.transformer_depth_middle
+        return max(self.depth_at(len(self.channel_mult) - 1), 1)
+
+    def self_attn_disabled(self, level: int) -> bool:
+        if self.disable_self_attn_levels is None:
+            return False
+        return bool(self.disable_self_attn_levels[level])
+
     def heads_for(self, channels: int) -> int:
-        """Attention heads at a block of ``channels`` (a fixed count for SD1.5)."""
+        """Attention heads at a block of ``channels``: channels / head_dim
+        with ``head_dim``, else the fixed ``num_heads``."""
+        if self.head_dim is not None:
+            return max(channels // self.head_dim, 1)
         return self.num_heads
 
 
 SD15_UNET_CONFIG = UNetConfig()
+
+SDXL_UNET_CONFIG = UNetConfig(
+    model_channels=320,
+    channel_mult=(1, 2, 4),
+    attention_levels=(1, 2),
+    transformer_depth_per_level=(0, 2, 10),
+    head_dim=64,
+    context_dim=2048,
+    adm_in_channels=2816,
+)
+"""SDXL base (comfy/supported_models.py SDXL): attention at levels 1-2 with
+depths 2 and 10, the 2048-wide dual-CLIP context, the ADM vector."""
 
 TINY_UNET_CONFIG = UNetConfig(
     model_channels=32,
@@ -73,6 +130,17 @@ TINY_UNET_CONFIG = UNetConfig(
     context_dim=64,
 )
 """Small config for tests (same topology, tiny widths)."""
+
+TINY_SDXL_UNET_CONFIG = UNetConfig(
+    model_channels=32,
+    num_res_blocks=1,
+    channel_mult=(1, 2),
+    attention_levels=(0, 1),
+    num_heads=2,
+    context_dim=128,               # tiny CLIP-L 64 + tiny CLIP-G 64
+    adm_in_channels=32 + 6 * 256,  # tiny CLIP-G projection + the size Fourier rows
+)
+"""Tiny SDXL-family config for tests: the ADM vector and the dual-tower context."""
 
 
 class AttnHooks(NamedTuple):
@@ -141,9 +209,20 @@ def basic_transformer_block(
     heads: int,
     layer_idx: int,
     hooks: AttnHooks,
+    disable_self_attn: bool = False,
 ) -> torch.Tensor:
-    """attention.py BasicTransformerBlock._forward with the injection points."""
+    """attention.py BasicTransformerBlock._forward with the injection points.
+    With ``disable_self_attn`` (the x4 upscaler's levels) attn1 cross-attends
+    the text context, and no hook applies to the block."""
     n = layer_norm(p["norm1"], x)
+    if disable_self_attn:
+        for name, norm in (("attn1", "norm2"), ("attn2", "norm3")):
+            a = p[name]
+            q, k, v = (linear(a["to_q"], n), linear(a["to_k"], context),
+                       linear(a["to_v"], context))
+            x = x + linear(a["to_out"]["0"], attention(q, k, v, heads))
+            n = layer_norm(p[norm], x)
+        return x + linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"], n))
     q_ctx = k_ctx = v_ctx = n
     if hooks.pre is not None:
         q_ctx, k_ctx, v_ctx = hooks.pre(q_ctx, k_ctx, v_ctx, layer_idx)
@@ -197,9 +276,11 @@ def spatial_transformer(
     depth: int,
     layer_idx: int,
     hooks: AttnHooks,
+    disable_self_attn: bool = False,
 ) -> Tuple[torch.Tensor, int]:
     """attention.py SpatialTransformer.forward; proj_in/proj_out may be
-    linears (B, L, C) or 1x1 convs (O, I, 1, 1)."""
+    linears (B, L, C) or 1x1 convs (O, I, 1, 1). Its ``depth`` blocks all
+    see the one transformer index ``layer_idx``; returns the next index."""
     b, h, w, c = x.shape
     n = group_norm(p["norm"], x)
     use_conv_proj = p["proj_in"]["weight"].dim() == 4
@@ -209,7 +290,7 @@ def spatial_transformer(
         n = linear(p["proj_in"], n.reshape(b, h * w, c))
     for d in range(depth):
         n = basic_transformer_block(p["transformer_blocks"][str(d)], n, context, heads,
-                                    layer_idx, hooks)
+                                    layer_idx, hooks, disable_self_attn=disable_self_attn)
     if use_conv_proj:
         n = conv2d(p["proj_out"], n.reshape(b, h, w, c))
     else:
@@ -241,28 +322,46 @@ class UNetModel:
 
     def block_plan(self):
         """(plan_in, plan_out, input_chs): plan_in entries (kind, out_ch,
-        depth), plan_out entries (kind, out_ch, upsample, depth)."""
+        depth, disable_self_attn), plan_out entries (kind, out_ch, upsample,
+        depth, disable_self_attn). input_blocks[0] is conv_in; each level has
+        res_blocks_at(level) res blocks (with a transformer where its depth
+        is > 0) and a downsample but the last; the output side mirrors it
+        with one res block more a level and an upsample at each level's end.
+        Depths come from the per-block lists when the config has them, else
+        from the per-level rule."""
         cfg = self.config
         ch = cfg.model_channels
         input_chs = [ch]
-        plan_in = [("conv", None, 0)]
+        plan_in = [("conv", None, 0, False)]
+        blk = 0
         for level, mult in enumerate(cfg.channel_mult):
             out_ch = cfg.model_channels * mult
-            depth = cfg.transformer_depth if level in cfg.attention_levels else 0
-            for _ in range(cfg.num_res_blocks):
-                plan_in.append(("res_attn" if depth > 0 else "res", out_ch, depth))
+            dis = cfg.self_attn_disabled(level)
+            for _ in range(cfg.res_blocks_at(level)):
+                if cfg.transformer_depth_blocks is not None:
+                    depth = cfg.transformer_depth_blocks[blk]
+                else:
+                    depth = cfg.depth_at(level) if level in cfg.attention_levels else 0
+                blk += 1
+                plan_in.append(("res_attn" if depth > 0 else "res", out_ch, depth, dis))
                 ch = out_ch
                 input_chs.append(ch)
             if level != len(cfg.channel_mult) - 1:
-                plan_in.append(("down", ch, 0))
+                plan_in.append(("down", ch, 0, False))
                 input_chs.append(ch)
         plan_out = []
+        blk = 0
         for level in reversed(range(len(cfg.channel_mult))):
             out_ch = cfg.model_channels * cfg.channel_mult[level]
-            depth = cfg.transformer_depth if level in cfg.attention_levels else 0
-            for i in range(cfg.num_res_blocks + 1):
-                up = level != 0 and i == cfg.num_res_blocks
-                plan_out.append(("res_attn" if depth > 0 else "res", out_ch, up, depth))
+            dis = cfg.self_attn_disabled(level)
+            for i in range(cfg.res_blocks_at(level) + 1):
+                if cfg.transformer_depth_blocks_out is not None:
+                    depth = cfg.transformer_depth_blocks_out[blk]
+                else:
+                    depth = cfg.depth_at(level) if level in cfg.attention_levels else 0
+                blk += 1
+                up = level != 0 and i == cfg.res_blocks_at(level)
+                plan_out.append(("res_attn" if depth > 0 else "res", out_ch, up, depth, dis))
         return plan_in, plan_out, input_chs
 
     def apply(
@@ -292,14 +391,13 @@ class UNetModel:
         elif cfg.adm_in_channels is not None and y is not None:
             y_emb = linear(params["label_emb"]["0"]["0"], y.to(x.dtype))
             emb = emb + linear(params["label_emb"]["0"]["2"], silu(y_emb))
-        middle_depth = max(cfg.transformer_depth, 1)
 
         plan_in, plan_out, _ = self.block_plan()
         layer_idx = 0
         hs = []
         h = x
         ctrl_in = control.get("input") if control is not None else None
-        for i, (kind, _, depth) in enumerate(plan_in):
+        for i, (kind, _, depth, dis) in enumerate(plan_in):
             p = params["input_blocks"][str(i)]
             if kind == "conv":
                 h = conv2d(p["0"], h, padding=1)
@@ -309,7 +407,8 @@ class UNetModel:
                 h = res_block(p["0"], h, emb)
                 if kind == "res_attn":
                     h, layer_idx = spatial_transformer(
-                        p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks)
+                        p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks,
+                        disable_self_attn=dis)
             if ctrl_in is not None and i < len(ctrl_in) and ctrl_in[i] is not None:
                 h = h + ctrl_in[i].to(h.dtype)
             if hooks.in_block is not None:
@@ -318,16 +417,19 @@ class UNetModel:
             if hooks.in_block_after is not None:
                 h = hooks.in_block_after(h, i, timesteps)
 
-        mp = params["middle_block"]
-        h = res_block(mp["0"], h, emb)
-        h, layer_idx = spatial_transformer(
-            mp["1"], h, context, cfg.heads_for(h.shape[-1]), middle_depth, layer_idx, hooks)
-        h = res_block(mp["2"], h, emb)
+        md = cfg.middle_depth()
+        if md >= -1:
+            mp = params["middle_block"]
+            h = res_block(mp["0"], h, emb)
+            if md >= 0:
+                h, layer_idx = spatial_transformer(
+                    mp["1"], h, context, cfg.heads_for(h.shape[-1]), md, layer_idx, hooks)
+                h = res_block(mp["2"], h, emb)
         if control is not None and control.get("middle"):
             h = h + control["middle"][0].to(h.dtype)
 
         ctrl_out = list(control.get("output", [])) if control is not None else []
-        for i, (kind, _, up, depth) in enumerate(plan_out):
+        for i, (kind, _, up, depth, dis) in enumerate(plan_out):
             p = params["output_blocks"][str(i)]
             skip = hs.pop()
             if ctrl_out:
@@ -338,7 +440,8 @@ class UNetModel:
             h = res_block(p["0"], h, emb)
             if kind == "res_attn":
                 h, layer_idx = spatial_transformer(
-                    p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks)
+                    p["1"], h, context, cfg.heads_for(h.shape[-1]), depth, layer_idx, hooks,
+                    disable_self_attn=dis)
             if up:
                 h = upsample(p["2" if kind == "res_attn" else "1"], h)
 
@@ -380,13 +483,14 @@ class UNetModel:
                 p["skip_connection"] = conv(i, o, k=1)
             return p
 
-        def btb(c):
+        def btb(c, dis=False):
+            k_in = cfg.context_dim if dis else c  # attn1 reads the context
             return {
                 "norm1": norm(c), "norm2": norm(c), "norm3": norm(c),
                 "attn1": {
                     "to_q": {"weight": lin(c, c)["weight"]},
-                    "to_k": {"weight": lin(c, c)["weight"]},
-                    "to_v": {"weight": lin(c, c)["weight"]},
+                    "to_k": {"weight": lin(k_in, c)["weight"]},
+                    "to_v": {"weight": lin(k_in, c)["weight"]},
                     "to_out": {"0": lin(c, c)},
                 },
                 "attn2": {
@@ -398,11 +502,11 @@ class UNetModel:
                 "ff": {"net": {"0": {"proj": lin(c, c * 8)}, "2": lin(c * 4, c)}},
             }
 
-        def st(c, depth):
+        def st(c, depth, dis=False):
             return {
                 "norm": norm(c),
                 "proj_in": lin(c, c),
-                "transformer_blocks": {str(d): btb(c) for d in range(depth)},
+                "transformer_blocks": {str(d): btb(c, dis) for d in range(depth)},
                 "proj_out": lin(c, c),
             }
 
@@ -423,7 +527,7 @@ class UNetModel:
                                          "2": lin(cfg.time_embed_dim, cfg.time_embed_dim)}}
         ch = cfg.model_channels
         chs = [ch]
-        for i, (kind, out_ch, depth) in enumerate(plan_in):
+        for i, (kind, out_ch, depth, dis) in enumerate(plan_in):
             if kind == "conv":
                 params["input_blocks"][str(i)] = {"0": conv(cfg.in_channels, ch)}
             elif kind == "down":
@@ -432,16 +536,21 @@ class UNetModel:
                 blk = {"0": resb(ch, out_ch)}
                 ch = out_ch
                 if kind == "res_attn":
-                    blk["1"] = st(ch, depth)
+                    blk["1"] = st(ch, depth, dis)
                 params["input_blocks"][str(i)] = blk
             chs.append(ch)
-        params["middle_block"] = {
-            "0": resb(ch, ch), "1": st(ch, max(cfg.transformer_depth, 1)), "2": resb(ch, ch)}
-        for i, (kind, out_ch, up, depth) in enumerate(plan_out):
+        md = cfg.middle_depth()
+        if md >= 0:
+            params["middle_block"] = {"0": resb(ch, ch), "1": st(ch, md), "2": resb(ch, ch)}
+        elif md == -1:
+            params["middle_block"] = {"0": resb(ch, ch)}
+        else:
+            del params["middle_block"]
+        for i, (kind, out_ch, up, depth, dis) in enumerate(plan_out):
             blk = {"0": resb(ch + chs.pop(), out_ch)}
             ch = out_ch
             if kind == "res_attn":
-                blk["1"] = st(ch, depth)
+                blk["1"] = st(ch, depth, dis)
             if up:
                 blk["2" if kind == "res_attn" else "1"] = {"conv": conv(ch, ch)}
             params["output_blocks"][str(i)] = blk
@@ -449,8 +558,10 @@ class UNetModel:
         return params
 
     def num_transformer_layers(self) -> int:
-        """SpatialTransformer count (16 for SD1.5): the layer indices the
-        Corresponder hooks see."""
+        """SpatialTransformer count (16 for SD1.5, 11 for SDXL): the layer
+        indices the Corresponder hooks see, one a SpatialTransformer whatever
+        its depth, as the JAX package numbers them."""
         plan_in, plan_out, _ = self.block_plan()
-        return (sum(k[0] == "res_attn" for k in plan_in) + 1
+        return (sum(k[0] == "res_attn" for k in plan_in)
+                + int(self.config.middle_depth() >= 0)
                 + sum(k[0] == "res_attn" for k in plan_out))

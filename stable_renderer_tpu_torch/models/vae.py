@@ -39,6 +39,8 @@ class VAEConfig:
 
 
 SD15_VAE_CONFIG = VAEConfig()
+# the same topology at SDXL's latent scale (comfy latent_formats.py SDXL.scale_factor)
+SDXL_VAE_CONFIG = VAEConfig(scale_factor=0.13025)
 TINY_VAE_CONFIG = VAEConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1)
 
 

@@ -15,11 +15,11 @@ through the port's own reader (``read_safetensors``), which maps the file
 instead of copying it; ``.ckpt`` / ``.pt`` files through
 ``torch.load(weights_only=True)``.
 
-Detection keeps the JAX package's whole walk (``detect_unet_layout``, which
-fills a ``UNetLayout`` with every field the JAX ``UNetConfig`` gets) and its
-family rule (``detect_model_family``). The port's UNet is the SD1.x one, so
-``detect_unet_config`` maps an SD1.x layout, 9-channel inpaint UNets
-included, to ``UNetConfig`` and raises for the other families (ROADMAP 1.11).
+Detection is the JAX package's whole walk (``detect_unet_config``: every
+layout field of ``UNetConfig``, per-block depths, per-level res blocks, the
+middle block, disabled self-attention, the class table and the head rule) and
+its family rule (``detect_model_family``). Every family the JAX package
+detects loads but SVD's temporal UNet, which waits for ROADMAP 1.11c.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from __future__ import annotations
 import json
 import mmap
 import os
-from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
@@ -246,28 +245,6 @@ def tree_to(tree, device, dtype: Optional[torch.dtype] = None):
 _UNET = "model.diffusion_model."
 
 
-@dataclass(frozen=True)
-class UNetLayout:
-    """What the JAX package's ``detect_unet_config`` reads from a state dict,
-    field for field (its ``UNetConfig`` of the same names); ``temporal`` marks
-    the SVD UNet, for which it returns its SVD preset instead."""
-
-    in_channels: int
-    model_channels: int
-    channel_mult: Tuple[int, ...] = ()
-    num_res_blocks: int = 2
-    num_res_blocks_per_level: Tuple[int, ...] = ()
-    transformer_depth_blocks: Tuple[int, ...] = ()
-    transformer_depth_blocks_out: Tuple[int, ...] = ()
-    transformer_depth_middle: int = 1
-    disable_self_attn_levels: Optional[Tuple[bool, ...]] = None
-    context_dim: int = 768
-    head_dim: Optional[int] = None
-    adm_in_channels: Optional[int] = None
-    num_classes: Optional[int] = None
-    temporal: bool = False
-
-
 def _st_depth(flat: Mapping[str, Any], prefix: str, block: str) -> int:
     """Transformer depth of a SpatialTransformer param subtree (0 = absent)."""
     if prefix + block + ".proj_in.weight" not in flat:
@@ -278,14 +255,16 @@ def _st_depth(flat: Mapping[str, Any], prefix: str, block: str) -> int:
     return d
 
 
-def detect_unet_layout(flat: Mapping[str, Any]) -> UNetLayout:
-    """The JAX package's architecture walk (comfy/model_detection.py
-    detect_unet_config): input blocks up to each downsample make a level
-    (channel_mult, res blocks per level, per-block transformer depths,
-    disable_self_attn), the middle block's layout, the output blocks'
-    depths, the context and ADM widths, the class table, and the head rule
-    (8 fixed heads at context 768, 64-wide heads otherwise). Reads shapes
-    only, so zero-stride arrays will do."""
+def detect_unet_config(flat: Mapping[str, Any]) -> UNetConfig:
+    """The UNet's config from the state dict alone, as the JAX package's
+    ``detect_unet_config`` (comfy/model_detection.py): input blocks up to
+    each downsample make a level (channel_mult, res blocks per level,
+    per-block transformer depths, disable_self_attn where attn1's K reads
+    another width than the block's), then the middle block's layout, the
+    output blocks' depths, the context and ADM widths, the class table, and
+    the head rule (8 fixed heads at context 768, 64-wide heads otherwise).
+    Reads shapes only, so zero-stride arrays will do. SVD's temporal UNet
+    raises naming ROADMAP 1.11c."""
     prefix = _UNET
     w = flat.get(prefix + "input_blocks.0.0.weight")
     if w is None:
@@ -296,8 +275,8 @@ def detect_unet_layout(flat: Mapping[str, Any]) -> UNetLayout:
     class_w = flat.get(prefix + "label_emb.weight")
     num_classes = None if class_w is None else int(class_w.shape[0])
     if any(".time_stack." in k for k in flat if k.startswith(prefix)):
-        return UNetLayout(in_channels=in_channels, model_channels=model_channels,
-                          adm_in_channels=adm, temporal=True)
+        raise NotImplementedError("SVD's temporal UNet (models/video_unet.py) waits for "
+                                  "ROADMAP 1.11c")
     context_dim = 768
     for k, v in flat.items():
         if k.startswith(prefix) and k.endswith("attn2.to_k.weight"):
@@ -335,7 +314,7 @@ def detect_unet_layout(flat: Mapping[str, Any]) -> UNetLayout:
         depth_middle = -2
     n_out = sum(r + 1 for r in num_res_blocks)
     depth_out = [_st_depth(flat, prefix, f"output_blocks.{i}.1") for i in range(n_out)]
-    return UNetLayout(
+    return UNetConfig(
         in_channels=in_channels,
         model_channels=model_channels,
         channel_mult=tuple(channel_mult),
@@ -352,7 +331,7 @@ def detect_unet_layout(flat: Mapping[str, Any]) -> UNetLayout:
     )
 
 
-def detect_model_family(flat: Mapping[str, Any], layout: UNetLayout) -> dict:
+def detect_model_family(flat: Mapping[str, Any], cfg: UNetConfig) -> dict:
     """The reference's model families (comfy/supported_models.py), as the
     JAX package classifies them: {"family", "prediction", "noise_aug_dim"};
     family is "sd1", "sd2", "sdxl", "sdxl-refiner", "svd", "sd21-unclip" or
@@ -360,66 +339,24 @@ def detect_model_family(flat: Mapping[str, Any], layout: UNetLayout) -> dict:
     family, prediction, noise_aug_dim = "sd1", "eps", None
     if any(".time_stack." in k for k in flat):
         return {"family": "svd", "prediction": "v", "noise_aug_dim": None}
-    if layout.context_dim == 1024:
-        if layout.adm_in_channels in (1536, 2048):
+    if cfg.context_dim == 1024:
+        if cfg.adm_in_channels in (1536, 2048):
             return {"family": "sd21-unclip", "prediction": "v",
-                    "noise_aug_dim": layout.adm_in_channels // 2}
-        if layout.in_channels == 7:
+                    "noise_aug_dim": cfg.adm_in_channels // 2}
+        if cfg.in_channels == 7:
             return {"family": "sd-x4-upscaler", "prediction": "v", "noise_aug_dim": None}
         family = "sd2"
         # the 768-v checkpoints' out-layer statistics have std > 0.09; SD2
         # inpaint UNets (9 channels) stay eps
-        if layout.in_channels == 4:
+        if cfg.in_channels == 4:
             t = flat.get(_UNET + "output_blocks.11.1.transformer_blocks.0.norm1.bias")
             if t is not None and float(torch.as_tensor(t).double().std(correction=0)) > 0.09:
                 prediction = "v"
-    elif layout.context_dim == 1280:
+    elif cfg.context_dim == 1280:
         family = "sdxl-refiner"
-    elif layout.context_dim == 2048:
+    elif cfg.context_dim == 2048:
         family = "sdxl"
     return {"family": family, "prediction": prediction, "noise_aug_dim": noise_aug_dim}
-
-
-def sd1_unet_config(layout: UNetLayout, family: dict) -> UNetConfig:
-    """The port's ``UNetConfig`` for an SD1.x layout: the same res-block
-    count at every level, transformers of depth 1 at ``attention_levels``
-    (every block of such a level, in and out) and in the middle, context
-    768, 8 heads, no ADM or classes; 4 input channels, or 9 for an inpaint
-    UNet (the latent, then the mask and the masked image's latent). Other
-    families raise naming ROADMAP 1.11."""
-    if family["family"] != "sd1" or layout.temporal:
-        raise NotImplementedError(
-            f"{family['family']} checkpoints are not ported yet (ROADMAP 1.11); the port loads "
-            "the SD1.x family, from files and diffusers folders alike")
-    res = layout.num_res_blocks_per_level
-    levels = len(layout.channel_mult)
-    attention_levels = tuple(lvl for lvl in range(levels)
-                             if layout.transformer_depth_blocks[lvl * res[0]] > 0)
-    want_in = tuple(1 if lvl in attention_levels else 0 for lvl in range(levels)
-                    for _ in range(res[0]))
-    want_out = tuple(1 if lvl in attention_levels else 0 for lvl in reversed(range(levels))
-                     for _ in range(res[0] + 1))
-    sd1 = (layout.in_channels in (4, 9) and layout.adm_in_channels is None
-           and layout.num_classes is None and layout.disable_self_attn_levels is None
-           and layout.head_dim is None and len(set(res)) == 1
-           and layout.transformer_depth_blocks == want_in
-           and layout.transformer_depth_blocks_out == want_out
-           and layout.transformer_depth_middle == 1)
-    if not sd1:
-        raise NotImplementedError(
-            f"a UNet layout the port's SD1.x UNet does not take ({layout}); other layouts wait "
-            "for ROADMAP 1.11")
-    return UNetConfig(in_channels=layout.in_channels, model_channels=layout.model_channels,
-                      num_res_blocks=res[0], channel_mult=layout.channel_mult,
-                      attention_levels=attention_levels, transformer_depth=1, num_heads=8,
-                      context_dim=layout.context_dim)
-
-
-def detect_unet_config(flat: Mapping[str, Any]) -> UNetConfig:
-    """The port's ``UNetConfig`` from the state dict alone (SD1.x only; see
-    ``sd1_unet_config``)."""
-    layout = detect_unet_layout(flat)
-    return sd1_unet_config(layout, detect_model_family(flat, layout))
 
 
 def split_checkpoint(flat: Mapping[str, Any]) -> Tuple[dict, dict, dict]:
@@ -435,11 +372,11 @@ def split_checkpoint(flat: Mapping[str, Any]) -> Tuple[dict, dict, dict]:
 def load_checkpoint_flat(flat: Mapping[str, Any], label: str = "<flat>"):
     """Detect + split an in-memory flat state dict (an ldm file's, or a
     diffusers folder's after conversion): (unet, vae, clip, UNetConfig,
-    family), the family as ``detect_model_family`` gives it. Raises as
-    ``sd1_unet_config`` does for what the port does not load."""
-    layout = detect_unet_layout(flat)
-    family = detect_model_family(flat, layout)
-    cfg = sd1_unet_config(layout, family)
+    family), the family as ``detect_model_family`` gives it; ``clip`` is the
+    CLIP-L tree (empty for SD2 and SDXL files, whose towers the callers nest
+    by family). Raises as ``detect_unet_config`` does."""
+    cfg = detect_unet_config(flat)
+    family = detect_model_family(flat, cfg)
     unet, vae, clip = split_checkpoint(flat)
     logger.info(f"Loaded checkpoint {label}: unet ch={cfg.model_channels} "
                 f"ctx={cfg.context_dim}, {len(flat)} tensors")
@@ -447,7 +384,7 @@ def load_checkpoint_flat(flat: Mapping[str, Any], label: str = "<flat>"):
 
 
 def load_checkpoint(path: Union[str, Path]):
-    """A full SD1.x checkpoint file, or a diffusers model folder ->
+    """A full checkpoint file, or a diffusers model folder ->
     (unet_params, vae_params, clip_params, UNetConfig, family), CPU tensors
     in the file's dtypes (load_checkpoint_guess_config)."""
     if os.path.isdir(path):

@@ -166,12 +166,27 @@ class Corresponder:
 
     layer_range: Optional[Tuple[int, ...]] = (6,)
 
+    def prepare(self, engine_data) -> None:  # noqa: ANN001
+        """Called before a render; the base does nothing."""
+
     def attn_hooks(self, engine_data, generator: Optional[torch.Generator] = None) -> AttnHooks:  # noqa: ANN001
         """Attention hooks for the UNet; ``generator`` seeds per-run choices."""
         return AttnHooks()
 
     def _gate_layer(self, layer: int) -> bool:
+        """layer_range gating (corresponder.py:162-166): the transformer
+        indices the hooks act on (one a SpatialTransformer, 0..15 for SD1.5
+        and 0..10 for SDXL); None = all."""
         return self.layer_range is None or layer in self.layer_range
+
+    def step_callback(self, engine_data, ms=None, sigmas=None):  # noqa: ANN001
+        """``make_step_callback`` over ``engine_data``'s id and normal maps
+        (None without engine data) and ``ms``'s log sigmas (None without a
+        ModelSampling): ``(x, denoised, sigma, i) -> x``, or None."""
+        log_sigmas = None if ms is None else torch.as_tensor(ms.log_sigmas)
+        id_maps = None if engine_data is None else engine_data.id_maps
+        normals = None if engine_data is None else engine_data.normal_maps
+        return self.make_step_callback(id_maps, log_sigmas, normals)
 
     def make_step_callback(self, id_maps, log_sigmas, normal_maps=None):  # noqa: ANN001
         """Per-step latent callback ``(x, denoised, sigma, i) -> x``, or None."""

@@ -6,6 +6,8 @@ tensor; UVs follow GL (u right, v up), so v is flipped into image rows here.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -35,3 +37,12 @@ def sample_bilinear(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     bot = tex[y1, x0] * (1 - fx) + tex[y1, x1] * fx
     return top * (1 - fy) + bot * fy
 
+
+def noise_texture(generator: Optional[torch.Generator], height: int, width: int,
+                  channels: int = 4, device=None) -> torch.Tensor:
+    """A (height, width, channels) f32 standard-normal noise texture drawn
+    from ``generator`` (the reference's Texture.CreateNoiseTex,
+    texture.py:506-569): per-object latent noise rendered into the
+    G-buffer. The JAX package draws it from a key; the two draws differ."""
+    return torch.randn((height, width, channels), generator=generator, device=device,
+                       dtype=torch.float32)

@@ -365,18 +365,25 @@ def tiny_models(device, generator: torch.Generator):
 
 @register_node("CheckpointLoaderSimple")
 def checkpoint_loader(ctx: InferenceContext, node: WorkflowNode):
-    """-> (MODEL, CLIP, VAE), the UNet and VAE in bf16 and the CLIP in f32 as
-    the JAX package's node loads them. Other families than SD1.x raise
-    naming ROADMAP 1.11 (``load_checkpoint_flat``). Falls back to tiny random
+    """-> (MODEL, CLIP, VAE), the UNet and VAE in bf16 and the text towers
+    in f32 (SD2's in the file's dtype) as the JAX package's node loads them.
+    The family picks the prediction (the x4 upscaler with its betas 1e-4 ->
+    2e-2) and the text towers (comfy sd.py clip_target): SD2, SD2.1-unclip and x4 ``SD2ClipH``
+    at ``cond_stage_model.model.``; SDXL CLIP-L and CLIP-G at
+    ``conditioner.embedders.{0,1}``; the refiner CLIP-G alone at
+    ``embedders.0`` (``g_only``). The VAE is ``SD15_VAE_CONFIG`` for every
+    family, SDXL's included (the JAX node's scale 0.18215, where
+    ``from_checkpoint`` takes SDXL's 0.13025). Falls back to tiny random
     models when the file is absent (keeps reference workflows runnable
     offline)."""
-    from stable_renderer_tpu_torch.models.clip import SD15_CLIP_CONFIG, CLIPTextModel, Tokenizer
+    from stable_renderer_tpu_torch.models import clip as clip_mod
     from stable_renderer_tpu_torch.models.sampling import ModelSampling
     from stable_renderer_tpu_torch.models.unet import UNetModel
     from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG, VAE
     from stable_renderer_tpu_torch.models.weights import (
         load_checkpoint_flat,
         load_state_dict,
+        nest,
         tree_to,
     )
 
@@ -391,15 +398,35 @@ def checkpoint_loader(ctx: InferenceContext, node: WorkflowNode):
         else:
             flat = load_state_dict(path)
         unet_p, vae_p, clip_p, ucfg, fam = load_checkpoint_flat(flat, path)
+        if fam["family"] == "sd-x4-upscaler":  # supported_models.py:326
+            ms = ModelSampling(beta_start=0.0001, beta_end=0.02, prediction=fam["prediction"])
+        else:
+            ms = ModelSampling(prediction=fam["prediction"])
         model = {"unet": UNetModel(ucfg),
                  "params": tree_to(unet_p, ctx.device, torch.bfloat16),
-                 "sampling": ModelSampling(prediction=fam["prediction"]),
+                 "sampling": ms,
                  "family": fam["family"],
                  "noise_aug_dim": fam["noise_aug_dim"]}
         vae = {"vae": VAE(SD15_VAE_CONFIG), "params": tree_to(vae_p, ctx.device, torch.bfloat16)}
-        clip = {"clip": CLIPTextModel(SD15_CLIP_CONFIG),
+        l_cfg = clip_mod.SD15_CLIP_CONFIG
+        clip = {"clip": clip_mod.CLIPTextModel(l_cfg),
                 "params": tree_to(clip_p, ctx.device, torch.float32),
-                "tokenizer": Tokenizer(SD15_CLIP_CONFIG)}
+                "tokenizer": clip_mod.Tokenizer(l_cfg)}
+        if fam["family"] in ("sd2", "sd21-unclip", "sd-x4-upscaler"):
+            # the tower in the file's dtype, as the JAX node leaves it
+            clip["clip"] = clip_mod.SD2ClipH(clip_mod.SD2_CLIP_H_CONFIG)
+            clip["params"] = {"model": tree_to(nest(flat, "cond_stage_model.model."),
+                                               ctx.device)}
+        elif fam["family"] in ("sdxl", "sdxl-refiner"):
+            refiner = fam["family"] == "sdxl-refiner"
+            clip["params"] = {} if refiner else tree_to(
+                nest(flat, "conditioner.embedders.0.transformer."), ctx.device, torch.float32)
+            clip["clip_g"] = clip_mod.OpenCLIPTextModel(clip_mod.SDXL_CLIP_G_CONFIG)
+            clip["params_g"] = tree_to(
+                {"model": nest(flat, f"conditioner.embedders.{0 if refiner else 1}.model.")},
+                ctx.device, torch.float32)
+            if refiner:
+                clip["g_only"] = True
         return model, clip, vae
     logger.warning(f"checkpoint '{name}' not found in {ctx.model_dirs}; using tiny random models")
     return tiny_models(ctx.device, _generator(ctx, 0))
@@ -423,13 +450,22 @@ def lora_loader_model_only(ctx: InferenceContext, node: WorkflowNode, model=None
 
 def _encode_weighted(clip: dict, prompts: list, device) -> torch.Tensor:
     """Weighted multi-chunk CLIP encode honoring CLIPSetLastLayer's clip_skip
-    (sd1_clip.py encode_token_weights + CLIPTextEncode semantics)."""
-    from stable_renderer_tpu_torch.models.clip import encode_token_weights_batch
+    (sd1_clip.py encode_token_weights + CLIPTextEncode semantics): CLIP-G
+    alone for a refiner's ``g_only`` CLIP (clip skip -2 by default), the
+    ``clip`` tower otherwise (an SDXL CLIP's L tower only, as in the JAX
+    package: its dual encode is CLIPTextEncodeSDXL's)."""
+    from stable_renderer_tpu_torch.models.clip import (
+        encode_token_weights_batch,
+        encode_token_weights_batch_g,
+    )
 
     ids, w, custom = clip["tokenizer"].tokenize_weighted_batch(prompts)
+    ids, w = torch.as_tensor(ids, device=device), torch.as_tensor(w, device=device)
+    if clip.get("g_only"):
+        return encode_token_weights_batch_g(clip["clip_g"], clip["params_g"], ids, w,
+                                            clip_skip=int(clip.get("clip_skip", -2)))[0]
     ctx_, _ = encode_token_weights_batch(
-        clip["clip"], clip["params"], torch.as_tensor(ids, device=device),
-        torch.as_tensor(w, device=device),
+        clip["clip"], clip["params"], ids, w,
         None if custom is None else torch.as_tensor(custom, device=device),
         clip_skip=int(clip.get("clip_skip", -1)))
     return ctx_
@@ -889,11 +925,11 @@ def ksampler(
     y_neg = negative.get("y") if isinstance(negative, dict) else None
     if model.get("noise_aug_dim"):
         raise NotImplementedError("the unCLIP ADM vector needs models/noise_aug.py, which waits "
-                                  "for ROADMAP 1.11")
+                                  "for ROADMAP 1.11b")
     if (isinstance(positive, dict) and positive.get("concat_image") is not None
             and getattr(model["unet"].config, "num_classes", None)):
-        raise NotImplementedError("the SD x4 upscaler's image conditioning waits for "
-                                  "ROADMAP 1.11")
+        raise NotImplementedError("the SD x4 upscaler's noise-augmented image input needs "
+                                  "models/noise_aug.py, which waits for ROADMAP 1.11b")
     if isinstance(positive, dict) and positive.get("stable_cascade_prior") is not None:
         raise NotImplementedError("Stable Cascade's stage-B prior waits for ROADMAP 1.11")
     if isinstance(positive, dict) and positive.get("gligen") is not None:

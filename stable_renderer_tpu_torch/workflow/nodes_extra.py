@@ -1009,7 +1009,8 @@ def sd_4x_upscale_conditioning(ctx: InferenceContext, node: WorkflowNode, images
                                positive=None, negative=None):
     """The x4 upscaler's conditioning: the image at a quarter of the target
     size in [-1, 1] on both conds, and an empty latent of that size. The
-    KSampler raises naming ROADMAP 1.11 on it (the x4 UNet)."""
+    KSampler raises naming ROADMAP 1.11b on it (the x4 UNet's
+    noise-augmented input, models/noise_aug.py)."""
     w = node.widgets
     scale_ratio = float(w[0]) if w else 4.0
     noise_aug = float(w[1]) if len(w) > 1 else 0.0
@@ -1067,9 +1068,10 @@ def stable_cascade_stage_b_conditioning(ctx: InferenceContext, node: WorkflowNod
 
 @register_node("CascadeStageLoader", "UNETLoader")
 def cascade_stage_loader(ctx: InferenceContext, node: WorkflowNode):
-    """UNet-only checkpoint loader (comfy UNETLoader): a plain SD1.x UNet
-    file loads in bf16; other UNet families raise naming ROADMAP 1.11 in
-    ``detect_unet_config``. Stable Cascade stages (clip_txt_mapper -> Stage
+    """UNet-only checkpoint loader (comfy UNETLoader): a UNet file of any
+    family ``detect_unet_config`` takes loads in bf16 (SVD's temporal UNet
+    raises there naming ROADMAP 1.11c), with the default eps sampling, as
+    the JAX package's node does. Stable Cascade stages (clip_txt_mapper -> Stage
     C, effnet_mapper -> Stage B), and the JAX package's fallback without a
     file (a tiny random Cascade stage), need models/cascade.py, which waits
     for ROADMAP 1.11."""

@@ -13,17 +13,17 @@ clip_sdxl,cond,canny,post_processing,stable_cascade,stable3d}.py):
     ImageCompositeMasked, ImageColorToMask, CropMask, LoadImageMask,
     ImageScaleToTotalPixels, Canny, SaveAnimatedWEBP/PNG.
   * conditioning — ConditioningAverage, ConditioningSetAreaStrength,
-    CLIPTextEncodeControlnet.
-  * loaders — VAELoader, CLIPLoader (SD1.x towers), LoraLoader,
+    CLIPTextEncodeSDXL(+Refiner), CLIPTextEncodeControlnet.
+  * loaders — VAELoader, CLIPLoader, DualCLIPLoader, LoraLoader,
     CheckpointLoader, DiffusersLoader, DiffControlNetLoader,
     VAEDecode/EncodeTiled.
   * advanced model patches — ModelSamplingDiscrete, RescaleCFG,
     PatchModelAddDownscale.
 
-The nodes whose only work is a model of ROADMAP 1.11 (the SDXL towers and
-ADM vectors, unCLIP and CLIP-vision checkpoints, style models, the EDM and
-Stable Cascade schedules and stages, Zero123) raise NotImplementedError
-naming 1.11 and the JAX package's module.
+The nodes whose only work is a model of ROADMAP 1.11b or 1.11c (unCLIP and
+CLIP-vision checkpoints, style models, the EDM and Stable Cascade schedules
+and stages, Zero123) raise NotImplementedError naming 1.11 and the JAX
+package's module.
 
 All tensors are NHWC torch tensors on the executor's device; LATENT values
 are the same {"samples": ...} dicts the rest of the executor uses. Files
@@ -33,10 +33,13 @@ are the same {"samples": ...} dicts the rest of the executor uses. Files
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stable_renderer_tpu_torch.utils.log import get_logger
 from stable_renderer_tpu_torch.workflow.executor import (
@@ -517,25 +520,93 @@ def conditioning_set_area_strength(ctx: InferenceContext, node: WorkflowNode,
     return ({**conditioning, "strength": strength},)
 
 
-def _encode_tower(ctx: InferenceContext, clip: dict, text: str):
-    """(context, pooled) of one prompt through the SD1.x text tower with
-    weights (sd1_clip.py SD1ClipModel); the SDXL towers wait for 1.11."""
-    from stable_renderer_tpu_torch.models.clip import encode_token_weights_batch
+def _encode_tower(ctx: InferenceContext, clip: dict, text_l: str, text_g: Optional[str] = None):
+    """(context, pooled) of one prompt, as the JAX package's node helper:
+    CLIP-G alone for a refiner's ``g_only`` CLIP (``text_g`` drives it), the
+    dual-tower SDXL encode when the CLIP carries a G tower, else the weighted
+    single tower (sd1_clip.py SD1ClipModel, sdxl_clip.py SDXLClipModel).
 
-    if clip.get("g_only") or clip.get("clip_g") is not None:
-        raise NotImplementedError("the SDXL text towers need models/clip.py's OpenCLIP "
-                                  "model, which waits for ROADMAP 1.11")
+    Split prompts (``text_g`` != ``text_l``) run the dual encode once a text
+    and take the L columns of the one and the G columns of the other; the
+    shorter chunk stream is padded with zeros, and pooled is ``text_g``'s."""
+    from stable_renderer_tpu_torch.models.clip import (
+        encode_token_weights_batch,
+        encode_token_weights_batch_g,
+        encode_token_weights_batch_xl,
+    )
+
     dev = ctx.device
-    ids, w, custom = clip["tokenizer"].tokenize_weighted_batch([text])
-    return encode_token_weights_batch(
-        clip["clip"], clip["params"], torch.as_tensor(ids, device=dev),
-        torch.as_tensor(w, device=dev),
-        None if custom is None else torch.as_tensor(custom, device=dev),
-        clip_skip=int(clip.get("clip_skip", -1)))
+
+    def tokens(text):
+        ids, w, custom = clip["tokenizer"].tokenize_weighted_batch([text])
+        return (torch.as_tensor(ids, device=dev), torch.as_tensor(w, device=dev),
+                None if custom is None else torch.as_tensor(custom, device=dev))
+
+    if clip.get("g_only"):
+        ids, w, _ = tokens(text_g if text_g is not None else text_l)
+        return encode_token_weights_batch_g(clip["clip_g"], clip["params_g"], ids, w,
+                                            clip_skip=int(clip.get("clip_skip", -2)))
+    if clip.get("clip_g") is not None:
+        def enc(text):
+            return encode_token_weights_batch_xl(clip["clip"], clip["clip_g"], clip["params"],
+                                                 clip["params_g"], *tokens(text),
+                                                 clip_skip=int(clip.get("clip_skip", -2)))
+
+        if text_g is None or text_g == text_l:
+            return enc(text_l)
+        z_l, _ = enc(text_l)
+        z_g, pooled = enc(text_g)
+        length = max(z_l.shape[1], z_g.shape[1])
+        z_l, z_g = (F.pad(z, (0, 0, 0, length - z.shape[1])) for z in (z_l, z_g))
+        d_l = clip["clip"].config.hidden_size
+        return torch.cat([z_l[..., :d_l], z_g[..., d_l:]], dim=-1), pooled
+    ids, w, custom = tokens(text_l)
+    return encode_token_weights_batch(clip["clip"], clip["params"], ids, w, custom,
+                                      clip_skip=int(clip.get("clip_skip", -1)))
 
 
-register_stubs(("CLIPTextEncodeSDXL", "CLIPTextEncodeSDXLRefiner"), "1.11",
-               "models/sdxl.py (the SDXL towers and ADM vectors)")
+@register_node("CLIPTextEncodeSDXL")
+def clip_text_encode_sdxl(ctx: InferenceContext, node: WorkflowNode, clip=None):
+    """SDXL's dual-prompt encode with the size and crop ADM vector
+    (comfy_extras/nodes_clip_sdxl.py CLIPTextEncodeSDXL, model_base.py
+    SDXL.encode_adm): widgets width, height, crop_w, crop_h, target_width,
+    target_height, text_g, text_l."""
+    from stable_renderer_tpu_torch.models.sdxl import sdxl_adm_vector
+
+    width = _widget(node, 0, 1024, int)
+    height = _widget(node, 1, 1024, int)
+    crop_w = _widget(node, 2, 0, int)
+    crop_h = _widget(node, 3, 0, int)
+    target_width = _widget(node, 4, 1024, int)
+    target_height = _widget(node, 5, 1024, int)
+    text_g = str(_widget(node, 6, ""))
+    text_l = str(_widget(node, 7, text_g))
+    context, pooled = _encode_tower(ctx, clip, text_l, text_g)
+    cond = {"context": context, "pooled": pooled, "controls": [], "prompt": text_g}
+    if pooled is not None:
+        cond["y"] = sdxl_adm_vector(pooled, original_size=(height, width),
+                                    crop=(crop_h, crop_w),
+                                    target_size=(target_height, target_width))
+    return (cond,)
+
+
+@register_node("CLIPTextEncodeSDXLRefiner")
+def clip_text_encode_sdxl_refiner(ctx: InferenceContext, node: WorkflowNode, clip=None):
+    """The refiner's encode with the aesthetic-score ADM vector
+    (nodes_clip_sdxl.py CLIPTextEncodeSDXLRefiner, model_base.py
+    SDXLRefiner.encode_adm): widgets ascore, width, height, text."""
+    from stable_renderer_tpu_torch.models.sdxl import sdxl_refiner_adm_vector
+
+    ascore = _widget(node, 0, 6.0, float)
+    width = _widget(node, 1, 1024, int)
+    height = _widget(node, 2, 1024, int)
+    text = str(_widget(node, 3, ""))
+    context, pooled = _encode_tower(ctx, clip, text, text)
+    cond = {"context": context, "pooled": pooled, "controls": [], "prompt": text}
+    if pooled is not None:
+        cond["y"] = sdxl_refiner_adm_vector(pooled, original_size=(height, width),
+                                            aesthetic_score=ascore)
+    return (cond,)
 
 
 @register_node("CLIPTextEncodeControlnet")
@@ -578,9 +649,12 @@ def vae_loader(ctx: InferenceContext, node: WorkflowNode):
 
 @register_node("CLIPLoader")
 def clip_loader(ctx: InferenceContext, node: WorkflowNode):
-    """Standalone text-encoder loader (nodes.py CLIPLoader), SD1.x towers in
-    f32; an OpenCLIP layout or another width than SD1.x's (SD2, SDXL-G)
-    raises naming ROADMAP 1.11; a tiny random CLIP when the file is absent."""
+    """Standalone text-encoder loader (nodes.py CLIPLoader): the file's
+    tree, its ``cond_stage_model.transformer.``, ``text_model.`` or
+    ``transformer.`` prefix stripped, in f32 behind the SD1.x CLIP-L model,
+    as the JAX package's node loads every file (an OpenCLIP file's leaves
+    too, which that model cannot encode: queue 3 of ROADMAP.md); a tiny
+    random CLIP when the file is absent."""
     from stable_renderer_tpu_torch.models import clip as clip_mod
     from stable_renderer_tpu_torch.models.weights import load_state_dict, nest, tree_to
 
@@ -597,19 +671,42 @@ def clip_loader(ctx: InferenceContext, node: WorkflowNode):
             flat = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
             break
     cfg = clip_mod.SD15_CLIP_CONFIG
-    tok = flat.get("embeddings.token_embedding.weight")
-    if any("resblocks" in k for k in flat) or (tok is not None
-                                               and tok.shape[-1] != cfg.hidden_size):
-        raise NotImplementedError("CLIPLoader: an OpenCLIP / SDXL-G text tower needs "
-                                  "models/clip.py's OpenCLIP model, which waits for "
-                                  "ROADMAP 1.11")
-    clip = clip_mod.CLIPTextModel(cfg)
-    return ({"clip": clip, "params": tree_to(nest(flat, ""), ctx.device, torch.float32),
+    return ({"clip": clip_mod.CLIPTextModel(cfg),
+             "params": tree_to(nest(flat, ""), ctx.device, torch.float32),
              "tokenizer": clip_mod.Tokenizer(cfg)},)
 
 
-register_stubs(("DualCLIPLoader",), "1.11",
-               "models/clip.py's OpenCLIP model (the SDXL G tower)")
+@register_node("DualCLIPLoader")
+def dual_clip_loader(ctx: InferenceContext, node: WorkflowNode):
+    """SDXL's two text encoders in one CLIP (nodes.py DualCLIPLoader): a
+    CLIP-L file (SD1.x's config) and a CLIP-G file (SDXL's), each tree as the
+    file holds it, in f32. Without both files, tiny random towers: CLIP-L at
+    the tiny UNet's context width and a 2-layer CLIP-G of the same width,
+    drawn from generators seeded with 3 and 4."""
+    from stable_renderer_tpu_torch.models import clip as clip_mod
+    from stable_renderer_tpu_torch.models.unet import TINY_UNET_CONFIG
+    from stable_renderer_tpu_torch.models.weights import load_state_dict, nest, tree_to
+
+    path_l = _find_model_file(ctx, str(_widget(node, 0, "")))
+    path_g = _find_model_file(ctx, str(_widget(node, 1, "")))
+    if path_l is None or path_g is None:
+        logger.warning("DualCLIPLoader: checkpoints not found; tiny random towers")
+        ccfg = replace(clip_mod.TINY_CLIP_CONFIG, hidden_size=TINY_UNET_CONFIG.context_dim)
+        gcfg = clip_mod.OpenCLIPConfig(vocab_size=ccfg.vocab_size, width=ccfg.hidden_size,
+                                       num_layers=2, num_heads=2, max_length=ccfg.max_length,
+                                       projection_dim=ccfg.hidden_size)
+        clip_l, clip_g = clip_mod.CLIPTextModel(ccfg), clip_mod.OpenCLIPTextModel(gcfg)
+        return ({"clip": clip_l, "params": clip_l.init(_generator(ctx, 3), device=ctx.device),
+                 "clip_g": clip_g,
+                 "params_g": clip_g.init(_generator(ctx, 4), device=ctx.device),
+                 "tokenizer": clip_mod.Tokenizer(ccfg)},)
+    cfg = clip_mod.SD15_CLIP_CONFIG
+    return ({"clip": clip_mod.CLIPTextModel(cfg),
+             "params": tree_to(nest(load_state_dict(path_l), ""), ctx.device, torch.float32),
+             "clip_g": clip_mod.OpenCLIPTextModel(clip_mod.SDXL_CLIP_G_CONFIG),
+             "params_g": {"model": tree_to(nest(load_state_dict(path_g), ""), ctx.device,
+                                           torch.float32)},
+             "tokenizer": clip_mod.Tokenizer(cfg)},)
 
 
 @register_node("LoraLoader")
@@ -642,8 +739,8 @@ def lora_loader(ctx: InferenceContext, node: WorkflowNode, model=None, clip=None
 def checkpoint_loader_config(ctx: InferenceContext, node: WorkflowNode):
     """Config-file checkpoint loader (nodes.py CheckpointLoader). The config
     widget is accepted for workflow compatibility; the architecture is
-    detected from the state dict (models/weights.py), and other families
-    than SD1.x raise naming ROADMAP 1.11 there."""
+    detected from the state dict (models/weights.py), as
+    CheckpointLoaderSimple loads it."""
     from stable_renderer_tpu_torch.workflow.executor import checkpoint_loader
 
     inner = WorkflowNode(id=node.id, type="CheckpointLoaderSimple",

@@ -50,6 +50,14 @@ def _unet_config(**kw):
     return replace(TINY_UNET_CONFIG, **{"num_heads": 8, "context_dim": 768, **kw})
 
 
+def same_layout(detected, preset) -> bool:
+    """A detected UNetConfig (explicit per-block depths, as JAX's detection
+    gives them) builds the UNet of ``preset`` (chip_smoke's check)."""
+    import chip_smoke
+
+    return chip_smoke.same_unet_layout(detected, preset)
+
+
 def _write_checkpoint(path, ucfg=None, dtype=torch.float32) -> dict:
     """A tiny SD1.x checkpoint in the LDM key layout, from the port's inits
     (generator seeded with 0); returns the flat dict written."""
@@ -125,7 +133,7 @@ def test_from_checkpoint_with_lora_matches_jax(tmp_path, tiny_towers):
     jpipe = JPipe.from_checkpoint(str(ckpt), JConfig(), loras=loras)
     pipe = DiffusionPipeline.from_checkpoint(str(ckpt), RenderConfig(), loras=loras,
                                              device="cpu")
-    assert pipe.unet.config == _unet_config()
+    assert same_layout(pipe.unet.config, _unet_config())
     jc = jpipe.unet.config
     assert (jc.model_channels, jc.channel_mult, jc.num_res_blocks, jc.context_dim,
             jc.heads_for(32)) == (32, (1, 2), 1, 768, pipe.unet.config.heads_for(32))
@@ -232,9 +240,11 @@ def test_loaded_frame_matches_jax(tmp_path, tiny_towers):
 
 @pytest.mark.parametrize("case", ["sd2", "inpaint", "sd2_diffusers_folder"])
 def test_other_families_raise(tmp_path, tiny_towers, case):
-    """A 1024-context (SD2) checkpoint raises naming ROADMAP 1.11 before
-    any tensor moves; a diffusers folder of another family raises too, as
-    the JAX package loads SD1.x folders only. A 9-channel inpaint SD1.x
+    """Other families than SD1.x, as both packages load them: a 1024-context
+    (SD2) file loads in both (family sd2, ``SD2ClipH``, its empty
+    ``cond_stage_model.model.`` tree: this file carries a CLIP-L tower), its
+    UNet bit for bit; a diffusers folder of another family raises in both,
+    as the JAX package loads SD1.x folders only. A 9-channel inpaint SD1.x
     file loads in both packages: the port detects ``in_channels=9`` and its
     three trees equal JAX's bit for bit."""
     from stable_renderer_tpu.engine.pipeline import DiffusionPipeline as JPipe
@@ -246,12 +256,16 @@ def test_other_families_raise(tmp_path, tiny_towers, case):
     ucfg = _unet_config(in_channels=9) if case == "inpaint" else _unet_config(context_dim=1024)
     flat = _write_checkpoint(tmp_path / "m.safetensors", ucfg)
     path = tmp_path / "m.safetensors"
-    if case == "inpaint":
+    if case in ("inpaint", "sd2"):
         jpipe = JPipe.from_checkpoint(str(path))
         pipe = DiffusionPipeline.from_checkpoint(str(path), device="cpu")
-        assert pipe.unet.config == ucfg
-        assert jpipe.unet.config.in_channels == pipe.unet.config.in_channels == 9
-        assert pipe.model_family == jpipe.model_family == "sd1"
+        assert same_layout(pipe.unet.config, replace(ucfg, head_dim=64) if case == "sd2"
+                           else ucfg)
+        assert jpipe.unet.config.in_channels == pipe.unet.config.in_channels
+        want = "sd1" if case == "inpaint" else "sd2"
+        assert pipe.model_family == jpipe.model_family == want
+        assert type(pipe.clip).__name__ == type(jpipe.clip).__name__ == (
+            "CLIPTextModel" if case == "inpaint" else "SD2ClipH")
         for mine, ref in ((pipe.unet_params, jpipe.unet_params),
                           (pipe.vae_params, jpipe.vae_params),
                           (pipe.clip_params, jpipe.clip_params)):
@@ -260,16 +274,15 @@ def test_other_families_raise(tmp_path, tiny_towers, case):
             for k, v in mine.items():
                 assert _bits(v) == _bits(ref[k]), k
         return
-    if case == "sd2_diffusers_folder":  # the tiny UNet's keys are left as they are
-        (tmp_path / "folder" / "unet").mkdir(parents=True)
-        unet = {k[len("model.diffusion_model."):]: v for k, v in flat.items()
-                if k.startswith("model.diffusion_model.")}
-        write_safetensors(unet, tmp_path / "folder" / "unet" / "m.safetensors")
-        path = tmp_path / "folder"
-    match = {"sd2": "ROADMAP 1.11",
-             "sd2_diffusers_folder": "ROADMAP 1.11.*diffusers folders"}[case]
-    with pytest.raises(NotImplementedError, match=match):
-        DiffusionPipeline.from_checkpoint(str(path), device="cpu")
+    (tmp_path / "folder" / "unet").mkdir(parents=True)  # the tiny UNet's keys as they are
+    unet = {k[len("model.diffusion_model."):]: v for k, v in flat.items()
+            if k.startswith("model.diffusion_model.")}
+    write_safetensors(unet, tmp_path / "folder" / "unet" / "m.safetensors")
+    path = tmp_path / "folder"
+    for load in (JPipe.from_checkpoint,
+                 lambda p: DiffusionPipeline.from_checkpoint(p, device="cpu")):
+        with pytest.raises(NotImplementedError, match="SD1.x family.*SDXL/SD2 diffusers"):
+            load(str(path))
 
 
 def test_from_checkpoint_int8_and_the_card(tmp_path, tiny_towers, monkeypatch):

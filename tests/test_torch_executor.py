@@ -88,6 +88,17 @@ def port_config(cls, jcfg):
     return cls(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(cls)})
 
 
+def to_f64(tree):
+    """Floating tensors (in nested dicts, lists, tuples) widened to f64."""
+    if isinstance(tree, dict):
+        return {k: to_f64(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_f64(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.double()
+    return tree
+
+
 def to_torch(tree):
     """JAX arrays (in nested dicts, lists, tuples) as CPU torch tensors."""
     if isinstance(tree, dict):

@@ -367,7 +367,9 @@ def test_ksampler_cond_list_matches_jax(monkeypatch):
 
 
 def test_ksampler_without_engine_data_and_unported_branches():
-    """Nodes that need a later item raise naming it through the KSampler."""
+    """Inputs that need a later item raise naming it through the KSampler:
+    unCLIP's ADM vector and the x4 upscaler's noise-augmented image, both
+    models/noise_aug.py of ROADMAP 1.11b."""
     spec = [LOADER, (2, "CLIPTextEncode", ["x"], {"clip": (1, 1)}),
             (3, "EmptyLatentImage", [16, 16, 1], {}),
             (10, "KSampler", [0, "fixed", 2, 2.0, "euler", "normal", 1.0],
@@ -378,7 +380,15 @@ def test_ksampler_without_engine_data_and_unported_branches():
     model = ex._cache[1][0]
     ex._cache[1] = ({**model, "noise_aug_dim": 512},) + ex._cache[1][1:]
     del ex._cache[10]
-    with pytest.raises(pe.NodeExecutionError, match="ROADMAP 1.11"):
+    with pytest.raises(pe.NodeExecutionError, match=r"noise_aug\.py.*ROADMAP 1\.11b"):
+        ex.execute()
+    # the x4 layout: a class-table UNet and a positive carrying concat_image
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+
+    x4 = UNetModel(replace(model["unet"].config, num_classes=350))
+    ex._cache[1] = ({**model, "unet": x4},) + ex._cache[1][1:]
+    ex._cache[2] = ({**ex._cache[2][0], "concat_image": torch.zeros(1, 16, 16, 3)},)
+    with pytest.raises(pe.NodeExecutionError, match=r"x4 upscaler.*noise_aug\.py.*ROADMAP 1\.11b"):
         ex.execute()
 
 

@@ -83,10 +83,21 @@ def test_freeu_hypertile_sag_match_jax(monkeypatch):
     _check(spec, monkeypatch, 3)
 
 
-def write_hypernetwork(path) -> None:
+# ROADMAP queue 3, fault 3.2: with the hypernetwork's weights at std 0.3 the
+# port's and JAX's f32 outputs differ by as much as each differs from the same
+# graph in f64 (3.6e-4 to 8.5e-4 over hash seeds 0-3), and the gap does not
+# grow over the steps: it is set by the first and flat after it
+# (tests/hypernet_drift.py prints the table). That case is held at the
+# largest sum of the two drifts measured (1.36e-3), rounded up; every other
+# case at TOL.
+HYPERNET_STD03_TOL = dict(atol=1.5e-3, rtol=2e-4)
+
+
+def write_hypernetwork(path, std: float = 0.05) -> None:
     """A tiny A1111-style hypernetwork .pt: per context width, a k-net and a
-    v-net of linear -> layer norm -> linear, relu, layer norm on; small
-    weights, as a trained hypernetwork's residual MLPs have."""
+    v-net of linear -> layer norm -> linear, relu, layer norm on; weights
+    and biases N(0, std^2) (small, as a trained hypernetwork's residual MLPs
+    have, at 0.05), norm scales 1 + N(0, 0.1^2)."""
     rng = np.random.default_rng(8)
 
     def net(dim):
@@ -94,10 +105,10 @@ def write_hypernetwork(path) -> None:
         for name, shape in (("linear.0", (dim * 2, dim)), ("linear.1", (dim * 2,)),
                             ("linear.2", (dim, dim * 2))):
             t[name + ".weight"] = torch.from_numpy(
-                (rng.standard_normal(shape) * (0.05 if len(shape) == 2 else 0.1)
+                (rng.standard_normal(shape) * (std if len(shape) == 2 else 0.1)
                  + (1.0 if len(shape) == 1 else 0.0)).astype(np.float32))
             t[name + ".bias"] = torch.from_numpy(
-                (rng.standard_normal(shape[:1]) * 0.05).astype(np.float32))
+                (rng.standard_normal(shape[:1]) * std).astype(np.float32))
         return t
 
     sd = {32: [net(32), net(32)], 64: [net(64), net(64)], "activation_func": "relu",
@@ -105,14 +116,58 @@ def write_hypernetwork(path) -> None:
     torch.save(sd, path)
 
 
-def test_freeu_v2_hypernetwork_perp_neg_match_jax(monkeypatch, tmp_path):
-    write_hypernetwork(tmp_path / "hn.pt")
+def hypernetwork_spec(steps: int = 3):
+    """FreeU_V2, HypernetworkLoader (hn.pt at 0.7) and PerpNeg chained,
+    sampled by euler_ancestral over 3 karras steps at cfg 3.0, the first
+    ``steps`` of them (KSamplerAdvanced, leftover noise returned)."""
     spec = patched_graph([("FreeU_V2", [1.2, 1.1, 0.8, 0.6], {}),
                           ("HypernetworkLoader", ["hn.pt", 0.7], {}),
                           ("PerpNeg", [0.8], {"empty_conditioning": (4, 0)})])
+    if steps != 3:
+        spec[-1] = (30, "KSamplerAdvanced", ["enable", 9, "fixed", 3, 3.0, "euler_ancestral",
+                                             "karras", 0, steps, "enable"], spec[-1][3])
+    return spec
+
+
+def port_f64(pex, spec, model_dir, monkeypatch):
+    """The port's output of ``spec`` with ``pex``'s loader outputs in f64 and
+    every f32 step of the graph in f64 (``Tensor.float`` and the default
+    dtype widened for the call): the f64 graph the f32 runs are held to."""
+    from test_torch_executor import to_f64
+
+    _, pwf = graphs(spec)
+    ex = pe.PromptExecutor(pwf, model_dirs=(str(model_dir),), device="cpu")
+    ex._cache[1] = to_f64(pex._cache[1])
+    monkeypatch.setitem(pe.NODE_REGISTRY, "_Latent", lambda ctx, node: (
+        {"samples": torch.from_numpy(LATENT.astype(np.float64))},))
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "float", lambda self, *a, **kw: self.double())
+        default = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+        try:
+            return ex.execute().outputs[30][0]["samples"].double()
+        finally:
+            torch.set_default_dtype(default)
+
+
+@pytest.mark.parametrize("std", [0.05, 0.3])
+def test_freeu_v2_hypernetwork_perp_neg_match_jax(monkeypatch, tmp_path, std):
+    """The chain agrees with JAX's at TOL with the hypernetwork's weights at
+    std 0.05. At std 0.3 (fault 3.2) it agrees at HYPERNET_STD03_TOL, the
+    two packages' f32-against-f64 drift, and the port's f32 output is
+    within that bar of its f64 graph. Each patch moves the output (std
+    0.05)."""
+    write_hypernetwork(tmp_path / "hn.pt", std)
+    spec = hypernetwork_spec()
     jctx, pctx, _, pex = run_both(spec, monkeypatch, seeds=(9,), model_dirs=(tmp_path,))
-    assert_close(pctx.outputs[30][0], jctx.outputs[30][0])
     assert sorted(pctx.outputs[11][0]["patches"][1]["nets"]) == [32, 64]
+    if std == 0.3:
+        out = pctx.outputs[30][0]["samples"]
+        assert_close(out, jctx.outputs[30][0], **HYPERNET_STD03_TOL)
+        drift = float((out.double() - port_f64(pex, spec, tmp_path, monkeypatch)).abs().max())
+        assert drift <= HYPERNET_STD03_TOL["atol"]
+        return
+    assert_close(pctx.outputs[30][0], jctx.outputs[30][0])
     # each patch moved the output: rerun without it
     for drop in (10, 11, 12):
         rows = [r for r in spec if r[0] != drop]

@@ -230,14 +230,15 @@ def test_unet_loader_matches_jax_and_cascade_stages_raise(tmp_path, tiny_sd15):
 
 
 def test_no_stub_names_1_12b_and_every_stub_names_its_item():
-    """The registry walk: 22 stubs, 20 naming ROADMAP 1.11 and 2 naming 1.13,
-    and none 1.12b; every stub's message ends with its item."""
+    """The registry walk: 19 stubs, 17 naming ROADMAP 1.11 (1.11b and 1.11c's
+    models) and 2 naming 1.13, and none 1.12b; every stub's message ends
+    with its item."""
     from stable_renderer_tpu_torch.workflow.loader import WorkflowNode as PNode
 
     stubs = {n: f.roadmap_item for n, f in pe.NODE_REGISTRY.items()
              if hasattr(f, "roadmap_item")}
     assert "1.12b" not in stubs.values()
-    assert sorted(stubs.values()).count("1.11") == 20 and len(stubs) == 22
+    assert sorted(stubs.values()).count("1.11") == 17 and len(stubs) == 19
     for name, item in stubs.items():
         node = PNode(id=1, type=name, widgets=[], inputs={}, output_names=[])
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):

@@ -7,9 +7,10 @@ by ``_Models``, which gives both packages the same tiny (MODEL, CLIP, VAE)
 (the port's tiny inits, their numbers copied into the JAX models). Pure
 tensor nodes agree within PURE (1e-6); model nodes within
 test_torch_executor.py's TOL; loaders on files written here, and the file
-round trips (.latent both ways, animated saves), bit for bit. The nodes
-whose only work is a model of ROADMAP 1.11 raise NotImplementedError
-naming it. The helpers here serve tests/test_torch_nodes_extra_rest.py
+round trips (.latent both ways, animated saves), bit for bit. ``_Models``
+also hands in tiny dual-tower CLIPs (CLIP-L + CLIP-G, and G alone for the
+refiner) for the SDXL encode nodes. The nodes whose only work is a model of
+ROADMAP 1.11b or 1.11c raise NotImplementedError naming 1.11. The helpers here serve tests/test_torch_nodes_extra_rest.py
 too.
 """
 
@@ -120,9 +121,37 @@ def model_pair(seed: int = 0):
     return Pair(jmodel, pm), Pair(jclip, pc), Pair(jvae, pv)
 
 
+def dual_clip_pair(g_only: bool, seed: int = 4):
+    """A tiny SDXL CLIP of both packages (the port's inits from a generator
+    seeded with ``seed``): CLIP-L and DualCLIPLoader's tiny CLIP-G, 64 wide;
+    or, ``g_only``, the refiner's G tower alone (empty CLIP-L params)."""
+    import stable_renderer_tpu.models as jm
+    import stable_renderer_tpu.models.clip as jclip
+
+    from stable_renderer_tpu_torch.models import clip as pclip
+
+    g = torch.Generator().manual_seed(seed)
+    lcfg = pclip.TINY_CLIP_CONFIG
+    gcfg = pclip.OpenCLIPConfig(vocab_size=1000, width=64, num_layers=2, num_heads=2,
+                                projection_dim=64)
+    clip_l, clip_g = pclip.CLIPTextModel(lcfg), pclip.OpenCLIPTextModel(gcfg)
+    pl, pg = clip_l.init(g), clip_g.init(g)
+    port = {"clip": clip_l, "params": {} if g_only else pl, "clip_g": clip_g, "params_g": pg,
+            "tokenizer": pclip.Tokenizer(lcfg)}
+    jl = jax_config(jm.CLIPConfig, lcfg)
+    jax_clip = {"clip": jm.CLIPTextModel(jl), "params": {} if g_only else as_jax(pl),
+                "clip_g": jclip.OpenCLIPTextModel(jax_config(jclip.OpenCLIPConfig, gcfg)),
+                "params_g": as_jax(pg), "tokenizer": jm.Tokenizer(jl)}
+    if g_only:
+        port["g_only"] = jax_clip["g_only"] = True
+    return Pair(jax_clip, port)
+
+
 @pytest.fixture(scope="module")
 def models():
-    return {"m0": model_pair(0), "m1": model_pair(1)}
+    m0 = model_pair(0)
+    return {"m0": m0, "m1": model_pair(1), "xl": (m0[0], dual_clip_pair(False), m0[2]),
+            "rf": (m0[0], dual_clip_pair(True), m0[2])}
 
 
 @pytest.fixture(autouse=True)
@@ -266,8 +295,7 @@ def load_both(spec, model_dirs):
 
 # --- the cases ------------------------------------------------------------------------
 
-RAISES = ("CLIPTextEncodeSDXL", "CLIPTextEncodeSDXLRefiner", "DualCLIPLoader",
-          "unCLIPCheckpointLoader", "StyleModelLoader", "StyleModelApply",
+RAISES = ("unCLIPCheckpointLoader", "StyleModelLoader", "StyleModelApply",
           "ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
           "StableCascade_StageC_VAEEncode", "StableZero123_Conditioning_Batched")
 
@@ -301,6 +329,16 @@ CASES = [
     ("ConditioningSetAreaStrength", [0.6], {"conditioning": "cond"}, PURE),
     ("CLIPTextEncodeControlnet", ["a red (boat:1.2)"],
      {"clip": ("m0", 1), "conditioning": "cond"}, TOL),
+    ("CLIPTextEncodeControlnet", ["a red (boat:1.2)"],
+     {"clip": ("xl", 1), "conditioning": "cond"}, TOL),
+    # the dual encode: one prompt; split prompts (L columns of one, G of the
+    # other, the shorter chunk stream zero-padded); the CLIP-L tower alone
+    ("CLIPTextEncodeSDXL", [1024, 1024, 0, 0, 1024, 1024, "a red ball", "a red ball"],
+     {"clip": ("xl", 1)}, TOL),
+    ("CLIPTextEncodeSDXL", [768, 1344, 16, 8, 1024, 960, "a (red:1.2) ball, " * 12, "a ball"],
+     {"clip": ("xl", 1)}, TOL),
+    ("CLIPTextEncodeSDXL", [64, 64, 0, 0, 64, 64, "a ball", "a ball"], {"clip": ("m0", 1)}, TOL),
+    ("CLIPTextEncodeSDXLRefiner", [2.5, 896, 1152, "a red ball"], {"clip": ("rf", 1)}, TOL),
     ("DiffControlNetLoader", ["cn.safetensors"], {"model": ("m0", 0)}, PURE),
     ("VAEDecodeTiled", [64], {"samples": "latent_16", "vae": ("m0", 2)}, TOL),
     ("VAEEncodeTiled", [64], {"pixels": "image_96", "vae": ("m0", 2)}, TOL),
@@ -310,8 +348,8 @@ CASES = [
      {"model": ("m0", 0)}, PURE),
 ]
 FILE_NODES = ("SaveLatent", "LoadLatent", "LoadImageMask", "SaveAnimatedWEBP",
-              "SaveAnimatedPNG", "VAELoader", "CLIPLoader", "LoraLoader", "CheckpointLoader",
-              "DiffusersLoader")
+              "SaveAnimatedPNG", "VAELoader", "CLIPLoader", "DualCLIPLoader", "LoraLoader",
+              "CheckpointLoader", "DiffusersLoader")
 
 
 def _case_id(case):
@@ -410,27 +448,81 @@ def test_animated_saves_match_jax(monkeypatch, output_dirs, ntype, widgets):
 def test_vae_and_clip_loaders_match_jax(tmp_path, tiny_sd15):
     """VAELoader on a whole checkpoint's first_stage_model subtree (bf16) and
     on a bare VAE file; CLIPLoader on the text tower (f32): every leaf equals
-    JAX's bit for bit. An OpenCLIP-layout text tower raises naming 1.11 in
-    the port."""
+    JAX's bit for bit. CLIPLoader on OpenCLIP-G and -H files (open_clip's
+    ``transformer.`` prefix stripped, as JAX strips it) loads the same leaves
+    behind the CLIP-L model in both packages, which then cannot encode them
+    (ROADMAP queue 3)."""
     from test_torch_checkpoint_pipeline import _write_checkpoint
 
-    from stable_renderer_tpu_torch.models.weights import write_safetensors
+    from stable_renderer_tpu_torch.models.clip import (
+        TINY_CLIP_G_CONFIG,
+        TINY_CLIP_H_CONFIG,
+        OpenCLIPTextModel,
+    )
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
 
     flat = _write_checkpoint(tmp_path / "sd.safetensors")
     write_safetensors({k[len("first_stage_model."):]: v for k, v in flat.items()
                        if k.startswith("first_stage_model.")}, tmp_path / "vae.safetensors")
+    for name, cfg in (("g", TINY_CLIP_G_CONFIG), ("h", TINY_CLIP_H_CONFIG)):
+        tree = OpenCLIPTextModel(cfg).init(torch.Generator().manual_seed(7))["model"]
+        write_safetensors(flatten(tree), tmp_path / f"open_clip_{name}.safetensors")
     spec = [(1, "VAELoader", ["sd.safetensors"], {}), (2, "VAELoader", ["vae.safetensors"], {}),
-            (3, "CLIPLoader", ["sd.safetensors"], {})]
+            (3, "CLIPLoader", ["sd.safetensors"], {}),
+            (4, "CLIPLoader", ["open_clip_g.safetensors"], {}),
+            (5, "CLIPLoader", ["open_clip_h.safetensors"], {})]
     jo, po = load_both(spec, (tmp_path,))
-    for nid, dt in ((1, torch.bfloat16), (2, torch.bfloat16), (3, torch.float32)):
+    for nid, dt in ((1, torch.bfloat16), (2, torch.bfloat16), (3, torch.float32),
+                    (4, torch.float32), (5, torch.float32)):
         same_tree_bits(po[nid][0]["params"], jo[nid][0]["params"], dt)
+        assert type(po[nid][0]["clip"] if nid > 2 else po[nid][0]["vae"]).__name__ == type(
+            jo[nid][0]["clip"] if nid > 2 else jo[nid][0]["vae"]).__name__
     assert po[3][0]["clip"].config.hidden_size == 768
-    write_safetensors({"transformer.resblocks.0.attn.in_proj_weight": torch.zeros(3, 1)},
-                      tmp_path / "open_clip.safetensors")
-    _, pwf = __import__("test_torch_executor").graphs(
-        [(1, "CLIPLoader", ["open_clip.safetensors"], {})])
-    with pytest.raises(pe.NodeExecutionError, match=r"ROADMAP 1\.11"):
-        pe.PromptExecutor(pwf, model_dirs=(str(tmp_path),), device="cpu").execute()
+    assert sorted(po[4][0]["params"]) == ["resblocks"]  # open_clip's other leaves drop
+    spec.append((6, "CLIPTextEncode", ["a ball"], {"clip": (4, 0)}))
+    for mod, wf in zip((je, pe), __import__("test_torch_executor").graphs(spec)):
+        ex = mod.PromptExecutor(wf, model_dirs=(str(tmp_path),),
+                                **({} if mod is je else {"device": "cpu"}))
+        with pytest.raises(mod.NodeExecutionError, match="text_model"):
+            ex.execute()
+
+
+@pytest.mark.parametrize("files", [True, False])
+def test_dual_clip_loader_matches_jax(tmp_path, files):
+    """DualCLIPLoader on a CLIP-L file and a CLIP-G file: both trees (f32)
+    equal JAX's bit for bit, behind SD1.x's CLIP-L and SDXL's CLIP-G configs;
+    without the files both packages build the tiny towers (64 wide, a 2-layer
+    G), their trees of the same keys and shapes."""
+    from stable_renderer_tpu.models.weights import flatten as jflatten
+
+    from stable_renderer_tpu_torch.models.clip import (
+        TINY_CLIP_CONFIG,
+        TINY_CLIP_G_CONFIG,
+        CLIPTextModel,
+        OpenCLIPTextModel,
+    )
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
+
+    if files:
+        g = torch.Generator().manual_seed(8)
+        write_safetensors(flatten(CLIPTextModel(TINY_CLIP_CONFIG).init(g)),
+                          tmp_path / "clip_l.safetensors")
+        write_safetensors(flatten(OpenCLIPTextModel(TINY_CLIP_G_CONFIG).init(g)["model"]),
+                          tmp_path / "clip_g.safetensors")
+    jo, po = load_both([(1, "DualCLIPLoader", ["clip_l.safetensors", "clip_g.safetensors"],
+                         {})], (tmp_path,))
+    (jc,), (pc,) = jo[1], po[1]
+    assert sorted(pc) == sorted(jc)
+    for key in ("clip", "clip_g"):
+        assert type(pc[key]).__name__ == type(jc[key]).__name__
+        assert dataclasses.asdict(pc[key].config) == dataclasses.asdict(jc[key].config)
+    for key in ("params", "params_g"):
+        if files:
+            same_tree_bits(pc[key], jc[key], torch.float32)
+        else:
+            assert ({k: tuple(v.shape) for k, v in flatten(pc[key]).items()}
+                    == {k: tuple(v.shape) for k, v in jflatten(jc[key]).items()})
+    assert pc["clip_g"].config.width == (1280 if files else 64)
 
 
 def test_lora_and_checkpoint_loaders_match_jax(tmp_path, tiny_sd15):
@@ -486,4 +578,4 @@ def test_diffusers_loader_matches_jax(tmp_path, tiny_sd15):
     jo, po = load_both([(1, "DiffusersLoader", ["sd_folder"], {})], (tmp_path,))
     for slot, dt in ((0, torch.bfloat16), (1, torch.float32), (2, torch.bfloat16)):
         same_tree_bits(po[1][slot]["params"], jo[1][slot]["params"], dt)
-    assert po[1][0]["unet"].config == ucfg
+    assert __import__("test_torch_checkpoint_pipeline").same_layout(po[1][0]["unet"].config, ucfg)

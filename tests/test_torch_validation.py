@@ -27,9 +27,8 @@ torch.set_num_threads(1)
 LATER = {"GLIGENLoader": "1.11", "GLIGENTextBoxApply": "1.11", "CLIPVisionLoader": "1.11",
          "CLIPVisionEncode": "1.11", "unCLIPConditioning": "1.11",
          "ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13",
-         # the node packs' names whose only work is a model of ROADMAP 1.11
+         # the node packs' names whose only work is a model of ROADMAP 1.11b or 1.11c
          **dict.fromkeys((
-             "CLIPTextEncodeSDXL", "CLIPTextEncodeSDXLRefiner", "DualCLIPLoader",
              "unCLIPCheckpointLoader", "StyleModelLoader", "StyleModelApply",
              "ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
              "StableCascade_StageC_VAEEncode", "StableZero123_Conditioning",
@@ -55,7 +54,7 @@ def test_registries_and_specs_hold_the_same_names():
     assert pv.UNIQUE_NODE_TYPES == jv.UNIQUE_NODE_TYPES
     assert pv.type_matchings() == jv.type_matchings()
     implemented = [n for n in pe.NODE_REGISTRY if expected_item(n) is None]
-    assert len(implemented) == 161
+    assert len(implemented) == 164
 
 
 @pytest.mark.parametrize("name", sorted(je.NODE_REGISTRY))
@@ -70,13 +69,13 @@ def test_each_name_is_implemented_or_a_stub_naming_its_item(name):
 
 
 def test_running_a_stub_fails_with_the_structured_error():
-    wf = PWorkflow(nodes={1: PNode(id=1, type="DualCLIPLoader", widgets=["l", "g"], inputs={},
+    wf = PWorkflow(nodes={1: PNode(id=1, type="StyleModelLoader", widgets=["s"], inputs={},
                                    output_names=[])}, unknown_types=[], path=None)
     ex = pe.PromptExecutor(wf, device="cpu")
     with pytest.raises(pe.NodeExecutionError) as ei:
         ex.execute()
     d = ei.value.details
-    assert d["node_id"] == 1 and d["node_type"] == "DualCLIPLoader"
+    assert d["node_id"] == 1 and d["node_type"] == "StyleModelLoader"
     assert d["exception_type"] == "NotImplementedError"
     assert "ROADMAP 1.11" in d["exception_message"]
 

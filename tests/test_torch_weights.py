@@ -214,22 +214,19 @@ _FIELDS = ("in_channels", "model_channels", "channel_mult", "num_res_blocks",
 
 @pytest.mark.parametrize("case", ["sd15", "sd1_tiny", "sd2_eps", "sd2_v", "sdxl", "sd15_inpaint"])
 def test_detection_matches_jax(case):
-    """``detect_unet_layout`` reads every field JAX's ``detect_unet_config``
-    reads, and ``detect_model_family`` gives JAX's family and prediction
-    (the SD2 out-layer statistic decides eps or v). SD1.x dicts map to the
-    port's ``UNetConfig``, the 9-channel inpaint UNet included (its
-    ``in_channels`` JAX's); SD2 and SDXL raise naming ROADMAP 1.11."""
+    """``detect_unet_config`` gives JAX's config field for field, and
+    ``detect_model_family`` JAX's family and prediction (the SD2 out-layer
+    statistic decides eps or v). SD1.x dicts keep SD1.x's UNet (the
+    presets' block plan and 8 heads; the 9-channel inpaint UNet's
+    ``in_channels`` JAX's); SD2 and SDXL dicts load their own layouts (64-wide
+    heads, SDXL's per-level depths and ADM width)."""
     from stable_renderer_tpu.models.weights import (
         detect_model_family as j_family,
         detect_unet_config as j_detect,
     )
 
-    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, UNetConfig
-    from stable_renderer_tpu_torch.models.weights import (
-        detect_model_family,
-        detect_unet_config,
-        detect_unet_layout,
-    )
+    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG, UNetConfig, UNetModel
+    from stable_renderer_tpu_torch.models.weights import detect_model_family, detect_unet_config
 
     jcfg, norm_std = _cases()[case]
     flat = _shape_flat(jcfg)
@@ -238,27 +235,33 @@ def test_detection_matches_jax(case):
         flat[key] = (np.random.default_rng(0).standard_normal(flat[key].shape)
                      * norm_std).astype(np.float16)
     ref = j_detect(flat)
-    layout = detect_unet_layout(flat)
+    got = detect_unet_config(flat)
     for name in _FIELDS:
-        assert getattr(layout, name) == getattr(ref, name), name
-    fam = detect_model_family(flat, layout)
+        assert getattr(got, name) == getattr(ref, name), name
+    fam = detect_model_family(flat, got)
     assert fam == j_family(flat, ref)
-    if case == "sd15":
-        assert detect_unet_config(flat) == SD15_UNET_CONFIG
-    elif case == "sd1_tiny":
-        assert detect_unet_config(flat) == UNetConfig(
-            model_channels=32, num_res_blocks=1, channel_mult=(1, 2), attention_levels=(0, 1),
-            num_heads=8, context_dim=768)
-    elif case == "sd15_inpaint":
+    plan = UNetModel(got).block_plan()
+    if case in ("sd15", "sd15_inpaint"):
+        assert plan == UNetModel(SD15_UNET_CONFIG).block_plan() and got.heads_for(320) == 8
         assert fam == {"family": "sd1", "prediction": "eps", "noise_aug_dim": None}
-        got = detect_unet_config(flat)
-        assert got == replace(SD15_UNET_CONFIG, in_channels=9)
-        assert got.in_channels == ref.in_channels == 9
+        assert got.in_channels == ref.in_channels == (9 if case == "sd15_inpaint" else 4)
+    elif case == "sd1_tiny":
+        assert plan == UNetModel(UNetConfig(
+            model_channels=32, num_res_blocks=1, channel_mult=(1, 2), attention_levels=(0, 1),
+            num_heads=8, context_dim=768)).block_plan()
     else:
         assert fam["family"] == {"sd2_eps": "sd2", "sd2_v": "sd2", "sdxl": "sdxl"}[case]
         assert fam["prediction"] == ("v" if case == "sd2_v" else "eps")
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
-            detect_unet_config(flat)
+        assert got.head_dim == 64 and plan == UNetModel(jcfg_port(jcfg)).block_plan()
+        if case == "sdxl":
+            assert (got.adm_in_channels, got.context_dim, got.heads_for(640)) == (2816, 2048, 10)
+
+
+def jcfg_port(jcfg):
+    """The port's UNetConfig with the fields of the JAX preset ``jcfg``."""
+    from stable_renderer_tpu_torch.models.unet import UNetConfig
+
+    return UNetConfig(**{f: getattr(jcfg, f) for f in UNetConfig.__dataclass_fields__})
 
 
 def test_split_checkpoint_consumes_every_key():
@@ -281,8 +284,8 @@ def test_split_checkpoint_consumes_every_key():
     for prefix, tree in models.items():
         flat.update({prefix + k: np.broadcast_to(zero, v.shape) for k, v in flatten(tree).items()})
     unet, vae, clip, cfg, family = load_checkpoint_flat(flat, "<shapes>")
-    assert cfg == SD15_UNET_CONFIG and family == {"family": "sd1", "prediction": "eps",
-                                                  "noise_aug_dim": None}
+    assert UNetModel(cfg).block_plan() == UNetModel(SD15_UNET_CONFIG).block_plan()
+    assert family == {"family": "sd1", "prediction": "eps", "noise_aug_dim": None}
     trees = {"model.diffusion_model.": unet, "first_stage_model.": vae,
              "cond_stage_model.transformer.": clip}
     assert sum(len(flatten(t)) for t in trees.values()) == len(flat)
@@ -368,7 +371,8 @@ def test_load_diffusers_folder_matches_jax(tmp_path):
     for k, v in want.items():
         assert tuple(out[k].shape) == tuple(ref[k].shape) == tuple(v.shape), k
         assert _bits(out[k]) == _bits(ref[k]) == _bits(v.contiguous()), k
-    assert load_checkpoint(str(tmp_path))[3] == ucfg
+    cfg = load_checkpoint(str(tmp_path))[3]
+    assert UNetModel(cfg).block_plan() == UNetModel(ucfg).block_plan() and cfg.heads_for(32) == 8
 
 
 # --- TAESD files -----------------------------------------------------------------------
