@@ -272,6 +272,26 @@ Phases, one line each; any failure exits non-zero:
                 KSampler -> VAEDecode), card against CPU within REF_TOL.
                 Every new K1 shape is held against its plain version and
                 timed beside SDPA.
+ 26. image    — the image-conditioned models. (a) an SD2.1-unclip-H file
+                written at full width (bf16, ~3.9 GB: the 768-v UNet with a
+                2048-wide ADM, OpenCLIP-H, the VAE, a ViT-H/14 vision tower at
+                embedder.model.visual.) through unCLIPCheckpointLoader ->
+                CLIPVisionEncode of a 512x512 frame -> two unCLIPConditioning
+                (the merge path) -> KSampler (euler, 4 steps, cfg 4) at
+                768x768 -> VAEDecode -> SaveImage: in process (1 warm and
+                IMAGE_TIMED timed executes, K1 by shape UNCLIP_K1_SHAPES) and
+                as its own `execute` process. (b) SD1.5 at 512x512 with phase
+                20's checkpoint, a GLIGEN file (16 fusers at SD1.5's widths),
+                a style-adapter file (transformer_layes. keys) and a ViT-L/14
+                file: two grounded boxes and the style tokens (77 + 8 on both
+                conds) -> KSampler (lcm, sgm_uniform, 4 steps, cfg 2): K1 by
+                shape GLIGEN_K1_SHAPES, the fusers' (8, 4126^2, 40) held
+                against the plain version; the fusers' gates zeroed give the
+                ungrounded image bit for bit, the file's move it. (c) tiny
+                Zero123 (both nodes), PhotoMaker on a tiny SDXL, the x4
+                upscaler's noise augmentation, unCLIP with three entries, the
+                style adapter and GLIGEN at both paths: card against CPU
+                within REF_TOL.
 The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
 variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
@@ -2019,13 +2039,16 @@ def main() -> None:
         # --- 24. serving: the prompt server, the new nodes, EDITOR mode --------------------------
         server = server_phase(pipe, dev, card, k1, k2, checkpoint["path"],
                               checkpoint["lora_path"], corr)
+
+        # --- 25. SD2, SDXL and the refiner -------------------------------------------------
+        del pipe
+        torch.cuda.empty_cache()
+        families = families_phase(dev, card, k1, k3)
+
+        # --- 26. the image-conditioned models (phase 20's checkpoint for 26b) -----------------
+        image = image_conditioning_phase(dev, card, k1, checkpoint["path"])
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-
-    # --- 25. SD2, SDXL and the refiner -------------------------------------------------
-    del pipe
-    torch.cuda.empty_cache()
-    families = families_phase(dev, card, k1, k3)
 
     wall_s = time.perf_counter() - t_start
     print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
@@ -2035,7 +2058,7 @@ def main() -> None:
                       "engine_frame_ms": engine_ms, **bake, "taesd": taesd,
                       "options": options, "bench": bench, "checkpoint": checkpoint,
                       "left_outs": left_outs, "files": files, "executor": executor,
-                      "server": server, "families": families,
+                      "server": server, "families": families, "image_conditioning": image,
                       "wall_s": wall_s,
                       "card": card}))
     print(card)
@@ -4639,15 +4662,41 @@ XL_K1_SHAPES = {(20, 4096, 4096, 64): 40, (1, 16384, 16384, 512): 2}
 SD2_K1_SHAPES = {(10, 9216, 9216, 64): 20, (20, 2304, 2304, 64): 20,
                  (1, 9216, 9216, 512, "f32"): 2}
 FAMILY_GRAPH_SIZE = 64  # phase 25d's tiny graphs: 64x64 frames, 32x32 latents
+# the tiny unCLIP file's vision tower (tests and phase 26c): ViT-H's depth,
+# so that the loader's rule reads ViT-H, and its projection width, 1024 =
+# the ADM's noise_aug_dim; narrow otherwise
+# phase 26: K1 launches an execute by (BH, Lq, Lk, d). SD2.1-unclip-H at
+# 768x768 (96x96 latents): SD2's level-0 and level-1 self-attentions at cfg
+# batch 2, 4 evaluations; the executor's bf16 VAE decodes at 9216 tokens
+UNCLIP_K1_SHAPES = {(10, 9216, 9216, 64): 20, (20, 2304, 2304, 64): 20,
+                    (1, 9216, 9216, 512): 1}
+# grounded SD1.5 at 512x512: level 0's 5 self-attentions at cfg batch 2 (8
+# heads of 40); its 5 GLIGEN fusers on the positive row over 4096 visual +
+# 30 grounding tokens (8 heads: key width 768); the bf16 decode
+GLIGEN_K1_SHAPES = {(16, 4096, 4096, 40): 20, (8, 4126, 4126, 40): 20,
+                    (1, 4096, 4096, 512): 1}
+UNCLIP_SIZE = 768    # SD2.1-unclip-H's published resolution (768-v)
+IMAGE_TIMED = 3      # phase 26's timed executes a graph, after one warm
+IMAGE_SEED = 26
+GROUNDED_MOVED_FLOOR = 1e-3  # grounded vs ungrounded SD1.5 image, max abs on [0, 1]
+IMAGE_GRAPH_SIZE = 64        # phase 26c's tiny graphs
+# the tiny CLIP vision files' ViT-L (tests and phase 26c): ViT-L's depth, so
+# that the loaders read ViT-L, narrow otherwise
+VITL_TINY_VISION = dict(hidden_size=32, num_layers=24, num_heads=2, intermediate_size=64,
+                        image_size=28, patch_size=14, projection_dim=32)
+UNCLIP_TINY_VISION = dict(hidden_size=32, num_layers=32, num_heads=2, intermediate_size=64,
+                          image_size=28, patch_size=14, projection_dim=1024)
 
 
 def family_configs(kind: str):
-    """(UNetConfig, CLIP-L config or None, OpenCLIP config) of a tiny
-    ``kind`` file: "sd2" (SD1.5's four levels at 32 channels, so output
+    """(UNetConfig, CLIP-L config or None, OpenCLIP config or None) of a tiny
+    ``kind`` file: "sd1" (the tiny UNet at SD1.x's context 768, 8 heads,
+    and a 768-wide CLIP-L), "sd2" (SD1.5's four levels at 32 channels, so output
     block 11 carries the 768-v statistic), "sd2_small" (the tiny UNet's two
     levels), "x4" (the class table, 7 input channels, self-attention off at
-    level 0), "sdxl" (the tiny SDXL UNet at context 2048 = L + G) or
-    "refiner" (context 1280, the 2560-style ADM)."""
+    level 0), "unclip" (sd2_small with SD2.1-unclip-H's 2048-wide ADM),
+    "sdxl" (the tiny SDXL UNet at context 2048 = L + G) or "refiner"
+    (context 1280, the 2560-style ADM)."""
     from dataclasses import replace
 
     from stable_renderer_tpu_torch.models.clip import CLIPConfig, OpenCLIPConfig
@@ -4659,10 +4708,16 @@ def family_configs(kind: str):
     )
 
     h = OpenCLIPConfig(**FAMILY_TOWERS["h"])
+    if kind == "sd1":
+        return (replace(TINY_UNET_CONFIG, num_heads=8, context_dim=768),
+                CLIPConfig(vocab_size=1000, hidden_size=768, num_layers=2, num_heads=2,
+                           intermediate_size=128), None)
     if kind == "sd2":
         return replace(SD15_UNET_CONFIG, model_channels=32, context_dim=1024, head_dim=64), None, h
     if kind == "sd2_small":
         return replace(TINY_UNET_CONFIG, context_dim=1024, head_dim=64), None, h
+    if kind == "unclip":
+        return replace(TINY_UNET_CONFIG, context_dim=1024, head_dim=64, adm_in_channels=2048), None, h
     if kind == "x4":
         return (UNetConfig(in_channels=7, model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
                            attention_levels=(0, 1), context_dim=1024, head_dim=64,
@@ -4675,24 +4730,36 @@ def family_configs(kind: str):
                     adm_in_channels=32 + 5 * 256), None, OpenCLIPConfig(**FAMILY_TOWERS["r"]))
 
 
-def family_trees(kind: str, ucfg, lcfg, gcfg, vcfg, generator, dtype, device=None) -> dict:
+def family_trees(kind: str, ucfg, lcfg, gcfg, vcfg, generator, dtype, device=None,
+                 vision=None) -> dict:
     """{key prefix: tree} of a ``kind`` checkpoint in its family's layout,
     drawn from ``generator`` in ``dtype``: the UNet, the VAE, then the
-    towers (SD2 and x4: OpenCLIP-H at cond_stage_model.model.; SDXL: CLIP-L
-    at conditioner.embedders.0.transformer. and CLIP-G at
-    embedders.1.model.; the refiner: CLIP-G at embedders.0.model.)."""
+    towers (SD1.x: CLIP-L at cond_stage_model.transformer.; SD2, unCLIP and
+    x4: OpenCLIP-H at cond_stage_model.model.; SDXL:
+    CLIP-L at conditioner.embedders.0.transformer. and CLIP-G at
+    embedders.1.model.; the refiner: CLIP-G at embedders.0.model.), and a
+    ``vision`` config's CLIP vision tower at embedder.model.visual. in the
+    transformers layout (unCLIP's)."""
     from stable_renderer_tpu_torch.models.clip import CLIPTextModel, OpenCLIPTextModel
+    from stable_renderer_tpu_torch.models.clip_vision import CLIPVisionModel
     from stable_renderer_tpu_torch.models.unet import UNetModel
     from stable_renderer_tpu_torch.models.vae import VAE
 
     trees = {"model.diffusion_model.": UNetModel(ucfg).init(generator, dtype=dtype, device=device),
              "first_stage_model.": VAE(vcfg).init(generator, dtype=dtype, device=device)}
+    if kind == "sd1":
+        trees["cond_stage_model.transformer."] = CLIPTextModel(lcfg).init(
+            generator, dtype=dtype, device=device)
+        return trees
     if kind == "sdxl":
         trees["conditioner.embedders.0.transformer."] = CLIPTextModel(lcfg).init(
             generator, dtype=dtype, device=device)
     prefix = {"sdxl": "conditioner.embedders.1.model.",
               "refiner": "conditioner.embedders.0.model."}.get(kind, "cond_stage_model.model.")
     trees[prefix] = OpenCLIPTextModel(gcfg).init(generator, dtype=dtype, device=device)["model"]
+    if vision is not None:
+        trees["embedder.model.visual."] = CLIPVisionModel(vision).init(generator, dtype=dtype,
+                                                                       device=device)
     return trees
 
 
@@ -4709,15 +4776,19 @@ def mark_v(flat: dict, generator) -> None:
 def write_family_file(kind: str, path, dtype=None) -> dict:
     """A tiny ``kind`` checkpoint (family_configs) written to ``path`` from
     the port's inits (a CPU generator seeded with 0) in ``dtype`` (default
-    f16), the SD2 file marked 768-v. Returns the flat dict written."""
+    f16), the SD2 file marked 768-v, the unCLIP file with
+    UNCLIP_TINY_VISION's tower. Returns the flat dict written."""
     import torch
 
+    from stable_renderer_tpu_torch.models.clip_vision import CLIPVisionConfig
     from stable_renderer_tpu_torch.models.vae import TINY_VAE_CONFIG
     from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
 
     ucfg, lcfg, gcfg = family_configs(kind)
     g = torch.Generator().manual_seed(0)
-    trees = family_trees(kind, ucfg, lcfg, gcfg, TINY_VAE_CONFIG, g, torch.float32)
+    vision = CLIPVisionConfig(**UNCLIP_TINY_VISION) if kind == "unclip" else None
+    trees = family_trees(kind, ucfg, lcfg, gcfg, TINY_VAE_CONFIG, g, torch.float32,
+                         vision=vision)
     flat = {p + k: v.to(dtype or torch.float16) for p, t in trees.items()
             for k, v in flatten(t).items()}
     if kind == "sd2":
@@ -4730,16 +4801,19 @@ def write_family_file(kind: str, path, dtype=None) -> dict:
 def tiny_family_loaders(kind: str):
     """The executor's loader configs, which it reads by module name at call
     time, set to ``kind``'s tiny ones inside the block: SD1.x's VAE and
-    CLIP-L names (the tokenizer's; SDXL's L tower), SD2's OpenCLIP-H and
-    SDXL's CLIP-G."""
+    CLIP-L names (the tokenizer's; SDXL's L tower), SD2's OpenCLIP-H,
+    SDXL's CLIP-G, and ViT-H's and ViT-L's (the vision files' towers)."""
     from stable_renderer_tpu_torch.models import clip as clip_mod
+    from stable_renderer_tpu_torch.models import clip_vision as vision_mod
     from stable_renderer_tpu_torch.models import vae as vae_mod
 
     _, lcfg, gcfg = family_configs(kind)
     names = [(clip_mod, "SD15_CLIP_CONFIG", lcfg or clip_mod.TINY_CLIP_CONFIG),
              (clip_mod, "SD2_CLIP_H_CONFIG", clip_mod.OpenCLIPConfig(**FAMILY_TOWERS["h"])),
              (clip_mod, "SDXL_CLIP_G_CONFIG", gcfg),
-             (vae_mod, "SD15_VAE_CONFIG", vae_mod.TINY_VAE_CONFIG)]
+             (vae_mod, "SD15_VAE_CONFIG", vae_mod.TINY_VAE_CONFIG),
+             (vision_mod, "VITH_CONFIG", vision_mod.CLIPVisionConfig(**UNCLIP_TINY_VISION)),
+             (vision_mod, "VITL_CONFIG", vision_mod.CLIPVisionConfig(**VITL_TINY_VISION))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
     for mod, name, value in names:
         setattr(mod, name, value)
@@ -5022,6 +5096,594 @@ def families_phase(dev, card: str, k1: dict, k3: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[25 families] phase 25 in {out['phase_s']:.1f} s | {card}", flush=True)
     return out
+
+
+# --- phase 26: the image-conditioned models ------------------------------------------
+
+
+def transformer_blocks(ucfg) -> list:
+    """(checkpoint block prefix, width) of each SpatialTransformer of a UNet
+    config, in the UNet's transformer numbering (input blocks, the middle
+    block, output blocks): where a GLIGEN file keeps its fusers."""
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+
+    params = UNetModel(ucfg).init(device="meta")
+    out = []
+    for part in ("input_blocks", "middle_block", "output_blocks"):
+        blocks = {"": params[part]} if part == "middle_block" else params[part]
+        for n in sorted(blocks, key=lambda k: int(k) if k else 0):
+            for m, sub in blocks[n].items():
+                if isinstance(sub, dict) and "transformer_blocks" in sub:
+                    prefix = ".".join(x for x in (part, n, m) if x)
+                    out.append((prefix, sub["proj_in"]["weight"].shape[0]))
+    return out
+
+
+def gligen_flat(ucfg, key_dim: int, generator, dtype, device=None, alpha: float = 1.0) -> dict:
+    """A GLIGEN file's tensors for a UNet config: one fuser a transformer
+    block at its width (``<block>.fuser.*``), the PositionNet (key_dim ->
+    key_dim), drawn from ``generator``: linear weights N(0, 1 / fan-in), the
+    gates ``alpha``."""
+    import torch
+
+    from stable_renderer_tpu_torch.models.gligen import init_random_gligen
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    def scaled(tree):
+        flat = flatten(tree)
+        for k, v in flat.items():
+            if k.endswith("weight") and v.dim() == 2:
+                flat[k] = (torch.randn(v.shape, generator=generator, device=device)
+                           / v.shape[1] ** 0.5)
+            elif k.startswith("alpha_"):
+                flat[k] = torch.full((), alpha, device=device)
+        return flat
+
+    out = {}
+    for prefix, width in transformer_blocks(ucfg):
+        fuser = init_random_gligen(generator, 1, width, key_dim, device=device).fusers[0]
+        out.update({f"{prefix}.fuser.{k}": v for k, v in scaled(fuser).items()})
+    pn = init_random_gligen(generator, 0, key_dim=key_dim, device=device).position_net
+    out.update({f"position_net.{k}": v for k, v in scaled(pn).items()})
+    return {k: v.to(dtype) for k, v in out.items()}
+
+
+def style_flat(cfg, generator, dtype, device=None, spelling: str = "transformer_layes") -> dict:
+    """A T2I style adapter file's tensors for a StyleAdapterConfig, its
+    layers under ``spelling`` (the upstream file's misspelled
+    ``transformer_layes`` by default)."""
+    from stable_renderer_tpu_torch.models.t2i_adapter import StyleAdapter
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    tree = StyleAdapter(cfg).init(generator, dtype=dtype, device=device)
+    return {(spelling + k[len("layers"):] if k.startswith("layers.") else k): v
+            for k, v in flatten(tree).items()}
+
+
+def write_frame_png(path, size: int, seed: int) -> None:
+    """A smooth colour frame (gradients and a few discs) as an RGB PNG: the
+    image the phase's LoadImage nodes read."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = np.stack([xx, yy, 0.5 * (xx + yy)], -1)
+    for _ in range(4):
+        cy, cx, r = rng.uniform(0.2, 0.8), rng.uniform(0.2, 0.8), rng.uniform(0.05, 0.2)
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = rng.uniform(size=3)
+    Image.fromarray((img * 255).astype(np.uint8)).save(path)
+
+
+def unclip_rows(name: str, size: int, entries: int = 2, sampler=("euler", "normal", 4, 4.0),
+                latent=None, save: bool = True) -> list:
+    """unCLIPCheckpointLoader -> two prompts -> LoadImage of frame.png ->
+    CLIPVisionEncode with the file's tower -> ``entries`` unCLIPConditioning
+    on the positive (strengths 1.0, 0.5, 0.8; noise augmentation 0.1, 0.1,
+    0.3: two or more take the merge path) -> KSampler on an empty
+    ``size`` latent (or ``latent``, a (node, slot) link) -> VAEDecode
+    (-> SaveImage when ``save``)."""
+    rows = [(1, "unCLIPCheckpointLoader", [name], {}),
+            (2, "CLIPTextEncode", ["a photograph of a house by a lake"], {"clip": (1, 1)}),
+            (3, "CLIPTextEncode", ["blurry, lowres"], {"clip": (1, 1)}),
+            (4, "LoadImage", ["frame.png"], {}),
+            (5, "CLIPVisionEncode", [], {"clip_vision": (1, 3), "image": (4, 0)})]
+    src = 2
+    for i, (st, aug) in enumerate(((1.0, 0.1), (0.5, 0.1), (0.8, 0.3))[:entries]):
+        rows.append((6 + i, "unCLIPConditioning", [st, aug],
+                     {"conditioning": (src, 0), "clip_vision_output": (5, 0)}))
+        src = 6 + i
+    name_, sched, steps, cfg = sampler
+    rows += [(10, "EmptyLatentImage", [size, size, 1], {}),
+             (11, "KSampler", [IMAGE_SEED, "fixed", steps, cfg, name_, sched, 1.0],
+              {"model": (1, 0), "positive": (src, 0), "negative": (3, 0),
+               "latent_image": latent or (10, 0)}),
+             (12, "VAEDecode", [], {"samples": (11, 0), "vae": (1, 2)})]
+    if save:
+        rows.append((13, "SaveImage", ["unclip"], {"images": (12, 0)}))
+    return rows
+
+
+def grounded_rows(ckpt_name: str, grounded: bool = True, size: int = 512,
+                  sampler=("lcm", "sgm_uniform", 4, 2.0), latent=None, area=None) -> list:
+    """SD1.5's CheckpointLoaderSimple -> two prompts -> GLIGENLoader + two
+    GLIGENTextBoxApply boxes (when ``grounded``) -> CLIPVisionLoader +
+    CLIPVisionEncode of frame.png -> StyleModelLoader + StyleModelApply on
+    both conds (77 + 8 tokens: the plain CFG path batches them whole;
+    ``area``: ConditioningSetAreaStrength on the positive, the cond-list
+    path) -> KSampler on an empty ``size`` latent (or ``latent``) ->
+    VAEDecode. The node ids are the same with and without the boxes."""
+    rows = [(1, "CheckpointLoaderSimple", [ckpt_name], {}),
+            (2, "CLIPTextEncode", ["a cat and a dog in a garden, photograph"], {"clip": (1, 1)}),
+            (3, "CLIPTextEncode", ["blurry, lowres"], {"clip": (1, 1)}),
+            (7, "CLIPVisionLoader", ["clip_vision_l.safetensors"], {}),
+            (8, "LoadImage", ["frame.png"], {}),
+            (9, "CLIPVisionEncode", [], {"clip_vision": (7, 0), "image": (8, 0)}),
+            (10, "StyleModelLoader", ["style.safetensors"], {})]
+    pos = 2
+    if grounded:
+        q = size // 8
+        rows += [(4, "GLIGENLoader", ["gligen.safetensors"], {}),
+                 (5, "GLIGENTextBoxApply", ["a cat", size // 2, size // 2, q, q],
+                  {"conditioning_to": (2, 0), "clip": (1, 1), "gligen_textbox_model": (4, 0)}),
+                 (6, "GLIGENTextBoxApply", ["a dog", 3 * size // 8, size // 2, size // 2,
+                                            3 * q], {"conditioning_to": (5, 0), "clip": (1, 1),
+                                                     "gligen_textbox_model": (4, 0)})]
+        pos = 6
+    rows += [(11, "StyleModelApply", [], {"conditioning": (pos, 0), "style_model": (10, 0),
+                                          "clip_vision_output": (9, 0)}),
+             (12, "StyleModelApply", [], {"conditioning": (3, 0), "style_model": (10, 0),
+                                          "clip_vision_output": (9, 0)}),
+             (13, "EmptyLatentImage", [size, size, 1], {})]
+    pos = 11
+    if area is not None:
+        rows.append((16, "ConditioningSetAreaStrength", [area], {"conditioning": (11, 0)}))
+        pos = 16
+    name_, sched, steps, cfg = sampler
+    return rows + [(14, "KSampler", [IMAGE_SEED, "fixed", steps, cfg, name_, sched, 1.0],
+                    {"model": (1, 0), "positive": (pos, 0), "negative": (12, 0),
+                     "latent_image": latent or (13, 0)}),
+                   (15, "VAEDecode", [], {"samples": (14, 0), "vae": (1, 2)})]
+
+
+def image_graph_run(label: str, ex, loaders, want_k1: dict, card: str) -> dict:
+    """One warm execute of ``ex`` (the loads included), then IMAGE_TIMED
+    executes with only the ``loaders`` nodes' outputs kept, each under
+    k1_shape_tally (K1 by shape ``want_k1`` an execute), CLIPVisionEncode
+    timed on its own; one profiled execute's kernel time and busy share;
+    the peak device memory. Returns (summary, K1 tally of one execute, the
+    last execute's context)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_renderer_tpu_torch.workflow import executor as wex
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex.execute()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    encode = wex.NODE_REGISTRY["CLIPVisionEncode"]
+    vision_ms = []
+
+    def timed_encode(ctx, node, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = encode(ctx, node, **kw)
+        torch.cuda.synchronize()
+        vision_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def keep_loaders():
+        ex._cache = {n: ex._cache[n] for n in loaders}
+
+    times = []
+    wex.NODE_REGISTRY["CLIPVisionEncode"] = timed_encode
+    try:
+        for _ in range(IMAGE_TIMED):
+            keep_loaders()
+            zero_counts()
+            with k1_shape_tally() as seen:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ctx = ex.execute()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            if dict(seen) != want_k1:
+                fail(f"phase 26 {label}: an execute launched K1 by shape {dict(seen)}; "
+                     f"want {want_k1}")
+    finally:
+        wex.NODE_REGISTRY["CLIPVisionEncode"] = encode
+    peak = torch.cuda.max_memory_allocated()
+    keep_loaders()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex.execute()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if not device_ms > 0:
+        fail(f"phase 26 {label}: the profiled execute recorded no device time")
+    med = statistics.median(times)
+    # the busy share over the unprofiled median, as phase 25 takes it (the
+    # profiler slows the host)
+    out = {"warm_s": warm_s, "execute_ms": times, "median_ms": med,
+           "clip_vision_encode_ms": vision_ms, "profiled_execute_ms": prof_ms,
+           "profiled_kernel_ms": device_ms, "busy_share": device_ms / med,
+           "k1_by_shape": {str(k): n for k, n in seen.items()}, "k1_routes": k1_routes(seen),
+           "max_memory_allocated_gib": peak / 2 ** 30}
+    print(f"[26 {label}] first execute (loads included) {warm_s:.2f} s; {IMAGE_TIMED} executes "
+          f"{', '.join(f'{t_:.1f}' for t_ in times)} ms (median {med:.1f}); CLIPVisionEncode "
+          f"{', '.join(f'{t_:.1f}' for t_ in vision_ms)} ms; K1 an execute by (BH, Lq, Lk, d) "
+          f"{dict(seen)} ({out['k1_routes']}); one profiled execute ({prof_ms:.1f} ms): kernels "
+          f"{device_ms:.1f} ms (busy share {device_ms / med:.3f} of the median); "
+          f"max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB | {card}", flush=True)
+    return out, seen, ctx
+
+
+@contextlib.contextmanager
+def host_drawn_noise_aug():
+    """noise_aug's draws made on the CPU from the generator's seed and sent
+    to the tensor's device inside the block, so that a graph on the card
+    and on the CPU augments with the same numbers."""
+    import torch
+
+    from stable_renderer_tpu_torch.models import noise_aug
+
+    real_adm, real_q = noise_aug.unclip_adm, noise_aug.NoiseAugmentor.q_sample
+
+    def adm(entries, augmentor, generator=None, noise_augment_merge=0.05, noise=None):
+        if noise is None and generator is not None and entries:
+            g = torch.Generator().manual_seed(generator.initial_seed())
+            rows = sum(1 if e["embeds"].dim() == 1 else e["embeds"].shape[0] for e in entries)
+            noise = [torch.randn((1, augmentor.timestep_dim), generator=g)
+                     for _ in range(rows + (rows > 1))]
+        return real_adm(entries, augmentor, generator, noise_augment_merge, noise)
+
+    def q_sample(self, x, noise_level, generator=None, noise=None):
+        if noise is None and generator is not None:
+            noise = torch.randn(tuple(x.shape), generator=torch.Generator().manual_seed(
+                generator.initial_seed()))
+        return real_q(self, x, noise_level, generator, noise)
+
+    noise_aug.unclip_adm, noise_aug.NoiseAugmentor.q_sample = adm, q_sample
+    try:
+        yield
+    finally:
+        noise_aug.unclip_adm, noise_aug.NoiseAugmentor.q_sample = real_adm, real_q
+
+
+def image_conditioning_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
+    """Phase 26 (see the module docstring). ``ckpt`` is phase 20's SD1.5
+    file; the phase's own files go to a temporary directory under build/,
+    removed at the end."""
+    import os
+    from dataclasses import replace as dc_replace
+
+    import torch
+
+    from stable_renderer_tpu_torch.models.clip import SD2_CLIP_H_CONFIG
+    from stable_renderer_tpu_torch.models.clip_vision import (
+        VITH_CONFIG,
+        VITL_CONFIG,
+        CLIPVisionModel,
+    )
+    from stable_renderer_tpu_torch.models.t2i_adapter import StyleAdapterConfig
+    from stable_renderer_tpu_torch.models.unet import SD15_UNET_CONFIG
+    from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
+    from stable_renderer_tpu_torch.utils import paths
+    from stable_renderer_tpu_torch.workflow import Workflow
+    from stable_renderer_tpu_torch.workflow import executor as wex
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="image-", dir=root / "build"))
+    out = {}
+    t_phase = time.perf_counter()
+    saved_output_dir = paths.OUTPUT_DIR
+    paths.OUTPUT_DIR = tmp / "outputs"
+    try:
+        write_frame_png(tmp / "frame.png", SIZE, IMAGE_SEED)
+        gen = torch.Generator(device=dev).manual_seed(IMAGE_SEED)
+
+        # --- 26a. SD2.1-unclip-H at full width -------------------------------------------------
+        ucfg = dc_replace(SD15_UNET_CONFIG, context_dim=1024, head_dim=64, adm_in_channels=2048)
+        trees = family_trees("unclip", ucfg, None, SD2_CLIP_H_CONFIG, SD15_VAE_CONFIG, gen,
+                             torch.bfloat16, dev, vision=VITH_CONFIG)
+        flat = {p + k: v for p, t in trees.items() for k, v in flatten(t).items()}
+        del trees
+        t0 = time.perf_counter()
+        size = write_safetensors(flat, tmp / "unclip_h.safetensors")
+        write_s = time.perf_counter() - t0
+        n_vision = sum(v.numel() for k, v in flat.items() if k.startswith("embedder."))
+        del flat
+        torch.cuda.empty_cache()
+        print(f"[26 unclip] the SD2.1-unclip-H file: {size / 1e9:.2f} GB (bf16; ViT-H/14 "
+              f"{n_vision / 1e6:.0f} M parameters at embedder.model.visual.) written in "
+              f"{write_s:.1f} s | {card}", flush=True)
+        wf_path = tmp / "unclip.json"
+        wf_path.write_text(json.dumps(ui_workflow(unclip_rows("unclip_h.safetensors",
+                                                              UNCLIP_SIZE))))
+        ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(tmp),), device=dev)
+        out["unclip"], seen, ctx = image_graph_run("unclip", ex, (1,), UNCLIP_K1_SHAPES, card)
+        model, _, vae, cv = ex._cache[1]
+        img = ctx.final_output
+        if (model.get("family"), model.get("noise_aug_dim"), cv["model"].config) != (
+                "sd21-unclip", 1024, VITH_CONFIG) or model["params"]["time_embed"]["0"][
+                "weight"].device.type != "cuda":
+            fail(f"phase 26a: loaded family {model.get('family')}, noise_aug_dim "
+                 f"{model.get('noise_aug_dim')}, vision {cv['model'].config}")
+        if (tuple(img.shape) != (1, UNCLIP_SIZE, UNCLIP_SIZE, 3) or not torch.isfinite(img).all()
+                or float(img.std()) < 1e-3):
+            fail(f"phase 26a: image {tuple(img.shape)}, finite {bool(torch.isfinite(img).all())}")
+        y = ctx.outputs[7][0]["unclip"]
+        if len(y) != 2 or tuple(ctx.outputs[5][0]["image_embeds"].shape) != (1, 1024):
+            fail(f"phase 26a: {len(y)} unCLIP entries, embeds "
+                 f"{tuple(ctx.outputs[5][0]['image_embeds'].shape)}")
+        out["unclip"].update(file_gb=size / 1e9, write_s=write_s)
+        hold_new_k1_shapes(seen, 26, dev, card, k1)
+        del ex, model, vae, cv, ctx
+        torch.cuda.empty_cache()
+        exec_out = tmp / "cli_out"
+        (tmp / "color").mkdir()  # `execute` composes EngineData from one map directory at least
+        shutil.copy(tmp / "frame.png", tmp / "color" / "0000.png")
+        cmd = [sys.executable, "-m", "stable_renderer_tpu_torch", "execute", "--workflow",
+               str(wf_path), "--color-dir", str(tmp / "color"), "--model-dir", str(tmp),
+               "--out", str(exec_out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, SR_TPU_OUTPUT_DIR=str(tmp / "outputs")))
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0 or "1 frames -> " not in proc.stdout:
+            fail(f"phase 26a CLI execute exited {proc.returncode}: {' '.join(cmd)}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        frames = _png_frames(exec_out)
+        if len(frames) != 1 or frames[0].shape[:2] != (UNCLIP_SIZE, UNCLIP_SIZE):
+            fail(f"phase 26a CLI execute wrote {[f.shape for f in frames]}")
+        out["unclip"]["cli_execute_s"] = cli_s
+        print(f"[26 unclip CLI] python -m stable_renderer_tpu_torch execute --workflow <unCLIP "
+              f"graph> --model-dir <the file's dir>: exit 0 in {cli_s:.1f} s (process, imports "
+              f"and the 3.9 GB load included); one {UNCLIP_SIZE}x{UNCLIP_SIZE} frame | {card}",
+              flush=True)
+        (tmp / "unclip_h.safetensors").unlink()
+
+        # --- 26b. SD1.5 at 512x512, grounded and style-conditioned ----------------------------
+        model_dirs = (str(tmp), str(Path(ckpt).parent))
+        t0 = time.perf_counter()
+        nbytes = write_safetensors(gligen_flat(SD15_UNET_CONFIG, 768, gen, torch.bfloat16, dev),
+                                   tmp / "gligen.safetensors")
+        nbytes += write_safetensors(style_flat(StyleAdapterConfig(  # ViT-L's width, 1024
+            width=VITL_CONFIG.hidden_size, context_dim=768, num_head=8, n_layers=3, num_token=8),
+            gen, torch.bfloat16, dev), tmp / "style.safetensors")
+        nbytes += write_safetensors(flatten(CLIPVisionModel(VITL_CONFIG).init(
+            gen, dtype=torch.bfloat16, device=dev)), tmp / "clip_vision_l.safetensors")
+        print(f"[26 grounded files] GLIGEN (16 fusers, key width 768), the style adapter "
+              f"(width 1024, 3 layers, 8 tokens, transformer_layes. keys) and ViT-L/14: "
+              f"{nbytes / 1e9:.2f} GB bf16 in {time.perf_counter() - t0:.1f} s | {card}",
+              flush=True)
+        loaders = (1, 4, 7, 10)
+        runs = {}
+        for grounded in (True, False):
+            wf = tmp / f"sd15_{'grounded' if grounded else 'plain'}.json"
+            wf.write_text(json.dumps(ui_workflow(grounded_rows(Path(ckpt).name, grounded, SIZE))))
+            ex = wex.PromptExecutor(Workflow.Load(wf), model_dirs=model_dirs, device=dev)
+            if grounded:
+                out["grounded"], seen, ctx = image_graph_run("grounded sd15", ex, loaders,
+                                                             GLIGEN_K1_SHAPES, card)
+                gl = ex._cache[4][0]
+                n_fusers = len(transformer_blocks(SD15_UNET_CONFIG))
+                if gl.fuser_heads != [8] * n_fusers or len(ctx.outputs[6][0]["gligen"][2]) != 2 or (
+                        tuple(ctx.outputs[11][0]["context"].shape) != (1, 85, 768)):
+                    fail(f"phase 26b: fuser heads {gl.fuser_heads}, context "
+                         f"{tuple(ctx.outputs[11][0]['context'].shape)}")
+                hold_new_k1_shapes(seen, 26, dev, card, k1)
+                grounded_ex = ex
+            else:
+                ex._cache = {n: grounded_ex._cache[n] for n in (1, 7, 10)}  # the same loads
+                ctx = ex.execute()
+            runs[grounded] = ctx.outputs[15][0].float()
+        for f in gl.fusers:  # tanh(0) = 0: the fusers add exact zeros
+            f["alpha_attn"] = torch.zeros_like(f["alpha_attn"])
+            f["alpha_dense"] = torch.zeros_like(f["alpha_dense"])
+        grounded_ex._cache = {n: grounded_ex._cache[n] for n in loaders}
+        zeroed = grounded_ex.execute().outputs[15][0].float()
+        moved = float((runs[True] - runs[False]).abs().max())
+        if not (same_bits(zeroed, runs[False]) and moved > GROUNDED_MOVED_FLOOR
+                and torch.isfinite(runs[True]).all()):
+            fail(f"phase 26b: zero gates equal to the ungrounded image bit for bit "
+                 f"{same_bits(zeroed, runs[False])}; the file's gates moved it {moved:.3e} "
+                 f"(floor {GROUNDED_MOVED_FLOOR})")
+        out["grounded"].update(moved=moved, zero_gates_bit_equal=True)
+        print(f"[26 grounded] the fusers' gates zeroed: the image equals the ungrounded one bit "
+              f"for bit; the file's gates move it by {moved:.3e} (max abs, floor "
+              f"{GROUNDED_MOVED_FLOOR}) | {card}", flush=True)
+        del grounded_ex, ex, gl, ctx, runs, zeroed
+        torch.cuda.empty_cache()
+
+        # --- 26c. tiny graphs: the card against the CPU ---------------------------------------
+        out["tiny_graphs"] = tiny_image_graphs(dev, card, tmp / "tiny")
+    finally:
+        paths.OUTPUT_DIR = saved_output_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[26 image] phase 26 in {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
+def photomaker_tree(cfg, proj2: int, generator) -> dict:
+    """PhotoMaker's ID-encoder tree for a vision config (tests and phase
+    26c): the tower, its second projection (``proj2`` wide) and the
+    FuseModule over the two projections' width, drawn from ``generator``."""
+    import torch
+
+    from stable_renderer_tpu_torch.models.clip_vision import CLIPVisionModel
+
+    embed = cfg.projection_dim + proj2
+
+    def lin(i, o):
+        return {"weight": torch.randn((o, i), generator=generator) * 0.02,
+                "bias": torch.randn((o,), generator=generator) * 0.02}
+
+    def norm(c):
+        return {"weight": 1.0 + 0.1 * torch.randn((c,), generator=generator),
+                "bias": 0.1 * torch.randn((c,), generator=generator)}
+
+    def mlp(i, o, h):
+        return {"layernorm": norm(i), "fc1": lin(i, h), "fc2": lin(h, o)}
+
+    return {**CLIPVisionModel(cfg).init(generator),
+            "visual_projection_2": {"weight": torch.randn((proj2, cfg.hidden_size),
+                                                          generator=generator) * 0.02},
+            "fuse_module": {"mlp1": mlp(embed * 2, embed, embed), "mlp2": mlp(embed, embed, embed),
+                            "layer_norm": norm(embed)}}
+
+
+def tiny_image_graphs(dev, card: str, d: Path) -> dict:
+    """Phase 26c: tiny files written to ``d`` (f32) and the image-conditioned
+    graphs over them on the CPU and on the card, the loaded UNets and VAEs
+    widened to f32 after a first execute as loaded; the outputs within
+    REF_TOL. The KSampler's noise comes from EngineData's noise maps and
+    noise_aug draws on the host (host_drawn_noise_aug), so both devices take
+    the same numbers. Returns {graph: max abs err}."""
+    from dataclasses import replace
+
+    import torch
+
+    from stable_renderer_tpu_torch.data.engine_data import EngineData
+    from stable_renderer_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from stable_renderer_tpu_torch.models.sampling import ModelSampling
+    from stable_renderer_tpu_torch.models.t2i_adapter import StyleAdapterConfig
+    from stable_renderer_tpu_torch.models.unet import TINY_UNET_CONFIG, UNetModel
+    from stable_renderer_tpu_torch.models.vae import TINY_VAE_CONFIG, VAE
+    from stable_renderer_tpu_torch.models.weights import flatten, tree_to, write_safetensors
+    from stable_renderer_tpu_torch.workflow import Workflow
+    from stable_renderer_tpu_torch.workflow import executor as wex
+
+    f32, s = torch.float32, IMAGE_GRAPH_SIZE
+    d.mkdir()
+    write_frame_png(d / "frame.png", s, IMAGE_SEED)
+    for kind in ("unclip", "x4", "sd1", "sdxl"):
+        write_family_file(kind, d / f"{kind}.safetensors", f32)
+    g = torch.Generator().manual_seed(IMAGE_SEED)
+    vitl = CLIPVisionConfig(**VITL_TINY_VISION)
+    write_safetensors(gligen_flat(family_configs("sd1")[0], 768, g, f32), d / "gligen.safetensors")
+    write_safetensors(style_flat(StyleAdapterConfig(width=32, context_dim=768, num_head=8,
+                                                    n_layers=3, num_token=8), g, f32),
+                      d / "style.safetensors")
+    write_safetensors(flatten(CLIPVisionModel(vitl).init(g)), d / "clip_vision_l.safetensors")
+    # projections 32 + 992 = the tiny SDXL CLIP-L's 1024: the fuse path
+    write_safetensors({"id_encoder." + k: v for k, v in flatten(
+        photomaker_tree(vitl, 1024 - vitl.projection_dim, g)).items()},
+        d / "photomaker.safetensors")
+    zcfg = replace(TINY_UNET_CONFIG, in_channels=8)
+    zero123 = {"unet": UNetModel(zcfg), "params": UNetModel(zcfg).init(g),
+               "sampling": ModelSampling(),
+               "cc_projection": {"weight": torch.randn((zcfg.context_dim, 36), generator=g) * 0.1,
+                                 "bias": torch.randn((zcfg.context_dim,), generator=g) * 0.1}}
+    zvae = {"vae": VAE(TINY_VAE_CONFIG), "params": VAE(TINY_VAE_CONFIG).init(g)}
+    noise3 = torch.randn((3, s // 2, s // 2, 4), generator=g)
+    colors = torch.rand((3, s, s, 3), generator=g)
+
+    def widened(outs, device):
+        return tuple({**o, "params": tree_to(o["params"], device, f32)}
+                     if isinstance(o, dict) and "params" in o else o for o in outs)
+
+    latent = (20, 6)
+    euler = ("euler", "normal", 2, 2.0)
+    engine = [(20, "EngineData", [], {})]
+
+    def zero123_rows(batched):
+        cond = (["StableZero123_Conditioning_Batched", [s, s, 3, 10.0, 20.0, 5.0, 15.0]]
+                if batched else ["StableZero123_Conditioning", [s, s, 1, 10.0, 30.0]])
+        return [(1, "CheckpointLoaderSimple", ["zero123 (in the cache)"], {}),
+                (7, "CLIPVisionLoader", ["clip_vision_l.safetensors"], {}),
+                (8, "LoadImage", ["frame.png"], {}),
+                (4, *cond, {"clip_vision": (7, 0), "init_image": (8, 0), "vae": (1, 2)}),
+                *engine,
+                (5, "KSampler", [IMAGE_SEED, "fixed", 2, 2.5, "euler", "normal", 1.0],
+                 {"model": (1, 0), "positive": (4, 0), "negative": (4, 1),
+                  "latent_image": latent}),
+                (6, "VAEDecode", [], {"samples": (5, 0), "vae": (1, 2)})]
+
+    x4_rows = [(1, "CheckpointLoaderSimple", ["x4.safetensors"], {}),
+               (2, "CLIPTextEncode", ["a sharp photo"], {"clip": (1, 1)}),
+               (3, "CLIPTextEncode", ["blurry"], {"clip": (1, 1)}),
+               (8, "LoadImage", ["frame.png"], {}),
+               (4, "SD_4XUpscale_Conditioning", [2.0, 0.2],
+                {"images": (8, 0), "positive": (2, 0), "negative": (3, 0)}), *engine,
+               (5, "KSampler", [IMAGE_SEED, "fixed", 2, 2.0, "euler", "normal", 1.0],
+                {"model": (1, 0), "positive": (4, 0), "negative": (4, 1), "latent_image": latent}),
+               (6, "VAEDecode", [], {"samples": (5, 0), "vae": (1, 2)})]
+    photomaker_rows = [(1, "CheckpointLoaderSimple", ["sdxl.safetensors"], {}),
+                       (2, "PhotoMakerLoader", ["photomaker.safetensors"], {}),
+                       (8, "LoadImage", ["frame.png"], {}),
+                       (3, "PhotoMakerEncode", ["photograph of a man photomaker, smiling"],
+                        {"photomaker": (2, 0), "image": (8, 0), "clip": (1, 1)})]
+    # (label, family loaders, rows, loader ids, frames, the output compared)
+    graphs = [
+        ("zero123", "sd1", zero123_rows(False), (1, 7), 1, (6, None)),
+        ("zero123_batched", "sd1", zero123_rows(True), (1, 7), 3, (6, None)),
+        ("photomaker_sdxl", "sdxl", photomaker_rows, (1, 2), 1, (3, "context")),
+        ("x4_noise_aug_0.2", "x4", x4_rows, (1,), 1, (6, None)),
+        ("unclip_3_entries", "unclip",
+         unclip_rows("unclip.safetensors", s, 3, euler, latent, save=False) + engine, (1,), 1,
+         (12, None)),
+        ("style", "sd1", grounded_rows("sd1.safetensors", False, s, euler, latent) + engine,
+         (1, 7, 10), 1, (15, None)),
+        ("gligen_cfg", "sd1", grounded_rows("sd1.safetensors", True, s, euler, latent) + engine,
+         (1, 4, 7, 10), 1, (15, None)),
+        ("gligen_cond_list", "sd1",
+         grounded_rows("sd1.safetensors", True, s, euler, latent, area=0.7) + engine,
+         (1, 4, 7, 10), 1, (15, None)),
+    ]
+    errs = {}
+    for label, kind, rows, loaders, frames, (nid, key) in graphs:
+        wf_path = d / f"{label}.json"
+        wf_path.write_text(json.dumps(ui_workflow(rows)))
+        finals = []
+        with tiny_family_loaders(kind), host_drawn_noise_aug():
+            for device in (torch.device("cpu"), dev):
+                ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(d),),
+                                        device=device)
+                if label.startswith("zero123"):  # the model in the loader's cache slot
+                    ex._cache[1] = (tree_to_model(zero123, device), None,
+                                    tree_to_model(zvae, device))
+                ed = EngineData(frame_indices=torch.arange(frames),
+                                color_maps=colors[:frames].to(device),
+                                noise_maps=noise3[:frames].to(device),
+                                id_maps=torch.zeros((frames, s, s, 4), dtype=torch.int32,
+                                                    device=device))
+
+                def result(ctx):
+                    o = ctx.outputs[nid][0]
+                    return (o[key] if key else o).float()
+
+                first = result(ex.execute(engine_data=ed))
+                if not torch.isfinite(first).all():
+                    fail(f"phase 26c {label} on {device}: non-finite output as loaded")
+                ex._cache = {n: widened(ex._cache[n], device) for n in loaders}
+                finals.append(result(ex.execute(engine_data=ed)).cpu())
+        err = float((finals[1] - finals[0]).abs().max())
+        if not (torch.isfinite(finals[1]).all() and err < REF_TOL
+                and float(finals[1].std()) > 1e-3):
+            fail(f"phase 26c {label}: card against CPU max abs err {err:.3e} (tol {REF_TOL})")
+        errs[label] = err
+        print(f"[26 tiny] {label}: {len(rows)} nodes at {s}x{s}, the loaded models widened to "
+              f"f32: card against CPU max abs err {err:.3e} (tol {REF_TOL}) | {card}",
+              flush=True)
+    return errs
+
+
+def tree_to_model(model: dict, device) -> dict:
+    """A model dict with its tensors (params, cc_projection) on ``device``."""
+    from stable_renderer_tpu_torch.models.weights import tree_to
+
+    return {k: tree_to(v, device) if k in ("params", "cc_projection") else v
+            for k, v in model.items()}
 
 
 def hold_new_k1_shapes(launched, phase: int, dev, card: str, k1: dict) -> list:

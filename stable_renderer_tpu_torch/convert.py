@@ -2,7 +2,10 @@
 
 The two packages share the checkpoint layout (Linear (out, in), Conv
 (O, I, kH, kW), the same nested key names), so conversion is leaf by leaf with
-no renaming.
+no renaming: ``params_from_numpy`` carries any tree across (the UNet, the
+towers, the CLIP vision tower, the style adapter, PhotoMaker's projections
+and FuseModule). ``gligen_from_numpy`` rebuilds a GLIGEN patch, whose
+fusers and PositionNet are trees held by an object.
 """
 
 from __future__ import annotations
@@ -40,3 +43,15 @@ def _convert(tree, device: torch.device, dtype: Optional[torch.dtype]):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def gligen_from_numpy(fusers, fuser_heads, position_net, key_dim: int, device=None,
+                      dtype: Optional[torch.dtype] = None):
+    """A JAX ``Gligen``'s parts (its fuser trees by transformer index, their
+    head counts, the PositionNet tree and the key width) -> the port's
+    ``Gligen`` on ``device`` (default: the card)."""
+    from stable_renderer_tpu_torch.models.gligen import Gligen
+
+    return Gligen([params_from_numpy(f, device, dtype) for f in fusers],
+                  [int(h) for h in fuser_heads], params_from_numpy(position_net, device, dtype),
+                  int(key_dim))

@@ -17,8 +17,10 @@ switch a 3x3 conv that passes its gate runs on K3.
 
 The param tree mirrors the checkpoint names (conv_in, body.N.{in_conv,
 block1, block2, skep, down_opt.op}), so loading is re-nesting.
-``StyleAdapter`` and ``load_style_model`` need the CLIP vision tower and wait
-for ROADMAP 1.11b.
+
+``StyleAdapter`` (the T2I style model) maps the CLIP vision tower's tokens to
+a few context tokens appended to the text conditioning; ``load_style_model``
+reads its file.
 """
 
 from __future__ import annotations
@@ -28,7 +30,14 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
-from stable_renderer_tpu_torch.models.layers import avg_pool_2x, conv2d
+from stable_renderer_tpu_torch.models.layers import (
+    attention,
+    avg_pool_2x,
+    conv2d,
+    gelu_quick,
+    layer_norm,
+    linear,
+)
 
 
 @dataclass(frozen=True)
@@ -237,3 +246,104 @@ def load_t2i_adapter(flat: Mapping[str, Any]) -> Tuple[T2IAdapter, Dict[str, Any
         ksize=flat["body.0.block2.weight"].shape[2], sk=True,
         use_conv=any(k.endswith("down_opt.op.weight") for k in flat), xl=cin in (256, 768))
     return T2IAdapter(cfg), nest(flat, "")
+
+
+# ---------------------------------------------------------------------------
+# StyleAdapter (T2I style transfer)
+
+
+@dataclass(frozen=True)
+class StyleAdapterConfig:
+    """comfy/t2i_adapter/adapter.py:199-212 StyleAdapter defaults (the
+    released t2iadapter_style checkpoint: ViT-L vision width 1024, SD1
+    context 768, 3 residual attention layers)."""
+
+    width: int = 1024
+    context_dim: int = 768
+    num_head: int = 8
+    n_layers: int = 3
+    num_token: int = 4
+
+
+class StyleAdapter:
+    """A CLIP-style transformer mapping CLIP-vision tokens to ``num_token``
+    style context tokens appended to the text conditioning (adapter.py:199-233
+    StyleAdapter.forward; comfy/sd.py:383 StyleModel.get_cond). Input x is
+    the vision tower's last_hidden_state (B, 1+P, width); the learned style
+    tokens attend over it through ``n_layers`` pre-LN residual attention
+    blocks (QuickGELU MLP, packed qkv in_proj), then the last ``num_token``
+    rows are layer-normed and projected to the text context width."""
+
+    def __init__(self, config: StyleAdapterConfig = StyleAdapterConfig()):
+        self.config = config
+
+    def _block(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        n = layer_norm(p["ln_1"], x)
+        qkv = n @ p["attn"]["in_proj_weight"].to(x.dtype).T + p["attn"]["in_proj_bias"].to(x.dtype)
+        q, k, v = qkv.chunk(3, dim=-1)
+        x = x + linear(p["attn"]["out_proj"], attention(q, k, v, self.config.num_head))
+        h = gelu_quick(linear(p["mlp"]["c_fc"], layer_norm(p["ln_2"], x)))
+        return x + linear(p["mlp"]["c_proj"], h)
+
+    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1+P, width) vision tokens -> (B, num_token, context_dim)."""
+        cfg = self.config
+        style = params["style_embedding"].to(x.dtype).expand(x.shape[0], cfg.num_token, cfg.width)
+        x = layer_norm(params["ln_pre"], torch.cat([x, style], dim=1))
+        for i in range(cfg.n_layers):
+            x = self._block(params["layers"][str(i)], x)
+        x = layer_norm(params["ln_post"], x[:, -cfg.num_token:, :])
+        return x @ params["proj"].to(x.dtype)
+
+    def init(self, generator: Optional[torch.Generator] = None, dtype=torch.float32,
+             device=None) -> dict:
+        """Random init in the JAX package's shapes and scales: N(0, 0.02^2)
+        linears, zero biases, unit norms; the style embedding and the
+        projection N(0, 1 / width)."""
+        cfg = self.config
+
+        def randn(*shape, std=0.02):
+            return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+        def zeros(n):
+            return torch.zeros(n, dtype=dtype, device=device)
+
+        def lin(i, o):
+            return {"weight": randn(o, i), "bias": zeros(o)}
+
+        def ln():
+            return {"weight": torch.ones(cfg.width, dtype=dtype, device=device),
+                    "bias": zeros(cfg.width)}
+
+        w = cfg.width
+        layers = {str(i): {"ln_1": ln(), "ln_2": ln(),
+                           "attn": {"in_proj_weight": randn(3 * w, w),
+                                    "in_proj_bias": zeros(3 * w), "out_proj": lin(w, w)},
+                           "mlp": {"c_fc": lin(w, w * 4), "c_proj": lin(w * 4, w)}}
+                  for i in range(cfg.n_layers)}
+        return {"style_embedding": randn(1, cfg.num_token, w, std=w ** -0.5),
+                "ln_pre": ln(), "ln_post": ln(),
+                "proj": randn(w, cfg.context_dim, std=w ** -0.5), "layers": layers}
+
+
+def load_style_model(flat: Mapping[str, Any]) -> Tuple[StyleAdapter, Dict[str, Any]]:
+    """A style-adapter state dict -> (StyleAdapter, params), the file's
+    tensors nested. Takes both the upstream checkpoint's misspelled
+    ``transformer_layes.*`` keys and the corrected ``transformer_layers.*``
+    (adapter.py:216-219); 8 heads when the width divides by 8, else 1."""
+    from stable_renderer_tpu_torch.models.weights import nest
+
+    if "style_embedding" not in flat:
+        raise ValueError("not a style adapter state dict")
+    width = flat["style_embedding"].shape[-1]
+    layer_prefix = ("transformer_layes" if any(k.startswith("transformer_layes.") for k in flat)
+                    else "transformer_layers")
+    n_layers = 1 + max(int(k.split(".")[1]) for k in flat if k.startswith(layer_prefix + "."))
+    cfg = StyleAdapterConfig(width=width, context_dim=flat["proj"].shape[-1],
+                             num_head=8 if width % 8 == 0 else 1, n_layers=n_layers,
+                             num_token=flat["style_embedding"].shape[1])
+    nested = nest(flat, "")
+    params = {"style_embedding": nested["style_embedding"], "ln_pre": nested["ln_pre"],
+              "ln_post": nested["ln_post"], "proj": nested["proj"],
+              "layers": nested[layer_prefix]}
+    return StyleAdapter(cfg), params

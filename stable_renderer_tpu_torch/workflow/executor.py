@@ -924,19 +924,41 @@ def ksampler(
     y_pos = positive.get("y") if isinstance(positive, dict) else None
     y_neg = negative.get("y") if isinstance(negative, dict) else None
     if model.get("noise_aug_dim"):
-        raise NotImplementedError("the unCLIP ADM vector needs models/noise_aug.py, which waits "
-                                  "for ROADMAP 1.11b")
+        # SD2.1-unclip: unCLIPConditioning's entries folded into the ADM
+        # vector by the CLIP-embed noise augmentor (model_base.py:271-295);
+        # zeros without image conditioning. Both conds draw from the same
+        # seed, as the JAX package's one key serves both
+        from stable_renderer_tpu_torch.models import noise_aug
+
+        aug = noise_aug.NoiseAugmentor(timestep_dim=int(model["noise_aug_dim"]))
+        adm = []
+        for c in (positive, negative):
+            entries = c.get("unclip") if isinstance(c, dict) else None
+            adm.append(noise_aug.unclip_adm(entries, aug, _generator(ctx, abs(seed - 10)))
+                       if entries else torch.zeros((1, 2 * aug.timestep_dim), device=dev))
+        y_pos, y_neg = adm
     if (isinstance(positive, dict) and positive.get("concat_image") is not None
             and getattr(model["unet"].config, "num_classes", None)):
-        raise NotImplementedError("the SD x4 upscaler's noise-augmented image input needs "
-                                  "models/noise_aug.py, which waits for ROADMAP 1.11b")
+        # SD_X4Upscaler (model_base.py:454-479): the low-res image is
+        # noise-augmented at round(350 * noise_augmentation) on the linear
+        # schedule; the level feeds the class-embedding table as y
+        from stable_renderer_tpu_torch.models.noise_aug import NoiseAugmentor
+        from stable_renderer_tpu_torch.workflow.nodes_extra import _resize_image
+
+        img = _on(ctx, positive["concat_image"]).float()
+        if img.shape[1:3] != latent.shape[1:3]:
+            img = _resize_image(img, latent.shape[1], latent.shape[2], "bilinear")
+        aug_amt = float(positive.get("noise_augmentation", 0.0))
+        level = round(350 * aug_amt)
+        if aug_amt > 0:
+            x4_aug = NoiseAugmentor(timestep_dim=1, max_noise_level=350, schedule="linear")
+            img = x4_aug.q_sample(img, level, _generator(ctx, abs(seed - 10)))
+        concat_zm = neg_concat = img  # the reference attaches the same pixels to both conds
+        y_pos = y_neg = torch.full((1, 1), float(level), device=dev)
     if isinstance(positive, dict) and positive.get("stable_cascade_prior") is not None:
-        raise NotImplementedError("Stable Cascade's stage-B prior waits for ROADMAP 1.11")
-    if isinstance(positive, dict) and positive.get("gligen") is not None:
-        raise NotImplementedError("GLIGEN grounding needs models/gligen.py, which waits for "
-                                  "ROADMAP 1.11")
+        raise NotImplementedError("Stable Cascade's stage-B prior waits for ROADMAP 1.11c")
     if getattr(ms, "timestep_mode", "") in ("edm", "cascade"):
-        raise NotImplementedError("EDM and Stable Cascade timesteps wait for ROADMAP 1.11")
+        raise NotImplementedError("EDM and Stable Cascade timesteps wait for ROADMAP 1.11c")
     # inpaint: a latent-attached noise_mask restricts denoising to the hole
     noise_mask = latent_image.get("noise_mask") if is_dict else None
     if noise_mask is not None:
@@ -1042,6 +1064,13 @@ def ksampler(
         pre_all=patch_hooks.pre_all, pre_cross=patch_hooks.pre_cross,
         attn_all=patch_hooks.attn_all, out_block=patch_hooks.out_block,
         in_block=patch_hooks.in_block, in_block_after=patch_hooks.in_block_after)
+    gligen_spec = positive.get("gligen")
+    if gligen_spec is not None:
+        # grounded boxes -> the fusers' mid hook by transformer index
+        # (models/gligen.py); the plain CFG path applies it to positive rows
+        _, gl_model, gl_pos = gligen_spec
+        objs = gl_model.grounding_tokens(b, gl_pos, (lh, lw))
+        hooks = hooks._replace(mid=gl_model.make_mid_hook(objs))
     step_cb = (corresponder.make_step_callback(id_maps, log_sigmas, normal_maps)
                if use_corr else None)
     if use_progress:
@@ -1452,11 +1481,84 @@ def conditioning_zero_out(ctx: InferenceContext, node: WorkflowNode, conditionin
     return (cond,)
 
 
+# --- image conditioning: GLIGEN, the CLIP vision tower, unCLIP --------------------
+
+
+@register_node("GLIGENLoader")
+def gligen_loader(ctx: InferenceContext, node: WorkflowNode):
+    """A GLIGEN checkpoint (nodes.py GLIGENLoader; gligen.py load_gligen)."""
+    from stable_renderer_tpu_torch.models.gligen import load_gligen
+    from stable_renderer_tpu_torch.models.weights import load_state_dict
+
+    name = str(node.widgets[0]) if node.widgets else ""
+    path = _find_model_file(ctx, name)
+    if path is None:
+        raise FileNotFoundError(f"gligen checkpoint '{name}' not found")
+    return (load_gligen(load_state_dict(path), device=ctx.device),)
+
+
+@register_node("GLIGENTextBoxApply")
+def gligen_textbox_apply(ctx: InferenceContext, node: WorkflowNode, conditioning_to=None,
+                         conditioning=None, clip=None, gligen_textbox_model=None):
+    """Ground a phrase to a box (nodes.py GLIGENTextBoxApply): appends
+    (pooled phrase, h/8, w/8, y/8, x/8) to the cond's gligen position params,
+    read by the KSampler's mid hook. The pooled phrase is the mean of the
+    encoded chunk over its tokens, as the JAX package takes it."""
+    w = node.widgets
+    text = str(w[0]) if w else ""
+    bw = int(w[1]) if len(w) > 1 else 64
+    bh = int(w[2]) if len(w) > 2 else 64
+    bx = int(w[3]) if len(w) > 3 else 0
+    by = int(w[4]) if len(w) > 4 else 0
+    cond = conditioning_to or conditioning or {}
+    pooled = _encode_weighted(clip, [text], ctx.device)[0].mean(0)
+    prev = cond.get("gligen")
+    params = list(prev[2]) if prev else []
+    params.append((pooled, bh // 8, bw // 8, by // 8, bx // 8))
+    return ({**cond, "gligen": ("position", gligen_textbox_model, params)},)
+
+
+@register_node("CLIPVisionLoader")
+def clip_vision_loader(ctx: InferenceContext, node: WorkflowNode):
+    """A CLIP vision checkpoint (nodes.py CLIPVisionLoader; clip_vision.py
+    load), the file's dtypes kept."""
+    from stable_renderer_tpu_torch.models.clip_vision import load_clip_vision
+
+    name = str(node.widgets[0]) if node.widgets else ""
+    path = _find_model_file(ctx, name)
+    if path is None:
+        raise FileNotFoundError(f"clip vision checkpoint '{name}' not found")
+    model, params = load_clip_vision(path, device=ctx.device)
+    return ({"model": model, "params": params},)
+
+
+@register_node("CLIPVisionEncode")
+def clip_vision_encode(ctx: InferenceContext, node: WorkflowNode, clip_vision=None,
+                       image=None):
+    """Image -> the CLIP vision output (nodes.py CLIPVisionEncode;
+    clip_vision.py:71-80 encode_image), a dict of its three tensors."""
+    out = clip_vision["model"].encode_image(clip_vision["params"], _on(ctx, image))
+    return ({"last_hidden_state": out.last_hidden_state,
+             "penultimate_hidden_states": out.penultimate_hidden_states,
+             "image_embeds": out.image_embeds},)
+
+
+@register_node("unCLIPConditioning")
+def unclip_conditioning(ctx: InferenceContext, node: WorkflowNode, conditioning=None,
+                        clip_vision_output=None):
+    """Attach image-embed guidance to a conditioning (nodes.py
+    unCLIPConditioning): an {embeds, strength, noise_augmentation} entry,
+    which the KSampler folds into an unCLIP model's ADM vector."""
+    w = node.widgets
+    entry = {"embeds": clip_vision_output["image_embeds"],
+             "strength": float(w[0]) if w else 1.0,
+             "noise_augmentation": float(w[1]) if len(w) > 1 else 0.0}
+    cond = conditioning or {}
+    return ({**cond, "unclip": list(cond.get("unclip", [])) + [entry]},)
+
+
 # --- nodes that wait for later slices ------------------------------------------
 
-register_stubs(("GLIGENLoader", "GLIGENTextBoxApply"), "1.11", "models/gligen.py")
-register_stubs(("CLIPVisionLoader", "CLIPVisionEncode", "unCLIPConditioning"), "1.11",
-               "models/clip_vision.py")
 register_stubs(("ImageUpscaleWithModel", "UpscaleModelLoader"), "1.13",
                "the upscaler zoo (models/upscale.py)")
 

@@ -16,6 +16,8 @@ Counterpart of stable_renderer_tpu/workflow/nodes_extra.py, node for node
   * nodes_sag.py            — SelfAttentionGuidance.
   * nodes_perpneg.py        — Perp-Neg CFG.
   * nodes_differential_diffusion.py — per-step denoise-mask thresholding.
+  * nodes_stable3d.py       — StableZero123_Conditioning.
+  * nodes_photomaker.py     — PhotoMakerLoader / PhotoMakerEncode.
 
 Patches ride the MODEL dict as ``model["patches"]``, an ordered tuple of
 {"kind", "sig", ...} entries that the KSampler translates through
@@ -45,6 +47,8 @@ from stable_renderer_tpu_torch.workflow.executor import (
     InferenceContext,
     WorkflowNode,
     _find_model_file,
+    _generator,
+    _on,
     register_node,
     register_stubs,
 )
@@ -1009,8 +1013,8 @@ def sd_4x_upscale_conditioning(ctx: InferenceContext, node: WorkflowNode, images
                                positive=None, negative=None):
     """The x4 upscaler's conditioning: the image at a quarter of the target
     size in [-1, 1] on both conds, and an empty latent of that size. The
-    KSampler raises naming ROADMAP 1.11b on it (the x4 UNet's
-    noise-augmented input, models/noise_aug.py)."""
+    KSampler noise-augments the image (models/noise_aug.py) for the x4
+    UNet."""
     w = node.widgets
     scale_ratio = float(w[0]) if w else 4.0
     noise_aug = float(w[1]) if len(w) > 1 else 0.0
@@ -1106,7 +1110,161 @@ def cascade_stage_loader(ctx: InferenceContext, node: WorkflowNode):
 
 register_stubs(("ImageOnlyCheckpointLoader", "SVD_img2vid_Conditioning"), "1.11",
                "models/video_unet.py and models/clip_vision.py (SVD)")
-register_stubs(("StableZero123_Conditioning",), "1.11",
-               "models/clip_vision.py (the image embed)")
-register_stubs(("PhotoMakerLoader", "PhotoMakerEncode"), "1.11",
-               "models/clip_vision.py (PhotoMaker's ID encoder)")
+
+
+# ---------------------------------------------------------------------------
+# Stable Zero123 (nodes_stable3d.py: novel-view synthesis conditioning)
+
+
+def zero123_latent(clip_vision: dict, init_image: torch.Tensor, vae: dict, width: int,
+                   height: int):
+    """Zero123's image embed (1, 1, D) and the init image's latent: the
+    image bilinear-resized to (height, width) and VAE-encoded in the VAE's
+    dtype, the latent f32 (nodes_stable3d.py)."""
+    out = clip_vision["model"].encode_image(clip_vision["params"], init_image)
+    pooled = out.image_embeds[:1][:, None, :]
+    img = init_image[..., :3]
+    if tuple(img.shape[1:3]) != (height, width):
+        img = _resize_image(img, height, width, "bilinear")
+    dtype = vae["params"]["quant_conv"]["weight"].dtype
+    t = vae["vae"].encode(vae["params"], (img * 2.0 - 1.0).to(dtype)).float()
+    return pooled, t
+
+
+def zero123_camera(elevation: float, azimuth: float) -> list:
+    """Zero123's camera row: the polar offset, sin and cos of the azimuth,
+    a fixed 90 degrees (nodes_stable3d.py camera_embeddings)."""
+    return [math.radians((90.0 - elevation) - 90.0), math.sin(math.radians(azimuth)),
+            math.cos(math.radians(azimuth)), math.radians(90.0)]
+
+
+@register_node("StableZero123_Conditioning")
+def stable_zero123_conditioning(ctx: InferenceContext, node: WorkflowNode, clip_vision=None,
+                                init_image=None, vae=None):
+    """Zero123 novel-view conditioning (nodes_stable3d.py
+    StableZero123_Conditioning): the CLIP vision embed concatenated with the
+    camera row as the cross-attention context, the init image's latent as
+    c_concat. A Zero123 model's cc_projection (772 -> 768) is applied by the
+    KSampler."""
+    w = node.widgets
+    width = int(w[0]) if w else 256
+    height = int(w[1]) if len(w) > 1 else 256
+    batch_size = int(w[2]) if len(w) > 2 else 1
+    elevation = float(w[3]) if len(w) > 3 else 0.0
+    azimuth = float(w[4]) if len(w) > 4 else 0.0
+    pooled, t = zero123_latent(clip_vision, _on(ctx, init_image), vae, width, height)
+    cam = torch.tensor([[zero123_camera(elevation, azimuth)]], dtype=torch.float32,
+                       device=pooled.device)
+    pos = {"context": torch.cat([pooled, cam], dim=-1), "concat_latent_image": t}
+    neg = {"context": torch.zeros_like(pooled), "concat_latent_image": torch.zeros_like(t)}
+    latent = {"samples": torch.zeros((batch_size, t.shape[1], t.shape[2], 4),
+                                     device=ctx.device)}
+    return pos, neg, latent
+
+
+# ---------------------------------------------------------------------------
+# PhotoMaker (nodes_photomaker.py: identity-conditioned SDXL encoding)
+
+
+def _pm_mlp(p: dict, x: torch.Tensor, residual: bool) -> torch.Tensor:
+    """PhotoMaker's MLP: LayerNorm, fc1, GELU (the tanh form, jax.nn.gelu's
+    default in the JAX package), fc2, optional residual."""
+    from stable_renderer_tpu_torch.models.layers import layer_norm, linear
+
+    h = layer_norm(p["layernorm"], x)
+    h = linear(p["fc2"], F.gelu(linear(p["fc1"], h), approximate="tanh"))
+    return h + x if residual else h
+
+
+def photomaker_fuse(p: dict, prompt_embeds: torch.Tensor, id_embeds: torch.Tensor,
+                    token_index: int) -> torch.Tensor:
+    """FuseModule.fuse_fn and the scatter at the trigger token's position:
+    the class token's embedding becomes LN(mlp2(mlp1([token; id]) + token))."""
+    from stable_renderer_tpu_torch.models.layers import layer_norm
+
+    tok = prompt_embeds[:, token_index]
+    fused = _pm_mlp(p["mlp1"], torch.cat([tok, id_embeds.expand(tok.shape[0], -1)], -1),
+                    residual=False) + tok
+    fused = layer_norm(p["layer_norm"], _pm_mlp(p["mlp2"], fused, residual=True))
+    out = prompt_embeds.clone()
+    out[:, token_index] = fused
+    return out
+
+
+@register_node("PhotoMakerLoader")
+def photomaker_loader(ctx: InferenceContext, node: WorkflowNode):
+    """PhotoMaker's ID encoder: a ViT-L CLIP vision tower, two projections
+    (1024 -> 768 and 1024 -> 1280, concatenated to SDXL's 2048 width) and
+    the FuseModule (nodes_photomaker.py PhotoMakerIDEncoder), in f32.
+    Without the file: a tiny random encoder of the JAX package's shapes."""
+    from stable_renderer_tpu_torch.models.clip_vision import (
+        TINY_VISION_CONFIG,
+        VITL_CONFIG,
+        CLIPVisionModel,
+    )
+    from stable_renderer_tpu_torch.models.weights import load_state_dict, nest, tree_to
+
+    name = str(node.widgets[0]) if node.widgets else ""
+    path = _find_model_file(ctx, name)
+    if path:
+        flat = {k[len("id_encoder."):] if k.startswith("id_encoder.") else k: v
+                for k, v in load_state_dict(path).items()}
+        return ({"vision": CLIPVisionModel(VITL_CONFIG),
+                 "params": tree_to(nest(flat, ""), ctx.device, torch.float32)},)
+    logger.warning(f"photomaker '{name}' not found; tiny random encoder")
+    cfg = TINY_VISION_CONFIG
+    vis = CLIPVisionModel(cfg)
+    g = _generator(ctx, 0)
+    dev = ctx.device
+    embed = 2 * cfg.projection_dim
+
+    def lin(i, o):
+        return {"weight": torch.randn((o, i), generator=g, device=dev) * 0.02,
+                "bias": torch.zeros((o,), device=dev)}
+
+    def norm(c):
+        return {"weight": torch.ones((c,), device=dev), "bias": torch.zeros((c,), device=dev)}
+
+    def mlp(i, o, hdim):
+        return {"layernorm": norm(i), "fc1": lin(i, hdim), "fc2": lin(hdim, o)}
+
+    params = {
+        **vis.init(g, device=dev),
+        "visual_projection_2": {"weight": torch.randn((cfg.projection_dim, cfg.hidden_size),
+                                                      generator=g, device=dev) * 0.02},
+        "fuse_module": {"mlp1": mlp(embed * 2, embed, embed), "mlp2": mlp(embed, embed, embed),
+                        "layer_norm": norm(embed)},
+    }
+    return ({"vision": vis, "params": params},)
+
+
+@register_node("PhotoMakerEncode")
+def photomaker_encode(ctx: InferenceContext, node: WorkflowNode, photomaker=None, image=None,
+                      clip=None):
+    """Encode a prompt whose 'photomaker' trigger word's embedding is
+    replaced by the fused identity embedding of the reference image
+    (nodes_photomaker.py PhotoMakerEncode). The trigger's word index stands
+    for its token index, as in the JAX package."""
+    from stable_renderer_tpu_torch.workflow.executor import _encode_weighted
+
+    text = str(node.widgets[0]) if node.widgets else "photograph of photomaker"
+    words = text.split(" ")
+    index = words.index("photomaker") + 1 if "photomaker" in words else -1
+    clean = " ".join(w for w in words if w != "photomaker")
+    cond = _encode_weighted(clip, [clean or text], ctx.device)
+    if index <= 0 or photomaker is None or image is None:
+        return ({"context": cond},)
+    p = photomaker["params"]
+    out = photomaker["vision"].encode_image(p, _on(ctx, image))
+    # the two projections concatenated; encode_image applied the first
+    id2 = out.last_hidden_state[:, 0] @ p["visual_projection_2"]["weight"].T
+    id_embeds = torch.cat([out.image_embeds, id2], -1)[:1]
+    token_index = min(index - 1, cond.shape[1] - 1)
+    if id_embeds.shape[-1] != cond.shape[-1]:
+        # a text tower of another width: the id embed tiled onto it, blended
+        reps = -(-cond.shape[-1] // id_embeds.shape[-1])
+        id_embeds = id_embeds.repeat(1, reps)[:, : cond.shape[-1]]
+        fused = cond.clone()
+        fused[:, token_index] = 0.5 * cond[:, token_index] + 0.5 * id_embeds
+        return ({"context": fused},)
+    return ({"context": photomaker_fuse(p["fuse_module"], cond, id_embeds, token_index)},)

@@ -20,10 +20,12 @@ clip_sdxl,cond,canny,post_processing,stable_cascade,stable3d}.py):
   * advanced model patches — ModelSamplingDiscrete, RescaleCFG,
     PatchModelAddDownscale.
 
-The nodes whose only work is a model of ROADMAP 1.11b or 1.11c (unCLIP and
-CLIP-vision checkpoints, style models, the EDM and Stable Cascade schedules
-and stages, Zero123) raise NotImplementedError naming 1.11 and the JAX
-package's module.
+  * image conditioning — unCLIPCheckpointLoader, StyleModelLoader,
+    StyleModelApply, StableZero123_Conditioning_Batched.
+
+The nodes whose only work is a model of ROADMAP 1.11c (the EDM and Stable
+Cascade schedules and stages) raise NotImplementedError naming 1.11 and the
+JAX package's module.
 
 All tensors are NHWC torch tensors on the executor's device; LATENT values
 are the same {"samples": ...} dicts the rest of the executor uses. Files
@@ -52,7 +54,12 @@ from stable_renderer_tpu_torch.workflow.executor import (
     register_stubs,
     widget as _widget,
 )
-from stable_renderer_tpu_torch.workflow.nodes_extra import _add_patch, _resize_image
+from stable_renderer_tpu_torch.workflow.nodes_extra import (
+    _add_patch,
+    _resize_image,
+    zero123_camera,
+    zero123_latent,
+)
 
 logger = get_logger("sr_tpu_torch.nodes_parity")
 
@@ -748,8 +755,39 @@ def checkpoint_loader_config(ctx: InferenceContext, node: WorkflowNode):
     return checkpoint_loader(ctx, inner)
 
 
-register_stubs(("unCLIPCheckpointLoader",), "1.11",
-               "models/clip_vision.py and models/noise_aug.py")
+@register_node("unCLIPCheckpointLoader")
+def unclip_checkpoint_loader(ctx: InferenceContext, node: WorkflowNode):
+    """An unCLIP checkpoint -> (MODEL, CLIP, VAE, CLIP_VISION) (nodes.py
+    unCLIPCheckpointLoader). The embedded CLIP vision tower is read from
+    ``embedder.model.visual.*`` in the transformers layout only, as the JAX
+    package reads it: any other layout (open_clip's ``transformer.resblocks``)
+    warns and, like a missing file, falls back to the tiny random tower."""
+    from stable_renderer_tpu_torch.models.clip_vision import (
+        TINY_VISION_CONFIG,
+        CLIPVisionModel,
+        detect_vision_config,
+    )
+    from stable_renderer_tpu_torch.models.weights import load_state_dict, nest, tree_to
+    from stable_renderer_tpu_torch.workflow.executor import checkpoint_loader
+
+    model, clip, vae = checkpoint_loader(ctx, node)
+    path = _find_model_file(ctx, str(_widget(node, 0, "")))
+    clip_vision = None
+    if path is not None:
+        prefix = "embedder.model.visual."
+        sub = {k[len(prefix):]: v for k, v in load_state_dict(path).items()
+               if k.startswith(prefix)}
+        cfg = detect_vision_config(sub.keys()) if sub else None
+        if cfg is not None:
+            clip_vision = {"model": CLIPVisionModel(cfg),
+                           "params": tree_to(nest(sub, ""), ctx.device)}
+        elif sub:
+            logger.warning("unCLIP embedder layout unrecognized; "
+                           "load a CLIP vision checkpoint separately")
+    if clip_vision is None:
+        m = CLIPVisionModel(TINY_VISION_CONFIG)
+        clip_vision = {"model": m, "params": m.init(_generator(ctx, 5), device=ctx.device)}
+    return model, clip, vae, clip_vision
 
 
 @register_node("DiffusersLoader")
@@ -786,8 +824,49 @@ def diffusers_loader(ctx: InferenceContext, node: WorkflowNode):
     return model, clip, vae
 
 
-register_stubs(("StyleModelLoader", "StyleModelApply"), "1.11",
-               "models/t2i_adapter.py's StyleAdapter and models/clip_vision.py")
+@register_node("StyleModelLoader")
+def style_model_loader(ctx: InferenceContext, node: WorkflowNode):
+    """A T2I style adapter (nodes.py StyleModelLoader; sd.py:383
+    StyleModel), the file's dtypes kept; without the file, a tiny random
+    one (width 64, context 32)."""
+    from stable_renderer_tpu_torch.models.t2i_adapter import (
+        StyleAdapter,
+        StyleAdapterConfig,
+        load_style_model,
+    )
+    from stable_renderer_tpu_torch.models.weights import load_state_dict, tree_to
+
+    name = str(_widget(node, 0, ""))
+    path = _find_model_file(ctx, name)
+    if path is None:
+        logger.warning(f"style model '{name}' not found; tiny random")
+        sa = StyleAdapter(StyleAdapterConfig(width=64, context_dim=32, num_head=4, n_layers=2,
+                                             num_token=4))
+        return ({"model": sa, "params": sa.init(_generator(ctx, 6), device=ctx.device)},)
+    sa, params = load_style_model(load_state_dict(path))
+    return ({"model": sa, "params": tree_to(params, ctx.device)},)
+
+
+def _vision_tokens(clip_vision_output) -> torch.Tensor:
+    """The vision tower's last hidden state: CLIPVisionEncode's dict entry,
+    or the attribute of a VisionOutput (the JAX node reads the attribute
+    only, and so fails on CLIPVisionEncode's dict: ROADMAP queue 3)."""
+    if isinstance(clip_vision_output, dict):
+        return clip_vision_output["last_hidden_state"]
+    return clip_vision_output.last_hidden_state
+
+
+@register_node("StyleModelApply")
+def style_model_apply(ctx: InferenceContext, node: WorkflowNode, conditioning=None,
+                      style_model=None, clip_vision_output=None):
+    """Append the style tokens to the text context on the token axis
+    (nodes.py StyleModelApply: torch.cat((t, style_cond), dim=1)), computed
+    in f32 from the vision tokens."""
+    tokens = style_model["model"].apply(style_model["params"],
+                                        _on(ctx, _vision_tokens(clip_vision_output)).float())
+    ctx_t = conditioning["context"]
+    tokens = tokens[:1].expand((ctx_t.shape[0],) + tuple(tokens.shape[1:]))
+    return ({**conditioning, "context": torch.cat([ctx_t, tokens.to(ctx_t.dtype)], dim=1)},)
 
 
 @register_node("DiffControlNetLoader")
@@ -887,5 +966,31 @@ def patch_model_add_downscale(ctx: InferenceContext, node: WorkflowNode, model=N
 
 register_stubs(("StableCascade_StageC_VAEEncode",), "1.11",
                "models/cascade.py (the Stage C encoder)")
-register_stubs(("StableZero123_Conditioning_Batched",), "1.11",
-               "models/clip_vision.py (the image embed)")
+
+
+@register_node("StableZero123_Conditioning_Batched")
+def stable_zero123_conditioning_batched(ctx: InferenceContext, node: WorkflowNode,
+                                        clip_vision=None, init_image=None, vae=None):
+    """Batched Zero123 conditioning (nodes_stable3d.py:56-99): one camera
+    row a batch entry, stepped by the elevation and azimuth increments;
+    batch_index pinned to 0 so every view shares the noise seed."""
+    width = _widget(node, 0, 256, int)
+    height = _widget(node, 1, 256, int)
+    batch_size = _widget(node, 2, 1, int)
+    elevation = _widget(node, 3, 0.0, float)
+    azimuth = _widget(node, 4, 0.0, float)
+    elev_inc = _widget(node, 5, 0.0, float)
+    azim_inc = _widget(node, 6, 0.0, float)
+    pooled, t = zero123_latent(clip_vision, _on(ctx, init_image), vae, width, height)
+    cam = torch.tensor([zero123_camera(elevation + elev_inc * i, azimuth + azim_inc * i)
+                        for i in range(batch_size)], dtype=torch.float32,
+                       device=pooled.device)[:, None, :]
+    cond_ctx = torch.cat([pooled.expand(batch_size, 1, pooled.shape[-1]), cam], dim=-1)
+    t_b = _repeat_to_batch(t, batch_size)
+    positive = {"context": cond_ctx, "controls": [], "concat_latent_image": t_b,
+                "prompt": "zero123"}
+    negative = {"context": torch.zeros_like(cond_ctx), "controls": [],
+                "concat_latent_image": torch.zeros_like(t_b), "prompt": ""}
+    latent = {"samples": torch.zeros((batch_size, height // 8, width // 8, 4), device=ctx.device),
+              "batch_index": [0] * batch_size}
+    return positive, negative, latent

@@ -366,30 +366,71 @@ def test_ksampler_cond_list_matches_jax(monkeypatch):
     assert_close(pctx.outputs[10][0], jctx.outputs[10][0])
 
 
-def test_ksampler_without_engine_data_and_unported_branches():
-    """Inputs that need a later item raise naming it through the KSampler:
-    unCLIP's ADM vector and the x4 upscaler's noise-augmented image, both
-    models/noise_aug.py of ROADMAP 1.11b."""
-    spec = [LOADER, (2, "CLIPTextEncode", ["x"], {"clip": (1, 1)}),
-            (3, "EmptyLatentImage", [16, 16, 1], {}),
-            (10, "KSampler", [0, "fixed", 2, 2.0, "euler", "normal", 1.0],
-             {"model": (1, 0), "positive": (2, 0), "negative": (2, 0), "latent_image": (3, 0)})]
-    _, pwf = graphs(spec)
-    ex = pe.PromptExecutor(pwf, device="cpu")
-    ex.execute()  # the fallback models, no engine data: runs
-    model = ex._cache[1][0]
-    ex._cache[1] = ({**model, "noise_aug_dim": 512},) + ex._cache[1][1:]
-    del ex._cache[10]
-    with pytest.raises(pe.NodeExecutionError, match=r"noise_aug\.py.*ROADMAP 1\.11b"):
-        ex.execute()
-    # the x4 layout: a class-table UNet and a positive carrying concat_image
+def test_ksampler_without_engine_data_and_unported_branches(monkeypatch):
+    """The KSampler without engine data, on the fallback models, and the
+    inputs that take models/noise_aug.py, against JAX with its draws handed
+    in: unCLIP's ADM vector (a UNet with a 16-wide ADM: two image entries on
+    the positive, the merge path; zeros for the negative, which has none)
+    and the x4 layout (a class-table UNet of 7 input channels; a 12x20 image
+    resized to the latent and noise-augmented at 0.2). A Stable Cascade
+    prior and EDM timesteps raise naming ROADMAP 1.11c."""
+    from test_torch_nodes_parity import as_jax, jax_config
+    from test_torch_noise_aug import jax_aug_noise
+
+    import stable_renderer_tpu.models as jm
+    from stable_renderer_tpu_torch.models.sampling import ModelSampling
     from stable_renderer_tpu_torch.models.unet import UNetModel
 
-    x4 = UNetModel(replace(model["unet"].config, num_classes=350))
-    ex._cache[1] = ({**model, "unet": x4},) + ex._cache[1][1:]
-    ex._cache[2] = ({**ex._cache[2][0], "concat_image": torch.zeros(1, 16, 16, 3)},)
-    with pytest.raises(pe.NodeExecutionError, match=r"x4 upscaler.*noise_aug\.py.*ROADMAP 1\.11b"):
-        ex.execute()
+    spec = [LOADER, (2, "CLIPTextEncode", ["x"], {"clip": (1, 1)}),
+            (3, "EmptyLatentImage", [64, 64, 1], {}),
+            (10, "KSampler", [0, "fixed", 2, 2.0, "euler", "normal", 1.0],
+             {"model": (1, 0), "positive": (2, 0), "negative": (2, 0), "latent_image": (3, 0)})]
+    jctx, pctx, jex, pex = run_both(spec, monkeypatch, seeds=(0,))  # no engine data: runs
+    assert_close(pctx.outputs[10][0], jctx.outputs[10][0])
+    jax_aug_noise(monkeypatch)
+    model = pex._cache[1][0]
+    embeds = RNG.standard_normal((2, 8)).astype(F32)
+    variants = {
+        "unclip": (dict(adm_in_channels=16), {"noise_aug_dim": 8},
+                   {"unclip": [{"embeds": embeds[:1], "strength": 1.0, "noise_augmentation": 0.1},
+                               {"embeds": embeds[1], "strength": 0.5,
+                                "noise_augmentation": 0.3}]}),
+        "x4": (dict(in_channels=7, num_classes=350), {},
+               {"concat_image": RNG.uniform(-1, 1, (1, 12, 20, 3)).astype(F32),
+                "noise_augmentation": 0.2}),
+    }
+    for name, (ucfg, extra, cond_extra) in variants.items():
+        unet = UNetModel(replace(model["unet"].config, **ucfg))
+        params = unet.init(torch.Generator().manual_seed(3))
+        for mod, ex in ((je, jex), (pe, pex)):
+            m, c, v = ex._cache[1]
+            if mod is je:
+                m = {**m, "unet": jm.UNetModel(jax_config(jm.UNetConfig, unet.config)),
+                     "params": as_jax(params), **extra}
+            else:
+                m = {**m, "unet": unet, "params": params, **extra}
+            ex._cache[1] = (m, c, v)
+            cond = ex._cache[2][0]
+            ex._cache[2] = ({**cond, **_for(mod, cond_extra)},)
+            del ex._cache[10]
+        jo, po = jex.execute().outputs, pex.execute().outputs
+        assert_close(po[10][0], jo[10][0])
+        moved = float((po[10][0]["samples"] - pctx.outputs[10][0]["samples"]).abs().max())
+        assert moved > 1e-3, name
+        for ex in (jex, pex):
+            ex._cache[2] = ({k: v for k, v in ex._cache[2][0].items() if k not in cond_extra},)
+    # the 1.11c inputs raise in the port
+    pex._cache[1] = ({**model},) + pex._cache[1][1:]
+    del pex._cache[10]
+    pex._cache[2] = ({**pex._cache[2][0], "stable_cascade_prior": torch.zeros(1, 4, 4, 16)},)
+    with pytest.raises(pe.NodeExecutionError, match=r"Stable Cascade.*ROADMAP 1\.11c"):
+        pex.execute()
+    pex._cache[2] = ({k: v for k, v in pex._cache[2][0].items()
+                      if k != "stable_cascade_prior"},)
+    edm = type("EDMSampling", (ModelSampling,), {"timestep_mode": "edm"})()
+    pex._cache[1] = ({**model, "sampling": edm},) + pex._cache[1][1:]
+    with pytest.raises(pe.NodeExecutionError, match=r"EDM.*ROADMAP 1\.11c"):
+        pex.execute()
 
 
 def test_engine_data_node_needs_engine_data():

@@ -6,8 +6,10 @@ _Models nodes, the comparisons). Pure tensor nodes and the schedules agree
 within PURE (1e-6); SamplerCustom and the merges within TOL; the saves
 write files that hold the same tensors bit for bit as JAX's, and a
 CheckpointSave of the port loads through JAX's load_checkpoint leaf for
-leaf. The nodes whose only work is a model of ROADMAP 1.11 raise naming
-it. Last, the registry walk: no stub of the port names ROADMAP 1.12b.
+leaf. Zero123 and PhotoMaker take the same tiny towers in both packages
+(the _Const pairs) or a written file. The nodes whose only work is a model
+of ROADMAP 1.11c raise naming 1.11. Last, the registry walk: no stub of the
+port names ROADMAP 1.12b.
 """
 
 from __future__ import annotations
@@ -23,14 +25,17 @@ from test_torch_nodes_parity import (  # noqa: F401  (fixtures used by name)
     assert_raises_1_11,
     bits,
     const_nodes,
+    image_model_files,
     load_both,
     models,
     node_spec,
     output_dirs,
+    photomaker_pair,
     run_node,
     same,
     same_tree_bits,
     tiny_sd15,
+    vision_pair,
 )
 
 import stable_renderer_tpu.workflow.executor as je
@@ -49,10 +54,12 @@ CONSTS.update({
     "sampler_2m": {"name": "dpmpp_2m", "extra": {}},
     "karras4": np.asarray([14.614642, 4.3, 1.0, 0.2, 0.0], F32),
     "latent_8": {"samples": RNG.standard_normal((1, 8, 8, 4)).astype(F32)},
+    "vision": vision_pair(),
+    "photomaker": photomaker_pair(),        # projections 32 + 32 = the 64-wide CLIP-L
+    "photomaker_narrow": photomaker_pair(proj2=16),  # 48 wide: tiled and blended
 })
 
-RAISES = ("ImageOnlyCheckpointLoader", "SVD_img2vid_Conditioning",
-          "StableZero123_Conditioning", "PhotoMakerLoader", "PhotoMakerEncode")
+RAISES = ("ImageOnlyCheckpointLoader", "SVD_img2vid_Conditioning")
 
 # (node type, widgets, inputs, tolerance)
 CASES = [
@@ -92,6 +99,17 @@ CASES = [
     ("StableCascade_EmptyLatentImage", [1024, 768, 42, 2], {}, PURE),
     ("StableCascade_StageB_Conditioning", [], {"conditioning": "cond", "stage_c": "latent"},
      PURE),
+    # image conditioning; a fifth entry names the fixture whose directory of
+    # files the loader reads
+    ("StableZero123_Conditioning", [32, 24, 2, 10.0, 30.0],
+     {"clip_vision": "vision", "init_image": "image2", "vae": ("m0", 2)}, TOL),
+    ("PhotoMakerLoader", ["photomaker.safetensors"], {}, PURE, "image_model_files"),
+    ("PhotoMakerEncode", ["photograph of a man photomaker, smiling"],
+     {"photomaker": "photomaker", "image": "image", "clip": ("xl", 1)}, TOL),
+    ("PhotoMakerEncode", ["photomaker portrait"],
+     {"photomaker": "photomaker_narrow", "image": "image_b2", "clip": ("m0", 1)}, TOL),
+    ("PhotoMakerEncode", ["a plain photograph"],
+     {"photomaker": "photomaker", "image": "image", "clip": ("m0", 1)}, TOL),
 ]
 SAMPLER_NODES = ("SamplerCustom",)
 FILE_NODES = ("CheckpointSave", "CLIPSave", "VAESave", "ImageOnlyCheckpointSave",
@@ -103,8 +121,9 @@ def _case_id(case):
 
 
 @pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
-def test_node_matches_jax(monkeypatch, case):
-    run_node(*case[:3], monkeypatch, tol=case[3])
+def test_node_matches_jax(monkeypatch, request, case):
+    run_node(*case[:3], monkeypatch, tol=case[3],
+             model_dirs=[request.getfixturevalue(f) for f in case[4:]])
 
 
 @pytest.mark.parametrize("name", RAISES)
@@ -230,15 +249,15 @@ def test_unet_loader_matches_jax_and_cascade_stages_raise(tmp_path, tiny_sd15):
 
 
 def test_no_stub_names_1_12b_and_every_stub_names_its_item():
-    """The registry walk: 19 stubs, 17 naming ROADMAP 1.11 (1.11b and 1.11c's
-    models) and 2 naming 1.13, and none 1.12b; every stub's message ends
-    with its item."""
+    """The registry walk: 7 stubs, 5 naming ROADMAP 1.11 (1.11c's models:
+    EDM, Stable Cascade and SVD) and 2 naming 1.13, and none 1.12b; every
+    stub's message ends with its item."""
     from stable_renderer_tpu_torch.workflow.loader import WorkflowNode as PNode
 
     stubs = {n: f.roadmap_item for n, f in pe.NODE_REGISTRY.items()
              if hasattr(f, "roadmap_item")}
     assert "1.12b" not in stubs.values()
-    assert sorted(stubs.values()).count("1.11") == 17 and len(stubs) == 19
+    assert sorted(stubs.values()).count("1.11") == 5 and len(stubs) == 7
     for name, item in stubs.items():
         node = PNode(id=1, type=name, widgets=[], inputs={}, output_names=[])
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):

@@ -9,8 +9,13 @@ tensor nodes agree within PURE (1e-6); model nodes within
 test_torch_executor.py's TOL; loaders on files written here, and the file
 round trips (.latent both ways, animated saves), bit for bit. ``_Models``
 also hands in tiny dual-tower CLIPs (CLIP-L + CLIP-G, and G alone for the
-refiner) for the SDXL encode nodes. The nodes whose only work is a model of
-ROADMAP 1.11b or 1.11c raise NotImplementedError naming 1.11. The helpers here serve tests/test_torch_nodes_extra_rest.py
+refiner) for the SDXL encode nodes. The image-conditioning nodes take the
+same tiny CLIP vision tower, style adapter and PhotoMaker encoder in both
+packages (``vision_pair``, ``style_pair``, ``photomaker_pair``: the port's
+inits copied into JAX's) and their loaders files written by
+``image_model_files``. The nodes whose only work is a model of ROADMAP
+1.11c raise NotImplementedError naming 1.11. The helpers here serve
+tests/test_torch_nodes_extra_rest.py and tests/test_torch_image_conditioning.py
 too.
 """
 
@@ -145,6 +150,109 @@ def dual_clip_pair(g_only: bool, seed: int = 4):
     if g_only:
         port["g_only"] = jax_clip["g_only"] = True
     return Pair(jax_clip, port)
+
+
+def vision_pair(cfg=None, seed: int = 5):
+    """A CLIP vision tower of both packages, {"model", "params"}: the
+    port's init of ``cfg`` (default the tiny one) from a generator seeded
+    with ``seed``, copied into JAX's."""
+    import stable_renderer_tpu.models.clip_vision as jcv
+
+    from stable_renderer_tpu_torch.models import clip_vision as pcv
+
+    cfg = cfg or pcv.TINY_VISION_CONFIG
+    m = pcv.CLIPVisionModel(cfg)
+    p = m.init(torch.Generator().manual_seed(seed))
+    return Pair({"model": jcv.CLIPVisionModel(jax_config(jcv.CLIPVisionConfig, cfg)),
+                 "params": as_jax(p)}, {"model": m, "params": p})
+
+
+def vision_output_pair(seed: int = 6, tokens: int = 5, width: int = 64, proj: int = 32):
+    """A VisionOutput of both packages from one numpy draw."""
+    import stable_renderer_tpu.models.clip_vision as jcv
+
+    from stable_renderer_tpu_torch.models import clip_vision as pcv
+
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(F32) for s in ((1, tokens, width),
+                                                          (1, tokens, width), (1, proj))]
+    return Pair(jcv.VisionOutput(*map(jnp.asarray, arrs)),
+                pcv.VisionOutput(*(torch.from_numpy(a) for a in arrs)))
+
+
+def style_pair(seed: int = 7, context_dim: int = 32):
+    """A tiny style adapter of both packages (width 64, 4 heads, 2 layers, 4
+    tokens), the port's init copied into JAX's."""
+    import stable_renderer_tpu.models.t2i_adapter as jt2i
+
+    from stable_renderer_tpu_torch.models import t2i_adapter as pt2i
+
+    cfg = pt2i.StyleAdapterConfig(width=64, context_dim=context_dim, num_head=4, n_layers=2,
+                                  num_token=4)
+    m = pt2i.StyleAdapter(cfg)
+    p = m.init(torch.Generator().manual_seed(seed))
+    return Pair({"model": jt2i.StyleAdapter(jax_config(jt2i.StyleAdapterConfig, cfg)),
+                 "params": as_jax(p)}, {"model": m, "params": p})
+
+
+def photomaker_pair(proj2: int = 32, seed: int = 8):
+    """A tiny PhotoMaker encoder of both packages, {"vision", "params"}."""
+    from chip_smoke import photomaker_tree
+
+    import stable_renderer_tpu.models.clip_vision as jcv
+
+    from stable_renderer_tpu_torch.models import clip_vision as pcv
+
+    cfg = pcv.TINY_VISION_CONFIG
+    p = photomaker_tree(cfg, proj2, torch.Generator().manual_seed(seed))
+    return Pair({"vision": jcv.CLIPVisionModel(jax_config(jcv.CLIPVisionConfig, cfg)),
+                 "params": as_jax(p)}, {"vision": pcv.CLIPVisionModel(cfg), "params": p})
+
+
+@pytest.fixture
+def image_model_files(tmp_path, monkeypatch):
+    """The image-conditioning loaders' files, in ``tmp_path``: a tiny
+    SD2.1-unclip-H checkpoint (chip_smoke.write_family_file's, its vision
+    tower ViT-H deep and narrow), a style adapter with the upstream
+    ``transformer_layes.`` keys, and a PhotoMaker file (``id_encoder.``, a
+    ViT-L-deep narrow tower); both packages' loader configs set to the files'
+    (the VAE, the H text tower, ViT-H and ViT-L) and to tiny_sd15's CLIP-L
+    (the tokenizer's: the hash tokenizer over the towers' 1000 ids)."""
+    import chip_smoke
+
+    import stable_renderer_tpu.models as jmodels
+    import stable_renderer_tpu.models.clip as jclip
+    import stable_renderer_tpu.models.clip_vision as jcv
+
+    import stable_renderer_tpu_torch.models.clip as pclip
+    import stable_renderer_tpu_torch.models.clip_vision as pcv
+    import stable_renderer_tpu_torch.models.vae as pvae
+    from stable_renderer_tpu_torch.models.t2i_adapter import StyleAdapterConfig
+    from stable_renderer_tpu_torch.models.weights import flatten, write_safetensors
+
+    h = pclip.OpenCLIPConfig(**chip_smoke.FAMILY_TOWERS["h"])
+    vit_h = pcv.CLIPVisionConfig(**chip_smoke.UNCLIP_TINY_VISION)
+    vit_l = pcv.CLIPVisionConfig(**chip_smoke.VITL_TINY_VISION)
+    monkeypatch.setattr(jmodels, "SD15_VAE_CONFIG", jmodels.TINY_VAE_CONFIG)
+    monkeypatch.setattr(pvae, "SD15_VAE_CONFIG", pvae.TINY_VAE_CONFIG)
+    monkeypatch.setattr(jmodels, "SD15_CLIP_CONFIG",
+                        replace(jmodels.TINY_CLIP_CONFIG, hidden_size=768))
+    monkeypatch.setattr(pclip, "SD15_CLIP_CONFIG",
+                        replace(pclip.TINY_CLIP_CONFIG, hidden_size=768))
+    j_h = jclip.SD2ClipH
+    monkeypatch.setattr(jclip, "SD2ClipH", lambda: j_h(jax_config(jclip.OpenCLIPConfig, h)))
+    monkeypatch.setattr(pclip, "SD2_CLIP_H_CONFIG", h)
+    for name, cfg in (("VITH_CONFIG", vit_h), ("VITL_CONFIG", vit_l)):
+        monkeypatch.setattr(pcv, name, cfg)
+        monkeypatch.setattr(jcv, name, jax_config(jcv.CLIPVisionConfig, cfg))
+    chip_smoke.write_family_file("unclip", tmp_path / "unclip.safetensors", torch.float32)
+    g = torch.Generator().manual_seed(11)
+    write_safetensors(chip_smoke.style_flat(StyleAdapterConfig(
+        width=32, context_dim=32, num_head=8, n_layers=3, num_token=8), g, torch.float32),
+        tmp_path / "style.safetensors")
+    write_safetensors({"id_encoder." + k: v for k, v in flatten(
+        chip_smoke.photomaker_tree(vit_l, 32, g)).items()}, tmp_path / "photomaker.safetensors")
+    return tmp_path
 
 
 @pytest.fixture(scope="module")
@@ -295,9 +403,13 @@ def load_both(spec, model_dirs):
 
 # --- the cases ------------------------------------------------------------------------
 
-RAISES = ("unCLIPCheckpointLoader", "StyleModelLoader", "StyleModelApply",
-          "ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
-          "StableCascade_StageC_VAEEncode", "StableZero123_Conditioning_Batched")
+RAISES = ("ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
+          "StableCascade_StageC_VAEEncode")
+CONSTS.update({
+    "vision": vision_pair(),
+    "vision_output": vision_output_pair(),
+    "style": style_pair(),
+})
 
 # (node type, widgets, inputs, tolerance)
 CASES = [
@@ -346,6 +458,14 @@ CASES = [
     ("RescaleCFG", [0.6], {"model": ("m0", 0)}, PURE),
     ("PatchModelAddDownscale", [2, 1.5, 0.1, 0.5, False, "bilinear", "bicubic"],
      {"model": ("m0", 0)}, PURE),
+    # image conditioning; a fifth entry names the fixture whose directory of
+    # files the loaders read
+    ("unCLIPCheckpointLoader", ["unclip.safetensors"], {}, PURE, "image_model_files"),
+    ("StyleModelLoader", ["style.safetensors"], {}, PURE, "image_model_files"),
+    ("StyleModelApply", [], {"conditioning": "cond", "style_model": "style",
+                             "clip_vision_output": "vision_output"}, TOL),
+    ("StableZero123_Conditioning_Batched", [32, 24, 3, 10.0, 20.0, 5.0, 15.0],
+     {"clip_vision": "vision", "init_image": "image", "vae": ("m0", 2)}, TOL),
 ]
 FILE_NODES = ("SaveLatent", "LoadLatent", "LoadImageMask", "SaveAnimatedWEBP",
               "SaveAnimatedPNG", "VAELoader", "CLIPLoader", "DualCLIPLoader", "LoraLoader",
@@ -357,9 +477,10 @@ def _case_id(case):
 
 
 @pytest.mark.parametrize("case", CASES, ids=[_case_id(c) for c in CASES])
-def test_node_matches_jax(monkeypatch, case):
-    ntype, widgets, inputs, tol = case
-    jctx, pctx = run_node(ntype, widgets, inputs, monkeypatch, tol=tol)
+def test_node_matches_jax(monkeypatch, request, case):
+    ntype, widgets, inputs, tol = case[:4]
+    dirs = [request.getfixturevalue(f) for f in case[4:]]
+    jctx, pctx = run_node(ntype, widgets, inputs, monkeypatch, tol=tol, model_dirs=dirs)
     if ntype == "ModelSamplingDiscrete":  # the schedule itself
         jms, pms = jctx.outputs[3][0]["sampling"], pctx.outputs[3][0]["sampling"]
         assert pms.prediction == jms.prediction == "v"

@@ -24,16 +24,12 @@ from stable_renderer_tpu_torch.workflow.loader import Workflow as PWorkflow, Wor
 
 torch.set_num_threads(1)
 
-LATER = {"GLIGENLoader": "1.11", "GLIGENTextBoxApply": "1.11", "CLIPVisionLoader": "1.11",
-         "CLIPVisionEncode": "1.11", "unCLIPConditioning": "1.11",
-         "ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13",
-         # the node packs' names whose only work is a model of ROADMAP 1.11b or 1.11c
+LATER = {"ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13",
+         # the node packs' names whose only work is a model of ROADMAP 1.11c
          **dict.fromkeys((
-             "unCLIPCheckpointLoader", "StyleModelLoader", "StyleModelApply",
              "ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
-             "StableCascade_StageC_VAEEncode", "StableZero123_Conditioning",
-             "StableZero123_Conditioning_Batched", "ImageOnlyCheckpointLoader",
-             "SVD_img2vid_Conditioning", "PhotoMakerLoader", "PhotoMakerEncode"), "1.11")}
+             "StableCascade_StageC_VAEEncode", "ImageOnlyCheckpointLoader",
+             "SVD_img2vid_Conditioning"), "1.11")}
 JAX_VALIDATE = jv.validate_workflow  # the validator itself, before any test wraps it
 
 
@@ -54,7 +50,7 @@ def test_registries_and_specs_hold_the_same_names():
     assert pv.UNIQUE_NODE_TYPES == jv.UNIQUE_NODE_TYPES
     assert pv.type_matchings() == jv.type_matchings()
     implemented = [n for n in pe.NODE_REGISTRY if expected_item(n) is None]
-    assert len(implemented) == 164
+    assert len(implemented) == 176
 
 
 @pytest.mark.parametrize("name", sorted(je.NODE_REGISTRY))
@@ -69,13 +65,13 @@ def test_each_name_is_implemented_or_a_stub_naming_its_item(name):
 
 
 def test_running_a_stub_fails_with_the_structured_error():
-    wf = PWorkflow(nodes={1: PNode(id=1, type="StyleModelLoader", widgets=["s"], inputs={},
-                                   output_names=[])}, unknown_types=[], path=None)
+    wf = PWorkflow(nodes={1: PNode(id=1, type="ImageOnlyCheckpointLoader", widgets=["s"],
+                                   inputs={}, output_names=[])}, unknown_types=[], path=None)
     ex = pe.PromptExecutor(wf, device="cpu")
     with pytest.raises(pe.NodeExecutionError) as ei:
         ex.execute()
     d = ei.value.details
-    assert d["node_id"] == 1 and d["node_type"] == "StyleModelLoader"
+    assert d["node_id"] == 1 and d["node_type"] == "ImageOnlyCheckpointLoader"
     assert d["exception_type"] == "NotImplementedError"
     assert "ROADMAP 1.11" in d["exception_message"]
 
