@@ -292,6 +292,31 @@ Phases, one line each; any failure exits non-zero:
                 upscaler's noise augmentation, unCLIP with three entries, the
                 style adapter and GLIGEN at both paths: card against CPU
                 within REF_TOL.
+ 27. video    — video and Stable Cascade. (a) an SVD img2vid file written at
+                its published widths (bf16, ~4.5 GB: SVD_UNET_CONFIG's temporal
+                UNet, ViT-H/14 at conditioner.embedders.0.open_clip.model.
+                visual., the SD VAE) through ImageOnlyCheckpointLoader ->
+                SVD_img2vid_Conditioning of a 512x512 frame (14 frames at
+                1024x576, motion 127, fps 6) -> VideoLinearCFGGuidance(1.0)
+                -> KSampler (euler, karras, 4 steps, cfg 2.5: CFG's batch of
+                28 in two groups of 14) -> VAEDecode of the 14 frames: in
+                process (1 warm and VIDEO_TIMED timed executes, K1 by shape
+                SVD_K1_SHAPES, max_memory_allocated, the file's write and
+                load) and as its own `execute` process (14 PNG frames).
+                (b) Stable Cascade's Stage C (STAGE_C_CONFIG, ~7.2 GB) and
+                Stage B (STAGE_B_CONFIG, ~3 GB) files, each removed once
+                loaded, through CascadeStageLoader x2 -> StableCascade_
+                EmptyLatentImage(1024, 1024, 42) -> KSampler on Stage C (4
+                steps, cfg 4) over the full-width OpenCLIP-G's context (a
+                G-only CLIP in the loader node's cache slot, encoded by
+                CLIPTextEncode) -> StableCascade_StageB_Conditioning ->
+                KSampler on Stage B (2 steps, cfg 1.1): the (1, 256, 256, 4)
+                latent finite and not constant, K1 0 launches. (c) tiny SVD,
+                Zero123 and Cascade C -> B files through the executor, card
+                against CPU within REF_TOL. (d) the EDM and Cascade sigma
+                tables built here against the JAX package's digests
+                (SCHEDULE_DIGESTS). Every new K1 shape is held against its
+                plain version and timed beside SDPA.
 The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
 variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
@@ -2050,6 +2075,9 @@ def main() -> None:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
+    # --- 27. video and Stable Cascade ---------------------------------------------------
+    video = video_cascade_phase(dev, card, k1)
+
     wall_s = time.perf_counter() - t_start
     print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
@@ -2059,7 +2087,7 @@ def main() -> None:
                       "options": options, "bench": bench, "checkpoint": checkpoint,
                       "left_outs": left_outs, "files": files, "executor": executor,
                       "server": server, "families": families, "image_conditioning": image,
-                      "wall_s": wall_s,
+                      "video_cascade": video, "wall_s": wall_s,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -5246,42 +5274,54 @@ def grounded_rows(ckpt_name: str, grounded: bool = True, size: int = 512,
                    (15, "VAEDecode", [], {"samples": (14, 0), "vae": (1, 2)})]
 
 
-def image_graph_run(label: str, ex, loaders, want_k1: dict, card: str) -> dict:
-    """One warm execute of ``ex`` (the loads included), then IMAGE_TIMED
-    executes with only the ``loaders`` nodes' outputs kept, each under
-    k1_shape_tally (K1 by shape ``want_k1`` an execute), CLIPVisionEncode
-    timed on its own; one profiled execute's kernel time and busy share;
-    the peak device memory. Returns (summary, K1 tally of one execute, the
-    last execute's context)."""
+def image_graph_run(label: str, ex, loaders, want_k1: dict, card: str, phase: int = 26,
+                    timed: int = IMAGE_TIMED, timed_node: str = "CLIPVisionEncode",
+                    load_node: str = None) -> dict:
+    """One warm execute of ``ex`` (the loads included; ``load_node``'s calls
+    in it timed), then ``timed`` executes with only the ``loaders`` nodes'
+    outputs kept, each under k1_shape_tally (K1 by shape ``want_k1`` an
+    execute), ``timed_node`` timed on its own; one profiled execute's
+    kernel time and busy share; the peak device memory. Returns (summary,
+    K1 tally of one execute, the last execute's context)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from stable_renderer_tpu_torch.workflow import executor as wex
 
+    def timing(name, into):
+        fn = wex.NODE_REGISTRY[name]
+
+        def timed_fn(ctx, node, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            result = fn(ctx, node, **kw)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            return result
+
+        return fn, timed_fn
+
+    load_ms, node_ms = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if load_node is not None:
+        real_load, wex.NODE_REGISTRY[load_node] = timing(load_node, load_ms)
     t0 = time.perf_counter()
-    ex.execute()
+    try:
+        ex.execute()
+    finally:
+        if load_node is not None:
+            wex.NODE_REGISTRY[load_node] = real_load
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    encode = wex.NODE_REGISTRY["CLIPVisionEncode"]
-    vision_ms = []
-
-    def timed_encode(ctx, node, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = encode(ctx, node, **kw)
-        torch.cuda.synchronize()
-        vision_ms.append((time.perf_counter() - t) * 1e3)
-        return out
 
     def keep_loaders():
         ex._cache = {n: ex._cache[n] for n in loaders}
 
     times = []
-    wex.NODE_REGISTRY["CLIPVisionEncode"] = timed_encode
+    real_node, wex.NODE_REGISTRY[timed_node] = timing(timed_node, node_ms)
     try:
-        for _ in range(IMAGE_TIMED):
+        for _ in range(timed):
             keep_loaders()
             zero_counts()
             with k1_shape_tally() as seen:
@@ -5291,10 +5331,10 @@ def image_graph_run(label: str, ex, loaders, want_k1: dict, card: str) -> dict:
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t) * 1e3)
             if dict(seen) != want_k1:
-                fail(f"phase 26 {label}: an execute launched K1 by shape {dict(seen)}; "
+                fail(f"phase {phase} {label}: an execute launched K1 by shape {dict(seen)}; "
                      f"want {want_k1}")
     finally:
-        wex.NODE_REGISTRY["CLIPVisionEncode"] = encode
+        wex.NODE_REGISTRY[timed_node] = real_node
     peak = torch.cuda.max_memory_allocated()
     keep_loaders()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -5306,18 +5346,22 @@ def image_graph_run(label: str, ex, loaders, want_k1: dict, card: str) -> dict:
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     if not device_ms > 0:
-        fail(f"phase 26 {label}: the profiled execute recorded no device time")
+        fail(f"phase {phase} {label}: the profiled execute recorded no device time")
     med = statistics.median(times)
     # the busy share over the unprofiled median, as phase 25 takes it (the
     # profiler slows the host)
     out = {"warm_s": warm_s, "execute_ms": times, "median_ms": med,
-           "clip_vision_encode_ms": vision_ms, "profiled_execute_ms": prof_ms,
+           f"{timed_node}_ms": node_ms, "profiled_execute_ms": prof_ms,
            "profiled_kernel_ms": device_ms, "busy_share": device_ms / med,
            "k1_by_shape": {str(k): n for k, n in seen.items()}, "k1_routes": k1_routes(seen),
            "max_memory_allocated_gib": peak / 2 ** 30}
-    print(f"[26 {label}] first execute (loads included) {warm_s:.2f} s; {IMAGE_TIMED} executes "
-          f"{', '.join(f'{t_:.1f}' for t_ in times)} ms (median {med:.1f}); CLIPVisionEncode "
-          f"{', '.join(f'{t_:.1f}' for t_ in vision_ms)} ms; K1 an execute by (BH, Lq, Lk, d) "
+    if load_node is not None:
+        out["load_s"] = sum(load_ms) / 1e3
+    print(f"[{phase} {label}] first execute (loads included"
+          + (f", {load_node} {sum(load_ms) / 1e3:.1f} s" if load_node else "")
+          + f") {warm_s:.2f} s; {timed} executes "
+          f"{', '.join(f'{t_:.1f}' for t_ in times)} ms (median {med:.1f}); {timed_node} "
+          f"{', '.join(f'{t_:.1f}' for t_ in node_ms)} ms; K1 an execute by (BH, Lq, Lk, d) "
           f"{dict(seen)} ({out['k1_routes']}); one profiled execute ({prof_ms:.1f} ms): kernels "
           f"{device_ms:.1f} ms (busy share {device_ms / med:.3f} of the median); "
           f"max_memory_allocated "
@@ -5678,12 +5722,474 @@ def tiny_image_graphs(dev, card: str, d: Path) -> dict:
     return errs
 
 
+# phase 27: video and Stable Cascade
+SVD_WIDTH, SVD_HEIGHT, SVD_FRAMES = 1024, 576, 14  # SVD img2vid's published frames
+SVD_INIT_SIZE = 512   # the init image, resized by the conditioning to 576x1024
+VIDEO_SEED = 27
+VIDEO_TIMED = 2       # phase 27's timed executes a graph, after one warm
+CASCADE_SIZE = 1024   # Stable Cascade's published resolution
+# K1 launches an execute by (BH, Lq, Lk, d). SVD at 576x1024 (72x128
+# latents), CFG's batch of 28 rows (two groups of 14 frames): level 0's 5
+# spatial self-attentions an evaluation at 5 heads of 64 over 9216 tokens,
+# level 1's 5 at 10 heads over 2304 tokens, 4 evaluations (level 2's 576
+# tokens, the temporal attention over 14 frames and the 1-key
+# cross-attention stay plain); the bf16 VAE's mid-block attention at 9216
+# tokens in the init image's encode and the 14 frames' decode. Stable
+# Cascade at 1024x1024 attends over at most 1024 + 308 keys: no K1
+SVD_K1_SHAPES = {(140, 9216, 9216, 64): 20, (280, 2304, 2304, 64): 20,
+                 (1, 9216, 9216, 512): 1, (14, 9216, 9216, 512): 1}
+VIDEO_GRAPH_SIZE = (24, 32)  # phase 27c's tiny frames (height, width): 12x16 latents
+
+
+def video_flat(kind: str, ucfg, vision, vae_cfg, generator, dtype, device=None,
+               projection: bool = True) -> dict:
+    """A video checkpoint's flat state dict, drawn from ``generator`` in
+    ``dtype``: kind "svd" SVD's temporal UNet (VideoUNetModel(ucfg)) at
+    model.diffusion_model., the VAE at first_stage_model. and the ``vision``
+    tower's transformers-layout ``vision_model`` subtree at
+    conditioner.embedders.0.open_clip.model.visual. (the JAX loader's
+    layout), its visual_projection there too when ``projection``; kind
+    "zero123" an image-conditioned stills UNet (UNetModel(ucfg)) with its
+    cc_projection (context_dim x (projection_dim + 4)) and the tower at
+    cond_stage_model.model.visual."""
+    import torch
+
+    from stable_renderer_tpu_torch.models.clip_vision import CLIPVisionModel
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+    from stable_renderer_tpu_torch.models.vae import VAE
+    from stable_renderer_tpu_torch.models.video_unet import VideoUNetModel
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    kw = dict(dtype=dtype, device=device)
+    unet = (VideoUNetModel if kind == "svd" else UNetModel)(ucfg).init(generator, **kw)
+    flat = {"model.diffusion_model." + k: v for k, v in flatten(unet).items()}
+    del unet
+    flat.update({"first_stage_model." + k: v
+                 for k, v in flatten(VAE(vae_cfg).init(generator, **kw)).items()})
+    tower = CLIPVisionModel(vision).init(generator, **kw)
+    inner = dict(tower["vision_model"])
+    if projection:
+        inner["visual_projection"] = tower["visual_projection"]
+    prefix = ("conditioner.embedders.0.open_clip.model.visual." if kind == "svd"
+              else "cond_stage_model.model.visual.")
+    flat.update({prefix + k: v for k, v in flatten(inner).items()})
+    if kind == "zero123":
+        fan_in = vision.projection_dim + 4
+        flat["cc_projection.weight"] = (torch.randn((ucfg.context_dim, fan_in), generator=generator,
+                                                    device=device) / fan_in ** 0.5).to(dtype)
+        flat["cc_projection.bias"] = (0.1 * torch.randn((ucfg.context_dim,), generator=generator,
+                                                        device=device)).to(dtype)
+    return flat
+
+
+def cascade_flat(stage: str, cfg, generator, dtype, device=None) -> dict:
+    """A Stable Cascade stage file's flat state dict (the bare layout),
+    Stage C or B of ``cfg``, drawn from ``generator`` in ``dtype``."""
+    from stable_renderer_tpu_torch.models.cascade import CascadeStageB, CascadeStageC
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    model = (CascadeStageC if stage == "c" else CascadeStageB)(cfg)
+    return flatten(model.init(generator, dtype=dtype, device=device))
+
+
+@contextlib.contextmanager
+def tiny_video_loaders():
+    """The video and Cascade loaders' configs, which they read by module
+    name at call time, set to the tiny ones inside the block: SVD's UNet
+    preset (detection keeps the preset's layout), ViT-H (the tiny tower,
+    projection 32 = the tiny video UNet's context), SD1.5's VAE and the two
+    Cascade stages."""
+    from stable_renderer_tpu_torch.models import cascade
+    from stable_renderer_tpu_torch.models import clip_vision as vision_mod
+    from stable_renderer_tpu_torch.models import vae as vae_mod
+    from stable_renderer_tpu_torch.models import video_unet
+
+    names = [(video_unet, "SVD_UNET_CONFIG", video_unet.TINY_VIDEO_UNET_CONFIG),
+             (vision_mod, "VITH_CONFIG", vision_mod.TINY_VISION_CONFIG),
+             (vae_mod, "SD15_VAE_CONFIG", vae_mod.TINY_VAE_CONFIG),
+             (cascade, "STAGE_C_CONFIG", cascade.TINY_CASCADE_C_CONFIG),
+             (cascade, "STAGE_B_CONFIG", cascade.TINY_CASCADE_B_CONFIG)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
+    for mod, name, value in names:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def svd_rows(name: str, width: int, height: int, frames: int, steps: int = 4,
+             cfg: float = 2.5, init="frame.png", latent=None) -> list:
+    """ImageOnlyCheckpointLoader -> LoadImage of ``init`` (or a (node, slot)
+    link) -> SVD_img2vid_Conditioning (``frames`` frames at width x height,
+    motion 127, fps 6, augmentation 0) -> VideoLinearCFGGuidance(1.0) ->
+    KSampler (euler, karras, ``steps`` steps, ``cfg``; on the conditioning's
+    empty latent, or ``latent``, a (node, slot) link) -> VAEDecode ->
+    InferenceOutput."""
+    rows = [(1, "ImageOnlyCheckpointLoader", [name], {})]
+    if isinstance(init, str):
+        rows.append((2, "LoadImage", [init], {}))
+        init = (2, 0)
+    return rows + [
+        (3, "SVD_img2vid_Conditioning", [width, height, frames, 127, 6, 0.0],
+         {"clip_vision": (1, 1), "init_image": init, "vae": (1, 2)}),
+        (4, "VideoLinearCFGGuidance", [1.0], {"model": (1, 0)}),
+        (5, "KSampler", [VIDEO_SEED, "fixed", steps, cfg, "euler", "karras", 1.0],
+         {"model": (4, 0), "positive": (3, 0), "negative": (3, 1),
+          "latent_image": latent or (3, 2)}),
+        (6, "VAEDecode", [], {"samples": (5, 0), "vae": (1, 2)}),
+        (8, "InferenceOutput", [], {"images": (6, 0)})]
+
+
+def cascade_rows(size: int, compression: int, cond, uncond, steps=(4, 2),
+                 cfgs=(4.0, 1.1)) -> list:
+    """CascadeStageLoader of stage_c.safetensors and stage_b.safetensors ->
+    StableCascade_EmptyLatentImage(size, size, compression, 1) -> KSampler
+    on Stage C (euler, simple, ``steps[0]`` steps, cfg ``cfgs[0]``) over the
+    ``cond`` / ``uncond`` conditionings ((node, slot) links) ->
+    StableCascade_StageB_Conditioning -> KSampler on Stage B (``steps[1]``
+    steps, cfg ``cfgs[1]``) over Stage B's empty latent."""
+    return [
+        (11, "CascadeStageLoader", ["stage_c.safetensors"], {}),
+        (12, "CascadeStageLoader", ["stage_b.safetensors"], {}),
+        (13, "StableCascade_EmptyLatentImage", [size, size, compression, 1], {}),
+        (14, "KSampler", [VIDEO_SEED, "fixed", steps[0], cfgs[0], "euler", "simple", 1.0],
+         {"model": (11, 0), "positive": cond, "negative": uncond, "latent_image": (13, 0)}),
+        (15, "StableCascade_StageB_Conditioning", [], {"conditioning": cond, "stage_c": (14, 0)}),
+        (16, "KSampler", [VIDEO_SEED + 1, "fixed", steps[1], cfgs[1], "euler", "simple", 1.0],
+         {"model": (12, 0), "positive": (15, 0), "negative": uncond, "latent_image": (13, 1)})]
+
+
+VIDEO_DISK_BYTES = 12e9  # phase 27's largest moment on disk: both Cascade stage files
+# sha256 of the float32 sigma tables that the JAX package's ModelSamplingEDM
+# and ModelSamplingCascade build (tests/test_torch_video_unet.py and
+# tests/test_torch_cascade.py hold these digests to the JAX tables); phase
+# 27d holds the port's tables, built with the card machine's numpy, to them
+SCHEDULE_DIGESTS = {
+    "edm 0.002-700": "11ddde6c5c741a3b212787c973c9bee92701c3641623c80f7ed8ce157e75691c",
+    "edm 0.002-120": "55ec36b149bbba4489bc331473009406d2789b702f8c48531081fe306e582eb0",
+    "cascade shift 1": "417a90c3b0be1e9ea219019c05e187dd4f292c1a11a719b0fd292093c2504338",
+    "cascade shift 2": "0481678a7aa6ae3140ac6979d407261898557c3569898e6785b65f3b20955766",
+}
+
+
+def schedule_tables(schedules) -> dict:
+    """{name: the float32 sigma table} of SCHEDULE_DIGESTS' four schedules
+    from the ``schedules`` module (either package's)."""
+    return {"edm 0.002-700": schedules.ModelSamplingEDM(prediction="v").sigmas,
+            "edm 0.002-120": schedules.ModelSamplingEDM(prediction="v",
+                                                        edm_sigma_max=120.0).sigmas,
+            "cascade shift 1": schedules.ModelSamplingCascade(shift=1.0).sigmas,
+            "cascade shift 2": schedules.ModelSamplingCascade(shift=2.0).sigmas}
+
+
+def table_digest(table) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(table, np.float32).tobytes()).hexdigest()
+
+
+def video_cascade_phase(dev, card: str, k1: dict) -> dict:
+    """Phase 27 (see the module docstring). Its files go to a temporary
+    directory under build/, each removed once loaded, the directory at the
+    end."""
+    import os
+
+    import torch
+
+    from stable_renderer_tpu_torch.models import cascade
+    from stable_renderer_tpu_torch.models.clip import (
+        SD15_CLIP_CONFIG,
+        SDXL_CLIP_G_CONFIG,
+        CLIPTextModel,
+        OpenCLIPTextModel,
+        Tokenizer,
+    )
+    from stable_renderer_tpu_torch.models.clip_vision import VITH_CONFIG
+    from stable_renderer_tpu_torch.models.sampling import schedules
+    from stable_renderer_tpu_torch.models.vae import SD15_VAE_CONFIG
+    from stable_renderer_tpu_torch.models.video_unet import SVD_UNET_CONFIG, VideoUNetModel
+    from stable_renderer_tpu_torch.models.weights import write_safetensors
+    from stable_renderer_tpu_torch.utils import paths
+    from stable_renderer_tpu_torch.workflow import Workflow
+    from stable_renderer_tpu_torch.workflow import executor as wex
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="video-", dir=root / "build"))
+    out = {}
+    t_phase = time.perf_counter()
+    saved_output_dir = paths.OUTPUT_DIR
+    paths.OUTPUT_DIR = tmp / "outputs"
+    try:
+        free = shutil.disk_usage(tmp).free
+        if free < VIDEO_DISK_BYTES:
+            fail(f"phase 27: {free / 1e9:.1f} GB free under build/, want "
+                 f"{VIDEO_DISK_BYTES / 1e9:.0f} GB for the stage files")
+        write_frame_png(tmp / "frame.png", SVD_INIT_SIZE, VIDEO_SEED)
+        gen = torch.Generator(device=dev).manual_seed(VIDEO_SEED)
+
+        # --- 27a. SVD img2vid at its published widths --------------------------------------
+        flat = video_flat("svd", SVD_UNET_CONFIG, VITH_CONFIG, SD15_VAE_CONFIG, gen,
+                          torch.bfloat16, dev)
+        n_unet = sum(v.numel() for k, v in flat.items() if k.startswith("model."))
+        t0 = time.perf_counter()
+        size = write_safetensors(flat, tmp / "svd.safetensors")
+        write_s = time.perf_counter() - t0
+        del flat
+        torch.cuda.empty_cache()
+        print(f"[27 svd] the SVD file: {size / 1e9:.2f} GB (bf16: the temporal UNet "
+              f"{n_unet / 1e9:.2f} B parameters, ViT-H/14 at "
+              f"conditioner.embedders.0.open_clip.model.visual., the SD VAE) written in "
+              f"{write_s:.1f} s; {free / 1e9:.0f} GB were free | {card}", flush=True)
+        wf_path = tmp / "svd.json"
+        wf_path.write_text(json.dumps(ui_workflow(svd_rows("svd.safetensors", SVD_WIDTH,
+                                                           SVD_HEIGHT, SVD_FRAMES))))
+        ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(tmp),), device=dev)
+        out["svd"], seen, ctx = image_graph_run(
+            "svd", ex, (1,), SVD_K1_SHAPES, card, phase=27, timed=VIDEO_TIMED,
+            timed_node="SVD_img2vid_Conditioning", load_node="ImageOnlyCheckpointLoader")
+        model, cv, vae = ex._cache[1]
+        if not (isinstance(model["unet"], VideoUNetModel)
+                and model["unet"].config == SVD_UNET_CONFIG
+                and type(model["sampling"]).__name__ == "ModelSamplingEDM"
+                and model["sampling"].prediction == "v" and cv["model"].config == VITH_CONFIG
+                and model["params"]["time_embed"]["0"]["weight"].device.type == "cuda"):
+            fail(f"phase 27a: loaded {type(model['unet']).__name__} {model['unet'].config}, "
+                 f"sampling {type(model['sampling']).__name__}, vision {cv['model'].config}")
+        frames = ctx.final_output
+        pos = ctx.outputs[3][0]
+        if (tuple(frames.shape) != (SVD_FRAMES, SVD_HEIGHT, SVD_WIDTH, 3)
+                or not torch.isfinite(frames).all() or float(frames.std()) < 1e-3
+                or float((frames[0] - frames[-1]).abs().max()) < 1e-3):
+            fail(f"phase 27a: frames {tuple(frames.shape)}, finite "
+                 f"{bool(torch.isfinite(frames).all())}, std {float(frames.std()):.3e}")
+        if (tuple(pos["context"].shape) != (1, 1, 1024)
+                or tuple(pos["concat_latent_image"].shape) != (1, SVD_HEIGHT // 8,
+                                                               SVD_WIDTH // 8, 4)
+                or tuple(pos["y"].shape) != (1, 768)):
+            fail(f"phase 27a: conditioning context {tuple(pos['context'].shape)}, c_concat "
+                 f"{tuple(pos['concat_latent_image'].shape)}, y {tuple(pos['y'].shape)}")
+        out["svd"].update(file_gb=size / 1e9, write_s=write_s,
+                          frames=list(frames.shape))
+        hold_new_k1_shapes(seen, 27, dev, card, k1)
+        del ex, model, cv, vae, ctx, frames, pos
+        torch.cuda.empty_cache()
+        exec_out = tmp / "cli_out"
+        (tmp / "color").mkdir()  # `execute` composes EngineData from one map directory at least
+        shutil.copy(tmp / "frame.png", tmp / "color" / "0000.png")
+        cmd = [sys.executable, "-m", "stable_renderer_tpu_torch", "execute", "--workflow",
+               str(wf_path), "--color-dir", str(tmp / "color"), "--model-dir", str(tmp),
+               "--out", str(exec_out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, SR_TPU_OUTPUT_DIR=str(tmp / "outputs")))
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0 or f"{SVD_FRAMES} frames -> " not in proc.stdout:
+            fail(f"phase 27a CLI execute exited {proc.returncode}: {' '.join(cmd)}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        pngs = _png_frames(exec_out)
+        if len(pngs) != SVD_FRAMES or pngs[0].shape[:2] != (SVD_HEIGHT, SVD_WIDTH):
+            fail(f"phase 27a CLI execute wrote {[f.shape for f in pngs]}")
+        out["svd"]["cli_execute_s"] = cli_s
+        print(f"[27 svd CLI] python -m stable_renderer_tpu_torch execute --workflow <SVD graph> "
+              f"--model-dir <the file's dir>: exit 0 in {cli_s:.1f} s (process, imports and the "
+              f"{size / 1e9:.1f} GB load included); {SVD_FRAMES} frames of {SVD_WIDTH}x"
+              f"{SVD_HEIGHT} | {card}", flush=True)
+        (tmp / "svd.safetensors").unlink()
+
+        # --- 27b. Stable Cascade C -> B at its published widths ----------------------------
+        sizes, t0 = {}, time.perf_counter()
+        for stage, cfg in (("c", cascade.STAGE_C_CONFIG), ("b", cascade.STAGE_B_CONFIG)):
+            flat = cascade_flat(stage, cfg, gen, torch.bfloat16, dev)
+            sizes[stage] = write_safetensors(flat, tmp / f"stage_{stage}.safetensors")
+            del flat
+            torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t0
+        print(f"[27 cascade] Stage C {sizes['c'] / 1e9:.2f} GB and Stage B "
+              f"{sizes['b'] / 1e9:.2f} GB (bf16) written in {write_s:.1f} s | {card}",
+              flush=True)
+        # the CLIP-G context: a G-only CLIP (as a refiner file's CheckpointLoaderSimple
+        # gives it) of the full-width OpenCLIP-G, in the loader node's cache slot
+        clip_g = OpenCLIPTextModel(SDXL_CLIP_G_CONFIG)
+        clip = {"clip": CLIPTextModel(SD15_CLIP_CONFIG), "params": {}, "clip_g": clip_g,
+                "params_g": clip_g.init(gen, device=dev), "tokenizer": Tokenizer(SD15_CLIP_CONFIG),
+                "g_only": True}
+        rows = [(1, "CheckpointLoaderSimple", ["clip_g (in the cache)"], {}),
+                (2, "CLIPTextEncode", ["a castle on a hill at dawn, highly detailed"],
+                 {"clip": (1, 1)}),
+                (3, "CLIPTextEncode", ["blurry, lowres"], {"clip": (1, 1)}),
+                *cascade_rows(CASCADE_SIZE, 42, (2, 0), (3, 0))]
+        wf_path = tmp / "cascade.json"
+        wf_path.write_text(json.dumps(ui_workflow(rows)))
+        ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(tmp),), device=dev)
+        ex._cache[1] = (None, clip, None)
+        out["cascade"], seen, ctx = image_graph_run(
+            "cascade", ex, (1, 11, 12), {}, card, phase=27, timed=VIDEO_TIMED,
+            timed_node="KSampler", load_node="CascadeStageLoader")
+        for stage in ("c", "b"):  # loaded (the loaders' outputs stay in the cache)
+            (tmp / f"stage_{stage}.safetensors").unlink()
+        (mc,), (mb,) = ex._cache[11], ex._cache[12]
+        c_lat, b_lat = ctx.outputs[14][0]["samples"], ctx.outputs[16][0]["samples"]
+        if (type(mc["unet"]).__name__, mc["unet"].config, mc["sampling"].shift,
+                type(mb["unet"]).__name__, mb["unet"].config, mb["sampling"].shift) != (
+                "CascadeStageC", cascade.STAGE_C_CONFIG, 2.0, "CascadeStageB",
+                cascade.STAGE_B_CONFIG, 1.0):
+            fail(f"phase 27b: loaded {type(mc['unet']).__name__} and "
+                 f"{type(mb['unet']).__name__}")
+        ctx_c = ctx.outputs[2][0]["context"]
+        side = CASCADE_SIZE // 42
+        if (tuple(ctx_c.shape) != (1, 77, 1280) or tuple(c_lat.shape) != (1, side, side, 16)
+                or tuple(b_lat.shape) != (1, CASCADE_SIZE // 4, CASCADE_SIZE // 4, 4)
+                or not torch.isfinite(b_lat).all() or float(b_lat.std()) < 1e-3):
+            fail(f"phase 27b: context {tuple(ctx_c.shape)}, Stage C latent "
+                 f"{tuple(c_lat.shape)}, Stage B latent {tuple(b_lat.shape)}, finite "
+                 f"{bool(torch.isfinite(b_lat).all())}")
+        out["cascade"].update(stage_c_gb=sizes["c"] / 1e9, stage_b_gb=sizes["b"] / 1e9,
+                              write_s=write_s, stage_b_latent=list(b_lat.shape))
+        del ex, mc, mb, ctx, c_lat, b_lat, clip, clip_g
+        torch.cuda.empty_cache()
+
+        # --- 27c. tiny graphs: the card against the CPU ------------------------------------
+        out["tiny_graphs"] = tiny_video_graphs(dev, card, tmp / "tiny")
+
+        # --- 27d. the EDM and Cascade sigma tables against the JAX package's ---------------
+        for name, table in schedule_tables(schedules).items():
+            if table_digest(table) != SCHEDULE_DIGESTS[name]:
+                fail(f"phase 27d: the {name} sigma table's digest {table_digest(table)} is "
+                     f"not the JAX package's {SCHEDULE_DIGESTS[name]}")
+        print(f"[27 schedules] {', '.join(SCHEDULE_DIGESTS)}: the port's float32 sigma tables "
+              f"built here equal the JAX package's bit for bit (sha256) | {card}", flush=True)
+    finally:
+        paths.OUTPUT_DIR = saved_output_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[27 video] phase 27 in {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
+def tiny_video_graphs(dev, card: str, d: Path) -> dict:
+    """Phase 27c: tiny SVD, Zero123 and Stable Cascade stage files (f32)
+    written to ``d``, read through tiny_video_loaders, and the video graph,
+    the Zero123 stills graph and Cascade C -> B on the CPU and on the card,
+    the loaded models widened to f32 after a first execute as loaded; the
+    outputs within REF_TOL (Cascade's Stage B latent in units of its
+    schedule's largest sigma). The KSamplers' noise comes from EngineData's
+    noise maps or from latents drawn on the host, and the Cascade contexts
+    are host draws in the text encodes' cache slots, so both devices take
+    the same numbers. Returns {graph: max abs err}."""
+    from dataclasses import replace
+
+    import torch
+
+    from stable_renderer_tpu_torch.data.engine_data import EngineData
+    from stable_renderer_tpu_torch.models import cascade
+    from stable_renderer_tpu_torch.models.clip_vision import TINY_VISION_CONFIG
+    from stable_renderer_tpu_torch.models.sampling.schedules import ModelSamplingCascade
+    from stable_renderer_tpu_torch.models.unet import TINY_UNET_CONFIG
+    from stable_renderer_tpu_torch.models.vae import TINY_VAE_CONFIG
+    from stable_renderer_tpu_torch.models.video_unet import TINY_VIDEO_UNET_CONFIG
+    from stable_renderer_tpu_torch.models.weights import tree_to, write_safetensors
+    from stable_renderer_tpu_torch.workflow import Workflow
+    from stable_renderer_tpu_torch.workflow import executor as wex
+
+    f32 = torch.float32
+    h, w = VIDEO_GRAPH_SIZE
+    frames = 3
+    d.mkdir()
+    write_frame_png(d / "frame.png", 32, VIDEO_SEED)
+    g = torch.Generator().manual_seed(VIDEO_SEED)
+    zcfg = replace(TINY_UNET_CONFIG, in_channels=8, num_heads=8, context_dim=768)
+    for kind, ucfg in (("svd", TINY_VIDEO_UNET_CONFIG), ("zero123", zcfg)):
+        write_safetensors(video_flat(kind, ucfg, TINY_VISION_CONFIG, TINY_VAE_CONFIG, g, f32),
+                          d / f"{kind}.safetensors")
+    for stage, cfg in (("c", cascade.TINY_CASCADE_C_CONFIG), ("b", cascade.TINY_CASCADE_B_CONFIG)):
+        write_safetensors(cascade_flat(stage, cfg, g, f32), d / f"stage_{stage}.safetensors")
+    noise = torch.randn((frames, h // 2, w // 2, 4), generator=g)
+    colors = torch.rand((frames, h, w, 3), generator=g)
+    conds = [{"context": torch.randn((1, 5, 48), generator=g), "controls": [], "prompt": p}
+             for p in ("a castle", "")]
+    latents = ({"samples": torch.zeros((1, 4, 4, 16)), "noise": torch.randn((1, 4, 4, 16),
+                                                                            generator=g)},
+               {"samples": torch.zeros((1, 64, 64, 4)), "noise": torch.randn((1, 64, 64, 4),
+                                                                             generator=g)})
+    engine = [(20, "EngineData", [], {})]
+    zero123_rows = [(1, "ImageOnlyCheckpointLoader", ["zero123.safetensors"], {}),
+                    (2, "LoadImage", ["frame.png"], {}),
+                    (3, "StableZero123_Conditioning", [w, h, frames, 10.0, 30.0],
+                     {"clip_vision": (1, 1), "init_image": (2, 0), "vae": (1, 2)}),
+                    (5, "KSampler", [VIDEO_SEED, "fixed", 2, 2.5, "euler", "normal", 1.0],
+                     {"model": (1, 0), "positive": (3, 0), "negative": (3, 1),
+                      "latent_image": (20, 6)}),
+                    (6, "VAEDecode", [], {"samples": (5, 0), "vae": (1, 2)}), *engine]
+    cascade_graph = [(1, "CheckpointLoaderSimple", ["clip (in the cache)"], {}),
+                     (2, "CLIPTextEncode", ["a castle"], {"clip": (1, 1)}),
+                     (3, "CLIPTextEncode", [""], {"clip": (1, 1)}),
+                     *cascade_rows(256, 64, (2, 0), (3, 0), steps=(2, 2), cfgs=(2.0, 1.1))]
+    sigma_max = float(ModelSamplingCascade(shift=2.0).sigma_max)
+    # (label, rows, loader ids, the output compared, its scale)
+    graphs = [("svd", svd_rows("svd.safetensors", w, h, frames, steps=2, latent=(20, 6))
+               + engine, (1,), (6, None), 1.0),
+              ("zero123", zero123_rows, (1,), (6, None), 1.0),
+              ("cascade_c_to_b", cascade_graph, (11, 12), (16, "samples"), sigma_max)]
+
+    def widened(outs, device):
+        return tuple({**o, "params": tree_to(o["params"], device, f32)}
+                     if isinstance(o, dict) and "params" in o else o for o in outs)
+
+    errs = {}
+    for label, rows, loaders, (nid, key), scale in graphs:
+        wf_path = d / f"{label}.json"
+        wf_path.write_text(json.dumps(ui_workflow(rows)))
+        finals = []
+        with tiny_video_loaders():
+            for device in (torch.device("cpu"), dev):
+                ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(d),),
+                                        device=device)
+                given = {}
+                if label.startswith("cascade"):  # host draws in the cache slots
+                    given = {1: (None, None, None)}
+                    given.update({n: ({**c, "context": c["context"].to(device)},)
+                                  for n, c in zip((2, 3), conds)})
+                    given[13] = tuple(tree_to(lat, device) for lat in latents)
+                ex._cache.update(given)
+                ed = EngineData(frame_indices=torch.arange(frames), color_maps=colors.to(device),
+                                noise_maps=noise.to(device),
+                                id_maps=torch.zeros((frames, h, w, 4), dtype=torch.int32,
+                                                    device=device))
+
+                def result(ctx):
+                    o = ctx.outputs[nid][0]
+                    return (o[key] if key else o).float() / scale
+
+                first = result(ex.execute(engine_data=ed))
+                if not torch.isfinite(first).all():
+                    fail(f"phase 27c {label} on {device}: non-finite output as loaded")
+                ex._cache = {**given, **{n: widened(ex._cache[n], device) for n in loaders}}
+                finals.append(result(ex.execute(engine_data=ed)).cpu())
+        err = float((finals[1] - finals[0]).abs().max())
+        if not (torch.isfinite(finals[1]).all() and err < REF_TOL
+                and float(finals[1].std()) > 1e-3):
+            fail(f"phase 27c {label}: card against CPU max abs err {err:.3e} (tol {REF_TOL})")
+        errs[label] = err
+        print(f"[27 tiny] {label}: {len(rows)} nodes, the loaded models widened to f32: card "
+              f"against CPU max abs err {err:.3e} (tol {REF_TOL}"
+              + (f", in units of sigma_max {scale:.2f}" if scale != 1.0 else "")
+              + f") | {card}", flush=True)
+    return errs
+
+
 def tree_to_model(model: dict, device) -> dict:
     """A model dict with its tensors (params, cc_projection) on ``device``."""
     from stable_renderer_tpu_torch.models.weights import tree_to
 
     return {k: tree_to(v, device) if k in ("params", "cc_projection") else v
             for k, v in model.items()}
+
+
+PLAIN_LOGIT_BYTES = 8e9  # hold_new_k1_shapes: the plain version's f32 logits at most a slice
 
 
 def hold_new_k1_shapes(launched, phase: int, dev, card: str, k1: dict) -> list:
@@ -5710,9 +6216,21 @@ def hold_new_k1_shapes(launched, phase: int, dev, card: str, k1: dict) -> list:
         row = {"shape": f"bh={bh} lq={lq} lk={lk} d={d} {str(dt).replace('torch.', '')} "
                         f"(phase {phase})", "route": k1_route(d, f32),
                f"launches_in_phase_{phase}": launched[key]}
+        # the plain version a BH slice at a time where its f32 logits would
+        # pass PLAIN_LOGIT_BYTES (SVD's 140 heads at 9216^2: 47.6 GB, twice
+        # that with the softmax)
+        step = max(1, int(PLAIN_LOGIT_BYTES // (lq * lk * 4)))
+        if step < bh:
+            row["plain_bh_slices"] = -(-bh // step)
+
+        def plain(step=step):
+            return torch.cat([flash_attention_reference(q[i:i + step], k_[i:i + step],
+                                                        v[i:i + step])
+                              for i in range(0, bh, step)])
+
         _k1_case(row, dt, K1_F32_TOL if f32 else K1_BF16_TOL,
                  lambda: flash_attention(q, k_, v),
-                 lambda: flash_attention_reference(q, k_, v),
+                 plain,
                  lambda: F.scaled_dot_product_attention(q[None], k_[None], v[None]),
                  k1_bound(bh, lq, lk, d, f32), timed=True)
         HELD_K1.add(key)

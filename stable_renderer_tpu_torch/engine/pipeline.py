@@ -21,9 +21,10 @@ stream programs, ControlNets, control-LoRAs and T2I-Adapters
 ``add_t2i_adapter``, ``add_control_from_state_dict``), the calibrated int8
 conv path (``quantize_convs``), the TAESD autoencoder for realtime frames
 (``with_taesd``, ``RenderConfig.realtime_taesd``) and per-vertex starting
-noise (``RenderConfig.vertex_noise`` without noise maps). The video family
-(ROADMAP 1.11c) and the multi-device stream mesh (1.14) raise until their
-slices are ported. The
+noise (``RenderConfig.vertex_noise`` without noise maps). SVD's video UNet
+and Stable Cascade run through the workflow executor's nodes, as in the JAX
+package (``models/video_unet.py``, ``models/cascade.py``); the multi-device
+stream mesh (ROADMAP 1.14) raises until its slice is ported. The
 pipeline's tensors live on the card unless ``device`` names another device.
 """
 

@@ -77,6 +77,23 @@ def unet_extras(y_cond: Optional[torch.Tensor], y_uncond: Optional[torch.Tensor]
     return y, extra
 
 
+def _params_dtype(params: dict) -> torch.dtype:
+    """A model tree's compute dtype: the UNet's ``time_embed`` for the SD
+    family, else the first floating leaf in sorted key order, as JAX's
+    ``tree_leaves`` walks it (Stable Cascade's trees have no time_embed)."""
+    te = params.get("time_embed") if isinstance(params, dict) else None
+    if te is not None:
+        return te["0"]["weight"].dtype
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node[k] for k in sorted(node, reverse=True))
+        elif isinstance(node, torch.Tensor) and node.is_floating_point():
+            return node.dtype
+    return torch.float32
+
+
 def make_denoiser(
     unet: UNetModel,
     params: dict,
@@ -123,7 +140,7 @@ def make_denoiser(
     UNet inputs."""
     use_cfg = uncond_context is not None
     log_sigmas = torch.as_tensor(log_sigmas, dtype=torch.float32).cpu()
-    compute_dtype = params["time_embed"]["0"]["weight"].dtype
+    compute_dtype = _params_dtype(params)
     use_perp_neg = nocond_context is not None and use_cfg
     use_sag = sag is not None and use_cfg
     groups = 1 + int(use_cfg) + int(use_perp_neg)

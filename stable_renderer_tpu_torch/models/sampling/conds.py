@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from stable_renderer_tpu_torch.models.sampling.cfg import (
-    calculate_denoised, timestep_from_sigma, unet_extras)
+    _params_dtype, calculate_denoised, timestep_from_sigma, unet_extras)
 from stable_renderer_tpu_torch.models.sampling.scene_cond import _tile_to, group_hooks
 from stable_renderer_tpu_torch.models.unet import AttnHooks, UNetModel
 
@@ -92,7 +92,7 @@ def make_cond_denoiser(
         raise ValueError("contexts, specs and masks must be aligned and non-empty")
     use_cfg = uncond_context is not None
     log_sigmas = torch.as_tensor(log_sigmas, dtype=torch.float32).cpu()
-    compute_dtype = params["time_embed"]["0"]["weight"].dtype
+    compute_dtype = _params_dtype(params)
     max_len = max([c.shape[1] for c in contexts]
                   + ([uncond_context.shape[1]] if use_cfg else []))
     contexts = [_pad_context(c, max_len) for c in contexts]

@@ -16,7 +16,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from stable_renderer_tpu_torch.models.sampling.cfg import (
-    calculate_denoised, timestep_from_sigma, unet_extras)
+    _params_dtype, calculate_denoised, timestep_from_sigma, unet_extras)
 from stable_renderer_tpu_torch.models.unet import PATCH_HOOKS, AttnHooks, UNetModel
 
 
@@ -123,7 +123,7 @@ def make_scene_denoiser(
     use_cfg = uncond_context is not None
     groups = s1 + (1 if use_cfg else 0)
     log_sigmas = torch.as_tensor(log_sigmas, dtype=torch.float32).cpu()
-    compute_dtype = params["time_embed"]["0"]["weight"].dtype
+    compute_dtype = _params_dtype(params)
     # normalized so every latent pixel's blend weights sum to 1
     weights = masks / torch.clamp(masks.sum(0, keepdim=True), min=1e-6)
     run_hooks = group_hooks(hooks, s1, b, use_cfg)

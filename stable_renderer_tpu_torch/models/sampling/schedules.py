@@ -85,6 +85,69 @@ class ModelSampling:
                       + w * self.log_sigmas[high_idx]).astype(np.float32)
 
 
+@dataclass
+class ModelSamplingEDM(ModelSampling):
+    """Continuous EDM sampling (comfy model_sampling.py
+    ModelSamplingContinuousEDM; SVD_img2vid's sigma range [0.002, 700],
+    supported_models.py:257): log-spaced sigmas. ``timestep()`` keeps the
+    table-index semantics the schedulers interpolate on; the UNet's timestep
+    input, 0.25 * log(sigma), is picked by ``timestep_mode`` in the
+    KSampler."""
+
+    edm_sigma_min: float = 0.002
+    edm_sigma_max: float = 700.0
+    sigma_data: float = 1.0
+    timestep_mode: str = "edm"
+
+    def __post_init__(self) -> None:
+        self.sigmas = np.exp(np.linspace(np.log(self.edm_sigma_min), np.log(self.edm_sigma_max),
+                                         self.num_timesteps)).astype(np.float32)
+        self.log_sigmas = np.log(self.sigmas)
+
+    def percent_to_sigma(self, percent: float) -> float:
+        if percent <= 0.0:
+            return 999999999.9
+        if percent >= 1.0:
+            return 0.0
+        percent = 1.0 - percent
+        log_min, log_max = np.log(self.edm_sigma_min), np.log(self.edm_sigma_max)
+        return float(np.exp(log_min + (log_max - log_min) * percent))
+
+
+@dataclass
+class ModelSamplingCascade(ModelSampling):
+    """Stable Cascade's continuous cosine sampling (comfy model_sampling.py
+    StableCascadeSampling): sigma(t) from a shifted cosine alpha-cumprod over
+    t in (0, 1], and the model's timestep input is that t (``t_of_sigma``).
+    Stage C takes shift 2.0, Stage B 1.0. The table has 1000 entries, as the
+    JAX package's (comfy's has 10000)."""
+
+    shift: float = 1.0
+    cosine_s: float = 8e-3
+    timestep_mode: str = "cascade"
+
+    def __post_init__(self) -> None:
+        self.num_timesteps = 1000
+        self._init_alpha = float(np.cos(self.cosine_s / (1 + self.cosine_s) * np.pi * 0.5) ** 2)
+        t = (np.arange(self.num_timesteps, dtype=np.float64) + 1) / self.num_timesteps
+        self.sigmas = self.sigma_of_t(t).astype(np.float32)
+        self.log_sigmas = np.log(self.sigmas)
+
+    def sigma_of_t(self, t: np.ndarray) -> np.ndarray:
+        alpha = np.cos((t + self.cosine_s) / (1 + self.cosine_s) * np.pi * 0.5) ** 2 / self._init_alpha
+        if self.shift != 1.0:
+            log_snr = np.log(alpha / (1 - alpha)) + 2 * np.log(1.0 / self.shift)
+            alpha = 1.0 / (1.0 + np.exp(-log_snr))
+        alpha = np.clip(alpha, 1e-4, 0.9999)
+        return ((1 - alpha) / alpha) ** 0.5
+
+    def t_of_sigma(self, sigma):
+        """The continuous t the model takes for ``sigma``."""
+        var = np.clip(1.0 / (sigma * sigma + 1.0), 0.0, 1.0)
+        s, init = self.cosine_s, self._init_alpha
+        return (np.arccos(np.sqrt(var * init)) / (np.pi * 0.5)) * (1 + s) - s
+
+
 def rescale_zero_terminal_snr_sigmas(sigmas: np.ndarray) -> np.ndarray:
     """Zero-terminal-SNR rescale (comfy_extras/nodes_model_advanced.py
     rescale_zero_terminal_snr_sigmas, Lin et al. 2023): shift and scale the

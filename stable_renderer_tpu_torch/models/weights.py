@@ -18,8 +18,7 @@ instead of copying it; ``.ckpt`` / ``.pt`` files through
 Detection is the JAX package's whole walk (``detect_unet_config``: every
 layout field of ``UNetConfig``, per-block depths, per-level res blocks, the
 middle block, disabled self-attention, the class table and the head rule) and
-its family rule (``detect_model_family``). Every family the JAX package
-detects loads but SVD's temporal UNet, which waits for ROADMAP 1.11c.
+its family rule (``detect_model_family``), SVD's temporal UNet included.
 """
 
 from __future__ import annotations
@@ -263,8 +262,10 @@ def detect_unet_config(flat: Mapping[str, Any]) -> UNetConfig:
     another width than the block's), then the middle block's layout, the
     output blocks' depths, the context and ADM widths, the class table, and
     the head rule (8 fixed heads at context 768, 64-wide heads otherwise).
-    Reads shapes only, so zero-stride arrays will do. SVD's temporal UNet
-    raises naming ROADMAP 1.11c."""
+    Reads shapes only, so zero-stride arrays will do. A file with
+    ``time_stack`` keys is SVD's temporal UNet: ``SVD_UNET_CONFIG`` with the
+    file's input, model and ADM widths (a ``VideoUNetConfig``), as in the
+    JAX package."""
     prefix = _UNET
     w = flat.get(prefix + "input_blocks.0.0.weight")
     if w is None:
@@ -275,8 +276,14 @@ def detect_unet_config(flat: Mapping[str, Any]) -> UNetConfig:
     class_w = flat.get(prefix + "label_emb.weight")
     num_classes = None if class_w is None else int(class_w.shape[0])
     if any(".time_stack." in k for k in flat if k.startswith(prefix)):
-        raise NotImplementedError("SVD's temporal UNet (models/video_unet.py) waits for "
-                                  "ROADMAP 1.11c")
+        # SVD's temporal UNet (supported_models.py:257): the preset with the
+        # file's input, model and ADM widths, as the JAX package takes it
+        from dataclasses import replace
+
+        from stable_renderer_tpu_torch.models import video_unet
+
+        return replace(video_unet.SVD_UNET_CONFIG, in_channels=in_channels,
+                       model_channels=model_channels, adm_in_channels=adm)
     context_dim = 768
     for k, v in flat.items():
         if k.startswith(prefix) and k.endswith("attn2.to_k.weight"):

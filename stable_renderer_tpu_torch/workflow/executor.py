@@ -24,6 +24,7 @@ structured NodeExecutionError.
 
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -955,10 +956,9 @@ def ksampler(
             img = x4_aug.q_sample(img, level, _generator(ctx, abs(seed - 10)))
         concat_zm = neg_concat = img  # the reference attaches the same pixels to both conds
         y_pos = y_neg = torch.full((1, 1), float(level), device=dev)
-    if isinstance(positive, dict) and positive.get("stable_cascade_prior") is not None:
-        raise NotImplementedError("Stable Cascade's stage-B prior waits for ROADMAP 1.11c")
-    if getattr(ms, "timestep_mode", "") in ("edm", "cascade"):
-        raise NotImplementedError("EDM and Stable Cascade timesteps wait for ROADMAP 1.11c")
+    # Stable Cascade's Stage B: Stage C's latent feeds the effnet mapper
+    # (model_base.py StableCascade_B.extra_conds; the uncond rows take zeros)
+    cascade_prior = positive.get("stable_cascade_prior") if isinstance(positive, dict) else None
     # inpaint: a latent-attached noise_mask restricts denoising to the hole
     noise_mask = latent_image.get("noise_mask") if is_dict else None
     if noise_mask is not None:
@@ -1054,10 +1054,29 @@ def ksampler(
 
     log_sigmas = torch.as_tensor(ms.log_sigmas)
     unet = model["unet"]
+    from stable_renderer_tpu_torch.models.video_unet import VideoUNetModel
+
+    if isinstance(unet, VideoUNetModel):
+        # frame groups of the latent's batch, so CFG's 2T batch splits into
+        # [cond, uncond] sequences (model_base.py SVD_img2vid num_video_frames)
+        unet = VideoUNetModel(unet.config, num_frames=b)
     # model patches (FreeU, HyperTile, hypernetworks, SAG, PerpNeg,
     # DifferentialDiffusion) -> hook points and denoiser options
     patch_hooks, patch_opts = model_patch_options(model, unet, sigmas, ms)
     linear_cfg_min = patch_opts.pop("linear_cfg_min", None)
+    mode = getattr(ms, "timestep_mode", "")
+    if mode == "edm":
+        # EDM models (SVD) take 0.25 * log(sigma) as the UNet's timestep
+        patch_opts["t_fn"] = lambda s: 0.25 * torch.log(torch.clamp(s, min=1e-10))
+    elif mode == "cascade":
+        # Stable Cascade: the continuous cosine t (StableCascadeSampling.timestep)
+        cs, init = float(ms.cosine_s), float(ms._init_alpha)
+
+        def cascade_t(s):
+            var = torch.clamp(1.0 / (s * s + 1.0), 0.0, 1.0)
+            return (torch.arccos(torch.sqrt(var * init)) / (math.pi * 0.5)) * (1 + cs) - cs
+
+        patch_opts["t_fn"] = cascade_t
     hooks = (corresponder.attn_hooks(None, generator=_generator(ctx, seed))
              if use_corr else AttnHooks())
     hooks = hooks._replace(
@@ -1131,6 +1150,8 @@ def ksampler(
         concat_latent=concat_latent,
         y_cond=None if y_pos is None else _on(ctx, y_pos)[:1].expand(b, y_pos.shape[-1]),
         y_uncond=None if y_neg is None else _on(ctx, y_neg)[:1].expand(b, y_neg.shape[-1]),
+        model_extra_cond=None if cascade_prior is None else {
+            "effnet": _on(ctx, cascade_prior)[:1].expand((b,) + tuple(cascade_prior.shape[1:]))},
         **patch_opts,
     )
     out = sample(den, noise, sigmas, latent_image=latent, sampler=sampler_name,

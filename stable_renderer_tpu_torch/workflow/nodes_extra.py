@@ -8,8 +8,11 @@ Counterpart of stable_renderer_tpu/workflow/nodes_extra.py, node for node
   * nodes_model_merging.py  — Model/CLIP merge arithmetic + checkpoint saves
     (through models/weights.py's writer).
   * nodes_morphology.py, nodes_compositing.py, nodes_rebatch.py,
-    nodes_sdupscale.py, nodes_tomesd.py, nodes_video_model.py's CFG ramp,
-    nodes_stable_cascade.py's latents and stage-B conditioning.
+    nodes_sdupscale.py, nodes_tomesd.py.
+  * nodes_video_model.py    — ImageOnlyCheckpointLoader (SVD and Stable
+    Zero123 files), SVD_img2vid_Conditioning, VideoLinearCFGGuidance.
+  * nodes_stable_cascade.py — the latents, the stage-B conditioning and
+    the stage loader (CascadeStageLoader / UNETLoader).
   * nodes_freelunch.py      — FreeU / FreeU_V2 output-block patches.
   * nodes_hypertile.py      — HyperTile tiled self-attention.
   * nodes_hypernetwork.py   — HypernetworkLoader: attn k/v context MLPs.
@@ -50,7 +53,6 @@ from stable_renderer_tpu_torch.workflow.executor import (
     _generator,
     _on,
     register_node,
-    register_stubs,
 )
 
 logger = get_logger("sr_tpu_torch.nodes_extra")
@@ -1046,8 +1048,8 @@ def tome_patch_model(ctx: InferenceContext, node: WorkflowNode, model=None):
 
 
 # ---------------------------------------------------------------------------
-# Stable Cascade (nodes_stable_cascade.py): the latents and the stage-B
-# conditioning are tensor work; the stages wait for ROADMAP 1.11
+# Stable Cascade (nodes_stable_cascade.py): the latents, the stage-B
+# conditioning and the stage loader (models/cascade.py)
 
 
 @register_node("StableCascade_EmptyLatentImage")
@@ -1072,14 +1074,16 @@ def stable_cascade_stage_b_conditioning(ctx: InferenceContext, node: WorkflowNod
 
 @register_node("CascadeStageLoader", "UNETLoader")
 def cascade_stage_loader(ctx: InferenceContext, node: WorkflowNode):
-    """UNet-only checkpoint loader (comfy UNETLoader): a UNet file of any
-    family ``detect_unet_config`` takes loads in bf16 (SVD's temporal UNet
-    raises there naming ROADMAP 1.11c), with the default eps sampling, as
-    the JAX package's node does. Stable Cascade stages (clip_txt_mapper -> Stage
-    C, effnet_mapper -> Stage B), and the JAX package's fallback without a
-    file (a tiny random Cascade stage), need models/cascade.py, which waits
-    for ROADMAP 1.11."""
+    """UNet-only checkpoint loader (comfy UNETLoader) with Stable Cascade's
+    stage detection, as the JAX package's node: clip_txt_mapper -> Stage C
+    (``STAGE_C_CONFIG`` for every such file, shift 2.0), effnet_mapper ->
+    Stage B (``STAGE_B_CONFIG``, shift 1.0), any other UNet file of a family
+    ``detect_unet_config`` takes with the default eps sampling; all in bf16.
+    Without a file, a tiny random stage: Stage B when the name holds
+    'stage_b', else Stage C."""
+    from stable_renderer_tpu_torch.models import cascade
     from stable_renderer_tpu_torch.models.sampling import ModelSampling
+    from stable_renderer_tpu_torch.models.sampling.schedules import ModelSamplingCascade
     from stable_renderer_tpu_torch.models.unet import UNetModel
     from stable_renderer_tpu_torch.models.weights import (
         detect_unet_config,
@@ -1090,26 +1094,151 @@ def cascade_stage_loader(ctx: InferenceContext, node: WorkflowNode):
 
     name = str(node.widgets[0]) if node.widgets else ""
     path = _find_model_file(ctx, name)
-    cascade = NotImplementedError(f"node type '{node.type}': Stable Cascade stages need "
-                                  "models/cascade.py, which waits for ROADMAP 1.11")
     if not path:
-        raise cascade
+        logger.warning(f"unet '{name}' not found; tiny random cascade stage")
+        if "stage_b" in name.lower():
+            model, ms = cascade.CascadeStageB(cascade.TINY_CASCADE_B_CONFIG), 1.0
+        else:
+            model, ms = cascade.CascadeStageC(cascade.TINY_CASCADE_C_CONFIG), 2.0
+        return ({"unet": model, "params": model.init(_generator(ctx, 0), device=ctx.device),
+                 "sampling": ModelSamplingCascade(shift=ms)},)
     flat = load_state_dict(path)
     if any(k.startswith("model.diffusion_model.") for k in flat):
         flat = {k[len("model.diffusion_model."):]: v for k, v in flat.items()
                 if k.startswith("model.diffusion_model.")}
-    if "clip_txt_mapper.weight" in flat or "effnet_mapper.0.weight" in flat:
-        raise cascade
-    ucfg = detect_unet_config({f"model.diffusion_model.{k}": v for k, v in flat.items()})
-    return ({"unet": UNetModel(ucfg), "params": tree_to(nest(flat, ""), ctx.device,
-                                                        torch.bfloat16),
-             "sampling": ModelSampling()},)
+    if "clip_txt_mapper.weight" in flat:
+        model, ms = cascade.CascadeStageC(cascade.STAGE_C_CONFIG), ModelSamplingCascade(shift=2.0)
+    elif "effnet_mapper.0.weight" in flat:
+        model, ms = cascade.CascadeStageB(cascade.STAGE_B_CONFIG), ModelSamplingCascade(shift=1.0)
+    else:
+        model = UNetModel(detect_unet_config(
+            {f"model.diffusion_model.{k}": v for k, v in flat.items()}))
+        ms = ModelSampling()
+    return ({"unet": model, "params": tree_to(nest(flat, ""), ctx.device, torch.bfloat16),
+             "sampling": ms},)
 
 
-# --- nodes whose only work is a model of ROADMAP 1.11 ------------------------
+# ---------------------------------------------------------------------------
+# video models (nodes_video_model.py: SVD img2vid)
 
-register_stubs(("ImageOnlyCheckpointLoader", "SVD_img2vid_Conditioning"), "1.11",
-               "models/video_unet.py and models/clip_vision.py (SVD)")
+
+def _vision_tower(cv_p: dict, device) -> dict:
+    """A checkpoint's embedded vision tower, nested under ``vision_model`` as
+    the JAX package's loader nests it, in f32. A ``visual_projection`` found
+    inside is lifted beside ``vision_model``, where ``CLIPVisionModel``
+    reads it: the JAX package leaves it inside, so its encode of any loaded
+    tower raises (ROADMAP queue 3). A tower in open_clip's layout stays as it
+    is and raises at the encode in both packages."""
+    from stable_renderer_tpu_torch.models.weights import tree_to
+
+    params = tree_to({"vision_model": cv_p}, device, torch.float32)
+    proj = params["vision_model"].pop("visual_projection", None)
+    if proj is not None:
+        params["visual_projection"] = proj
+    return params
+
+
+@register_node("ImageOnlyCheckpointLoader")
+def image_only_checkpoint_loader(ctx: InferenceContext, node: WorkflowNode):
+    """An SVD checkpoint -> (MODEL, CLIP_VISION, VAE) (nodes_video_model.py
+    ImageOnlyCheckpointLoader). A file with ``time_stack`` keys loads the
+    temporal UNet with EDM v-prediction sampling; any other the
+    image-conditioned stills UNet (Stable Zero123) with the default
+    schedule and its ``cc_projection``. The UNet and the VAE
+    (``SD15_VAE_CONFIG``) in bf16, the vision tower (``VITH_CONFIG``, at
+    ``conditioner.embedders.0.open_clip.model.visual.`` or Zero123's
+    ``cond_stage_model.model.visual.``) in f32, as the JAX package's node
+    loads them. Without a file, tiny random models."""
+    from stable_renderer_tpu_torch.models import clip_vision
+    from stable_renderer_tpu_torch.models import vae as vae_mod
+    from stable_renderer_tpu_torch.models.sampling import ModelSampling
+    from stable_renderer_tpu_torch.models.sampling.schedules import ModelSamplingEDM
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+    from stable_renderer_tpu_torch.models.video_unet import (
+        TINY_VIDEO_UNET_CONFIG,
+        VideoUNetConfig,
+        VideoUNetModel,
+    )
+    from stable_renderer_tpu_torch.models.weights import (
+        detect_unet_config,
+        load_state_dict,
+        nest,
+        tree_to,
+    )
+
+    name = str(node.widgets[0]) if node.widgets else ""
+    path = _find_model_file(ctx, name)
+    dev = ctx.device
+    if not path:
+        logger.warning(f"video checkpoint '{name}' not found; tiny random models")
+        gen = _generator(ctx, 0)
+        unet = VideoUNetModel(TINY_VIDEO_UNET_CONFIG)
+        model = {"unet": unet, "params": unet.init(gen, device=dev),
+                 "sampling": ModelSamplingEDM(prediction="v")}
+        vae = vae_mod.VAE(vae_mod.TINY_VAE_CONFIG)
+        cv = clip_vision.CLIPVisionModel(clip_vision.TINY_VISION_CONFIG)
+        return (model, {"model": cv, "params": cv.init(gen, device=dev)},
+                {"vae": vae, "params": vae.init(gen, device=dev)})
+    flat = load_state_dict(path)
+    cv_p = nest(flat, "conditioner.embedders.0.open_clip.model.visual.")
+    if not cv_p:  # Zero123's layout (cond_stage_model = the vision tower)
+        cv_p = nest(flat, "cond_stage_model.model.visual.")
+    ucfg = detect_unet_config(flat)
+    if isinstance(ucfg, VideoUNetConfig):
+        unet, ms = VideoUNetModel(ucfg), ModelSamplingEDM(prediction="v")
+    else:  # an image-conditioned stills model (Stable Zero123)
+        unet, ms = UNetModel(ucfg), ModelSampling()
+    model = {"unet": unet, "params": tree_to(nest(flat, "model.diffusion_model."), dev,
+                                             torch.bfloat16), "sampling": ms}
+    if "cc_projection.weight" in flat:
+        model["cc_projection"] = {k: flat[f"cc_projection.{k}"] for k in ("weight", "bias")
+                                  if f"cc_projection.{k}" in flat}
+    vae = {"vae": vae_mod.VAE(vae_mod.SD15_VAE_CONFIG),
+           "params": tree_to(nest(flat, "first_stage_model."), dev, torch.bfloat16)}
+    cv = {"model": clip_vision.CLIPVisionModel(clip_vision.VITH_CONFIG),
+          "params": _vision_tower(cv_p, dev)}
+    return model, cv, vae
+
+
+@register_node("SVD_img2vid_Conditioning")
+def svd_img2vid_conditioning(ctx: InferenceContext, node: WorkflowNode, clip_vision=None,
+                             init_image=None, vae=None):
+    """SVD's conditioning (nodes_video_model.py SVD_img2vid_Conditioning):
+    the init image's CLIP vision embed as the cross-attention context, its
+    latent at (height, width) as c_concat (zeros for the negative), the
+    fps / motion / augmentation ADM vector, and an empty latent of
+    ``video_frames`` rows. With ``augmentation_level`` > 0 the image takes
+    a draw from a generator seeded 7 on the executor's device (the JAX
+    package draws from PRNGKey(7))."""
+    from stable_renderer_tpu_torch.models.video_unet import svd_adm_vector
+
+    w = node.widgets
+    width = int(w[0]) if w else 1024
+    height = int(w[1]) if len(w) > 1 else 576
+    video_frames = int(w[2]) if len(w) > 2 else 14
+    motion_bucket_id = int(w[3]) if len(w) > 3 else 127
+    fps = int(w[4]) if len(w) > 4 else 6
+    aug = float(w[5]) if len(w) > 5 else 0.0
+
+    image = _on(ctx, init_image)
+    out = clip_vision["model"].encode_image(clip_vision["params"], image)
+    pooled = out.image_embeds[:1][:, None, :]  # (1, 1, D)
+    img = image[..., :3]
+    if tuple(img.shape[1:3]) != (height, width):
+        img = _resize_image(img, height, width, "bilinear")
+    if aug > 0:
+        img = img + torch.randn(tuple(img.shape), generator=_generator(ctx, 7),
+                                device=img.device) * aug
+    dtype = vae["params"]["quant_conv"]["weight"].dtype
+    t = vae["vae"].encode(vae["params"], (img * 2.0 - 1.0).to(dtype)).float()
+    y = svd_adm_vector(fps - 1, motion_bucket_id, aug, device=ctx.device)
+    pos = {"context": pooled, "concat_latent_image": t, "y": y, "fps": fps,
+           "motion_bucket_id": motion_bucket_id, "augmentation_level": aug}
+    neg = {"context": torch.zeros_like(pooled), "concat_latent_image": torch.zeros_like(t),
+           "y": y}
+    latent = {"samples": torch.zeros((video_frames, t.shape[1], t.shape[2], 4),
+                                     device=ctx.device)}
+    return pos, neg, latent
 
 
 # ---------------------------------------------------------------------------

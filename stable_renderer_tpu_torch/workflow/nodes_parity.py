@@ -17,15 +17,11 @@ clip_sdxl,cond,canny,post_processing,stable_cascade,stable3d}.py):
   * loaders — VAELoader, CLIPLoader, DualCLIPLoader, LoraLoader,
     CheckpointLoader, DiffusersLoader, DiffControlNetLoader,
     VAEDecode/EncodeTiled.
-  * advanced model patches — ModelSamplingDiscrete, RescaleCFG,
-    PatchModelAddDownscale.
-
+  * advanced model patches — ModelSamplingDiscrete, ModelSamplingContinuousEDM,
+    ModelSamplingStableCascade, RescaleCFG, PatchModelAddDownscale.
   * image conditioning — unCLIPCheckpointLoader, StyleModelLoader,
     StyleModelApply, StableZero123_Conditioning_Batched.
-
-The nodes whose only work is a model of ROADMAP 1.11c (the EDM and Stable
-Cascade schedules and stages) raise NotImplementedError naming 1.11 and the
-JAX package's module.
+  * StableCascade_StageC_VAEEncode.
 
 All tensors are NHWC torch tensors on the executor's device; LATENT values
 are the same {"samples": ...} dicts the rest of the executor uses. Files
@@ -51,7 +47,6 @@ from stable_renderer_tpu_torch.workflow.executor import (
     _generator,
     _on,
     register_node,
-    register_stubs,
     widget as _widget,
 )
 from stable_renderer_tpu_torch.workflow.nodes_extra import (
@@ -924,10 +919,27 @@ def model_sampling_discrete(ctx: InferenceContext, node: WorkflowNode, model=Non
     return ({**model, "sampling": ms},)
 
 
-register_stubs(("ModelSamplingContinuousEDM",), "1.11",
-               "models/sampling/schedules.py's ModelSamplingEDM (EDM timesteps in the UNet)")
-register_stubs(("ModelSamplingStableCascade",), "1.11",
-               "models/cascade.py (Stable Cascade's schedule and stages)")
+@register_node("ModelSamplingContinuousEDM")
+def model_sampling_continuous_edm(ctx: InferenceContext, node: WorkflowNode, model=None):
+    """EDM sampling between the node's sigma bounds (nodes_model_advanced.py
+    ModelSamplingContinuousEDM): v_prediction or eps."""
+    from stable_renderer_tpu_torch.models.sampling.schedules import ModelSamplingEDM
+
+    sampling = str(_widget(node, 0, "v_prediction"))
+    sigma_max = _widget(node, 1, 120.0, float)
+    sigma_min = _widget(node, 2, 0.002, float)
+    ms = ModelSamplingEDM(prediction="v" if sampling == "v_prediction" else "eps",
+                          edm_sigma_min=sigma_min, edm_sigma_max=sigma_max)
+    return ({**model, "sampling": ms},)
+
+
+@register_node("ModelSamplingStableCascade")
+def model_sampling_stable_cascade(ctx: InferenceContext, node: WorkflowNode, model=None):
+    """Stable Cascade's cosine sampling at the node's shift
+    (nodes_model_advanced.py ModelSamplingStableCascade)."""
+    from stable_renderer_tpu_torch.models.sampling.schedules import ModelSamplingCascade
+
+    return ({**model, "sampling": ModelSamplingCascade(shift=_widget(node, 0, 2.0, float))},)
 
 
 @register_node("RescaleCFG")
@@ -964,8 +976,27 @@ def patch_model_add_downscale(ctx: InferenceContext, node: WorkflowNode, model=N
 # ---------------------------------------------------------------------------
 # stragglers (nodes_stable_cascade.py / nodes_stable3d.py)
 
-register_stubs(("StableCascade_StageC_VAEEncode",), "1.11",
-               "models/cascade.py (the Stage C encoder)")
+@register_node("StableCascade_StageC_VAEEncode")
+def stable_cascade_stage_c_vae_encode(ctx: InferenceContext, node: WorkflowNode, image=None,
+                                      vae=None):
+    """Pixels -> a Stage C latent at the requested compression and an empty
+    Stage B latent (nodes_stable_cascade.py:51-83). It encodes with the VAE
+    it is given, as the JAX package does: the image is resized (bicubic) to
+    (size // compression) times the VAE's downscale ratio (2^(levels-1);
+    32, the effnet encoder's, for a VAE without a config)."""
+    from stable_renderer_tpu_torch.models.sampling.cfg import _params_dtype
+
+    compression = _widget(node, 0, 42, int)
+    image = _on(ctx, image)
+    height, width = image.shape[1], image.shape[2]
+    cfg = getattr(vae["vae"], "config", None)
+    ratio = 2 ** (len(cfg.ch_mult) - 1) if cfg is not None else 32
+    out_w = max(ratio, (width // compression) * ratio)
+    out_h = max(ratio, (height // compression) * ratio)
+    s = _resize_image(image[..., :3], out_h, out_w, "bicubic")
+    c_latent = vae["vae"].encode(vae["params"], (s * 2.0 - 1.0).to(_params_dtype(vae["params"])))
+    b_latent = torch.zeros((c_latent.shape[0], height // 4, width // 4, 4), device=ctx.device)
+    return {"samples": c_latent.float()}, {"samples": b_latent}
 
 
 @register_node("StableZero123_Conditioning_Batched")

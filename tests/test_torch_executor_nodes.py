@@ -372,13 +372,14 @@ def test_ksampler_without_engine_data_and_unported_branches(monkeypatch):
     in: unCLIP's ADM vector (a UNet with a 16-wide ADM: two image entries on
     the positive, the merge path; zeros for the negative, which has none)
     and the x4 layout (a class-table UNet of 7 input channels; a 12x20 image
-    resized to the latent and noise-augmented at 0.2). A Stable Cascade
-    prior and EDM timesteps raise naming ROADMAP 1.11c."""
+    resized to the latent and noise-augmented at 0.2). EDM v-prediction
+    sampling (0.25 log sigma as the UNet's timestep) and Stable Cascade's
+    (the continuous cosine t) on the tiny UNet run as JAX's (the Cascade
+    prior's effnet input is held in tests/test_torch_video_graphs.py)."""
     from test_torch_nodes_parity import as_jax, jax_config
     from test_torch_noise_aug import jax_aug_noise
 
     import stable_renderer_tpu.models as jm
-    from stable_renderer_tpu_torch.models.sampling import ModelSampling
     from stable_renderer_tpu_torch.models.unet import UNetModel
 
     spec = [LOADER, (2, "CLIPTextEncode", ["x"], {"clip": (1, 1)}),
@@ -388,7 +389,7 @@ def test_ksampler_without_engine_data_and_unported_branches(monkeypatch):
     jctx, pctx, jex, pex = run_both(spec, monkeypatch, seeds=(0,))  # no engine data: runs
     assert_close(pctx.outputs[10][0], jctx.outputs[10][0])
     jax_aug_noise(monkeypatch)
-    model = pex._cache[1][0]
+    model, jmodel = pex._cache[1][0], jex._cache[1][0]
     embeds = RNG.standard_normal((2, 8)).astype(F32)
     variants = {
         "unclip": (dict(adm_in_channels=16), {"noise_aug_dim": 8},
@@ -419,18 +420,29 @@ def test_ksampler_without_engine_data_and_unported_branches(monkeypatch):
         assert moved > 1e-3, name
         for ex in (jex, pex):
             ex._cache[2] = ({k: v for k, v in ex._cache[2][0].items() if k not in cond_extra},)
-    # the 1.11c inputs raise in the port
-    pex._cache[1] = ({**model},) + pex._cache[1][1:]
-    del pex._cache[10]
-    pex._cache[2] = ({**pex._cache[2][0], "stable_cascade_prior": torch.zeros(1, 4, 4, 16)},)
-    with pytest.raises(pe.NodeExecutionError, match=r"Stable Cascade.*ROADMAP 1\.11c"):
-        pex.execute()
-    pex._cache[2] = ({k: v for k, v in pex._cache[2][0].items()
-                      if k != "stable_cascade_prior"},)
-    edm = type("EDMSampling", (ModelSampling,), {"timestep_mode": "edm"})()
-    pex._cache[1] = ({**model, "sampling": edm},) + pex._cache[1][1:]
-    with pytest.raises(pe.NodeExecutionError, match=r"EDM.*ROADMAP 1\.11c"):
-        pex.execute()
+    # EDM and Cascade timesteps on the tiny UNet, as JAX's. JAX's compiled
+    # KSampler programs are keyed without the model's sampling (ROADMAP
+    # queue 3): the EDM model first runs the eps program compiled above; the
+    # cache is emptied so that each schedule compiles its own
+    from stable_renderer_tpu.models.sampling import schedules as jsched
+    from stable_renderer_tpu_torch.models.sampling import schedules as psched
+
+    for kind, kw in (("ModelSamplingEDM", dict(prediction="v")),
+                     ("ModelSamplingCascade", dict(shift=2.0))):
+        for ex, m, ms in ((jex, jmodel, getattr(jsched, kind)(**kw)),
+                          (pex, model, getattr(psched, kind)(**kw))):
+            ex._cache[1] = ({**m, "sampling": ms},) + ex._cache[1][1:]
+            del ex._cache[10]
+        if kind == "ModelSamplingEDM":
+            stale = np.asarray(jex.execute().outputs[10][0]["samples"])
+            del jex._cache[10]
+        jex._jit_cache.clear()
+        jo, po = jex.execute().outputs, pex.execute().outputs
+        assert_close(po[10][0], jo[10][0])
+        if kind == "ModelSamplingEDM":
+            assert np.abs(stale - np.asarray(jo[10][0]["samples"])).max() > 1.0
+        moved = float((po[10][0]["samples"] - pctx.outputs[10][0]["samples"]).abs().max())
+        assert moved > 1e-3, kind
 
 
 def test_engine_data_node_needs_engine_data():

@@ -375,7 +375,8 @@ def test_layout_detection_round_trips(layout):
 def test_detect_model_family_matches_jax(case):
     """detect_model_family on SD2 768-v (the out-layer statistic above 0.09)
     and a 9-channel SD2 inpaint UNet (eps whatever the statistic); an SVD
-    state dict's family, while its UNet config raises naming 1.11c."""
+    state dict's family, its UNet config SVD's preset at the file's widths
+    in both packages."""
     from stable_renderer_tpu.models.unet import SD15_UNET_CONFIG as JSD15
     from stable_renderer_tpu.models.weights import detect_model_family as jfamily
 
@@ -389,10 +390,16 @@ def test_detect_model_family_matches_jax(case):
     flat[key] = torch.from_numpy(np.random.default_rng(0).standard_normal(32).astype(
         np.float32) * 0.2)
     if case == "svd":
+        from stable_renderer_tpu.models.weights import detect_unet_config as jdetect
+
+        from stable_renderer_tpu_torch.models.video_unet import SVD_UNET_CONFIG
+
         flat["model.diffusion_model.input_blocks.1.0.time_stack.in_layers.0.weight"] = flat[key]
-        with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.11c"):
-            detect_unet_config(flat)
-        cfg = pcfg
+        cfg = detect_unet_config(flat)
+        assert cfg == replace(SVD_UNET_CONFIG, in_channels=4, model_channels=32,
+                              adm_in_channels=None)
+        theirs = jdetect({k: v.numpy() for k, v in flat.items()})
+        assert dataclasses.asdict(cfg) == {k: getattr(theirs, k) for k in dataclasses.asdict(cfg)}
     else:
         cfg = detect_unet_config(flat)
     fam = detect_model_family(flat, cfg)

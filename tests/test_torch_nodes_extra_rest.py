@@ -7,9 +7,10 @@ within PURE (1e-6); SamplerCustom and the merges within TOL; the saves
 write files that hold the same tensors bit for bit as JAX's, and a
 CheckpointSave of the port loads through JAX's load_checkpoint leaf for
 leaf. Zero123 and PhotoMaker take the same tiny towers in both packages
-(the _Const pairs) or a written file. The nodes whose only work is a model
-of ROADMAP 1.11c raise naming 1.11. Last, the registry walk: no stub of the
-port names ROADMAP 1.12b.
+(the _Const pairs) or a written file. The video loader reads the tiny SVD
+and Zero123 files of tests/test_torch_video_graphs.py's ``video_files``
+leaf for leaf, and the Cascade stage loader its stage files. Last, the
+registry walk: the two stubs left name ROADMAP 1.13.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from test_torch_nodes_parity import (  # noqa: F401  (fixtures used by name)
     CONSTS,
     PURE,
     RNG,
-    assert_raises_1_11,
     bits,
     const_nodes,
     image_model_files,
@@ -37,6 +37,7 @@ from test_torch_nodes_parity import (  # noqa: F401  (fixtures used by name)
     tiny_sd15,
     vision_pair,
 )
+from test_torch_video_graphs import video_files  # noqa: F401  (a fixture used by name)
 
 import stable_renderer_tpu.workflow.executor as je
 import stable_renderer_tpu_torch.workflow.executor as pe
@@ -58,8 +59,6 @@ CONSTS.update({
     "photomaker": photomaker_pair(),        # projections 32 + 32 = the 64-wide CLIP-L
     "photomaker_narrow": photomaker_pair(proj2=16),  # 48 wide: tiled and blended
 })
-
-RAISES = ("ImageOnlyCheckpointLoader", "SVD_img2vid_Conditioning")
 
 # (node type, widgets, inputs, tolerance)
 CASES = [
@@ -99,6 +98,15 @@ CASES = [
     ("StableCascade_EmptyLatentImage", [1024, 768, 42, 2], {}, PURE),
     ("StableCascade_StageB_Conditioning", [], {"conditioning": "cond", "stage_c": "latent"},
      PURE),
+    # the video loader on a tiny file's both branches (their towers as JAX's
+    # ImageOnlyCheckpointSave writes them: no projection), and SVD's
+    # conditioning on the tiny tower and VAE
+    ("ImageOnlyCheckpointLoader", ["svd_bare.safetensors"], {}, PURE, "video_files"),
+    ("ImageOnlyCheckpointLoader", ["zero123_bare.safetensors"], {}, PURE, "video_files"),
+    ("SVD_img2vid_Conditioning", [32, 24, 3, 127, 6, 0.0],
+     {"clip_vision": "vision", "init_image": "image", "vae": ("m0", 2)}, TOL),
+    ("SVD_img2vid_Conditioning", [16, 16, 2, 40, 12, 0.0],
+     {"clip_vision": "vision", "init_image": "image2", "vae": ("m0", 2)}, TOL),
     # image conditioning; a fifth entry names the fixture whose directory of
     # files the loader reads
     ("StableZero123_Conditioning", [32, 24, 2, 10.0, 30.0],
@@ -126,11 +134,6 @@ def test_node_matches_jax(monkeypatch, request, case):
              model_dirs=[request.getfixturevalue(f) for f in case[4:]])
 
 
-@pytest.mark.parametrize("name", RAISES)
-def test_node_raises_naming_1_11(name):
-    assert_raises_1_11(name)
-
-
 def test_every_name_of_the_pack_has_a_case():
     """The JAX pack's names less the model patches of
     tests/test_torch_executor_patches.py: 39."""
@@ -141,8 +144,7 @@ def test_every_name_of_the_pack_has_a_case():
     names = {n for n, f in je.NODE_REGISTRY.items()
              if f.__module__ == jextra.__name__} - patches
     assert len(names) == 39
-    assert names == ({c[0] for c in CASES} | set(RAISES) | set(SAMPLER_NODES)
-                     | set(FILE_NODES))
+    assert names == {c[0] for c in CASES} | set(SAMPLER_NODES) | set(FILE_NODES)
 
 
 @pytest.mark.parametrize("add_noise, widgets", [
@@ -219,45 +221,87 @@ def test_checkpoint_save_of_the_port_loads_in_jax(tmp_path, monkeypatch, output_
             assert bits(v.float()) == bits(np.asarray(theirs[k], np.float32)), k
 
 
-def test_unet_loader_matches_jax_and_cascade_stages_raise(tmp_path, tiny_sd15):
+def test_unet_loader_matches_jax_and_cascade_stages_raise(tmp_path, tiny_sd15, video_files):
     """UNETLoader / CascadeStageLoader on a bare SD1.x UNet file (both the
     model.diffusion_model.-prefixed and the bare layout) load every leaf as
-    JAX's (bf16); a Stable Cascade stage file, and no file (JAX's fallback is
-    a tiny Cascade stage), raise naming ROADMAP 1.11 in the port."""
+    JAX's (bf16); on the tiny Stage C and Stage B files (bare, and Stage C
+    prefixed) the stage, its shift and every leaf as JAX's; without a file
+    both packages build a tiny random stage (Stage B when the name holds
+    'stage_b'), the same config and tree shapes."""
     from test_torch_checkpoint_pipeline import _write_checkpoint
 
-    from stable_renderer_tpu_torch.models.weights import write_safetensors
+    from stable_renderer_tpu.models.weights import flatten as jflatten
+
+    from stable_renderer_tpu_torch.models.weights import (
+        flatten,
+        read_safetensors,
+        write_safetensors,
+    )
 
     flat = _write_checkpoint(tmp_path / "sd.safetensors")
     unet = {k: v for k, v in flat.items() if k.startswith("model.diffusion_model.")}
     write_safetensors(unet, tmp_path / "unet_prefixed.safetensors")
     write_safetensors({k[len("model.diffusion_model."):]: v for k, v in unet.items()},
                       tmp_path / "unet_bare.safetensors")
+    write_safetensors({"model.diffusion_model." + k: v for k, v in read_safetensors(
+        video_files / "stage_c.safetensors").items()}, tmp_path / "stage_c_prefixed.safetensors")
     spec = [(1, "UNETLoader", ["unet_prefixed.safetensors"], {}),
-            (2, "CascadeStageLoader", ["unet_bare.safetensors"], {})]
+            (2, "CascadeStageLoader", ["unet_bare.safetensors"], {}),
+            (3, "UNETLoader", ["stage_c_prefixed.safetensors"], {}),
+            (4, "CascadeStageLoader", [str(video_files / "stage_c.safetensors")], {}),
+            (5, "UNETLoader", [str(video_files / "stage_b.safetensors")], {})]
     jo, po = load_both(spec, (tmp_path,))
     for nid in (1, 2):
         same_tree_bits(po[nid][0]["params"], jo[nid][0]["params"], torch.bfloat16)
         assert po[nid][0]["unet"].config.context_dim == 768
-    write_safetensors({"clip_txt_mapper.weight": torch.zeros(2, 2)},
-                      tmp_path / "stage_c.safetensors")
-    for name in ("stage_c.safetensors", "absent_stage_b.safetensors"):
-        for ntype in ("UNETLoader", "CascadeStageLoader"):
-            _, pwf = graphs([(1, ntype, [name], {})])
-            with pytest.raises(pe.NodeExecutionError, match=r"ROADMAP 1\.11"):
-                pe.PromptExecutor(pwf, model_dirs=(str(tmp_path),), device="cpu").execute()
+    for nid, stage, shift in ((3, "CascadeStageC", 2.0), (4, "CascadeStageC", 2.0),
+                              (5, "CascadeStageB", 1.0)):
+        (pm,), (jm,) = po[nid], jo[nid]
+        same_tree_bits(pm["params"], jm["params"], torch.bfloat16)
+        assert type(pm["unet"]).__name__ == type(jm["unet"]).__name__ == stage
+        assert pm["sampling"].shift == jm["sampling"].shift == shift
+    jo, po = load_both([(1, "CascadeStageLoader", ["absent.safetensors"], {}),
+                        (2, "UNETLoader", ["absent_stage_b.safetensors"], {})], (tmp_path,))
+    for nid, stage, shift in ((1, "CascadeStageC", 2.0), (2, "CascadeStageB", 1.0)):
+        (pm,), (jm,) = po[nid], jo[nid]
+        assert type(pm["unet"]).__name__ == type(jm["unet"]).__name__ == stage
+        assert vars(pm["unet"].config) == vars(jm["unet"].config)
+        assert pm["sampling"].shift == jm["sampling"].shift == shift
+        assert ({k: tuple(v.shape) for k, v in flatten(pm["params"]).items()}
+                == {k: tuple(v.shape) for k, v in jflatten(jm["params"]).items()})
+
+
+def test_video_loader_without_a_file_builds_the_tiny_models_in_both():
+    """ImageOnlyCheckpointLoader without a file: the tiny video UNet with
+    EDM v-prediction, the tiny vision tower and VAE in both packages, the
+    same configs and tree shapes (the draws differ)."""
+    import dataclasses
+
+    from stable_renderer_tpu.models.weights import flatten as jflatten
+
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    jo, po = load_both([(1, "ImageOnlyCheckpointLoader", ["absent.safetensors"], {})], ())
+    (jm, jcv, jv), (pm, pcv, pv) = jo[1], po[1]
+    assert type(pm["unet"]).__name__ == type(jm["unet"]).__name__ == "VideoUNetModel"
+    assert pm["sampling"].prediction == jm["sampling"].prediction == "v"
+    assert type(pm["sampling"]).__name__ == type(jm["sampling"]).__name__ == "ModelSamplingEDM"
+    for p_, j_, key in ((pm, jm, "unet"), (pcv, jcv, "model"), (pv, jv, "vae")):
+        pc_, jc_ = dataclasses.asdict(p_[key].config), dataclasses.asdict(j_[key].config)
+        assert pc_ == {k: jc_[k] for k in pc_}
+        assert ({k: tuple(v.shape) for k, v in flatten(p_["params"]).items()}
+                == {k: tuple(v.shape) for k, v in jflatten(j_["params"]).items()})
 
 
 def test_no_stub_names_1_12b_and_every_stub_names_its_item():
-    """The registry walk: 7 stubs, 5 naming ROADMAP 1.11 (1.11c's models:
-    EDM, Stable Cascade and SVD) and 2 naming 1.13, and none 1.12b; every
-    stub's message ends with its item."""
+    """The registry walk: 2 stubs, both naming ROADMAP 1.13 (the upscale
+    nodes), none 1.11 or 1.12b; every stub's message ends with its item."""
     from stable_renderer_tpu_torch.workflow.loader import WorkflowNode as PNode
 
     stubs = {n: f.roadmap_item for n, f in pe.NODE_REGISTRY.items()
              if hasattr(f, "roadmap_item")}
-    assert "1.12b" not in stubs.values()
-    assert sorted(stubs.values()).count("1.11") == 5 and len(stubs) == 7
+    assert "1.12b" not in stubs.values() and "1.11" not in stubs.values()
+    assert sorted(stubs.values()) == ["1.13", "1.13"] and len(stubs) == 2
     for name, item in stubs.items():
         node = PNode(id=1, type=name, widgets=[], inputs={}, output_names=[])
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):

@@ -13,10 +13,11 @@ refiner) for the SDXL encode nodes. The image-conditioning nodes take the
 same tiny CLIP vision tower, style adapter and PhotoMaker encoder in both
 packages (``vision_pair``, ``style_pair``, ``photomaker_pair``: the port's
 inits copied into JAX's) and their loaders files written by
-``image_model_files``. The nodes whose only work is a model of ROADMAP
-1.11c raise NotImplementedError naming 1.11. The helpers here serve
-tests/test_torch_nodes_extra_rest.py and tests/test_torch_image_conditioning.py
-too.
+``image_model_files``. The EDM and Stable Cascade schedule nodes keep
+their float64-built tables bit for bit, and StableCascade_StageC_VAEEncode
+encodes with the tiny VAE. The helpers here serve
+tests/test_torch_nodes_extra_rest.py, tests/test_torch_image_conditioning.py
+and tests/test_torch_video_graphs.py too.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from test_torch_executor import TOL, run_both
 
 import stable_renderer_tpu.workflow.executor as je
 import stable_renderer_tpu_torch.workflow.executor as pe
-from stable_renderer_tpu_torch.workflow.loader import WorkflowNode as PNode
 
 torch.set_num_threads(1)
 
@@ -331,14 +331,6 @@ def run_node(ntype, widgets, inputs, monkeypatch, tol=PURE, model_dirs=(), seeds
     return jctx, pctx
 
 
-def assert_raises_1_11(name, widgets=()):
-    impl = pe.NODE_REGISTRY[name]
-    assert getattr(impl, "roadmap_item", None) == "1.11"
-    node = PNode(id=1, type=name, widgets=list(widgets), inputs={}, output_names=[])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.11$"):
-        impl(None, node)
-
-
 def bits(x) -> bytes:
     if isinstance(x, torch.Tensor):
         x = (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).contiguous().numpy()
@@ -403,8 +395,6 @@ def load_both(spec, model_dirs):
 
 # --- the cases ------------------------------------------------------------------------
 
-RAISES = ("ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
-          "StableCascade_StageC_VAEEncode")
 CONSTS.update({
     "vision": vision_pair(),
     "vision_output": vision_output_pair(),
@@ -455,6 +445,10 @@ CASES = [
     ("VAEDecodeTiled", [64], {"samples": "latent_16", "vae": ("m0", 2)}, TOL),
     ("VAEEncodeTiled", [64], {"pixels": "image_96", "vae": ("m0", 2)}, TOL),
     ("ModelSamplingDiscrete", ["v_prediction", True], {"model": ("m0", 0)}, PURE),
+    ("ModelSamplingContinuousEDM", ["v_prediction", 120.0, 0.002], {"model": ("m0", 0)}, PURE),
+    ("ModelSamplingContinuousEDM", ["eps", 80.0, 0.03], {"model": ("m0", 0)}, PURE),
+    ("ModelSamplingStableCascade", [2.0], {"model": ("m0", 0)}, PURE),
+    ("ModelSamplingStableCascade", [1.0], {"model": ("m0", 0)}, PURE),
     ("RescaleCFG", [0.6], {"model": ("m0", 0)}, PURE),
     ("PatchModelAddDownscale", [2, 1.5, 0.1, 0.5, False, "bilinear", "bicubic"],
      {"model": ("m0", 0)}, PURE),
@@ -466,6 +460,10 @@ CASES = [
                              "clip_vision_output": "vision_output"}, TOL),
     ("StableZero123_Conditioning_Batched", [32, 24, 3, 10.0, 20.0, 5.0, 15.0],
      {"clip_vision": "vision", "init_image": "image", "vae": ("m0", 2)}, TOL),
+    # Stable Cascade's Stage C encode with the VAE it is given (the tiny
+    # one's ratio 2): 128 // 32 = 4 -> an 8x8 bicubic resize
+    ("StableCascade_StageC_VAEEncode", [32], {"image": "image_128", "vae": ("m0", 2)}, TOL),
+    ("StableCascade_StageC_VAEEncode", [42], {"image": "image_96", "vae": ("m0", 2)}, TOL),
 ]
 FILE_NODES = ("SaveLatent", "LoadLatent", "LoadImageMask", "SaveAnimatedWEBP",
               "SaveAnimatedPNG", "VAELoader", "CLIPLoader", "DualCLIPLoader", "LoraLoader",
@@ -486,11 +484,12 @@ def test_node_matches_jax(monkeypatch, request, case):
         assert pms.prediction == jms.prediction == "v"
         np.testing.assert_allclose(pms.sigmas, np.asarray(jms.sigmas), **PURE)
         assert pms.sigmas[-1] > 1e3  # zero terminal SNR
-
-
-@pytest.mark.parametrize("name", RAISES)
-def test_node_raises_naming_1_11(name):
-    assert_raises_1_11(name)
+    if ntype.startswith("ModelSampling") and ntype != "ModelSamplingDiscrete":
+        # the EDM and Cascade tables, built in float64 in both: bit for bit
+        jms, pms = jctx.outputs[3][0]["sampling"], pctx.outputs[3][0]["sampling"]
+        assert (pms.prediction, pms.timestep_mode) == (jms.prediction, jms.timestep_mode)
+        np.testing.assert_array_equal(pms.sigmas, np.asarray(jms.sigmas))
+        assert pms.percent_to_sigma(0.3) == jms.percent_to_sigma(0.3)
 
 
 def test_every_name_of_the_pack_has_a_case():
@@ -498,7 +497,7 @@ def test_every_name_of_the_pack_has_a_case():
 
     names = {n for n, f in je.NODE_REGISTRY.items() if f.__module__ == jparity.__name__}
     assert len(names) == 49
-    assert names == {c[0] for c in CASES} | set(RAISES) | set(FILE_NODES)
+    assert names == {c[0] for c in CASES} | set(FILE_NODES)
 
 
 # --- file nodes, bit for bit across packages ----------------------------------------------

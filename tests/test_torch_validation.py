@@ -1,6 +1,6 @@
 """The port's workflow validation (workflow/validation.py) and node registry
 against the JAX package's: the same 183 node names and 166 specs, each name
-the port leaves for a later slice (1.11, 1.13) a stub that raises
+the port leaves for a later slice (1.13) a stub that raises
 NotImplementedError naming its ROADMAP item, and ``validate_workflow`` giving equal error lists
 and equal coerced widgets on the graphs of tests/test_validation.py (caught
 by running its tests with the validator wrapped), on string-typed widgets
@@ -24,12 +24,7 @@ from stable_renderer_tpu_torch.workflow.loader import Workflow as PWorkflow, Wor
 
 torch.set_num_threads(1)
 
-LATER = {"ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13",
-         # the node packs' names whose only work is a model of ROADMAP 1.11c
-         **dict.fromkeys((
-             "ModelSamplingContinuousEDM", "ModelSamplingStableCascade",
-             "StableCascade_StageC_VAEEncode", "ImageOnlyCheckpointLoader",
-             "SVD_img2vid_Conditioning"), "1.11")}
+LATER = {"ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13"}
 JAX_VALIDATE = jv.validate_workflow  # the validator itself, before any test wraps it
 
 
@@ -50,7 +45,7 @@ def test_registries_and_specs_hold_the_same_names():
     assert pv.UNIQUE_NODE_TYPES == jv.UNIQUE_NODE_TYPES
     assert pv.type_matchings() == jv.type_matchings()
     implemented = [n for n in pe.NODE_REGISTRY if expected_item(n) is None]
-    assert len(implemented) == 176
+    assert len(implemented) == 181
 
 
 @pytest.mark.parametrize("name", sorted(je.NODE_REGISTRY))
@@ -65,15 +60,15 @@ def test_each_name_is_implemented_or_a_stub_naming_its_item(name):
 
 
 def test_running_a_stub_fails_with_the_structured_error():
-    wf = PWorkflow(nodes={1: PNode(id=1, type="ImageOnlyCheckpointLoader", widgets=["s"],
+    wf = PWorkflow(nodes={1: PNode(id=1, type="UpscaleModelLoader", widgets=["s"],
                                    inputs={}, output_names=[])}, unknown_types=[], path=None)
     ex = pe.PromptExecutor(wf, device="cpu")
     with pytest.raises(pe.NodeExecutionError) as ei:
         ex.execute()
     d = ei.value.details
-    assert d["node_id"] == 1 and d["node_type"] == "ImageOnlyCheckpointLoader"
+    assert d["node_id"] == 1 and d["node_type"] == "UpscaleModelLoader"
     assert d["exception_type"] == "NotImplementedError"
-    assert "ROADMAP 1.11" in d["exception_message"]
+    assert "ROADMAP 1.13" in d["exception_message"]
 
 
 def to_port(jwf):
