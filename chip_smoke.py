@@ -31,7 +31,7 @@ Phases, one line each; any failure exits non-zero:
                 maps riding the state, lag-1 K/V) and a tiny frame with a
                 perturbed ControlNet, each on the GPU against the CPU.
   6. frame    — the bench frame at full SD1.5 widths (random bf16 weights),
-                1 warm + 4 timed frames of frame_step at 512x512, with the
+                1 warm + 3 timed frames of frame_step at 512x512, with the
                 kernels' launch counts checked.
   7. K3       — the fused 3x3 conv kernel vs its plain version at every shape
                 class of the int8 frame and of the int8 stream frame (int8,
@@ -46,7 +46,7 @@ Phases, one line each; any failure exits non-zero:
                 two calls bit-identical, the cluster held by the card; three
                 shapes timed (K4_TIMED_SHAPES), one kernel a call.
   9. int8     — the calibrated int8 frame: RenderConfig(int8_conv=True) ->
-                from_random -> quantize_convs, 1 warm + 4 timed 512x512
+                from_random -> quantize_convs, 1 warm + 3 timed 512x512
                 frames; K1, K2 and K3 launch counts checked, K3's also by
                 shape class; the decoded image
                 against phase 6's bf16 frame at the same inputs, and one UNet
@@ -57,7 +57,7 @@ Phases, one line each; any failure exits non-zero:
  11. engine   — the bench scene through the port's entry point, Engine.Run
                 (bench.py:216-251's BenchApp, debug=True, so a failing manager
                 raises), with phase 6's bf16 and phase 9's int8 pipelines:
-                2 warm + 4 timed presented frames each (and PRESENT_DEPTH more,
+                2 warm + 3 timed presented frames each (and PRESENT_DEPTH more,
                 so every timed present happens in a steady frame), each
                 presented frame (512, 512, 4) uint8 and not constant; the
                 launch counts a frame, by the counters over the run and by
@@ -121,7 +121,7 @@ Phases, one line each; any failure exits non-zero:
                 TAESD encode and decode at 64x64 on the card against the
                 CPU plain path (f32 within TAESD_F32_TOL; bf16 within twice
                 the CPU's own bf16 error against f32); frame_step over 1
-                warm + 4 timed frames (and the stream's 3 transient) with K1,
+                warm + 3 timed frames (and the stream's 3 transient) with K1,
                 K2 and K3 launches by the counters and K3's by class
                 (k3_shape_tally: no VAE class is left), one steady stream
                 call checked free of host syncs; each through Engine.Run as
@@ -317,6 +317,36 @@ Phases, one line each; any failure exits non-zero:
                 tables built here against the JAX package's digests
                 (SCHEDULE_DIGESTS). Every new K1 shape is held against its
                 plain version and timed beside SDPA.
+ 28. zoo      — the restoration and upscale zoo (models/upscale.py and its
+                twelve architectures), files written from the port's random
+                init. (a) Real-ESRGAN x4plus's widths (RRDBConfig(): 64
+                features, 23 RRDBs, growth 32) as a .pth in the published
+                {"params_ema": ...} nesting, through LoadImage (phase 11's
+                presented 512x512 frame) -> UpscaleModelLoader ->
+                ImageUpscaleWithModel -> SaveImage in a PromptExecutor: the
+                family detected as RRDBNet at those widths, the (1, 2048,
+                2048, 3) f32 image finite, in [0, 1] and not constant, no
+                kernel launched (f32, switches off); 1 warm and ZOO_TIMED
+                timed executes, one profiled, max_memory_allocated. (b) the
+                classical SwinIR-M x4 (SWINIR_M_X4_CONFIG: embed 180, six
+                groups of 6 blocks, 6 heads, window 8) through the same
+                graph. (c) CodeFormer at its published widths in bf16 on a
+                512x512 crop in [-1, 1], unswitched and with both switches:
+                K3 and K4 launches by shape class; the switched image within
+                SWITCH_MEAN_BAR / SWITCH_MAX_BAR of the unswitched one
+                (both decoded from the unswitched run's code indices, the
+                tokens whose argmax flips counted); every new K3 and K4
+                class held against its plain version and timed beside its
+                bound and cuDNN or F.group_norm. (d) a tiny file of each of
+                the twelve architectures (LaMa through lama.load_lama; its
+                file raises KeyError in load_upscale_model, as in the JAX
+                package) loaded on the card: the detected class the one the
+                JAX package's dispatch picks, the output within ZOO_TOL of
+                the CPU plain run (the code indices of CodeFormer and
+                RestoreFormer compared where their best code leads by
+                ZOO_MARGIN, their images decoded from the CPU's indices).
+                (e) `python -m stable_renderer_tpu_torch upscale` on (a)'s
+                file as its own process: exit 0 and the JAX CLI's line.
 The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
 variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
@@ -346,7 +376,7 @@ import time
 from pathlib import Path
 
 SIZE = 512
-FRAMES_TIMED = 4
+FRAMES_TIMED = 3  # 4 until phase 28 joined: the whole script keeps within 900 s
 ENGINE_WARM = 2     # phase 11's warm presented frames (bench.py's warm)
 PRESENT_DEPTH = 2   # RenderManager's default SR_PRESENT_DEPTH
 # K2's and K4's calls are shorter than the host's cost of replaying a graph,
@@ -476,8 +506,9 @@ K3_STREAM_TAESD_FRAME_SHAPES = {k: v for k, v in K3_STREAM_FRAME_SHAPES.items()
 TAESD_F32_TOL = 1e-4   # TAESD at 64x64 in f32, card vs CPU: order of f32 sums
 METRIC_REL_TOL = 1e-4  # the flicker metrics, card vs CPU, relative
 OPTION_WEIGHTINGS = ("frame_distance", "pixel_distance", "view_normal")
-# phase 17's engine runs, VAE and TAESD frames of one mode in turns
-TAESD_ALTERNATION = ("vae", "taesd", "taesd", "vae", "vae", "taesd")
+# phase 17's engine runs, VAE and TAESD frames of one mode in turns (four runs
+# since phase 28 joined, from six: the whole script keeps within 900 s)
+TAESD_ALTERNATION = ("vae", "taesd", "taesd", "vae")
 REPLAY_WARM = 2      # phase 15's warm replay frames
 REPLAY_TIMED = 8     # ... and timed ones (config 3: 8 frames of free playback)
 # replay frame 0 against the CPU replay: the pixels more than one uint8 step
@@ -529,7 +560,7 @@ REPLAY_CLI_FRAMES = 4
 # the two ControlNets' 2 each, at each of 4 steps, plus the bf16 VAE's
 # mid-block attention in encode and decode (flash_wide, d = 512)
 EXEC_FRAMES = 2
-EXEC_TIMED = 3
+EXEC_TIMED = 2
 EXEC_UNET_K1_SHAPE = (2 * EXEC_FRAMES * 8, 4096, 4096, 40)  # (BH, Lq, Lk, d), CFG
 EXEC_PERP_NEG_K1_SHAPE = (3 * EXEC_FRAMES * 8, 4096, 4096, 40)  # PerpNeg's third group
 EXEC_VAE_K1_SHAPE = (EXEC_FRAMES, 4096, 4096, 512)  # bf16, both frames in one batch
@@ -1641,6 +1672,7 @@ def main() -> None:
 
     # --- 11. the engine: Engine.Run of the bench scene --------------------------
     engine_ms = {}
+    engine_frames = {}  # label -> the last presented frame of the run
 
     def run_engine_phase(phase: int, label: str, p_, step_ms: float, transient: int, want: tuple,
                          stream: bool = False, ref=None) -> dict:
@@ -1692,6 +1724,7 @@ def main() -> None:
                 fail(f"engine {label} frame {i}: presented {frame.shape} {frame.dtype}")
             if int(frame[..., :3].max()) == int(frame[..., :3].min()):
                 fail(f"engine {label} frame {i}: constant frame")
+        engine_frames[label] = presented[-1][2]  # phase 28 upscales phase 11's bf16 one
         # present intervals of the timed frames; frame i is presented in frame
         # i + PRESENT_DEPTH's run, so these all fall in steady frames
         lo = transient + ENGINE_WARM
@@ -2078,6 +2111,9 @@ def main() -> None:
     # --- 27. video and Stable Cascade ---------------------------------------------------
     video = video_cascade_phase(dev, card, k1)
 
+    # --- 28. the restoration and upscale zoo ---------------------------------------------
+    zoo = zoo_phase(dev, card, k3, k4, engine_frames["bf16"])
+
     wall_s = time.perf_counter() - t_start
     print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
@@ -2087,7 +2123,7 @@ def main() -> None:
                       "options": options, "bench": bench, "checkpoint": checkpoint,
                       "left_outs": left_outs, "files": files, "executor": executor,
                       "server": server, "families": families, "image_conditioning": image,
-                      "video_cascade": video, "wall_s": wall_s,
+                      "video_cascade": video, "zoo": zoo, "wall_s": wall_s,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4677,7 +4713,7 @@ FAMILY_V_STD = 0.2  # an SD2 file's out-layer statistic above 0.09 marks it 768-
 XL_SIZE = 1024      # SDXL's published resolution
 SD2_SIZE = 768      # SD2 768-v's
 FAMILY_WARM = 1
-FAMILY_TIMED = 3
+FAMILY_TIMED = 2
 # K1 launches a frame by (BH, Lq, Lk, d[, "f32"]). SDXL at 1024x1024 (128x128
 # latents): level 1's 10 self-attentions an evaluation (two transformers of
 # depth 2 in, three out) at 640 channels = 10 heads of 64, batch 2 (cfg), 4
@@ -4704,7 +4740,7 @@ UNCLIP_K1_SHAPES = {(10, 9216, 9216, 64): 20, (20, 2304, 2304, 64): 20,
 GLIGEN_K1_SHAPES = {(16, 4096, 4096, 40): 20, (8, 4126, 4126, 40): 20,
                     (1, 4096, 4096, 512): 1}
 UNCLIP_SIZE = 768    # SD2.1-unclip-H's published resolution (768-v)
-IMAGE_TIMED = 3      # phase 26's timed executes a graph, after one warm
+IMAGE_TIMED = 2      # phase 26's timed executes a graph, after one warm
 IMAGE_SEED = 26
 GROUNDED_MOVED_FLOOR = 1e-3  # grounded vs ungrounded SD1.5 image, max abs on [0, 1]
 IMAGE_GRAPH_SIZE = 64        # phase 26c's tiny graphs
@@ -5726,7 +5762,7 @@ def tiny_image_graphs(dev, card: str, d: Path) -> dict:
 SVD_WIDTH, SVD_HEIGHT, SVD_FRAMES = 1024, 576, 14  # SVD img2vid's published frames
 SVD_INIT_SIZE = 512   # the init image, resized by the conditioning to 576x1024
 VIDEO_SEED = 27
-VIDEO_TIMED = 2       # phase 27's timed executes a graph, after one warm
+VIDEO_TIMED = 1       # phase 27's timed executes a graph, after one warm
 CASCADE_SIZE = 1024   # Stable Cascade's published resolution
 # K1 launches an execute by (BH, Lq, Lk, d). SVD at 576x1024 (72x128
 # latents), CFG's batch of 28 rows (two groups of 14 frames): level 0's 5
@@ -6277,6 +6313,471 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+# --- phase 28: the restoration and upscale zoo --------------------------------------
+
+ZOO_SEED = 28
+ZOO_TIMED = 3       # phase 28's timed executes a graph, after one warm
+ZOO_TOL = 2e-4      # (d): a tiny f32 file on the card against the CPU plain run (the tests' TOL)
+ZOO_MARGIN = 1e-4   # (d): a code index compared where its best code leads by this much
+ZOO_TINY_SIZE = 32  # (d)'s inputs, except CodeFormer's (its detected published widths: 512)
+
+
+def zoo_rows(model_name: str) -> list:
+    """LoadImage -> UpscaleModelLoader -> ImageUpscaleWithModel -> SaveImage."""
+    return [(1, "LoadImage", ["frame.png"], {}), (2, "UpscaleModelLoader", [model_name], {}),
+            (3, "ImageUpscaleWithModel", [], {"upscale_model": (2, 0), "image": (1, 0)}),
+            (4, "SaveImage", ["zoo"], {"images": (3, 0)})]
+
+
+def write_zoo_file(path, tree: dict, nest_key=None) -> int:
+    """A zoo model's tree as a torch file (``{nest_key: state_dict}`` when
+    given, as published BasicSR-style files nest it); returns its bytes."""
+    import torch
+
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    flat = {k: v.detach().cpu().contiguous() for k, v in flatten(tree).items()}
+    torch.save({nest_key: flat} if nest_key else flat, str(path))
+    return Path(path).stat().st_size
+
+
+def rrdb_basicsr_scaled(tree: dict) -> dict:
+    """An RRDBNet init's conv weights rescaled to BasicSR's init: fan-in
+    (Kaiming) normal, times 0.1 inside the RRDBs (default_init_weights)."""
+    from stable_renderer_tpu_torch.models.weights import flatten, nest
+
+    out = {}
+    for k, v in flatten(tree).items():
+        if v.dim() == 4:
+            fan_in = v.shape[1] * v.shape[2] * v.shape[3]
+            v = v * ((2.0 / fan_in) ** 0.5 / 0.02 * (0.1 if k.startswith("body.") else 1.0))
+        out[k] = v
+    return nest(out)
+
+
+@contextlib.contextmanager
+def k4_shape_tally():
+    """K4's launches by (N, S, C, act) inside the ``with`` block, as
+    k3_shape_tally counts K3's: ``models.layers.group_norm_kernel`` wrapped,
+    the notes adding up to the wrapper's own launch count."""
+    from stable_renderer_tpu_torch.models import layers
+
+    k4 = layers.group_norm_kernel
+    seen = collections.Counter()
+
+    def noted(x, w, b, groups=32, eps=1e-6, act=None):
+        seen[tuple(x.shape) + (act,)] += 1
+        return k4(x, w, b, groups=groups, eps=eps, act=act)
+
+    before = k4.launches
+    layers.group_norm_kernel = noted
+    try:
+        yield seen
+    finally:
+        layers.group_norm_kernel = k4
+    if sum(seen.values()) != k4.launches - before:
+        fail(f"K4: {sum(seen.values())} calls noted by shape, {k4.launches - before} launches")
+
+
+def hold_zoo_classes(k3_seen, k4_seen, dev, card: str, k3: dict, k4: dict) -> dict:
+    """Phase 28c: each bf16 K3 class (N, H, W, Cin, Cout, prologue) of
+    CodeFormer's switched pass that phase 7 did not check, and each K4 class
+    (N, S, C, act) that phase 8 did not, against its plain version (phase
+    7's and 8's bars), timed by graph replay beside its bound and cuDNN's
+    conv or F.group_norm; the rows join k3["shapes"] / k4["shapes"] with
+    their launches a pass. Returns the rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_renderer_tpu_torch.ops.conv_kernel import conv3x3_kernel, conv3x3_kernel_reference
+    from stable_renderer_tpu_torch.ops.group_norm_kernel import (
+        group_norm_kernel,
+        group_norm_kernel_reference,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED)
+    rows = {"k3": [], "k4": []}
+    for (n, h, w, cin, cout, pro), launches in sorted(k3_seen.items()):
+        if (n, h, w, cin, cout, pro) in K3_SWITCHED_FRAME_SHAPES:
+            continue
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+        wk = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+              / (3.0 * cin ** 0.5)).to(torch.bfloat16)
+        b = (torch.randn((cout,), generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+        kw = {}
+        if pro:
+            kw.update(pre_scale=torch.rand((n, cin), generator=gen, device=dev) + 0.5,
+                      pre_shift=torch.randn((n, cin), generator=gen, device=dev) * 0.5,
+                      pre_act="silu")
+        out = conv3x3_kernel(x, wk, b, **kw)
+        torch.cuda.synchronize()
+        ref = conv3x3_kernel_reference(x, wk, b, **kw)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        shape = (f"{n}x{h}x{w}x{cin}->{cout} bf16{' + prologue' if pro else ''} "
+                 "(phase 28 CodeFormer)")
+        if not (math.isfinite(err) and (diff <= BF16_STEP * ref.float().abs()
+                                        + K3_BF16_ATOL).all()):
+            fail(f"K3 {shape}: max abs err {err:.3e} (bar |d| <= 2^-7 |ref| + {K3_BF16_ATOL:g})")
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = wk.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        row = {"shape": shape, "max_abs_err": err,
+               "bar": f"|d| <= 2^-7 |ref| + {K3_BF16_ATOL:g}", "launches_a_pass_phase_28": launches,
+               "ms": graph_ms(lambda: conv3x3_kernel(x, wk, b, **kw)),
+               "plain_ms": graph_ms(lambda: conv3x3_kernel_reference(x, wk, b, **kw), 5),
+               "library_ms": graph_ms(lambda: F.conv2d(x_cl, w_cl, b, padding=1)),
+               "ms_with_host": cuda_ms(lambda: conv3x3_kernel(x, wk, b, **kw), 20)}
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes(x, wk, b, out, kw.get("pre_scale"), kw.get("pre_shift")),
+            2.0 * n * h * w * cout * 9 * cin, "bf16")
+        k3["shapes"].append(row)
+        rows["k3"].append(row)
+        print(f"[28 K3] {row} | {card}", flush=True)
+        del x, wk, out, ref, diff
+    for (n, s, c, act), launches in sorted(k4_seen.items(), key=str):
+        if (n, s, c, act) in K4_SWITCHED_FRAME_SHAPES:
+            continue
+        x = (torch.randn((n, s, c), generator=gen, device=dev) * 1.5 + 0.3).to(torch.bfloat16)
+        w = torch.randn((c,), generator=gen, device=dev).to(torch.bfloat16)
+        b = torch.randn((c,), generator=gen, device=dev).to(torch.bfloat16)
+        call = lambda: group_norm_kernel(x, w, b, groups=32, act=act)  # noqa: E731
+        out = call()
+        torch.cuda.synchronize()
+        ref = group_norm_kernel_reference(x, w, b, groups=32, act=act)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if not (math.isfinite(err) and (diff <= BF16_STEP * ref.float().abs() + K4_ATOL).all()):
+            fail(f"K4 {(n, s, c)} {act}: max abs err {err:.3e} (bar |d| <= 2^-7 |ref| + "
+                 f"{K4_ATOL:g})")
+        x_nc = x.transpose(1, 2)
+        lib = ((lambda: F.silu(F.group_norm(x_nc, 32, w, b, 1e-6))) if act == "silu" else
+               (lambda: F.group_norm(x_nc, 32, w, b, 1e-6)))
+        row = {"shape": f"{(n, s, c)} bf16 {act} (phase 28 CodeFormer)", "max_abs_err": err,
+               "launches_a_pass_phase_28": launches,
+               "ms": graph_ms(call, calls=SHORT_CALLS_A_GRAPH),
+               "plain_ms": graph_ms(lambda: group_norm_kernel_reference(x, w, b, 32, 1e-6, act),
+                                    calls=SHORT_CALLS_A_GRAPH),
+               "library_ms": graph_ms(lib, calls=SHORT_CALLS_A_GRAPH),
+               "ms_with_host": cuda_ms(call, 20)}
+        row["bound_ms"], row["bound_by"] = bound(nbytes(x, w, b, out), 10.0 * x.numel(), "f32")
+        k4["shapes"].append(row)
+        rows["k4"].append(row)
+        print(f"[28 K4] {row} | {card}", flush=True)
+    return rows
+
+
+CODEFORMER_FUSE_SCALE = 0.01  # random SFT fuse convs, tamed (see codeformer_tamed)
+
+
+def codeformer_tamed(params: dict) -> dict:
+    """A random CodeFormer init with each SFT fuse block's last scale and
+    shift convs scaled by CODEFORMER_FUSE_SCALE: drawn at the init's 0.05
+    they multiply the generator's features by ~80 at each of the four
+    connect resolutions, and the published-width image overflows f32 (bf16
+    too); trained fuse convs keep the scale near 1."""
+    for fp in params["fuse_convs_dict"].values():
+        for name in ("scale", "shift"):
+            fp[name]["2"]["weight"] = fp[name]["2"]["weight"] * CODEFORMER_FUSE_SCALE
+    return params
+
+
+def codeformer_config():
+    """Phase 28c's CodeFormer: the published widths (a CPU rehearsal sets a
+    tiny one)."""
+    from stable_renderer_tpu_torch.models.codeformer import CodeFormerConfig
+
+    return CodeFormerConfig()
+
+
+def zoo_tiny_models():
+    """Phase 28d's files: {expected class: (model, its tree, CPU input)}, one
+    of each of the twelve architectures at the tests' tiny configs (f32, a
+    generator seeded ZOO_SEED on the CPU). LaMa's and CodeFormer's carry
+    what detection reads (LaMa: 3 downsamplings and 18 blocks at ngf 8;
+    CodeFormer: the published encoder and generator, 2 transformer layers of
+    64 on a 512x512 input)."""
+    import torch
+
+    from stable_renderer_tpu_torch.models import (
+        codeformer,
+        dat,
+        gfpgan,
+        hat,
+        lama,
+        omnisr,
+        restoreformer,
+        scunet,
+        spsr,
+        swin2sr,
+        swinir,
+        upscale,
+    )
+
+    gen = torch.Generator().manual_seed(ZOO_SEED)
+    s = ZOO_TINY_SIZE
+
+    def img(size, face=False):
+        x = torch.rand((1, size, size, 3), generator=gen)
+        return x * 2.0 - 1.0 if face else x
+
+    models = {
+        "RRDBNet": (upscale.RRDBNet(upscale.RRDBConfig(16, 2, 8, 4)), img(s)),
+        "SRVGGNetCompact": (upscale.SRVGGNetCompact(upscale.SRVGGConfig(16, 2, 2)), img(s)),
+        "SwiftSRGAN": (upscale.SwiftSRGAN(upscale.SwiftSRGANConfig(8, 2, 2)), img(s)),
+        "SwinIR": (swinir.SwinIR(swinir.TINY_SWINIR_CONFIG), img(s)),
+        "Swin2SR": (swin2sr.Swin2SR(swin2sr.TINY_SWIN2SR_CONFIG), img(s)),
+        "HAT": (hat.HAT(hat.TINY_HAT_CONFIG), img(s)),
+        "DAT": (dat.DAT(dat.TINY_DAT_CONFIG), img(s)),
+        "OmniSR": (omnisr.OmniSR(omnisr.TINY_OMNISR_CONFIG), img(s)),
+        "SPSRNet": (spsr.SPSRNet(spsr.TINY_SPSR_CONFIG), img(s)),
+        "SCUNet": (scunet.SCUNet(scunet.TINY_SCUNET_CONFIG), img(s)),
+        "GFPGAN": (gfpgan.GFPGAN(gfpgan.TINY_GFPGAN_CONFIG), img(32, face=True)),
+        "CodeFormer": (codeformer.CodeFormer(codeformer.CodeFormerConfig(
+            codebook_size=64, dim_embd=64, n_layers=2)), img(512, face=True)),
+        "RestoreFormer": (restoreformer.RestoreFormer(restoreformer.TINY_RESTOREFORMER_CONFIG),
+                          img(16, face=True)),
+        "LaMa": (lama.LaMa(lama.LaMaConfig(ngf=8)), img(2 * s)),
+    }
+    out = {}
+    for name, (model, x) in models.items():
+        tree = model.init(gen)
+        if name == "RRDBNet":
+            tree = rrdb_basicsr_scaled(tree)
+        elif name == "CodeFormer":
+            tree = codeformer_tamed(tree)
+        extra = ((torch.rand((1, 2 * s, 2 * s, 1), generator=gen) > 0.6).float(),) \
+            if name == "LaMa" else ()
+        out[name] = (tree, (x,) + extra)
+    return out
+
+
+def zoo_compare(name: str, model, params, cpu_model, cpu_params, xs, dev) -> dict:
+    """Phase 28d: a loaded tiny model on the card against the CPU plain run
+    on the same tensors: outputs within ZOO_TOL; for CodeFormer and
+    RestoreFormer the logits / distances within ZOO_TOL, the code indices
+    equal wherever the CPU's best code leads by ZOO_MARGIN, the images
+    decoded from the CPU's indices."""
+    import torch
+
+    xd = [x.to(dev) for x in xs]
+    with torch.no_grad():
+        if name == "CodeFormer":
+            idx_c, feats_c, logit_c = cpu_model.code_indices(cpu_params, xs[0])
+            idx_d, feats_d, logit_d = model.code_indices(params, xd[0])
+            scores = (logit_d.cpu(), logit_c)
+            ref = cpu_model.decode(cpu_params, idx_c, feats_c, 0.5, torch.float32)
+            out = model.decode(params, idx_c.to(dev), feats_d, 0.5, torch.float32)
+            idx = (idx_d.cpu(), idx_c, torch.sort(logit_c, -1).values)
+        elif name == "RestoreFormer":
+            z_c, d2_c, hs_c = cpu_model.encode(cpu_params, xs[0])
+            _, d2_d, hs_d = model.encode(params, xd[0])
+            scores = (d2_d.cpu(), d2_c)
+            idx_c = d2_c.argmin(-1)
+            ref = cpu_model.decode(cpu_params, z_c.shape, idx_c, hs_c)
+            out = model.decode(params, z_c.shape, idx_c.to(dev), hs_d)
+            idx = (d2_d.argmin(-1).cpu(), idx_c, torch.sort(-d2_c, -1).values)
+        else:
+            ref = cpu_model.apply(cpu_params, *xs)
+            out = model.apply(params, *xd)
+            scores = idx = None
+    res = {}
+    if scores is not None:
+        s_err = (scores[0] - scores[1]).abs().max().item()
+        i_d, i_c, ordered = idx
+        led = (ordered[..., -1] - ordered[..., -2]) > ZOO_MARGIN
+        flips = int((i_d != i_c)[led].sum())
+        res.update(score_max_abs_err=s_err, led_share=float(led.float().mean()),
+                   index_flips_where_led=flips)
+        if not (s_err <= ZOO_TOL and flips == 0 and float(led.float().mean()) > 0.5):
+            fail(f"phase 28d {name}: scores max abs err {s_err:.3e} (tol {ZOO_TOL}), "
+                 f"{flips} index flips where led, {float(led.float().mean()):.3f} led")
+    err = (out.cpu() - ref).abs().max().item()
+    scale = max(ref.abs().max().item(), 1.0)
+    if not (math.isfinite(err) and err <= ZOO_TOL * scale and out.shape == ref.shape):
+        fail(f"phase 28d {name}: card against CPU max abs err {err:.3e} (tol {ZOO_TOL} x "
+             f"{scale:.3g}), shapes {tuple(out.shape)} {tuple(ref.shape)}")
+    res.update(max_abs_err=err, shape=list(out.shape))
+    return res
+
+
+def zoo_phase(dev, card: str, k3: dict, k4: dict, frame) -> dict:
+    """Phase 28 (see the module docstring): ``frame`` is phase 11's last
+    presented (512, 512, 4) uint8 frame. Files go to a temporary directory
+    under build/, removed at the end."""
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stable_renderer_tpu_torch.models import codeformer, layers, upscale
+    from stable_renderer_tpu_torch.models.lama import load_lama
+    from stable_renderer_tpu_torch.models.swinir import SWINIR_M_X4_CONFIG, SwinIR
+    from stable_renderer_tpu_torch.models.weights import flatten
+    from stable_renderer_tpu_torch.ops.conv_kernel import use_pallas_conv
+    from stable_renderer_tpu_torch.utils import paths
+    from stable_renderer_tpu_torch.workflow import Workflow
+    from stable_renderer_tpu_torch.workflow import executor as wex
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="zoo-", dir=root / "build"))
+    out = {}
+    t_phase = time.perf_counter()
+    saved_output_dir = paths.OUTPUT_DIR
+    paths.OUTPUT_DIR = tmp / "outputs"
+    size = frame.shape[0]  # the engine's presented frame, upscaled x4
+    try:
+        Image.fromarray(np.ascontiguousarray(frame[..., :3])).save(tmp / "frame.png")
+        gen = torch.Generator(device=dev).manual_seed(ZOO_SEED)
+        zoo_models = {"esrgan": (upscale.RRDBNet(upscale.RRDBConfig()), "params_ema"),
+                      "swinir": (SwinIR(SWINIR_M_X4_CONFIG), "params_ema")}
+        for label, (model, nest_key) in zoo_models.items():
+            # --- 28a / 28b: ESRGAN x4, SwinIR-M x4 through the executor ----------------
+            tree = model.init(gen, device=dev)
+            if label == "esrgan":
+                tree = rrdb_basicsr_scaled(tree)
+            n_params = sum(v.numel() for v in flatten(tree).values())
+            file_bytes = write_zoo_file(tmp / f"{label}.pth", tree, nest_key)
+            del tree
+            wf_path = tmp / f"{label}.json"
+            wf_path.write_text(json.dumps(ui_workflow(zoo_rows(f"{label}.pth"))))
+            ex = wex.PromptExecutor(Workflow.Load(wf_path), model_dirs=(str(tmp),), device=dev)
+            zero_counts()
+            out[label], seen, ctx = image_graph_run(
+                label, ex, (1, 2), {}, card, phase=28, timed=ZOO_TIMED,
+                timed_node="ImageUpscaleWithModel", load_node="UpscaleModelLoader")
+            launched = counts()
+            (loaded, params), = ex._cache[2]
+            want = type(model).__name__, model.config
+            img = ctx.final_output
+            if (type(loaded).__name__, loaded.config) != want or launched != (0, 0, 0, 0):
+                fail(f"phase 28 {label}: loaded {type(loaded).__name__} {loaded.config}, want "
+                     f"{want}; kernel launches {launched} (want none: f32, switches off)")
+            lo, hi = float(img.min()), float(img.max())
+            if (tuple(img.shape) != (1, 4 * size, 4 * size, 3) or img.dtype != torch.float32
+                    or not torch.isfinite(img).all() or float(img.std()) < 1e-3
+                    or (label == "esrgan" and not (0.0 <= lo and hi <= 1.0))
+                    or params["conv_first"]["weight"].device.type != "cuda"):
+                fail(f"phase 28 {label}: image {tuple(img.shape)} {img.dtype}, range [{lo}, {hi}], "
+                     f"std {float(img.std()):.3e}")
+            out[label].update(family=type(loaded).__name__, params=n_params,
+                              file_mb=file_bytes / 1e6,
+                              image=list(img.shape), range=[lo, hi])
+            print(f"[28 {label}] {type(loaded).__name__} {loaded.config}: {n_params / 1e6:.2f} M "
+                  f"parameters, a {file_bytes / 1e6:.1f} MB .pth in the {nest_key} nesting; "
+                  f"{size}x{size} -> {img.shape[2]}x{img.shape[1]} f32, range "
+                  f"[{lo:.3f}, {hi:.3f}] | {card}", flush=True)
+            del ex, ctx, img, params, loaded
+            torch.cuda.empty_cache()
+
+        # --- 28c. CodeFormer in bf16, unswitched and switched ------------------------------
+        cf = codeformer.CodeFormer(codeformer_config())
+        params = codeformer_tamed(cf.init(gen, dtype=torch.bfloat16, device=dev))
+        x = (torch.from_numpy(np.ascontiguousarray(frame[..., :3])).to(dev).float() / 127.5
+             - 1.0)[None].to(torch.bfloat16)
+        passes, ref_idx = {}, None
+        for mode in ("unswitched", "switched"):
+            on = mode == "switched"
+            use_pallas_conv(on)
+            layers._group_norm_pallas_on = on
+            try:
+                with torch.no_grad():
+                    zero_counts()
+                    with k3_shape_tally() as s3, k4_shape_tally() as s4:
+                        idx, feats, _ = cf.code_indices(params, x)
+                        ref_idx = idx if ref_idx is None else ref_idx
+                        img = cf.decode(params, ref_idx, feats, 0.5, torch.bfloat16)
+                    launched = counts()
+                    ms = cuda_ms(lambda: cf.apply(params, x), repeats=ZOO_TIMED, warmup=1)
+            finally:
+                use_pallas_conv(False)
+                layers._group_norm_pallas_on = False
+            if on != (launched[2] > 0 and launched[3] > 0) or launched[:2] != (0, 0):
+                fail(f"phase 28c CodeFormer {mode}: launches K1, K2, K3, K4 = {launched}")
+            passes[mode] = {"img": img.float() * 0.5 + 0.5, "idx": idx, "launches": launched,
+                            "k3_by_class": dict(s3), "k4_by_class": dict(s4), "apply_ms": ms}
+        flips = int((passes["switched"]["idx"] != ref_idx).sum())
+        d = (passes["switched"]["img"] - passes["unswitched"]["img"]).abs()
+        mean_d, max_d = float(d.mean()), float(d.max())
+        if not (torch.isfinite(passes["switched"]["img"]).all() and mean_d < SWITCH_MEAN_BAR
+                and max_d < SWITCH_MAX_BAR):
+            fail(f"phase 28c CodeFormer: switched against unswitched mean abs {mean_d:.4f} "
+                 f"(bar {SWITCH_MEAN_BAR}), max {max_d:.4f} (bar {SWITCH_MAX_BAR})")
+        sw = passes["switched"]
+        rows = hold_zoo_classes(sw["k3_by_class"], sw["k4_by_class"], dev, card, k3, k4)
+        out["codeformer"] = {
+            "unswitched_apply_ms": passes["unswitched"]["apply_ms"], "switched_apply_ms":
+            sw["apply_ms"], "launches_switched": list(sw["launches"]),
+            "k3_by_class": {str(k): v for k, v in sw["k3_by_class"].items()},
+            "k4_by_class": {str(k): v for k, v in sw["k4_by_class"].items()},
+            "mean_abs": mean_d, "max_abs": max_d, "index_flips": flips,
+            "tokens": int(ref_idx.numel()), "new_k3_classes": len(rows["k3"]),
+            "new_k4_classes": len(rows["k4"])}
+        print(f"[28 codeformer] {cf.config} bf16 at {size}x{size}: apply "
+              f"unswitched {passes['unswitched']['apply_ms']:.1f} ms, switched "
+              f"{sw['apply_ms']:.1f} ms (median of {ZOO_TIMED}); switched launches K3 "
+              f"{sw['launches'][2]} by class {dict(sw['k3_by_class'])}, K4 {sw['launches'][3]} by "
+              f"class {dict(sw['k4_by_class'])}; switched vs unswitched (both decoded from the "
+              f"unswitched indices) mean abs {mean_d:.5f}, max {max_d:.4f}; the switched argmax "
+              f"moved {flips} of {ref_idx.numel()} tokens; {len(rows['k3'])} new K3 and "
+              f"{len(rows['k4'])} new K4 classes held | {card}", flush=True)
+        del params, x, passes, sw, d, feats, img
+        torch.cuda.empty_cache()
+
+        # --- 28d. a tiny file of each architecture on the card ------------------------------
+        tiny, det = {}, {}
+        for name, (tree, xs) in zoo_tiny_models().items():
+            path = tmp / f"tiny-{name}.pth"
+            write_zoo_file(path, tree, "params_ema" if name == "SwinIR" else None)
+            if name == "LaMa":
+                try:
+                    upscale.load_upscale_model(path, device=dev)
+                    fail("phase 28d: load_upscale_model loaded a LaMa file (JAX's raises)")
+                except KeyError:
+                    pass
+                model, params = load_lama(path, device=dev)
+                cpu_model, cpu_params = load_lama(path, device="cpu")
+            else:
+                model, params = upscale.load_upscale_model(path, device=dev)
+                cpu_model, cpu_params = upscale.load_upscale_model(path, device="cpu")
+            det[name] = type(model).__name__
+            if det[name] != name:
+                fail(f"phase 28d: a {name} file loaded as {det[name]}")
+            tiny[name] = zoo_compare(name, model, params, cpu_model, cpu_params, xs, dev)
+        out["tiny"] = tiny
+        print(f"[28 tiny] twelve architectures' tiny files on the card, each detected as the "
+              f"JAX package's dispatch does ({', '.join(det)}), against the CPU: max abs errors "
+              + ", ".join(f"{k} {v['max_abs_err']:.2e}" for k, v in tiny.items())
+              + f" | {card}", flush=True)
+
+        # --- 28e. the CLI's upscale as its own process --------------------------------------
+        cmd = [sys.executable, "-m", "stable_renderer_tpu_torch", "upscale", "--model",
+               str(tmp / "esrgan.pth"), "--image", str(tmp / "frame.png"), "--out",
+               str(tmp / "cli.png")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300,
+                              env=dict(os.environ, SR_TPU_OUTPUT_DIR=str(tmp / "outputs")))
+        cli_s = time.perf_counter() - t0
+        want_line = f"RRDBNet: {size}x{size} -> {4 * size}x{4 * size} -> "
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines or not lines[-1].startswith(want_line):
+            fail(f"phase 28e upscale exited {proc.returncode}: {' '.join(cmd)}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        png = np.asarray(Image.open(tmp / "cli.png"))
+        if png.shape != (4 * size, 4 * size, 3) or png.max() == png.min():
+            fail(f"phase 28e upscale wrote {png.shape}, range [{png.min()}, {png.max()}]")
+        out["cli_upscale_s"] = cli_s
+        print(f"[28 CLI] python -m stable_renderer_tpu_torch upscale --model <(a)'s file>: exit "
+              f"0 in {cli_s:.1f} s (process, imports and load included): "
+              f"{lines[-1].replace(str(tmp), '<tmp>')} | {card}", flush=True)
+    finally:
+        paths.OUTPUT_DIR = saved_output_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[28 zoo] phase 28 in {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ Subcommands:
              maps (color, id, noise, normal, depth directories)
   serve    — the HTTP viewer + prompt server: POST workflow JSON to /prompt,
              read /history, /view, /events; executes on the card
-  upscale  — needs the model zoo (ROADMAP 1.13)
+  upscale  — run a restoration / upscale zoo model on an image
 
 ``render --editor`` runs the scene in EDITOR mode: the same HTTP server
 streams every presented frame (/stream, /frame.png) and serves the scene
@@ -294,8 +294,39 @@ def cmd_serve(args) -> int:
 
 
 def cmd_upscale(args) -> int:
-    raise NotImplementedError("upscale needs the model zoo (models/upscale.py and its "
-                              "architectures), which waits for ROADMAP 1.13")
+    """Run a zoo model (ESRGAN, SwinIR, Swin2SR, HAT, DAT, SRVGG, Swift-SRGAN,
+    SCUNet, OmniSR, SPSR, GFPGAN, CodeFormer, RestoreFormer) on an image, as
+    the JAX CLI does: the face models GFPGAN and CodeFormer take [-1, 1];
+    a LaMa model (which the sniffing loader does not dispatch) takes
+    ``--mask``."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stable_renderer_tpu_torch.device import resolve_device
+    from stable_renderer_tpu_torch.models.upscale import load_upscale_model
+
+    device = resolve_device(args.device)
+    model, params = load_upscale_model(args.model, device=device)
+    arch = type(model).__name__
+    img = np.asarray(Image.open(args.image).convert("RGB"), np.float32) / 255.0
+    x = torch.from_numpy(img[None]).to(device)
+    with torch.no_grad():
+        if arch in ("GFPGAN", "CodeFormer"):
+            out = model.apply(params, x * 2.0 - 1.0)  # face models take [-1, 1] crops
+            out = (out + 1.0) / 2.0 if arch == "GFPGAN" else out * 0.5 + 0.5
+        elif arch == "LaMa":
+            if not args.mask:
+                raise SystemExit("LaMa needs --mask (white = hole)")
+            m = np.asarray(Image.open(args.mask).convert("L"), np.float32) / 255.0
+            out = model.apply(params, x, torch.from_numpy(m[None, ..., None]).to(device))
+        else:
+            out = model.apply(params, x)
+    arr = np.clip(out[0].float().cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(args.out)
+    print(f"{arch}: {img.shape[1]}x{img.shape[0]} -> {arr.shape[1]}x{arr.shape[0]} -> "
+          f"{args.out}", flush=True)
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -417,7 +448,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p)
     p.set_defaults(fn=cmd_serve)
 
-    p = sub.add_parser("upscale", help="run a zoo model on an image (ROADMAP 1.13)")
+    p = sub.add_parser("upscale", help="run a zoo model on an image")
     p.add_argument("--model", type=str, required=True)
     p.add_argument("--image", type=str, required=True)
     p.add_argument("--out", type=str, default="upscaled.png")

@@ -66,16 +66,20 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
-    """(n_in, n_out) f32 resampling weights of a cubic resize along one axis,
-    antialiased when shrinking: jax.image.scale_and_translate's weight
-    matrix, op for op."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """The linear (tent) resampling kernel."""
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _resize_weights(n_in: int, n_out: int, kernel, device) -> torch.Tensor:
+    """(n_in, n_out) f32 resampling weights along one axis, antialiased when
+    shrinking: jax.image.scale_and_translate's weight matrix, op for op."""
     f32 = torch.float32
     inv_scale = 1.0 / (n_out / n_in)  # a Python float, as JAX's static scale
     kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=f32)
     sample_f = (torch.arange(n_out, dtype=f32, device=device) + 0.5) * inv_scale - 0.5
     x = (sample_f[None, :] - torch.arange(n_in, dtype=f32, device=device)[:, None]).abs()
-    w = _keys_cubic(x / kernel_scale)
+    w = kernel(x / kernel_scale)
     total = w.sum(0, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
@@ -84,17 +88,28 @@ def _cubic_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
+def _resize(image: torch.Tensor, h: int, w: int, kernel) -> torch.Tensor:
+    out = image
+    if image.shape[1] != h:
+        wh = _resize_weights(image.shape[1], h, kernel, image.device).to(image.dtype)
+        out = torch.einsum("bhwc,hy->bywc", out, wh)
+    if image.shape[2] != w:
+        ww = _resize_weights(image.shape[2], w, kernel, image.device).to(image.dtype)
+        out = torch.einsum("bhwc,wx->bhxc", out, ww)
+    return out
+
+
 def resize_cubic(image: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, h, w, C): ``jax.image.resize(..., "cubic")``, a
     separable Keys cubic antialiased when shrinking, in the image's dtype."""
-    out = image
-    if image.shape[1] != h:
-        wh = _cubic_weights(image.shape[1], h, image.device).to(image.dtype)
-        out = torch.einsum("bhwc,hy->bywc", out, wh)
-    if image.shape[2] != w:
-        ww = _cubic_weights(image.shape[2], w, image.device).to(image.dtype)
-        out = torch.einsum("bhwc,wx->bhxc", out, ww)
-    return out
+    return _resize(image, h, w, _keys_cubic)
+
+
+def resize_linear(image: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, h, w, C): ``jax.image.resize(..., "bilinear")``,
+    half-pixel centres, antialiased (a widened tent) when shrinking, which
+    ``F.interpolate(..., antialias=False)`` is not."""
+    return _resize(image, h, w, _triangle)
 
 
 def clip_preprocess(image: torch.Tensor, size: int = 224) -> torch.Tensor:

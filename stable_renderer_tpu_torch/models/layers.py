@@ -53,9 +53,13 @@ _group_norm_pallas_on = False  # K4 routing switch, off by default as in the JAX
 def _pallas_conv_gate(h: int, w: int, cin: int, cout: int) -> bool:
     """The JAX package's routing table for float 3x3 convs (measured on a
     TPU, models/layers.py:40-54 there): K3 at >= 64^2 spatial with >= 128
-    channels in and out, except 256^2 with cin >= 512."""
+    channels in and out, except 256^2 with cin >= 512; and, the port's own
+    clause, Cin and Cout multiples of 8, which K3 needs
+    (``ops/conv_kernel.py``): the zoo's 180-wide SwinIR / HAT / DAT convs
+    take ``F.conv2d``. The JAX package routes no zoo conv (its float route
+    needs the pipeline's HWIO trees), the port every eligible one."""
     px = h * w
-    if px < 64 * 64 or cin < 128 or cout < 128:
+    if px < 64 * 64 or cin < 128 or cout < 128 or cin % 8 or cout % 8:
         return False
     if px == 256 * 256 and cin >= 512:
         return False

@@ -15,11 +15,10 @@ use (comfyUI/nodes.py + stable_rendering/_nodes).
     card; ``device="cpu"`` as the tests run it). File readers read on the
     host and move what they read there.
 
-The registry holds the JAX package's node names exactly. A name whose
-implementation waits for a later slice is registered as a stub that raises
-NotImplementedError naming its ROADMAP item, so validation accepts and
-rejects what the JAX package's does and running such a node fails with the
-structured NodeExecutionError.
+The registry holds the JAX package's node names exactly, each one
+implemented, so validation accepts and rejects what the JAX package's does;
+a node that raises fails the execute with the structured
+NodeExecutionError.
 """
 
 from __future__ import annotations
@@ -105,18 +104,6 @@ def register_node(name: str, *aliases: str):
         return fn
 
     return deco
-
-
-def register_stubs(names, item: str, what: str) -> None:
-    """Register ``names`` as nodes that raise NotImplementedError naming
-    ROADMAP ``item`` (``what`` says what they wait for)."""
-    for name in names:
-        def stub(ctx, node, _name=name, **kw):
-            raise NotImplementedError(
-                f"node type '{_name}' needs {what}, which waits for ROADMAP {item}")
-
-        stub.roadmap_item = item
-        NODE_REGISTRY[name] = stub
 
 
 def widget(node, i: int, default, cast=None):
@@ -1578,10 +1565,34 @@ def unclip_conditioning(ctx: InferenceContext, node: WorkflowNode, conditioning=
     return ({**cond, "unclip": list(cond.get("unclip", [])) + [entry]},)
 
 
-# --- nodes that wait for later slices ------------------------------------------
+@register_node("ImageUpscaleWithModel")
+def image_upscale_with_model(ctx: InferenceContext, node: WorkflowNode, upscale_model=None,
+                             image=None):
+    """Apply an UPSCALE_MODEL to the IMAGE as the JAX package's node does: the
+    whole image at once, no [-1, 1] mapping, in the image's dtype."""
+    net, params = upscale_model
+    return (net.apply(params, _on(ctx, image)),)
 
-register_stubs(("ImageUpscaleWithModel", "UpscaleModelLoader"), "1.13",
-               "the upscaler zoo (models/upscale.py)")
+
+@register_node("UpscaleModelLoader")
+def upscale_model_loader(ctx: InferenceContext, node: WorkflowNode):
+    """The architecture-sniffing zoo loader (``models.upscale.
+    load_upscale_model``) on the context's device. Without the file, as the
+    JAX package's node: a warning and the tiny RRDBNet, drawn from a
+    generator seeded 0 (JAX draws it from PRNGKey(0))."""
+    from stable_renderer_tpu_torch.models.upscale import (
+        TINY_RRDB_CONFIG,
+        RRDBNet,
+        load_upscale_model,
+    )
+
+    name = str(node.widgets[0]) if node.widgets else ""
+    path = _find_model_file(ctx, name)
+    if path:
+        return (load_upscale_model(path, device=ctx.device),)
+    logger.warning(f"upscale model '{name}' not found; random tiny RRDBNet")
+    net = RRDBNet(TINY_RRDB_CONFIG)
+    return ((net, net.init(_generator(ctx, 0))),)
 
 
 # the node packs register themselves on import (at the module's end: they

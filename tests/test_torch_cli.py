@@ -6,8 +6,7 @@ within the raster bars of the port's K2 comparisons: tri_id exact, z 1e-4,
 bary 2e-4, and the presented uint8 colour within one step wherever tri_id
 agrees. ``render`` with the tiny pipeline, ``bake`` then ``replay``,
 ``bench`` and ``validate`` run on the CPU; ``execute`` runs a tiny workflow
-on dumped maps as the JAX CLI's does; the commands that wait for later
-slices raise naming their ROADMAP items.
+on dumped maps as the JAX CLI's does; ``upscale`` runs a zoo file.
 """
 
 from __future__ import annotations
@@ -190,12 +189,21 @@ def test_bake_then_replay(tmp_path, capsys):
         assert img.shape == (SIZE, SIZE, 3) and img.max() > img.min()
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["upscale", "--model", "m.pth", "--image", "i.png"], "ROADMAP 1.13"),
-])
-def test_later_commands_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item.replace(".", r"\.") + r"\b"):
-        pcli.main(argv)
+def test_upscale_command_runs(tmp_path, capsys):
+    """``upscale`` runs on the CPU (the last command that waited for a later
+    slice, ROADMAP 1.13): a written RRDBNet file upscales a PNG x4 and prints
+    the JAX CLI's line (tests/test_torch_upscale.py holds it to the JAX CLI)."""
+    from stable_renderer_tpu_torch.models.upscale import RRDBConfig, RRDBNet
+    from stable_renderer_tpu_torch.models.weights import flatten
+
+    tree = RRDBNet(RRDBConfig(16, 1, 8, 4)).init(torch.Generator().manual_seed(0))
+    torch.save(flatten(tree), str(tmp_path / "m.pth"))
+    Image.fromarray(np.full((10, 12, 3), 128, np.uint8)).save(tmp_path / "i.png")
+    out = tmp_path / "o.png"
+    assert pcli.main(["upscale", "--model", str(tmp_path / "m.pth"), "--image",
+                      str(tmp_path / "i.png"), "--out", str(out), "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip() == f"RRDBNet: 12x10 -> 48x40 -> {out}"
+    assert np.asarray(Image.open(out)).shape == (40, 48, 3)
 
 
 def test_execute_matches_jax(tmp_path, monkeypatch, capsys):

@@ -217,6 +217,29 @@ def test_float_routing_matches_jax(monkeypatch):
                                                                           torch.float32)
 
 
+@pytest.mark.parametrize("cin, cout, routed", [(180, 180, False), (128, 180, False),
+                                               (180, 128, False), (184, 176, True),
+                                               (128, 128, True)])
+def test_float_gate_admits_only_channel_multiples_of_8(monkeypatch, cin, cout, routed):
+    """Under the float switch a 3x3 conv at 64^2 takes K3 only with Cin and
+    Cout multiples of 8, which K3 needs: the zoo's 180-wide SwinIR, HAT and
+    DAT convs take F.conv2d, with its result. The frames' K3 classes are
+    unchanged (test_switched_frame_k3_shape_classes and the int8 tallies
+    below: every frame width is a multiple of 8)."""
+    monkeypatch.setattr(tlayers, "_conv_pallas_on", True)
+    tcalls = _spy(monkeypatch, tlayers, "conv3x3_kernel")
+    assert tlayers._pallas_conv_gate(64, 64, cin, cout) is routed
+    rng = np.random.default_rng(8)
+    x = _t(rng.normal(size=(1, 64, 64, cin)).astype(np.float32))
+    conv = {"weight": _t((rng.normal(size=(cout, cin, 3, 3)) * 0.03).astype(np.float32)),
+            "bias": _t(rng.normal(size=(cout,)).astype(np.float32))}
+    out = tlayers.conv2d(conv, x, padding=1)
+    assert tcalls == ([((1, 64, 64, cin), False)] if routed else [])
+    ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), conv["weight"], conv["bias"],
+                                     padding=1).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+
+
 # --- launches of the SD1.5 frame, counted on the meta device ------------------
 
 

@@ -293,16 +293,22 @@ def test_video_loader_without_a_file_builds_the_tiny_models_in_both():
                 == {k: tuple(v.shape) for k, v in jflatten(j_["params"]).items()})
 
 
-def test_no_stub_names_1_12b_and_every_stub_names_its_item():
-    """The registry walk: 2 stubs, both naming ROADMAP 1.13 (the upscale
-    nodes), none 1.11 or 1.12b; every stub's message ends with its item."""
+def test_no_stub_is_left_and_every_name_runs():
+    """The registry walk: JAX's 183 names, none a stub naming a ROADMAP item;
+    the last two (ROADMAP 1.13's upscale nodes) run: the loader without a
+    file builds the tiny RRDBNet, which upscales an image x4."""
     from stable_renderer_tpu_torch.workflow.loader import WorkflowNode as PNode
 
     stubs = {n: f.roadmap_item for n, f in pe.NODE_REGISTRY.items()
              if hasattr(f, "roadmap_item")}
-    assert "1.12b" not in stubs.values() and "1.11" not in stubs.values()
-    assert sorted(stubs.values()) == ["1.13", "1.13"] and len(stubs) == 2
-    for name, item in stubs.items():
-        node = PNode(id=1, type=name, widgets=[], inputs={}, output_names=[])
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
-            pe.NODE_REGISTRY[name](None, node)
+    assert stubs == {}
+    names = {n for n in pe.NODE_REGISTRY if not n.startswith("_")}  # not this file's _Const
+    assert names == {n for n in je.NODE_REGISTRY if not n.startswith("_")} and len(names) == 183
+    ctx = pe.InferenceContext(device=torch.device("cpu"))
+    node = PNode(id=1, type="UpscaleModelLoader", widgets=["missing.pth"], inputs={},
+                 output_names=[])
+    (model,) = pe.NODE_REGISTRY["UpscaleModelLoader"](ctx, node)
+    node = PNode(id=2, type="ImageUpscaleWithModel", widgets=[], inputs={}, output_names=[])
+    (out,) = pe.NODE_REGISTRY["ImageUpscaleWithModel"](ctx, node, upscale_model=model,
+                                                        image=torch.rand(1, 8, 8, 3))
+    assert tuple(out.shape) == (1, 32, 32, 3) and torch.isfinite(out).all()

@@ -24,7 +24,7 @@ from stable_renderer_tpu_torch.workflow.loader import Workflow as PWorkflow, Wor
 
 torch.set_num_threads(1)
 
-LATER = {"ImageUpscaleWithModel": "1.13", "UpscaleModelLoader": "1.13"}
+LATER: dict = {}  # node name -> the ROADMAP item it waits for: none since 1.13
 JAX_VALIDATE = jv.validate_workflow  # the validator itself, before any test wraps it
 
 
@@ -45,7 +45,7 @@ def test_registries_and_specs_hold_the_same_names():
     assert pv.UNIQUE_NODE_TYPES == jv.UNIQUE_NODE_TYPES
     assert pv.type_matchings() == jv.type_matchings()
     implemented = [n for n in pe.NODE_REGISTRY if expected_item(n) is None]
-    assert len(implemented) == 181
+    assert len(implemented) == 183
 
 
 @pytest.mark.parametrize("name", sorted(je.NODE_REGISTRY))
@@ -59,16 +59,20 @@ def test_each_name_is_implemented_or_a_stub_naming_its_item(name):
             impl(None, node)
 
 
-def test_running_a_stub_fails_with_the_structured_error():
-    wf = PWorkflow(nodes={1: PNode(id=1, type="UpscaleModelLoader", widgets=["s"],
+def test_running_a_failing_node_fails_with_the_structured_error(tmp_path):
+    """UpscaleModelLoader on a file no zoo family claims (a LaMa file: the
+    sniffing loader falls through to ESRGAN, as in the JAX package)."""
+    torch.save({"model.model.1.ffc.convl2l.weight": torch.zeros(8, 4, 7, 7)},
+               str(tmp_path / "lama.pth"))
+    wf = PWorkflow(nodes={1: PNode(id=1, type="UpscaleModelLoader", widgets=["lama.pth"],
                                    inputs={}, output_names=[])}, unknown_types=[], path=None)
-    ex = pe.PromptExecutor(wf, device="cpu")
+    ex = pe.PromptExecutor(wf, model_dirs=(str(tmp_path),), device="cpu")
     with pytest.raises(pe.NodeExecutionError) as ei:
         ex.execute()
     d = ei.value.details
     assert d["node_id"] == 1 and d["node_type"] == "UpscaleModelLoader"
-    assert d["exception_type"] == "NotImplementedError"
-    assert "ROADMAP 1.13" in d["exception_message"]
+    assert d["exception_type"] == "KeyError"
+    assert "conv_first.weight" in d["exception_message"]
 
 
 def to_port(jwf):
