@@ -39,10 +39,19 @@ Attention takes K1 on the card wherever K/V is 2048 tokens or longer, with no
 switch; SR_NO_PALLAS is not read, since the port's plain versions are for
 tests only.
 
+  --dp / SR_BENCH_DP=1 bench.py's bake-batched data-parallel mode: the
+                       sphere rasterized and packed once into world *
+                       ceil(8 / world) frames (the reference's baking
+                       interval, at least one a rank), then
+                       ``DiffusionPipeline.render`` over a {"dp": world,
+                       "tp": 1} mesh timed: one warm submit, then 2 *
+                       max(1, SR_BENCH_FRAMES // batch) timed ones. The
+                       line's value is frames/s; rank 0 prints it.
 Usage:  python bench_torch.py              (the card; raises without one)
         SR_BENCH_QUICK=1 python bench_torch.py --device cpu
---dp / SR_BENCH_DP=1 (bench.py's bake-batched data-parallel mode) raises
-NotImplementedError: it waits for the multi-device slice (ROADMAP 1.14).
+        python bench_torch.py --dp         (one rank: one card, NCCL)
+        torchrun --nproc-per-node N bench_torch.py --dp   (N cards, one rank a card)
+        SR_BENCH_QUICK=1 python bench_torch.py --dp --device cpu   (gloo)
 """
 
 from __future__ import annotations
@@ -101,15 +110,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dp", action="store_true",
-                        help="bench.py's bake-batched data-parallel mode (not ported)")
+                        help="bench.py's bake-batched data-parallel mode over every rank")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card; 'cpu' for tests)")
     args = parser.parse_args(argv)
     mode = resolve_mode(os.environ, argv)
     if mode["dp"]:
-        raise NotImplementedError(
-            "--dp / SR_BENCH_DP (bake-batched frames over all local devices) waits for the "
-            "multi-device slice (ROADMAP 1.14)")
+        return dp_main(args.device, mode)
 
     import torch
 
@@ -192,6 +199,111 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"# present-to-present ms over the {n_frames} timed frames: median "
           f"{statistics.median(gaps):.2f}, p90 {p90:.2f}", file=sys.stderr, flush=True)
     return line
+
+
+def dp_batch(size: int, batch: int, device):
+    """bench.py's --dp batch: the 48-segment sphere from (0, 0.5, 3) in
+    BAKING mode, rasterized and packed ``batch`` times (K2 once a frame on
+    the card), with a (256, 256, 4) noise texture and background noise from
+    generators seeded 3 and 7."""
+    import torch
+
+    from stable_renderer_tpu_torch.data.engine_data import EngineData
+    from stable_renderer_tpu_torch.data.framebuffers import GBuffer
+    from stable_renderer_tpu_torch.engine.mesh import Mesh
+    from stable_renderer_tpu_torch.engine.render_exec import (
+        _draw_pass,
+        mesh_device_buffers,
+        pack_frame_data,
+    )
+    from stable_renderer_tpu_torch.ops.gbuffer import RENDER_MODE_BAKING, DrawUniforms
+    from stable_renderer_tpu_torch.ops.transforms import look_at, perspective, translate
+
+    buffers = mesh_device_buffers(Mesh.Sphere(1.0, 48), device)
+    view = look_at([0.0, 0.5, 3.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    proj = perspective(45.0, 1.0, 0.1, 100.0).to(device)
+    uniforms = DrawUniforms(sprite_id=1, material_id=1, render_mode=RENDER_MODE_BAKING,
+                            corrmap_k=3)
+    bg_noise = torch.randn((1, size, size, 4), device=device,
+                           generator=torch.Generator(device=device).manual_seed(7))
+    noise_tex = torch.randn((256, 256, 4), device=device,
+                            generator=torch.Generator(device=device).manual_seed(3))
+    mv = (view @ translate([0.0, 0.0, 0.0])).to(device)
+    packs = []
+    for i in range(batch):
+        gbuf = GBuffer.empty(size, size, device=device)
+        zbuf = torch.ones((size, size), dtype=torch.float32, device=device)
+        gbuf, _ = _draw_pass(gbuf, zbuf, buffers, mv, proj, uniforms, size, size,
+                             noise=noise_tex)
+        packs.append(pack_frame_data(gbuf, bg_noise, i))
+    return EngineData(
+        frame_indices=torch.arange(batch, device=device),
+        color_maps=torch.stack([p["color"] for p in packs]),
+        id_maps=torch.stack([p["id"] for p in packs]),
+        noise_maps=torch.stack([p["noise"] for p in packs]),
+    )
+
+
+def dp_main(device_arg: Optional[str], mode: dict) -> dict:
+    """bench.py's --dp mode (bench.py:137-200) over every rank of the
+    process group (``init_distributed``: torchrun's world, or one rank).
+    Returns the line on every rank; rank 0 prints it."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from stable_renderer_tpu_torch.device import keep_f32, tf32_switches
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
+    from stable_renderer_tpu_torch.parallel import create_mesh, init_distributed
+    from stable_renderer_tpu_torch.workflow.config import RenderConfig
+
+    started = not dist.is_initialized()
+    device = init_distributed(device_arg)
+    try:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        keep_f32()
+        if rank == 0:
+            print(f"# {tf32_switches()}", file=sys.stderr, flush=True)
+        size, n_frames = mode["size"], mode["frames"]
+        batch = world * max(1, math.ceil(8 / world))
+        mesh = create_mesh({"dp": world, "tp": 1})
+        cfg = RenderConfig(prompt="a ball", steps=4, cfg_scale=2.0, sampler="lcm",
+                           scheduler="sgm_uniform", denoise=1.0)
+        pipe = DiffusionPipeline.from_random(cfg, tiny=mode["quick"], device=device)
+        corresponder = OverlapCorresponder(
+            vertex_segments=size * size if mode["quick"] else 4096, update_corrmap=False)
+        ed = dp_batch(size, batch, device)
+
+        def submit(seed: int):
+            key = torch.Generator(device=device).manual_seed(seed)
+            out = pipe.render(ed, corresponder=corresponder, key=key, mesh=mesh)
+            out[0, 0, 0, 0].item()  # wait for the frames
+            return out
+
+        t0 = time.perf_counter()
+        submit(0)
+        compile_s = time.perf_counter() - t0
+        iters = max(1, n_frames // batch) * 2
+        t0 = time.perf_counter()
+        for i in range(iters):
+            submit(i)
+        dt = time.perf_counter() - t0
+        fps = iters * batch / dt
+        line = {"metric": f"bake-batched img2img frames/s @ {size}x{size}, 4-step LCM cfg2, "
+                          f"batch={batch}, dp={world} ({device.type})",
+                "value": round(fps, 3), "unit": "frames/s", "vs_baseline": round(fps / 2.5, 3)}
+        if rank == 0:
+            print(json.dumps(line), flush=True)
+            print(f"# compile {compile_s:.1f}s, {iters}x{batch} frames in {dt:.2f}s, "
+                  f"{world} rank(s), device={device}"
+                  f"{' ' + torch.cuda.get_device_name(device) if device.type == 'cuda' else ''}",
+                  file=sys.stderr, flush=True)
+        return line
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -347,6 +347,28 @@ Phases, one line each; any failure exits non-zero:
                 ZOO_MARGIN, their images decoded from the CPU's indices).
                 (e) `python -m stable_renderer_tpu_torch upscale` on (a)'s
                 file as its own process: exit 0 and the JAX CLI's line.
+ 29. mesh     — multi-card serving on a one-rank NCCL group (file store;
+                the card machine has one card): create_mesh({"dp": 1,
+                "tp": 1}). Runs after phase 19, while phases 6 and 12's
+                pipelines are alive. (a) bench_torch.py --dp's batch
+                (MESH_BATCH sphere frames, K2 once a frame) rendered with
+                phase 6's bf16 pipeline and an OverlapCorresponder, with and
+                without the mesh: equal bit for bit (one rank: every shard
+                and collective is the identity), K1 launches the same and
+                not 0; both timed in turns; then the mesh render under the K3
+                and K4 switches (K3 and K4 launches counted, within the
+                switch bars of the unswitched one). (b) phase 12's int8
+                stream frames again through enable_stream_mesh: equal bit
+                for bit, timed. (c) ring_cross_frame_attention against
+                cross_frame_attention (K1 folded) at the all-frames level-0
+                shape, 8 frames x 4096 tokens, 8 heads x 40, bf16: max abs
+                error within K1_FOLD_REL_TOL of the largest |folded output|;
+                both timed. (d) CorrespondMap.update_batch against the
+                sequential update on (a)'s decoded frames and id maps (the
+                bake's masks), four modes: written equal, values within
+                CORRMAP_TOL. The group is destroyed; then (e) `python
+                bench_torch.py --dp` (SR_BENCH_FRAMES=MESH_BATCH) as its own
+                process: exit 0, its line and the TF32 note.
 The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
 variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
@@ -464,7 +486,8 @@ K4_SWITCHED_FRAME_SHAPES = {
 K4_TIMED_SHAPES = [(2, 1024, 640), (2, 256, 1920), (1, 4096, 512)]
 # a profiled run whose record lacks kernels the program launched (the tracer
 # drops events now and then, and after CUDA-graph captures may record none)
-# is made again, up to this many times in all; see tracer_dropped
+# is made again, up to this many times in all; see tracer_dropped and
+# device_kernels
 PROFILE_ATTEMPTS = 3
 BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative
 K3_BF16_ATOL = 1e-3    # near zero, where the bf16 step is tiny: f32 sum order
@@ -571,6 +594,9 @@ EXEC_VARIANT_STEPS = 2
 # JAX package does, so the split (and the variant's K1 work) follows
 # PYTHONHASHSEED: main() runs the script under this one
 HASH_SEED = "0"
+# phase 29: bench_torch.py --dp's batch on one rank (world * ceil(8 / world))
+MESH_BATCH = 8
+CORRMAP_TOL = 2e-6  # update_batch vs the sequential update (tests/test_corrmap_sharded.py's)
 # decode_tiled of a 128x128 latent: 3 x 3 tiles of 64 (stride 48), each one
 # mid-block attention of the f32 VAE (flash_f32); one tile against decode
 TILED_TILES = 9
@@ -676,15 +702,16 @@ def device_kernels(fn, calls: int = 3) -> list:
     torch.profiler: a warm-up step of ``calls`` calls, whose events are
     dropped (the tracer can miss the first launches it is given), then
     ``calls`` calls recorded; fails if they did not launch the same kernels.
-    A profiled run that recorded no device event at all (the tracer now and
-    then records none after CUDA-graph captures) is made again, up to
-    PROFILE_ATTEMPTS times in all."""
+    A profiled run whose record is not ``calls`` equal calls (the tracer now
+    and then drops device events, and after CUDA-graph captures may record
+    none) is made again, up to PROFILE_ATTEMPTS times in all; the last
+    attempt's record decides."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_ATTEMPTS):
+    for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):
@@ -694,11 +721,13 @@ def device_kernels(fn, calls: int = 3) -> list:
                 prof.step()
         names = [e.name for e in prof.events()
                  if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
-        if names:
-            break
-    if len(names) % calls or names != names[:len(names) // calls] * calls:
-        fail(f"{calls} calls launched {names}")
-    return names[:len(names) // calls]
+        one = names[:len(names) // calls]
+        if names and names == one * calls:
+            return one
+        if attempt + 1 < PROFILE_ATTEMPTS:
+            print(f"[profile] {calls} calls recorded {names}, not {calls} equal calls; "
+                  "profiling again", file=sys.stderr, flush=True)
+    fail(f"{calls} calls launched {names} (attempt {PROFILE_ATTEMPTS} of {PROFILE_ATTEMPTS})")
 
 
 @contextlib.contextmanager
@@ -1848,6 +1877,7 @@ def main() -> None:
     if not min(st_cos) > INT8_FRAME_COS_FLOOR:
         fail(f"int8 stream frames vs bf16 stream frames: cosines {st_cos}, floor "
              f"{INT8_FRAME_COS_FLOOR}")
+    st_int8_frames = st_images.pop("int8")  # phase 29 runs them again over a mesh
     del st_images
     print(f"[12 stream] frame_step, {n_st} stream frames ({STREAM_DEPTH - 1} transient): median "
           f"int8 {st_ms['int8']:.1f} ms, bf16 {st_ms['bf16']:.1f} ms over the last "
@@ -1861,7 +1891,7 @@ def main() -> None:
     k3_a_frame["stream int8"] = st_counts["int8"][2]
     engine_ms["stream int8"] = run_engine_phase(
         12, "stream int8", pipe_st, st_ms["int8"], STREAM_DEPTH - 1, st_want, stream=True)
-    del pipe_st, pipe_st_bf16
+    del pipe_st_bf16  # pipe_st stays for phase 29
 
     # --- 13. control: bench.py's control mode (two ControlNets) ----------------------
     pipe_cn = dc_replace(pipe, controlnets=[])
@@ -2076,6 +2106,11 @@ def main() -> None:
     # --- 19. bench_torch.py ------------------------------------------------------------
     bench = bench_phase(card)
 
+    # --- 29. multi-card serving on a one-rank mesh (phases 6 and 12's pipelines) ---------
+    mesh = mesh_phase(pipe, pipe_st, st_int8_frames, st_ms["int8"], run_frame, bg, dev, card,
+                      k1, k3)
+    del pipe_st, st_int8_frames
+
     # --- 20. checkpoint: phase 6's trees through files and from_checkpoint ------------
     # the checkpoint file stays for phase 22, in a directory removed at the end
     build_dir = Path(__file__).resolve().parent / "build"
@@ -2123,7 +2158,7 @@ def main() -> None:
                       "options": options, "bench": bench, "checkpoint": checkpoint,
                       "left_outs": left_outs, "files": files, "executor": executor,
                       "server": server, "families": families, "image_conditioning": image,
-                      "video_cascade": video, "zoo": zoo, "wall_s": wall_s,
+                      "video_cascade": video, "zoo": zoo, "mesh": mesh, "wall_s": wall_s,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2758,6 +2793,193 @@ def bench_phase(card: str) -> dict:
     print(f"[19 bench] python bench_torch.py (default mode, SR_BENCH_FRAMES=4) in {wall:.1f} s: "
           f"{json.dumps(line)} {notes} | {card}", flush=True)
     return {"line": line, "stderr": notes, "wall_s": wall}
+
+
+def mesh_phase(pipe, pipe_st, st_frames, st_ms: float, run_frame, bg, dev, card: str,
+               k1: dict, k3: dict) -> dict:
+    """Phase 29 (see the module docstring). ``pipe`` is phase 6's bf16
+    pipeline, ``pipe_st`` phase 12's int8 stream pipeline and ``st_frames``
+    its decoded frames, ``st_ms`` their frame_step median."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import bench_torch
+    from stable_renderer_tpu_torch.data.corrmap import CorrespondMap
+    from stable_renderer_tpu_torch.data.idmap import id_masks
+    from stable_renderer_tpu_torch.models import layers
+    from stable_renderer_tpu_torch.ops.conv_kernel import use_pallas_conv
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
+    from stable_renderer_tpu_torch.parallel import (
+        create_mesh,
+        cross_frame_attention,
+        init_distributed,
+        ring_cross_frame_attention,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    if dist.is_initialized():
+        fail("phase 29: a process group is up before it starts one")
+    init_distributed()  # no torchrun: one rank on a file store, NCCL on the card
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"phase 29: backend {dist.get_backend()}, {dist.get_world_size()} ranks; want "
+             f"NCCL and 1")
+    mesh = create_mesh({"dp": 1, "tp": 1})
+
+    # --- 29a. bench_torch.py --dp's batch, with and without the mesh ---------------
+    zero_counts()
+    ed = bench_torch.dp_batch(SIZE, MESH_BATCH, dev)
+    c_pack = counts()
+    if c_pack[1] != MESH_BATCH:
+        fail(f"phase 29: the {MESH_BATCH}-frame batch launched K2 {c_pack[1]} times")
+    corr = OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
+
+    def render(m):
+        key = torch.Generator(device=dev).manual_seed(0)
+        return pipe.render(ed, corresponder=corr, key=key, mesh=m)
+
+    render(None)  # warm
+    times = {"mesh": [], "plain": []}
+    launches = {}
+    for turn in ("mesh", "plain", "mesh", "plain"):
+        zero_counts()
+        t0 = time.perf_counter()
+        images = render(mesh if turn == "mesh" else None)
+        torch.cuda.synchronize()
+        times[turn].append((time.perf_counter() - t0) * 1e3)
+        launches[turn] = counts()
+        if turn == "mesh":
+            meshed = images
+        else:
+            plain = images
+    if not torch.equal(meshed, plain):
+        d = (meshed.float() - plain.float()).abs()
+        fail(f"phase 29: the mesh render differs from the unmeshed one: max abs "
+             f"{d.max().item():.3e}, mean {d.mean().item():.3e} (one rank: want bit for bit)")
+    if launches["mesh"] != launches["plain"] or launches["mesh"][0] == 0:
+        fail(f"phase 29: launches K1, K2, K3, K4 of the mesh render {launches['mesh']}, of the "
+             f"unmeshed one {launches['plain']}")
+    if not (torch.isfinite(meshed).all() and tuple(meshed.shape) == (MESH_BATCH, SIZE, SIZE, 3)):
+        fail(f"phase 29: mesh render {tuple(meshed.shape)}, finite "
+             f"{bool(torch.isfinite(meshed).all())}")
+    use_pallas_conv(True)
+    layers._group_norm_pallas_on = True
+    zero_counts()
+    switched = render(mesh)
+    c_sw = counts()
+    use_pallas_conv(False)
+    layers._group_norm_pallas_on = False
+    d = (switched.float() - meshed.float()).abs()
+    if not (c_sw[2] > 0 and c_sw[3] > 0 and torch.isfinite(switched).all()
+            and d.mean().item() < SWITCH_MEAN_BAR and d.max().item() < SWITCH_MAX_BAR):
+        fail(f"phase 29 switched mesh render: launches {c_sw}; vs unswitched mean abs "
+             f"{d.mean().item():.4f} (bar {SWITCH_MEAN_BAR}), max {d.max().item():.4f} (bar "
+             f"{SWITCH_MAX_BAR})")
+    k1["launches_a_frame"]["mesh render of 8 frames"] = launches["mesh"][0]
+    k3["launches_a_frame"]["mesh render of 8 frames, switched"] = c_sw[2]
+    out["render"] = {"mesh_ms": times["mesh"], "plain_ms": times["plain"],
+                     "launches": launches["mesh"], "switched_launches": c_sw,
+                     "pack_k2": c_pack[1]}
+    print(f"[29 mesh] (a) {MESH_BATCH} sphere frames {SIZE}x{SIZE} (K2 {c_pack[1]}), bf16 "
+          f"4-step LCM cfg 2.0 with an OverlapCorresponder: render(mesh) {times['mesh']} ms, "
+          f"render() {times['plain']} ms (in turns), equal bit for bit; launches K1, K2, K3, K4 "
+          f"{launches['mesh']} each; switched mesh render K3 {c_sw[2]}, K4 {c_sw[3]}, vs "
+          f"unswitched mean abs {d.mean().item():.5f} (bar {SWITCH_MEAN_BAR}), max "
+          f"{d.max().item():.4f} (bar {SWITCH_MAX_BAR}) | {card}", flush=True)
+
+    # --- 29b. phase 12's int8 stream frames through the stream mesh ---------------------
+    pipe_st.enable_stream_mesh(mesh)
+    state, st_times = (None, None), []
+    zero_counts()
+    for f, want in enumerate(st_frames):
+        t0 = time.perf_counter()
+        disp, _, _, images, *state = run_frame(pipe_st, SIZE, f, OverlapCorresponder(
+            vertex_segments=4096, update_corrmap=False), bg, stream=tuple(state))
+        disp.cpu()
+        st_times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(images.float(), want):
+            fail(f"phase 29: stream mesh frame {f} differs from phase 12's: max abs "
+                 f"{(images.float() - want).abs().max().item():.3e}")
+    c_st = counts()
+    pipe_st.enable_stream_mesh(None)
+    st_mesh_ms = statistics.median(st_times[-FRAMES_TIMED:])
+    out["stream"] = {"frame_step_ms": st_mesh_ms, "phase12_ms": st_ms, "launches": c_st,
+                     "frames": len(st_frames), "stream_version": pipe_st.stream_version}
+    print(f"[29 mesh] (b) phase 12's {len(st_frames)} int8 stream frames through "
+          f"enable_stream_mesh: equal bit for bit; frame_step median {st_mesh_ms:.1f} ms over "
+          f"the last {FRAMES_TIMED} (phase 12: {st_ms:.1f} ms); launches K1, K2, K3, K4 {c_st} "
+          f"| {card}", flush=True)
+
+    # --- 29c. the ring against K1 folded, level 0 of 8 frames -----------------------------
+    g = torch.Generator(device=dev).manual_seed(29)
+    q, k, v = (torch.randn((MESH_BATCH, 4096, 320), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    folded = cross_frame_attention(q, k, v, 8).float()
+    ring = ring_cross_frame_attention(q, k, v, 8, mesh).float()
+    err, top = (ring - folded).abs().max().item(), folded.abs().max().item()
+    if not (math.isfinite(err) and err <= K1_FOLD_REL_TOL * top):
+        fail(f"phase 29: ring vs K1 folded max abs err {err:.3e} > {K1_FOLD_REL_TOL} x {top:.3e}")
+    ring_ms = cuda_ms(lambda: ring_cross_frame_attention(q, k, v, 8, mesh), 3, 1)
+    fold_ms = cuda_ms(lambda: cross_frame_attention(q, k, v, 8), 3, 1)
+    out["ring"] = {"shape": [MESH_BATCH, 4096, 8, 40], "ring_ms": ring_ms, "k1_folded_ms": fold_ms,
+                   "max_abs_err": err, "max_abs_folded": top}
+    del q, k, v, folded, ring
+    print(f"[29 mesh] (c) ring_cross_frame_attention (one rank: one hop, plain math, query "
+          f"blocks of RING_LOGITS_BYTES) vs cross_frame_attention (K1 folded) at {MESH_BATCH} x "
+          f"4096 tokens, 8 x 40 bf16: max abs err {err:.3e} (bar {K1_FOLD_REL_TOL} x {top:.3e}); "
+          f"ring {ring_ms:.1f} ms, K1 folded {fold_ms:.2f} ms | {card}", flush=True)
+
+    # --- 29d. update_batch against the sequential update on (a)'s frames -------------------
+    ids = ed.id_maps
+    masks = id_masks(ids)
+    cells, verrs = {}, {}
+    for mode in ("first", "first_avg", "replace", "replace_avg"):
+        seq = CorrespondMap(k=3, height=SIZE, width=SIZE, device=dev)
+        bat = CorrespondMap(k=3, height=SIZE, width=SIZE, device=dev)
+        kw = dict(spriteID=1, materialID=1, mode=mode, masks=masks, inverse_masks=True)
+        seq.update(meshed, ids, **kw)
+        bat.update_batch(meshed, ids, mesh, **kw)
+        verr = verrs[mode] = (seq.values - bat.values).abs().max().item()
+        cells[mode] = int(bat.written.sum().item())
+        if not (torch.equal(seq.written, bat.written) and verr <= CORRMAP_TOL and cells[mode]):
+            fail(f"phase 29 update_batch {mode}: written equal "
+                 f"{torch.equal(seq.written, bat.written)}, {cells[mode]} cells, values max abs "
+                 f"{verr:.3e} (tol {CORRMAP_TOL})")
+    out["corrmap"] = {"cells_written": cells, "values_max_abs_err": verrs}
+    print(f"[29 mesh] (d) CorrespondMap.update_batch vs the sequential update on (a)'s "
+          f"{MESH_BATCH} frames, k=3 {SIZE}x{SIZE}: written equal, values max abs err {verrs} "
+          f"(tol {CORRMAP_TOL}), cells written {cells} | {card}", flush=True)
+    dist.destroy_process_group()
+
+    # --- 29e. bench_torch.py --dp as its own process ---------------------------------------
+    root = Path(__file__).resolve().parent
+    env = {k_: v_ for k_, v_ in os.environ.items() if not k_.startswith("SR_")}
+    env["SR_BENCH_FRAMES"] = str(MESH_BATCH)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(root / "bench_torch.py"), "--dp"], cwd=root,
+                         env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = run.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        line = None
+    notes = [ln for ln in run.stderr.splitlines() if ln.startswith("# ")]
+    if (run.returncode != 0 or not isinstance(line, dict)
+            or set(line) != {"metric", "value", "unit", "vs_baseline"}
+            or f"batch={MESH_BATCH}, dp=1 (cuda)" not in line["metric"]
+            or line["unit"] != "frames/s" or not line["value"] > 0
+            or not notes or notes[0] != "# matmul.allow_tf32=False cudnn.allow_tf32=False"):
+        fail(f"bench_torch.py --dp: exit {run.returncode}, last stdout line "
+             f"{lines[-1] if lines else None!r}; stderr {run.stderr[-1500:]}")
+    out["bench_dp"] = {"line": line, "stderr": notes, "wall_s": wall}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[29 mesh] (e) python bench_torch.py --dp (SR_BENCH_FRAMES={MESH_BATCH}) in "
+          f"{wall:.1f} s: {json.dumps(line)} {notes}; phase 29 in {out['phase_s']:.1f} s "
+          f"| {card}", flush=True)
+    return out
 
 
 def checkpoint_phase(pipe, dev, card: str, k1: dict, run_frame, run_engine_phase,

@@ -28,8 +28,11 @@ optionally zipped (corrmap.py:738-872), so a map baked by either package
 replays in the other. Values are quantized as ``np.clip(255 * v, 0, 255)``
 cast to uint8, which truncates.
 
-The multi-device forms (``corrmap_update_sharded``, ``update_batch``) wait for
-ROADMAP 1.14 and raise.
+``corrmap_update_sharded`` / ``CorrespondMap.update_batch`` scatter a batch
+whose frames are split over the ranks of a mesh axis: each rank reduces its
+frames, an ``all_reduce`` MIN picks each cell's winning frame and an
+``all_reduce`` SUM merges the sums, counts and winning colors, so every rank
+holds the map the sequential per-frame loop gives (``written`` exactly).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import torch
 
 from stable_renderer_tpu_torch.device import resolve_device
 from stable_renderer_tpu_torch.ops.math import segment_add_
+from stable_renderer_tpu_torch.parallel.mesh import frame_sharding
 from stable_renderer_tpu_torch.utils.log import EngineLogger
 from stable_renderer_tpu_torch.utils.paths import TEMP_DIR
 
@@ -126,12 +130,101 @@ def corrmap_update(
     return out_vals.reshape(values.shape).to(values.dtype), out_written.reshape(written.shape)
 
 
-def corrmap_update_sharded(*args, **kwargs):
-    """The collective form of the update over frames sharded across devices
-    (stable_renderer_tpu/data/corrmap.py:130): waits for the multi-device
-    slice."""
-    raise NotImplementedError("corrmap_update_sharded waits for the multi-device slice "
-                              "(ROADMAP 1.14)")
+def _segment_min(keys: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Per-segment minimum of int32 ``keys`` over ``n_seg`` segments (the
+    dump segment n_seg dropped); _INT32_MAX where a segment is empty."""
+    out = torch.full((n_seg + 1,), _INT32_MAX, dtype=torch.int32, device=keys.device)
+    return out.scatter_reduce_(0, seg, keys, "amin")[:-1]
+
+
+def corrmap_update_sharded(
+    values: torch.Tensor,        # (K2, M, C) float, the same on every rank
+    written: torch.Tensor,       # (K2, M) bool, the same on every rank
+    color_frames: torch.Tensor,  # (B_local, H, W, C') this rank's frames
+    id_maps: torch.Tensor,       # (B_local, H, W, 4) int32
+    mesh,                        # a DeviceMesh
+    axis: str = "dp",
+    mode: str = "first_avg",
+    masks: Optional[torch.Tensor] = None,  # (B_local, H, W)
+    sprite_id: Optional[int] = None,
+    material_id: Optional[int] = None,
+    ignore_obj_mat_id: bool = False,
+    num_bins: int = 9,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The collective corrmap scatter (stable_renderer_tpu/data/corrmap.py:130):
+    rank r holds frames [r B_local, (r+1) B_local) of the batch; each rank
+    segment-reduces its frames, then collectives over ``axis`` merge per cell,
+    and every rank returns the map the sequential per-frame loop
+    (``CorrespondMap.update``) gives:
+
+      * first / first_avg: the earliest frame touching an unwritten cell wins;
+      * replace / replace_avg: the latest frame touching the cell wins;
+      * the plain modes take the winning frame's smallest screen index pixel,
+        the _avg modes the mean of the winning frame's contributions.
+
+    The winning frame and pixel are ``all_reduce`` MIN, the sums, counts and
+    the winner's color ``all_reduce`` SUM; ``written`` is exact."""
+    if mode not in _MODES:
+        raise ValueError(f"mode must be one of {_MODES}")
+    shard = frame_sharding(mesh, axis)
+    k2, m, c = values.shape
+    b_local, h, w = color_frames.shape[:3]
+    n_seg, hw = num_bins * m, h * w
+    n_pix, dev = b_local * hw, values.device
+
+    cf = color_frames.reshape(n_pix, color_frames.shape[-1]).to(device=dev, dtype=torch.float32)
+    if cf.shape[-1] > c:
+        cf = cf[:, :c]
+    elif c == 4 and cf.shape[-1] == 3:
+        cf = torch.cat([cf, torch.ones_like(cf[:, :1])], dim=-1)
+    ids = id_maps.reshape(n_pix, 4).to(dev)
+    map_index, vertex_id = ids[:, 2], ids[:, 3]
+    valid = (map_index >= 0) & (map_index < num_bins) & (vertex_id >= 0) & (vertex_id < m)
+    if masks is not None:
+        valid &= masks.reshape(n_pix).to(dev) > 0
+    if not ignore_obj_mat_id:
+        if sprite_id is not None:
+            valid &= ids[:, 0] == sprite_id
+        if material_id is not None:
+            valid &= ids[:, 1] == material_id
+    dump = torch.full_like(map_index, n_seg, dtype=torch.int64)
+    seg = torch.where(valid, map_index.long() * m + vertex_id.long(), dump)
+    if mode.startswith("first"):
+        valid &= ~written.reshape(-1)[seg.clamp(max=n_seg - 1)]
+        seg = torch.where(valid, seg, dump)
+
+    # every local pixel's frame in the whole batch; the winning frame's key:
+    # first* the earliest frame, replace* the latest
+    gframe = (shard.rank * b_local + torch.arange(b_local, dtype=torch.int32, device=dev)
+              ).repeat_interleave(hw)
+    b_total = b_local * shard.size
+    fkey = gframe if mode.startswith("first") else (b_total - 1) - gframe
+    big = torch.full_like(fkey, _INT32_MAX)
+    fwin = shard.all_reduce_min_(_segment_min(torch.where(valid, fkey, big), seg, n_seg))
+    touched = fwin != _INT32_MAX
+    valid &= fkey == fwin[seg.clamp(max=n_seg - 1)]
+    seg = torch.where(valid, seg, dump)
+
+    if mode.endswith("_avg"):
+        sums = torch.zeros((n_seg + 1, c), dtype=torch.float32, device=dev)
+        segment_add_(sums, seg, torch.where(valid[:, None], cf, torch.zeros_like(cf)))
+        counts = torch.zeros(n_seg + 1, dtype=torch.float32, device=dev)
+        segment_add_(counts, seg, valid.to(torch.float32))
+        sums, counts = shard.all_reduce_(sums[:-1]), shard.all_reduce_(counts[:-1])
+        new_cell = sums / counts.clamp(min=1.0)[:, None]
+    else:
+        # the smallest screen index in the winning frame; one winner a cell,
+        # so a masked sum hands its color to every rank
+        pix = torch.arange(hw, dtype=torch.int32, device=dev).repeat(b_local)
+        pwin = shard.all_reduce_min_(_segment_min(torch.where(valid, pix, big), seg, n_seg))
+        winner = valid & (pix == pwin[seg.clamp(max=n_seg - 1)])
+        new_cell = torch.zeros((n_seg + 1, c), dtype=torch.float32, device=dev)
+        segment_add_(new_cell, seg, torch.where(winner[:, None], cf, torch.zeros_like(cf)))
+        new_cell = shard.all_reduce_(new_cell[:-1])
+
+    out_vals = torch.where(touched[:, None], new_cell, values.reshape(n_seg, c).to(torch.float32))
+    out_written = written.reshape(n_seg) | touched
+    return out_vals.reshape(values.shape).to(values.dtype), out_written.reshape(written.shape)
 
 
 @dataclass
@@ -242,11 +335,38 @@ class CorrespondMap:
         EngineLogger.debug(
             f"Updated CorrespondMap {self.name}: mode={mode} sprite={spriteID} mat={materialID}")
 
-    def update_batch(self, *args, **kwargs) -> None:
+    def update_batch(
+        self,
+        color_frames: torch.Tensor,  # (B, H, W, C')
+        id_maps: torch.Tensor,       # (B, H, W, 4)
+        mesh,
+        axis: str = "dp",
+        spriteID: int | None = None,
+        materialID: int | None = None,
+        mode: UpdateMode = "first_avg",
+        masks: torch.Tensor | None = None,
+        inverse_masks: bool = False,
+        ignore_obj_mat_id: bool = False,
+    ) -> None:
         """The sharded batch scatter (stable_renderer_tpu/data/corrmap.py:335):
-        waits for the multi-device slice."""
-        raise NotImplementedError("CorrespondMap.update_batch waits for the multi-device slice "
-                                  "(ROADMAP 1.14)")
+        every rank passes the whole batch, scatters its frames of it over
+        ``axis`` of ``mesh`` (``corrmap_update_sharded``), and holds the
+        sequential ``update`` loop's map."""
+        dev = self.values.device
+        shard = frame_sharding(mesh, axis)
+        color_frames = shard.take(torch.as_tensor(color_frames)).to(dev)
+        id_maps = shard.take(torch.as_tensor(id_maps)).to(dev)
+        if masks is not None:
+            masks = torch.as_tensor(masks)
+            if masks.dim() == 4:
+                masks = masks[..., 0]
+            if inverse_masks:
+                masks = 1.0 - masks
+            masks = shard.take(masks).to(dev)
+        self.values, self.written = corrmap_update_sharded(
+            self.values, self.written, color_frames, id_maps, mesh, axis=axis, mode=mode,
+            masks=masks, sprite_id=spriteID, material_id=materialID,
+            ignore_obj_mat_id=ignore_obj_mat_id, num_bins=self.k * self.k)
 
     # --- on-disk interchange (reference format, corrmap.py:738-872) ---
 

@@ -55,12 +55,16 @@ def frame_step(
     stream_state=None,
     stream_init: bool = False,
     stream_kv=None,
-    stream_version: int = 0,
+    stream_version: int = 0,  # pipeline.stream_version
     step_noise=None,          # optional explicit sampler re-noise draws
 ):
     """One frame. Returns (display, gbuf, pack, images, stream_state,
     stream_kv): display is (H, W, 4), uint8 when ``to_uint8``. In the stream
-    branch ``step_noise`` is the (S, h, w, 4) LCM re-noise draw."""
+    branch ``step_noise`` is the (S, h, w, 4) LCM re-noise draw.
+    ``stream_version`` keys the JAX package's compiled frame to the
+    pipeline's stream mesh; the port's eager frame reads the mesh from the
+    pipeline at each call, and a state built before a mesh change is
+    resharded by ``_render_stream`` (its stage count tells)."""
     dev = bg_noise.device
     gbuf = GBuffer.empty(height, width, device=dev)
     zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)

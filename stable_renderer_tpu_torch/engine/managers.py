@@ -396,6 +396,9 @@ class RenderManager(Manager):
             have_tasks = bool(len(self.defer_tasks) or len(self.post_tasks))
 
         use_stream = run_diffusion and pipe.config.stream_pipeline and not is_baking
+        if use_stream and pipe.stream_mesh is not None:
+            # the stream's mesh: each rank's tensor-parallel shards
+            unet_params, cn_params = pipe.stream_params()
 
         with self.timer.stage("dispatch"):
             display, gbuf, pack, images, stream_state, stream_kv = frame_program.frame_step(
@@ -428,6 +431,7 @@ class RenderManager(Manager):
                 stream_state=self._stream_state if use_stream else None,
                 stream_init=use_stream and self._stream_state is None,
                 stream_kv=self._stream_kv if use_stream else None,
+                stream_version=pipe.stream_version if run_diffusion else 0,
             )
         if use_stream:
             self._stream_state, self._stream_kv = stream_state, stream_kv

@@ -23,9 +23,15 @@ conv path (``quantize_convs``), the TAESD autoencoder for realtime frames
 (``with_taesd``, ``RenderConfig.realtime_taesd``) and per-vertex starting
 noise (``RenderConfig.vertex_noise`` without noise maps). SVD's video UNet
 and Stable Cascade run through the workflow executor's nodes, as in the JAX
-package (``models/video_unet.py``, ``models/cascade.py``); the multi-device
-stream mesh (ROADMAP 1.14) raises until its slice is ported. The
-pipeline's tensors live on the card unless ``device`` names another device.
+package (``models/video_unet.py``, ``models/cascade.py``). The pipeline's
+tensors live on the card unless ``device`` names another device.
+
+Many cards (one process a card, parallel/): ``render(mesh=...)`` splits the
+frame batch over the mesh's dp ranks and, with a tp axis of more than one
+rank, the UNet's and ControlNets' attention and MLP over its tp ranks
+(``compute_params(mesh)``); ``enable_stream_mesh`` splits the stream's
+in-flight stages over dp in the same way. A one-rank mesh computes what no
+mesh computes.
 """
 
 from __future__ import annotations
@@ -87,6 +93,15 @@ from stable_renderer_tpu_torch.ops.correspondence import (
     vertex_noise,
 )
 from stable_renderer_tpu_torch.ops.math import resize_nearest
+from stable_renderer_tpu_torch.parallel.mesh import (
+    axis_size,
+    dp_context,
+    frame_sharding,
+    has_axis,
+    randn_frames,
+    tp_context,
+)
+from stable_renderer_tpu_torch.parallel.sharding import apply_param_sharding
 from stable_renderer_tpu_torch.workflow.config import ControlNetSpec, RenderConfig
 
 
@@ -125,6 +140,22 @@ class DiffusionPipeline:
         self._cond_cache: dict = {}
         self._prep_cond_cache: dict = {}
         self._sigma_cache: Optional[Tuple[tuple, torch.Tensor]] = None
+        self._compute_param_cache: dict = {}
+        # the stream's mesh (enable_stream_mesh); none: one device
+        self.stream_mesh = None
+        self.stream_dp_axis, self.stream_tp_axis = "dp", "tp"
+        self._stream_version = 0
+
+    def __setattr__(self, name, value) -> None:
+        # a new UNet or VAE tree invalidates compute_params' cached shards
+        if name in ("unet_params", "vae_params"):
+            self._bump_models()
+        object.__setattr__(self, name, value)
+
+    def _bump_models(self) -> None:
+        """Invalidate compute_params' cache after a change in place to the
+        model trees (ControlNet params, quantization)."""
+        object.__setattr__(self, "_model_version", getattr(self, "_model_version", 0) + 1)
 
     @property
     def is_sdxl(self) -> bool:
@@ -377,6 +408,7 @@ class DiffusionPipeline:
         """Chain a ControlNet with ``params`` (the checkpoint tree under
         ``control_model.``, as tensors on the pipeline's device)."""
         cn = ControlNet(ControlNetConfig(unet=self.unet.config))
+        self._bump_models()
         self.controlnets.append((cn, params, spec))
 
     def add_random_controlnet(self, spec: ControlNetSpec, seed: int = 5) -> None:
@@ -619,12 +651,31 @@ class DiffusionPipeline:
         self._prep_cond_cache[pc_key] = result
         return result
 
-    def compute_params(self):
+    def compute_params(self, mesh=None, tp_axis: str = "tp"):
         """(unet_params, vae_params, cn_params) as fed to the render programs,
         ``cn_params`` aligned with ``self.controlnets``. The JAX package
         builds a TPU (HWIO) view here; the port feeds the checkpoint-layout
-        trees as they are."""
-        return self.unet_params, self.vae_params, tuple(p for _, p, _ in self.controlnets)
+        trees as they are. When ``mesh`` has a ``tp_axis`` of more than one
+        rank, the UNet and ControlNet trees are this rank's Megatron shards
+        (``parallel.sharding.apply_param_sharding``), cached: one live view,
+        keyed by the model version (bumped by a new UNet or VAE tree), the
+        mesh, the axis and the number of ControlNets."""
+        cn_params = tuple(p for _, p, _ in self.controlnets)
+        if axis_size(mesh, tp_axis) == 1:
+            return self.unet_params, self.vae_params, cn_params
+        key = (getattr(self, "_model_version", 0), mesh, tp_axis, len(self.controlnets))
+        hit = self._compute_param_cache.get(key)
+        if hit is None:
+            hit = (apply_param_sharding(self.unet_params, mesh, tp_axis), self.vae_params,
+                   tuple(apply_param_sharding(p, mesh, tp_axis) for p in cn_params))
+            self._compute_param_cache.clear()  # one live view: the shards hold GBs
+            self._compute_param_cache[key] = hit
+        return hit
+
+    def _tp_params(self, mesh, tp_axis: str):
+        """(unet_params, cn_params) of ``compute_params(mesh, tp_axis)``."""
+        u, _, c = self.compute_params(mesh, tp_axis)
+        return u, c
 
     # --- the render program ---------------------------------------------------
 
@@ -635,9 +686,23 @@ class DiffusionPipeline:
         key: Optional[torch.Generator] = None,
         prompts: Optional[List[str]] = None,
         negatives: Optional[List[str]] = None,
+        mesh=None,
+        dp_axis: str = "dp",
+        tp_axis: str = "tp",
     ) -> torch.Tensor:
         """EngineData -> decoded frames (N, H, W, 3) in [0, 1]. ``key`` is the
-        generator for the sampler's draws (default: seeded with config.seed)."""
+        generator for the sampler's draws (default: seeded with config.seed).
+
+        With ``mesh`` (a DeviceMesh from ``parallel.create_mesh``; every rank
+        calls with the whole batch and the same key) each rank of
+        ``dp_axis`` renders its block of frames, and every rank returns the
+        whole batch, gathered. The couplings across frames are collectives
+        over dp: the corresponder's injected K/V rows, vertex averages and
+        all-frames attention, and the draws are each rank's rows of the
+        whole batch's, so the result is the one-device render's. A
+        ``tp_axis`` of more than one rank splits the UNet's and ControlNets'
+        heads and MLP over it. The scene contexts (S+1, N, L, D) split on
+        their frame axis, the other conditioning and the hints on axis 0."""
         cfg = self.config
         n = engine_data.frame_count
         if key is None:
@@ -654,13 +719,18 @@ class DiffusionPipeline:
             "pos": engine_data.pos_maps,
         }
         hints = tuple(hint_sources[spec.source] for _, _, spec in self.controlnets)
-        unet_params, vae_params, cn_params = self.compute_params()
-        images = self._render(
-            corresponder, sprite_ids, unet_params, vae_params, cn_params,
-            engine_data.color_maps, engine_data.noise_maps, engine_data.id_maps, hints,
-            ctx, nctx, self.scheduler_sigmas(), key, y_cond, y_uncond,
-            normal_maps=engine_data.normal_maps,
-        )
+        unet_params, vae_params, cn_params = self.compute_params(mesh, tp_axis)
+        dp = frame_sharding(mesh, dp_axis)
+        take = dp.take
+        with tp_context(frame_sharding(mesh, tp_axis)), dp_context(dp):
+            images = self._render(
+                corresponder, sprite_ids, unet_params, vae_params, cn_params,
+                take(engine_data.color_maps), take(engine_data.noise_maps),
+                take(engine_data.id_maps), tuple(take(h) for h in hints),
+                take(ctx, 1 if ctx.dim() == 4 else 0), take(nctx), self.scheduler_sigmas(), key,
+                take(y_cond), take(y_uncond), normal_maps=take(engine_data.normal_maps),
+            )
+        images = dp.gather(images)
         corresponder.finished(engine_data, images)
         return images
 
@@ -695,7 +765,7 @@ class DiffusionPipeline:
         elif id_maps is not None and cfg.vertex_noise:
             noise = vertex_noise(key, id_maps, lh, lw, latent.shape[-1])
         else:
-            noise = torch.randn(latent.shape, generator=key, device=latent.device)
+            noise = randn_frames(latent.shape, generator=key, device=latent.device)
         uncond = None if cfg.cfg_scale == 1.0 else nctx
         log_sigmas = torch.as_tensor(self.model_sampling.log_sigmas)
         hooks = corresponder.attn_hooks(None, generator=key)
@@ -734,8 +804,31 @@ class DiffusionPipeline:
 
     # --- the stream-pipelined realtime program ----------------------------------
 
-    def enable_stream_mesh(self, mesh, dp_axis: str = "dp", tp_axis: str = "tp"):
-        raise NotImplementedError("the multi-device stream mesh is not ported yet (ROADMAP 1.14)")
+    def enable_stream_mesh(self, mesh, dp_axis: str = "dp",
+                           tp_axis: str = "tp") -> "DiffusionPipeline":
+        """Multi-card latency mode: the stream's S in-flight stages split
+        over ``dp_axis`` of ``mesh`` (a DeviceMesh; None: one device), one
+        engine frame then costing each rank S / dp of the UNet batch, and a
+        ``tp_axis`` of more than one rank splits the UNet Megatron-style on
+        top (``stream_params``). Bumps ``stream_version``. A stream state
+        built before holds every stage; the next frame takes its rank's."""
+        has_axis(mesh, dp_axis)  # raises for what is not a DeviceMesh
+        self.stream_mesh, self.stream_dp_axis, self.stream_tp_axis = mesh, dp_axis, tp_axis
+        self._stream_version += 1
+        return self
+
+    @property
+    def stream_version(self) -> int:
+        """A counter bumped by every ``enable_stream_mesh`` call (the JAX
+        package keys its compiled stream program on it)."""
+        return self._stream_version
+
+    def stream_params(self):
+        """(unet_params, cn_params) for the stream program: the trees, or this
+        rank's tensor-parallel shards when the stream mesh has a tp axis of
+        more than one rank."""
+        u, _, c = self.compute_params(self.stream_mesh, self.stream_tp_axis)
+        return u, c
 
     @torch.no_grad()
     def _render_stream(
@@ -766,7 +859,18 @@ class DiffusionPipeline:
         other sampler name takes an Euler step, as in the JAX package. The
         stream takes one conditioning a frame: a scene's (S+1, B, L, D)
         contexts raise (the JAX package's stream fails on them too). Returns
-        (image (1, H, W, 3), new state, captured contexts or None)."""
+        (image (1, H, W, 3), new state, captured contexts or None).
+
+        With a stream mesh (``enable_stream_mesh``) every rank calls with the
+        same frame and generator and holds S / dp stages: rank r stages
+        [r S/dp, (r+1) S/dp), the state and the captured contexts its rows.
+        Each rank advances its stages (with ``stream_params``' shards under a
+        tp axis); the shift hands each rank's last stage (and its hints and
+        ids) to the next rank, rank 0 taking the new frame's; the output
+        latent is the last rank's last stage, broadcast, so every rank
+        decodes the same image; the vertex averages sum over the ranks and
+        the LCM draws are each rank's rows of the whole (S, h, w, 4) draw
+        (``step_noise`` is that whole draw). dp must divide S."""
         cfg = self.config
         if cfg.sampler not in SAMPLER_NAMES:
             raise ValueError(f"Unknown sampler '{cfg.sampler}' (have {SAMPLER_NAMES})")
@@ -787,18 +891,29 @@ class DiffusionPipeline:
             noise = torch.randn(latent.shape, generator=key, device=latent.device)
         sigmas = torch.as_tensor(sigmas, dtype=torch.float32).cpu()
         s = sigmas.shape[0] - 1  # pipeline depth = steps
+        dp = frame_sharding(self.stream_mesh, self.stream_dp_axis)
+        rows = dp.rows(s)  # this rank's stages
+        s_loc = rows.stop - rows.start
         x_t = latent + noise * sigmas[0]  # (1, h, w, C)
         carry_hints = bool(self.controlnets) and hints is not None
         avg_ratio = float(getattr(corresponder, "step_finished_inject_ratio", 0.0) or 0.0)
         carry_ids = avg_ratio > 0.0 and id_maps is not None
         if stream_init:
-            xs = x_t.expand(s, *x_t.shape[1:])
-            hint_s = tuple(hh.expand(s, *hh.shape[1:]) for hh in hints) if carry_hints else ()
-            ids_s = id_maps.expand(s, *id_maps.shape[1:]) if carry_ids else None
+            xs = x_t.expand(s_loc, *x_t.shape[1:])
+            hint_s = tuple(hh.expand(s_loc, *hh.shape[1:]) for hh in hints) if carry_hints else ()
+            ids_s = id_maps.expand(s_loc, *id_maps.shape[1:]) if carry_ids else None
         elif isinstance(state, dict):
             xs, hint_s, ids_s = state["x"], tuple(state.get("hints") or ()), state.get("ids")
         else:
             xs, hint_s, ids_s = state, (), None
+        if xs.shape[0] != s_loc:
+            if xs.shape[0] != s:
+                raise ValueError(f"a stream state of {xs.shape[0]} stages, where this rank holds "
+                                 f"{s_loc} of {s}: reset the stream after changing its mesh")
+            # built before the mesh: every stage; this rank keeps its own
+            xs, hint_s, ids_s = xs[rows], tuple(hh[rows] for hh in hint_s), (
+                None if ids_s is None else ids_s[rows])
+            kv_state = None if kv_state is None else {k: v[rows] for k, v in kv_state.items()}
 
         kv_layers = tuple(cfg.stream_kv_layers or ())
         if kv_state is not None and set(kv_state) != {str(layer) for layer in kv_layers}:
@@ -823,14 +938,16 @@ class DiffusionPipeline:
         uncond = None if cfg.cfg_scale == 1.0 else nctx
         log_sigmas = torch.as_tensor(self.model_sampling.log_sigmas, dtype=torch.float32)
         den = make_denoiser(
-            self.unet, unet_params, ctx[:1].expand(s, *ctx.shape[1:]),
-            None if uncond is None else uncond[:1].expand(s, *uncond.shape[1:]),
+            self.unet, unet_params, ctx[:1].expand(s_loc, *ctx.shape[1:]),
+            None if uncond is None else uncond[:1].expand(s_loc, *uncond.shape[1:]),
             log_sigmas, cfg_scale=cfg.cfg_scale, prediction=self.model_sampling.prediction,
             hooks=hooks,
             control_fn=self._make_control_fn(hint_s, cn_params) if carry_hints else None,
         )
-        sig_vec, sig_next = sigmas[:s], sigmas[1:s + 1]  # stage i steps sigma_i -> sigma_i+1
-        denoised = den(xs, sig_vec)
+        # stage i steps sigma_i -> sigma_i+1
+        sig_vec, sig_next = sigmas[rows], sigmas[rows.start + 1:rows.stop + 1]
+        with tp_context(frame_sharding(self.stream_mesh, self.stream_tp_axis)):
+            denoised = den(xs, sig_vec)
         dev = denoised.device
         if carry_ids:
             # vertex averaging over the in-flight rows in x0 space (the rows
@@ -840,7 +957,7 @@ class DiffusionPipeline:
                 denoised, ids_s, avg_ratio,
                 num_segments=int(getattr(corresponder, "vertex_segments", 262144)),
                 weighting=getattr(corresponder, "weighting", "average"),
-                adain_mode=getattr(corresponder, "step_finished_adain", "content"))
+                adain_mode=getattr(corresponder, "step_finished_adain", "content"), shard=dp)
             stop_t = float(getattr(corresponder, "step_finished_stop_inject_timestep", 500.0))
             gate = to_device(timestep_from_sigma(log_sigmas, sig_vec) >= stop_t, dev)
             denoised = torch.where(gate[:, None, None, None], injected, denoised)
@@ -848,23 +965,32 @@ class DiffusionPipeline:
         sn = to_device(sig_next, dev)[:, None, None, None]
         if cfg.sampler == "lcm":
             if step_noise is not None:
-                fresh = step_noise.to(device=dev, dtype=denoised.dtype)
+                fresh = dp.take(step_noise).to(device=dev, dtype=denoised.dtype)
             else:
-                fresh = torch.randn(denoised.shape, generator=key, device=dev)
+                fresh = dp.randn(denoised.shape, generator=key, device=dev)
             stepped = denoised + sn * fresh
         else:  # every other sampler: an Euler step
             stepped = xs + (xs - denoised) / torch.clamp(sv, min=1e-8) * (sn - sv)
         # the last stage's sigma is a host value: choosing the output is a
         # host branch, not a device sync
-        out_latent = stepped[-1:] if float(sig_next[-1]) > 0 else denoised[-1:]
-        new_state = torch.cat([x_t, stepped[:-1]], 0)
+        out_latent = dp.broadcast_from_last(
+            stepped[-1:] if float(sigmas[s]) > 0 else denoised[-1:])
+        # each rank's last stage, with its conditioning rows, moves to the
+        # next rank; rank 0 takes the new frame's
+        moved = dp.shift([stepped[-1:], *(hh[-1:] for hh in hint_s),
+                          *(() if ids_s is None else (ids_s[-1:],))])
+        if moved is None:
+            x_in, hints_in, ids_in = x_t, hints or (), id_maps
+        else:
+            x_in, hints_in, ids_in = moved[0], moved[1:1 + len(hint_s)], moved[-1]
+        new_state = torch.cat([x_in, stepped[:-1]], 0)
         if carry_hints or carry_ids:
             # each conditioning row shifts with its frame
             new_state = {
                 "x": new_state,
                 "hints": tuple(torch.cat([new, old[:-1]], 0)
-                               for new, old in zip(hints or (), hint_s)),
-                "ids": None if ids_s is None else torch.cat([id_maps, ids_s[:-1]], 0),
+                               for new, old in zip(hints_in, hint_s)),
+                "ids": None if ids_s is None else torch.cat([ids_in, ids_s[:-1]], 0),
             }
         image = self._decode(vae_params, out_latent, vae_dtype)
         return image, new_state, (captured if kv_layers else None)

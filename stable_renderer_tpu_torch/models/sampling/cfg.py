@@ -204,7 +204,10 @@ def make_denoiser(
                     return hooks.mid(x, layer)
                 return torch.cat([hooks.mid(x[:batch], layer), x[batch:]], 0)
 
-        return AttnHooks(pre=pre, post=post, attn=attn, mid=mid, **passthru)
+        # no post wrapper without a user post hook: a tensor-parallel block
+        # takes any post hook for one that needs every head
+        return AttnHooks(pre=pre, post=None if hooks.post is None else post, attn=attn, mid=mid,
+                         **passthru)
 
     def denoise(x: torch.Tensor, sigma) -> torch.Tensor:
         sigma = torch.as_tensor(sigma, dtype=torch.float32).cpu()

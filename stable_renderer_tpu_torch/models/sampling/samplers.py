@@ -25,7 +25,10 @@ sigma range (``BrownianBridge``, the JAX package's ``brownian_increment``,
 seeded from ``generator.initial_seed()`` with no draw, so one generator seed
 gives one motion and the card is not read), ``"iid"`` a fresh gaussian, ``"zero"`` nothing (every draw of every sampler is
 then zero). ``step_noise`` entries replace whatever the site would draw,
-Brownian increments included.
+Brownian increments included. Under ``parallel.mesh.dp_context`` (a render
+whose frames are split over ranks) every draw is this rank's rows of the
+whole batch's, so a split render draws what the whole one does, and
+``dpm_adaptive``'s error norm sums over every rank's frames.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from stable_renderer_tpu_torch.parallel.mesh import FrameShard, active_dp, randn_frames
 
 SAMPLER_NAMES = [
     "euler",
@@ -134,8 +139,9 @@ class BrownianBridge:
     in (``sample(step_noise=...)``)."""
 
     def __init__(self, seed: int, t_lo: float, t_hi: float, shape, device=None,
-                 depth: int = 26):
+                 depth: int = 26, shard: Optional[FrameShard] = None):
         self.seed, self.t_lo, self.shape, self.depth = int(seed), float(t_lo), tuple(shape), depth
+        self.shard = shard  # draws are this rank's rows of the whole batch's
         self.span = max(float(t_hi) - self.t_lo, 1e-12)
         self.device = torch.device(device) if device is not None else torch.device("cpu")
         self._draws: dict = {}
@@ -144,7 +150,8 @@ class BrownianBridge:
         z = self._draws.get(heap)
         if z is None:
             g = torch.Generator(device=self.device).manual_seed(_mix_seed(self.seed, heap))
-            z = self._draws[heap] = torch.randn(self.shape, generator=g, device=self.device)
+            draw = torch.randn if self.shard is None else self.shard.randn
+            z = self._draws[heap] = draw(self.shape, generator=g, device=self.device)
         return z
 
     def w(self, t: float) -> torch.Tensor:
@@ -184,7 +191,7 @@ class _Draws:
             # package folds it into its key: no draw, so no read of the card
             root = generator.initial_seed() if generator is not None else torch.initial_seed()
             self.bridge = BrownianBridge(_mix_seed(root, 0x42B), sigmas[max(len(sigmas) - 2, 0)],
-                                         sigmas[0], x.shape, x.device)
+                                         sigmas[0], x.shape, x.device, shard=active_dp())
 
     def _given(self, i: int, site: int) -> torch.Tensor:
         d = self.step_noise[i]
@@ -197,8 +204,8 @@ class _Draws:
             return torch.zeros_like(self.x)
         if self.step_noise is not None:
             return self._given(i, site)
-        return torch.randn(self.x.shape, generator=self.generator, device=self.x.device,
-                           dtype=self.x.dtype)
+        return randn_frames(self.x.shape, generator=self.generator, device=self.x.device,
+                            dtype=self.x.dtype)
 
     def sde(self, i: int, site: int, s_from: float, s_to: float) -> torch.Tensor:
         if self.bridge is None:  # "iid", "zero" or draws handed in
@@ -504,7 +511,13 @@ def _sample_dpm_adaptive(model, x, sig: List[float], step_callback,
         x_low, eps_r1 = _dpm_2_step(model, x, float(s), float(t), eps, r1=1.0 / 3)
         x_high = _dpm_3_step(model, x, float(s), float(t), eps, eps_r1=eps_r1)
         delta = torch.clamp(rtol * torch.maximum(x_low.abs(), x_prev.abs()), min=atol)
-        error = f32(torch.sqrt(torch.mean(((x_low - x_high) / delta) ** 2)).item())  # host sync
+        sq = ((x_low - x_high) / delta) ** 2
+        dp = active_dp()
+        if dp is None:
+            ms = torch.mean(sq)
+        else:  # the whole batch's mean
+            ms = dp.all_reduce_(sq.sum()) / (sq.numel() * dp.size)
+        error = f32(torch.sqrt(ms).item())  # host sync
         factor = f32(1.0) + np.arctan((f32(1.0) / (error + f32(1e-8))) ** f32(1.0 / 3.0)
                                       - f32(1.0))
         if factor >= f32(accept_safety):

@@ -98,7 +98,10 @@ def group_hooks(user: AttnHooks, groups: int, batch: int, use_cfg: bool,
         def mid(x, layer):
             return torch.cat([user.mid(g, layer) for g in split(x)] + [x[nc:]], 0)
 
-    return AttnHooks(pre=pre, post=post, attn=attn, mid=mid, **passthru)
+    # no post wrapper without a user post hook: a tensor-parallel block
+    # takes any post hook for one that needs every head
+    return AttnHooks(pre=pre, post=None if user.post is None else post, attn=attn, mid=mid,
+                     **passthru)
 
 
 def make_scene_denoiser(

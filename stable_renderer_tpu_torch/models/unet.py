@@ -34,6 +34,7 @@ from stable_renderer_tpu_torch.models.layers import (
     timestep_embedding,
     upsample_nearest_2x,
 )
+from stable_renderer_tpu_torch.parallel.mesh import active_tp
 
 
 @dataclass(frozen=True)
@@ -202,6 +203,26 @@ def res_block(p: dict, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return x + h
 
 
+def _row_linear(p: dict, x: torch.Tensor, tp) -> torch.Tensor:
+    """``linear`` of a row-parallel weight: under tensor parallelism the
+    rank's (out, in / t) shard times its share of ``x``, summed over the tp
+    ranks in f32, then the bias added once."""
+    if tp is None:
+        return linear(p, x)
+    part = torch.nn.functional.linear(x, p["weight"].to(x.dtype)).float()
+    tp.all_reduce_(part)
+    b = p.get("bias")
+    return (part if b is None else part + b.float()).to(x.dtype)
+
+
+def _local_heads(heads: int, tp) -> int:
+    if tp is None:
+        return heads
+    if heads % tp.size:
+        raise ValueError(f"{tp.size} tensor-parallel ranks do not divide {heads} attention heads")
+    return heads // tp.size
+
+
 def basic_transformer_block(
     p: dict,
     x: torch.Tensor,        # (B, L, C)
@@ -213,16 +234,29 @@ def basic_transformer_block(
 ) -> torch.Tensor:
     """attention.py BasicTransformerBlock._forward with the injection points.
     With ``disable_self_attn`` (the x4 upscaler's levels) attn1 cross-attends
-    the text context, and no hook applies to the block."""
+    the text context, and no hook applies to the block.
+
+    Under ``parallel.mesh.tp_context`` the params are a rank's tensor-parallel
+    shards (``parallel.sharding.apply_param_sharding``): q/k/v and the GEGLU
+    input give the rank's heads and MLP columns, attention runs over
+    ``heads / t`` heads, and the attention outputs and the MLP output are
+    row-parallel products summed over the ranks. The ``pre`` hook sees the
+    contexts (whole rows) and ``attn`` the rank's heads; ``post`` and
+    ``attn_all`` would see a share of the heads and raise."""
+    tp = active_tp()
+    heads = _local_heads(heads, tp)
     n = layer_norm(p["norm1"], x)
     if disable_self_attn:
         for name, norm in (("attn1", "norm2"), ("attn2", "norm3")):
             a = p[name]
             q, k, v = (linear(a["to_q"], n), linear(a["to_k"], context),
                        linear(a["to_v"], context))
-            x = x + linear(a["to_out"]["0"], attention(q, k, v, heads))
+            x = x + _row_linear(a["to_out"]["0"], attention(q, k, v, heads), tp)
             n = layer_norm(p[norm], x)
-        return x + linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"], n))
+        return x + _row_linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"], n), tp)
+    if tp is not None and (hooks.post is not None or hooks.attn_all is not None):
+        raise ValueError("a post or attn_all attention hook needs every head, and under tensor "
+                         "parallelism a rank holds a share of them")
     q_ctx = k_ctx = v_ctx = n
     if hooks.pre is not None:
         q_ctx, k_ctx, v_ctx = hooks.pre(q_ctx, k_ctx, v_ctx, layer_idx)
@@ -245,7 +279,7 @@ def basic_transformer_block(
         attn_out = attention(q, k, v, heads)
     if hooks.post is not None:
         attn_out = hooks.post(attn_out, layer_idx)
-    x = x + linear(a1["to_out"]["0"], attn_out)
+    x = x + _row_linear(a1["to_out"]["0"], attn_out, tp)
 
     if hooks.mid is not None:
         x = hooks.mid(x, layer_idx)
@@ -262,10 +296,10 @@ def basic_transformer_block(
         k, v = linear({"weight": w_kv}, ctx_k).chunk(2, dim=-1)
     else:
         k, v = linear(a2["to_k"], ctx_k), linear(a2["to_v"], ctx_v)
-    x = x + linear(a2["to_out"]["0"], attention(q, k, v, heads))
+    x = x + _row_linear(a2["to_out"]["0"], attention(q, k, v, heads), tp)
 
     n = layer_norm(p["norm3"], x)
-    return x + linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"], n))
+    return x + _row_linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"], n), tp)
 
 
 def spatial_transformer(

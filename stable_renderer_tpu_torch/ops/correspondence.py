@@ -18,9 +18,13 @@ through ``models.unet.AttnHooks`` and the sampler's step callback:
     into every submitted CorrespondMap (data/corrmap.py), without a host sync.
   * ``OverlapCorresponder(all_frames=True)`` — every frame attends to the K/V
     of all frames (parallel/ring_attention.py ``cross_frame_attention``, K1
-    on the card).
+    on the card; its ring form over a mesh's ranks with ``mesh``).
 
-The ring form of all-frames attention (``mesh``) waits for ROADMAP 1.14.
+With the frames split over ranks (``DiffusionPipeline.render(mesh=...)``,
+``parallel.mesh.dp_context``) the couplings across frames are collectives
+over the frame axis, where the JAX package's GSPMD inserts them: the
+injected K/V rows come from the ranks that hold them, the vertex averages
+sum over every rank's frames, and all-frames attention runs the ring.
 """
 
 from __future__ import annotations
@@ -39,20 +43,31 @@ from stable_renderer_tpu_torch.ops.math import (
     group_randn_by_id,
     group_weighted_average_by_id,
 )
+from stable_renderer_tpu_torch.parallel.mesh import FrameShard, active_dp, randn_frames
 
 
 def broadcast_kv_injection(
     k: torch.Tensor,  # (B, L, C) self-attn key context (pre-projection)
     v: torch.Tensor,  # (B, L, C)
     frame_indices=(0,),
+    shard: Optional[FrameShard] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Replace every frame's K/V context with the concatenation of the
-    selected frames' contexts (OverlapCorresponder.pre_atten_inject)."""
+    selected frames' contexts (OverlapCorresponder.pre_atten_inject). With
+    ``shard`` the rows are this rank's frames of a batch of B * shard.size,
+    the indices count that batch, and each selected row comes from the rank
+    that holds it (one broadcast a row; once when k is v)."""
     b, l, c = k.shape
-    idx = torch.as_tensor(frame_indices, device=k.device).long().reshape(-1) % b
-    n_sel = idx.shape[0]
-    k_out = k[idx].reshape(n_sel * l, c)[None].expand(b, n_sel * l, c)
-    v_out = v[idx].reshape(n_sel * l, c)[None].expand(b, n_sel * l, c)
+    if shard is None or shard.size == 1:
+        idx = torch.as_tensor(frame_indices, device=k.device).long().reshape(-1) % b
+        k_sel, v_sel = k[idx], v[idx]
+    else:
+        idx = [int(i) % (b * shard.size) for i in torch.as_tensor(frame_indices).reshape(-1)]
+        k_sel = shard.gather_rows(k, idx)
+        v_sel = k_sel if v is k else shard.gather_rows(v, idx)
+    n_sel = k_sel.shape[0]
+    k_out = k_sel.reshape(n_sel * l, c)[None].expand(b, n_sel * l, c)
+    v_out = v_sel.reshape(n_sel * l, c)[None].expand(b, n_sel * l, c)
     return k_out, v_out
 
 
@@ -76,6 +91,7 @@ def vertex_average_injection(
     weighting: str = "average",
     normal_maps: Optional[torch.Tensor] = None,
     adain_mode: str = "content",
+    shard: Optional[FrameShard] = None,
 ) -> torch.Tensor:
     """Blend each latent pixel toward the (weighted) mean of all pixels
     (across frames) sharing its 3D vertex, then AdaIN: ``content``
@@ -91,25 +107,34 @@ def vertex_average_injection(
                            from the vertex's mean screen position count less;
       * "view_normal"    — trust 1/(|1 - facing| + 1), facing = |n_z| of the
                            encoded normal map; "average" when normal_maps is
-                           None."""
+                           None.
+
+    With ``shard`` the B frames are this rank's of a batch split over its
+    ranks: the group sums add over every rank's frames (``all_reduce``) and
+    frame_distance counts frames in the whole batch."""
     b, h, w, c = latent.shape
     vids, valid = latent_vertex_ids(id_maps, h, w)
     flat = latent.reshape(-1, c)
     flat_ids = vids.reshape(-1)
     flat_valid = valid.reshape(-1)
     dev = latent.device
+    if shard is not None and shard.size == 1:
+        shard = None
+    reduce = None if shard is None else shard.all_reduce_
     if weighting == "frame_distance":
-        frames = torch.arange(b, device=dev).repeat_interleave(h * w)
-        per_row = group_frame_distance_average(flat, flat_ids, frames, num_segments, b,
-                                               valid=flat_valid)
+        first, n_frames = (0, b) if shard is None else (shard.rank * b, b * shard.size)
+        frames = torch.arange(first, first + b, device=dev).repeat_interleave(h * w)
+        per_row = group_frame_distance_average(flat, flat_ids, frames, num_segments, n_frames,
+                                               valid=flat_valid, reduce=reduce)
     elif weighting == "pixel_distance":
         xs = torch.arange(w, dtype=torch.float32, device=dev).repeat(b * h)
         ys = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w).repeat(b)
         pos = torch.stack([xs, ys], -1)
-        mean_pos, _ = group_average_by_id(pos, flat_ids, num_segments, valid=flat_valid)
+        mean_pos, _ = group_average_by_id(pos, flat_ids, num_segments, valid=flat_valid,
+                                          reduce=reduce)
         dist = (pos - mean_pos).abs().sum(-1)
         per_row = group_weighted_average_by_id(flat, flat_ids, 1.0 / (dist + 1.0),
-                                               num_segments, valid=flat_valid)
+                                               num_segments, valid=flat_valid, reduce=reduce)
     elif weighting == "view_normal" and normal_maps is not None:
         rows = torch.arange(h, device=dev) * normal_maps.shape[1] // h
         cols = torch.arange(w, device=dev) * normal_maps.shape[2] // w
@@ -117,9 +142,10 @@ def vertex_average_injection(
         # encoded [0, 1] -> view-space normal; facing = |n_z| (1 = toward the camera)
         facing = (small[..., 2] * 2.0 - 1.0).abs().reshape(-1)
         per_row = group_weighted_average_by_id(flat, flat_ids, 1.0 / ((1.0 - facing).abs() + 1.0),
-                                               num_segments, valid=flat_valid)
+                                               num_segments, valid=flat_valid, reduce=reduce)
     else:
-        per_row, _ = group_average_by_id(flat, flat_ids, num_segments, valid=flat_valid)
+        per_row, _ = group_average_by_id(flat, flat_ids, num_segments, valid=flat_valid,
+                                         reduce=reduce)
     blended = (1.0 - ratio) * flat + ratio * per_row
     blended = torch.where(flat_valid[:, None], blended, flat)
     modified = blended.reshape(b, h, w, c)
@@ -144,14 +170,22 @@ def vertex_noise(
     gaussian sample in every frame, background pixels independent ones.
     Draws, from ``generator`` in this order unless passed in: the per-id
     ``table`` (num_segments, channels), the out-of-range ids' ``fallback``
-    and the background's ``indep`` (both (B*height*width, channels))."""
+    and the background's ``indep`` (both (B*height*width, channels)).
+    Under ``parallel.mesh.dp_context`` the per-pixel draws are this rank's
+    rows of the whole batch's."""
     b = id_maps.shape[0]
     vids, valid = latent_vertex_ids(id_maps, height, width)
+    rows = (b * height * width, channels)
+    if active_dp() is not None:
+        if table is None:
+            table = torch.randn((num_segments, channels), generator=generator,
+                                device=id_maps.device)
+        if fallback is None:
+            fallback = randn_frames(rows, generator=generator, device=id_maps.device)
     flat = group_randn_by_id(generator, vids.reshape(-1), num_segments, channels,
                              table=table, fallback=fallback)
     if indep is None:
-        indep = torch.randn((b * height * width, channels), generator=generator,
-                            device=id_maps.device)
+        indep = randn_frames(rows, generator=generator, device=id_maps.device)
     out = torch.where(valid.reshape(-1, 1), flat, indep.to(flat.device, flat.dtype))
     return out.reshape(b, height, width, channels)
 
@@ -249,8 +283,15 @@ class OverlapCorresponder(DefaultCorresponder):
 
     ``all_frames=True``: at the gated layers every frame attends to the K/V
     of all frames instead (``cross_frame_attention``; under CFG the
-    positive rows, as the denoiser hands the hook). ``mesh`` asks for the
-    ring form over a device mesh, which waits for ROADMAP 1.14."""
+    positive rows, as the denoiser hands the hook). ``mesh`` (a DeviceMesh)
+    runs it as the ring over the ranks of ``mesh_axis``: in a render with
+    that mesh each rank holds its frames; without one, each rank runs the
+    ring on its share of the batch and gathers the outputs. A render over a
+    mesh runs the ring over its frame axis whether or not ``mesh`` is set.
+
+    In a render over a mesh the injected frames are numbered in the whole
+    batch and fetched from their ranks, the random pick draws the same bits
+    on every rank, and the step's vertex averaging sums over all ranks."""
 
     update_corrmap_mode: str = "first"
     pre_attn_inject_num_random_frames: int = 1
@@ -261,23 +302,30 @@ class OverlapCorresponder(DefaultCorresponder):
     weighting: str = "average"
     step_finished_adain: str = "content"
     all_frames: bool = False
-    mesh: Optional[object] = None  # a device mesh: the ring form (ROADMAP 1.14)
+    mesh: Optional[object] = None  # a DeviceMesh: the ring form over mesh_axis
     mesh_axis: str = "dp"
 
     def attn_hooks(self, engine_data, generator: Optional[torch.Generator] = None) -> AttnHooks:  # noqa: ANN001
         if self.all_frames:
+            from stable_renderer_tpu_torch.parallel.mesh import frame_sharding
             from stable_renderer_tpu_torch.parallel.ring_attention import (
                 cross_frame_attention,
-                ring_cross_frame_attention,
+                ring_attention_shard,
             )
+
+            own = None if self.mesh is None else frame_sharding(self.mesh, self.mesh_axis)
 
             def attn(q, k, v, heads, layer):
                 from stable_renderer_tpu_torch.models.layers import attention as _plain
 
                 if not self._gate_layer(layer):
                     return _plain(q, k, v, heads)
-                if self.mesh is not None:
-                    return ring_cross_frame_attention(q, k, v, heads, self.mesh, self.mesh_axis)
+                dp = active_dp()
+                if dp is not None:  # this rank's frames of the render's batch
+                    return ring_attention_shard(q, k, v, heads, dp)
+                if own is not None and own.size > 1:  # the whole batch on every rank
+                    local = ring_attention_shard(own.take(q), own.take(k), own.take(v), heads, own)
+                    return own.gather(local)
                 return cross_frame_attention(q, k, v, heads)
 
             return AttnHooks(attn=attn)
@@ -298,8 +346,10 @@ class OverlapCorresponder(DefaultCorresponder):
         def pre(q, k, v, layer):
             if not self._gate_layer(layer):
                 return q, k, v
-            idx = 1 + frames % max(k.shape[0] - 1, 1) if random_pick else frames
-            k2, v2 = broadcast_kv_injection(k, v, idx)
+            dp = active_dp()
+            n = k.shape[0] * (1 if dp is None else dp.size)  # frames in the whole batch
+            idx = 1 + frames % max(n - 1, 1) if random_pick else frames
+            k2, v2 = broadcast_kv_injection(k, v, idx, shard=dp)
             return q, k2, v2
 
         return AttnHooks(pre=pre)
@@ -317,6 +367,7 @@ class OverlapCorresponder(DefaultCorresponder):
             return vertex_average_injection(
                 x, id_maps, self.step_finished_inject_ratio,
                 num_segments=self.vertex_segments, weighting=self.weighting,
-                normal_maps=normal_maps, adain_mode=self.step_finished_adain)
+                normal_maps=normal_maps, adain_mode=self.step_finished_adain,
+                shard=active_dp())
 
         return cb

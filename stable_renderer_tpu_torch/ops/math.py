@@ -6,14 +6,17 @@ math_utils.py:27-278). Group ops are fixed-size segment reductions over
 ``[0, num_segments)`` — and rows masked invalid — scatter into one extra dump
 segment and keep their own values. Segment sums go through ``segment_add_``,
 whose order of additions is fixed, so a frame is the same from run to run.
-Randomness comes from a
+The group means take a ``reduce``: a
+callable that sums a tensor in place over the ranks holding the rest of the
+rows (``parallel.mesh.FrameShard.all_reduce_``), applied to the segment sums
+and counts before the division. Randomness comes from a
 ``torch.Generator``; ``group_randn_by_id`` also takes its draws passed in,
 since ``jax.random`` and torch never draw the same numbers.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -73,6 +76,7 @@ def group_average_by_id(
     ids: torch.Tensor,
     num_segments: int,
     valid: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean of ``values`` (N, C) rows sharing the same id, broadcast back to
     each row. Returns (per_row (N, C) — invalid rows keep their value,
@@ -83,6 +87,9 @@ def group_average_by_id(
     segment_add_(sums, seg, torch.where(in_range[:, None], v32, torch.zeros_like(v32)))
     counts = torch.zeros(num_segments + 1, dtype=torch.float32, device=v32.device)
     segment_add_(counts, seg, in_range.float())
+    if reduce is not None:
+        reduce(sums)
+        reduce(counts)
     seg_mean = (sums / torch.clamp(counts, min=1.0)[:, None])[:-1]
     per_row = seg_mean[torch.clamp(ids, 0, num_segments - 1).long()]
     per_row = torch.where(in_range[:, None], per_row, v32)
@@ -95,6 +102,7 @@ def group_weighted_average_by_id(
     weights: torch.Tensor,
     num_segments: int,
     valid: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Per-row trust-weighted group mean: every member of an id group gets
     sum_j(w_j x_j) / sum_j(w_j) over the group; invalid rows keep their value
@@ -106,6 +114,9 @@ def group_weighted_average_by_id(
     segment_add_(sums, seg, v32 * w32[:, None])
     wsum = torch.zeros(num_segments + 1, dtype=torch.float32, device=v32.device)
     segment_add_(wsum, seg, w32)
+    if reduce is not None:
+        reduce(sums)
+        reduce(wsum)
     seg_mean = (sums / torch.clamp(wsum, min=1e-8)[:, None])[:-1]
     per_row = seg_mean[torch.clamp(ids, 0, num_segments - 1).long()]
     return torch.where(in_range[:, None], per_row, v32).to(values.dtype)
@@ -118,6 +129,7 @@ def group_frame_distance_average(
     num_segments: int,
     n_frames: int,
     valid: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Pairwise frame-distance mixing (the legacy FrameDistance scheme): row
     i of group g becomes sum_j x_j / (|f_i - f_j| + 1), normalized, over the
@@ -136,6 +148,9 @@ def group_frame_distance_average(
     segment_add_(sums, seg2, torch.where(in_range[:, None], v32, torch.zeros_like(v32)))
     counts = torch.zeros(dump + 1, dtype=torch.float32, device=v32.device)
     segment_add_(counts, seg2, in_range.float())
+    if reduce is not None:
+        reduce(sums)
+        reduce(counts)
     sums = sums[:-1].reshape(num_segments, n_frames, c)
     counts = counts[:-1].reshape(num_segments, n_frames)
     fgrid = torch.arange(n_frames, dtype=torch.float32, device=v32.device)

@@ -1,3 +1,51 @@
-"""Multi-frame attention. Counterpart of stable_renderer_tpu/parallel/; ported
-so far: ``ring_attention.cross_frame_attention`` (one device). The mesh,
-sharding, pipeline and training modules wait for ROADMAP 1.14."""
+"""Multi-card serving: the counterpart of stable_renderer_tpu/parallel/'s
+serving side, one process a card over ``torch.distributed``.
+
+  * ``mesh`` — ``init_distributed`` (torchrun's world, or one rank on a file
+    store; NCCL on the card, gloo on the CPU), ``create_mesh`` (a
+    ``DeviceMesh`` with the JAX package's axis names), the frame shards of a
+    rank and the contexts a render runs under.
+  * ``sharding`` — the Megatron TP spec tree of a UNet / ControlNet, this
+    rank's param shards, this rank's frames of an EngineData.
+  * ``ring_attention`` — all-frames attention on one device (K1 on the
+    card) and its ring over a mesh axis.
+
+``DiffusionPipeline.render(mesh=...)``, ``enable_stream_mesh``,
+``OverlapCorresponder(mesh=...)`` and ``CorrespondMap.update_batch`` use
+them. The training side (``parallel/train.py``: the AdamW diffusion step
+with remat) and GPipe (``parallel/pipeline.py``: ``pipeline_apply``,
+``clip_pipeline_encode``) wait for ROADMAP 1.14b."""
+
+from stable_renderer_tpu_torch.parallel.mesh import (
+    FrameShard,
+    create_mesh,
+    default_mesh_shape,
+    frame_sharding,
+    init_distributed,
+)
+from stable_renderer_tpu_torch.parallel.ring_attention import (
+    cross_frame_attention,
+    ring_cross_frame_attention,
+)
+from stable_renderer_tpu_torch.parallel.sharding import (
+    P,
+    apply_param_sharding,
+    replicate,
+    shard_engine_data,
+    unet_param_specs,
+)
+
+__all__ = [
+    "FrameShard",
+    "P",
+    "apply_param_sharding",
+    "create_mesh",
+    "cross_frame_attention",
+    "default_mesh_shape",
+    "frame_sharding",
+    "init_distributed",
+    "replicate",
+    "ring_cross_frame_attention",
+    "shard_engine_data",
+    "unet_param_specs",
+]

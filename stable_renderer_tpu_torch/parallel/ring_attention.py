@@ -16,8 +16,16 @@ broadcast K/V.
     launch the kernel; shorter ones take the plain path, as every attention
     does. The dense form's logits at 512x512 (N=16, L=4096) would take ~137
     GB in f32; the folded route never forms them.
-  * ``ring_cross_frame_attention`` — the multi-device ring form waits for
-    ROADMAP 1.14 and raises.
+  * ``ring_cross_frame_attention`` — the same function with the frames
+    split over the ranks of a mesh axis (each rank holds its frames' q, k
+    and v): K/V blocks rotate around the axis's ranks, one block a hop by
+    ``batch_isend_irecv``, while each rank's queries keep an f32 online
+    softmax (running max, sum and accumulator), as the JAX package's
+    ``hop``. No rank holds more than one block of K/V besides its own. The
+    hop is plain tensor math, as in the JAX package, blocked over query
+    rows so that one block's f32 logits stay under ``RING_LOGITS_BYTES``
+    (8 frames of 4096 tokens and 8 heads on one rank would otherwise form
+    34 GB of them).
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ import math
 import torch
 
 from stable_renderer_tpu_torch.ops.flash_attention import attention_pallas
+from stable_renderer_tpu_torch.parallel.mesh import FrameShard, frame_sharding
+
+RING_LOGITS_BYTES = 1 << 30  # one query block's f32 logits in a hop
 
 
 def _mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
@@ -66,9 +77,44 @@ def cross_frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(n, l, c)
 
 
-def ring_cross_frame_attention(q, k, v, heads: int, mesh, axis: str = "dp"):
-    """cross_frame_attention with frames sharded over a device mesh
-    (stable_renderer_tpu/parallel/ring_attention.py:62): waits for the
-    multi-device slice."""
-    raise NotImplementedError("ring_cross_frame_attention waits for the multi-device slice "
-                              "(ROADMAP 1.14)")
+def ring_cross_frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                               mesh, axis: str = "dp") -> torch.Tensor:
+    """cross_frame_attention with the frames split over ``axis`` of
+    ``mesh``: q, k, v (n_local, L, C) are this rank's frames, the result its
+    frames' outputs (stable_renderer_tpu/parallel/ring_attention.py:62)."""
+    return ring_attention_shard(q, k, v, heads, frame_sharding(mesh, axis))
+
+
+def ring_attention_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                         shard: FrameShard) -> torch.Tensor:
+    """The ring over ``shard``'s ranks: ``shard.size`` hops, each attending
+    this rank's queries to the K/V block in hand (an online-softmax update in
+    f32), then handing the block on. The products run in the inputs' type
+    with f32 logits; the weights are cast to v's type for the value product,
+    as the dense version does."""
+    b, l, c = q.shape
+    d = c // heads
+    scale = 1.0 / math.sqrt(d)
+    rows = b * l
+    qh = q.reshape(rows, heads, d).transpose(0, 1)  # (H, rows, d): every local query row
+    acc = torch.zeros((heads, rows, d), dtype=torch.float32, device=q.device)
+    m_run = torch.full((heads, rows, 1), -1e30, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((heads, rows, 1), dtype=torch.float32, device=q.device)
+    kv = [k, v]
+    for hop in range(shard.size):
+        kh = kv[0].reshape(-1, heads, d).transpose(0, 1)  # (H, keys, d)
+        vh = kv[1].reshape(-1, heads, d).transpose(0, 1)
+        step = max(1, RING_LOGITS_BYTES // (4 * heads * kh.shape[1]))
+        for r0 in range(0, rows, step):
+            r = slice(r0, min(r0 + step, rows))
+            logits = torch.matmul(qh[:, r], kh.transpose(-1, -2)).float().mul_(scale)
+            m_new = torch.maximum(m_run[:, r], logits.amax(-1, keepdim=True))
+            p = logits.sub_(m_new).exp_()
+            corr = torch.exp(m_run[:, r] - m_new)
+            l_run[:, r] = l_run[:, r] * corr + p.sum(-1, keepdim=True)
+            acc[:, r] = acc[:, r] * corr + torch.matmul(p.to(vh.dtype), vh).float()
+            m_run[:, r] = m_new
+        if hop + 1 < shard.size:
+            kv = shard.rotate(kv)
+    out = (acc / l_run.clamp(min=1e-30)).to(q.dtype)
+    return out.transpose(0, 1).reshape(b, l, c)

@@ -93,11 +93,18 @@ def test_quick_run_on_the_cpu_prints_the_bench_line():
 
 @pytest.mark.parametrize("how", ["flag", "env"])
 def test_dp_waits_for_the_multi_device_slice(how, monkeypatch):
+    """--dp and SR_BENCH_DP=1 both take the data-parallel mode, which, like
+    the others, starts on the card without ``--device`` and raises without
+    one (tests/test_torch_mesh.py runs it with ``--device cpu``)."""
     monkeypatch.delenv("SR_BENCH_DP", raising=False)
     if how == "env":
         monkeypatch.setenv("SR_BENCH_DP", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.14"):
-        bench_torch.main(["--dp"] if how == "flag" else [])
+    argv = ["--dp"] if how == "flag" else []
+    assert bench_torch.resolve_mode(os.environ, argv)["dp"]
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the mode would run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_torch.main(argv)
 
 
 def test_default_device_is_the_card(monkeypatch):

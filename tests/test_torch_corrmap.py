@@ -168,11 +168,17 @@ def test_correspond_map_update_frames_match_jax():
 
 
 def test_sharded_forms_raise():
+    """The sharded forms take a torch DeviceMesh (tests/test_torch_mesh.py
+    runs them over gloo ranks) and raise for anything else."""
     m = pcm.CorrespondMap(k=K, height=MAP, width=MAP, device="cpu")
-    with pytest.raises(NotImplementedError, match="1.14"):
-        m.update_batch(None, None, None)
-    with pytest.raises(NotImplementedError, match="1.14"):
-        pcm.corrmap_update_sharded()
+    frames = torch.zeros((2, 4, 4, 3))
+    ids = torch.zeros((2, 4, 4, 4), dtype=torch.int32)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        m.update_batch(frames, ids, object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        pcm.corrmap_update_sharded(m.values, m.written, frames, ids, object())
+    with pytest.raises(ValueError, match="mode"):
+        pcm.corrmap_update_sharded(m.values, m.written, frames, ids, None, mode="last")
 
 
 # --- dump / Load ------------------------------------------------------------------

@@ -60,14 +60,18 @@ def test_cross_frame_attention_fold_equals_dense():
 
 
 def test_ring_form_raises():
+    """The ring form takes a torch DeviceMesh (tests/test_torch_mesh.py runs
+    it over gloo ranks) and raises for anything else; with no mesh it is one
+    rank's ring, the dense function."""
     from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
 
-    with pytest.raises(NotImplementedError, match="1.14"):
-        pra.ring_cross_frame_attention(None, None, None, 1, None)
-    hooks = OverlapCorresponder(all_frames=True, layer_range=None, mesh=object()).attn_hooks(None)
-    x = torch.zeros((2, 4, 8))
-    with pytest.raises(NotImplementedError, match="1.14"):
-        hooks.attn(x, x, x, 2, 0)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 4, 8)).astype(np.float32))
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        pra.ring_cross_frame_attention(x, x, x, 2, object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        OverlapCorresponder(all_frames=True, layer_range=None, mesh=object()).attn_hooks(None)
+    np.testing.assert_allclose(pra.ring_cross_frame_attention(x, x, x, 2, None).numpy(),
+                               pra.cross_frame_attention(x, x, x, 2).numpy(), **ATTN_TOL)
 
 
 def test_all_frames_hook_gates_layers():

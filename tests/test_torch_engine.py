@@ -644,7 +644,7 @@ def test_engine_device():
 
 def _stream_run():
     """The stream runs a frame in production mode and carries its state; its
-    multi-device mesh is not ported."""
+    mesh is a torch DeviceMesh."""
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.workflow.config import RenderConfig
 
@@ -652,13 +652,13 @@ def _stream_run():
         RenderConfig(stream_pipeline=True, stream_kv_layers=(2,)), tiny=True, device="cpu")
     eng = P.Engine.Run(winSize=(16, 16), pipeline=pipe, max_frames=1)  # production mode
     assert eng.RenderManager._stream_state is not None and eng.RenderManager._stream_kv
-    pipe.enable_stream_mesh(None)
+    pipe.enable_stream_mesh(object())
 
 
 def _corrmap_update_batch():
     from stable_renderer_tpu_torch.data.corrmap import CorrespondMap
 
-    CorrespondMap(k=1, height=2, width=2, device="cpu").update_batch(None, None, None)
+    CorrespondMap(k=1, height=2, width=2, device="cpu").update_batch(None, None, object())
 
 
 def _ring_cross_frame_attention():
@@ -677,7 +677,8 @@ _UNPORTED = {
 
 @pytest.mark.parametrize("name", sorted(_UNPORTED))
 def test_unported_paths_raise(name):
-    """Paths whose slices are not ported raise NotImplementedError, also in
-    production mode, where other manager errors are logged."""
-    with pytest.raises(NotImplementedError):
+    """The multi-device entries raise TypeError for a mesh that is not a
+    torch DeviceMesh, also in production mode, where other manager errors
+    are logged (tests/test_torch_mesh.py runs them over gloo ranks)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _UNPORTED[name]()

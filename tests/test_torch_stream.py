@@ -173,7 +173,8 @@ def test_per_sample_sigma_denoiser_matches_jax():
 def test_stream_errors_and_unported_paths():
     """A kv_state for other layers than ``stream_kv_layers`` is a stale
     stream (ValueError); a TAESD weight file that is not there raises
-    (no random weights in its place); the stream mesh raises by name."""
+    (no random weights in its place); the stream mesh takes a torch
+    DeviceMesh, None turning it off (tests/test_torch_mesh.py runs it)."""
     from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
     from stable_renderer_tpu_torch.workflow.config import RenderConfig
 
@@ -189,5 +190,6 @@ def test_stream_errors_and_unported_paths():
     with pytest.raises(FileNotFoundError):
         taesd_pipe.with_taesd(encoder_path="no_such_dir/taesd_encoder.pth")
     assert taesd_pipe.taesd is None
-    with pytest.raises(NotImplementedError, match="stream mesh"):
-        pipe.enable_stream_mesh(None)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        pipe.enable_stream_mesh(object())
+    assert pipe.enable_stream_mesh(None).stream_mesh is None and pipe.stream_version == 1
