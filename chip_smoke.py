@@ -369,6 +369,29 @@ Phases, one line each; any failure exits non-zero:
                 CORRMAP_TOL. The group is destroyed; then (e) `python
                 bench_torch.py --dp` (SR_BENCH_FRAMES=MESH_BATCH) as its own
                 process: exit 0, its line and the TF32 note.
+ 30. train    — training and GPipe on a one-rank NCCL group (file store), last:
+                (a) K1's gradient (FlashAttentionFn: K1 forward, the plain
+                softmax backward) at the level-0 fused-QKV views (2, 4096, 8 x
+                40), bf16 (flash_wg) and f32 (flash_simt_f32): q/k/v gradients
+                against autograd through the plain version in f32 within
+                K1_GRAD_BF16_TOL / K1_GRAD_F32_TOL of the largest |gradient|,
+                one K1 launch a call; forward + backward timed beside the plain
+                backward alone, autograd through the plain version and SDPA's
+                forward + backward (rows of K1's "shapes"). (b) the SD1.5 UNet at
+                full width in f32 (TF32 off), batch 2, 64x64 latents, a 77-token
+                context: 3 diffusion_train_step calls at lr 1e-5 on
+                create_mesh({"dp": 1, "tp": 1}), then 3 with remat from the same
+                state and draws: losses finite, step 3, out.2.weight and a
+                level-0 to_q moved by an AdamW step, K1 5 launches a step (10 with
+                remat), remat within REMAT_LOSS_RTOL / REMAT_PARAM_TOL of the
+                plain run; step ms and max_memory_allocated. (c) a bf16
+                diffusion_loss gradient through flash_wg against the plain
+                attention's: the 15 level-0 q/k/v weight gradients within
+                BF16_GRAD_NORM_TOL relative norm. (d) on create_mesh({"pp": 1}):
+                pipeline_apply of a stage chain, clip_pipeline_encode at CLIP-L's
+                width and unet_middle_pipeline at SDXL's (depth 10, a 128x128
+                latent's 32x32 middle, bf16), each bit for bit against its
+                sequential form, both timed.
 The script re-runs itself under PYTHONHASHSEED=HASH_SEED, so phase 23's HyperTile
 variant draws the same tile split in every run.
 Every kernel line carries its time (K1's timed rows, K2, K3 and K4: device time of
@@ -488,7 +511,12 @@ K4_TIMED_SHAPES = [(2, 1024, 640), (2, 256, 1920), (1, 4096, 512)]
 # drops events now and then, and after CUDA-graph captures may record none)
 # is made again, up to this many times in all; see tracer_dropped and
 # device_kernels
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 5
+# seconds the host waits after the profiler's window opens and before it
+# closes, so that no recorded kernel lies at the window's edge: the tracer
+# places device events on the host's clock, and an event that lands outside
+# the window by that mapping is dropped
+PROFILE_MARGIN_S = 0.002
 BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative
 K3_BF16_ATOL = 1e-3    # near zero, where the bf16 step is tiny: f32 sum order
 K4_ATOL = 1e-5
@@ -697,30 +725,41 @@ def graph_ms(fn, repeats: int = 20, calls: int = 1) -> float:
     return a.elapsed_time(b) / (repeats * calls)
 
 
-def device_kernels(fn, calls: int = 3) -> list:
-    """The names of the kernels one call of ``fn`` launches on the card, by
-    torch.profiler: a warm-up step of ``calls`` calls, whose events are
+def profiled_calls(fn, calls: int = 3, margin: float = PROFILE_MARGIN_S) -> list:
+    """The names of the device kernels that ``calls`` calls of ``fn`` launch,
+    by torch.profiler: a warm-up step of ``calls`` calls, whose events are
     dropped (the tracer can miss the first launches it is given), then
-    ``calls`` calls recorded; fails if they did not launch the same kernels.
-    A profiled run whose record is not ``calls`` equal calls (the tracer now
-    and then drops device events, and after CUDA-graph captures may record
-    none) is made again, up to PROFILE_ATTEMPTS times in all; the last
-    attempt's record decides."""
+    ``calls`` calls recorded, the host waiting ``margin`` seconds at both
+    ends of each step."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(margin)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+            prof.step()
+    return [e.name for e in prof.events()
+            if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+
+
+def device_kernels(fn, calls: int = 3) -> list:
+    """The names of the kernels one call of ``fn`` launches on the card, from
+    ``profiled_calls``; fails if the ``calls`` calls did not launch the same
+    kernels. A profiled run whose record is not ``calls`` equal calls (the
+    tracer now and then drops device events, and after CUDA-graph captures
+    may record none) is made again, up to PROFILE_ATTEMPTS times in all; the
+    last attempt's record decides."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        names = [e.name for e in prof.events()
-                 if e.device_type.name == "CUDA" and not e.name.startswith("ProfilerStep")]
+        names = profiled_calls(fn, calls)
         one = names[:len(names) // calls]
         if names and names == one * calls:
             return one
@@ -1050,7 +1089,9 @@ def engine_frame_kernels(pipe, size: int, corr):
         def on_frame(eng, when):
             torch.cuda.synchronize()
             if when == "end":
+                time.sleep(PROFILE_MARGIN_S)
                 prof.step()
+                time.sleep(PROFILE_MARGIN_S)
 
         run_engine(pipe, size, 2, corr, on_frame)
     kernels = [e for e in prof.events()
@@ -2149,6 +2190,9 @@ def main() -> None:
     # --- 28. the restoration and upscale zoo ---------------------------------------------
     zoo = zoo_phase(dev, card, k3, k4, engine_frames["bf16"])
 
+    # --- 30. training and the pipelines on a one-rank mesh --------------------------------
+    train = train_phase(dev, card, k1)
+
     wall_s = time.perf_counter() - t_start
     print(f"[total] chip_smoke wall time {wall_s:.1f} s | {card}", flush=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4], "frame_ms": ms, "int8_frame_ms": ms_i8,
@@ -2158,7 +2202,8 @@ def main() -> None:
                       "options": options, "bench": bench, "checkpoint": checkpoint,
                       "left_outs": left_outs, "files": files, "executor": executor,
                       "server": server, "families": families, "image_conditioning": image,
-                      "video_cascade": video, "zoo": zoo, "mesh": mesh, "wall_s": wall_s,
+                      "video_cascade": video, "zoo": zoo, "mesh": mesh, "train": train,
+                      "wall_s": wall_s,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2349,7 +2394,9 @@ def bake_phases(pipe, dev, card: str, k1: dict, k2: dict) -> dict:
             def on_prof_frame(eng_, when):
                 if when == "end":
                     torch.cuda.synchronize()
+                    time.sleep(PROFILE_MARGIN_S)
                     prof.step()
+                    time.sleep(PROFILE_MARGIN_S)
 
             run_engine(pipe, SIZE, BAKE_INTERVAL,
                        DefaultCorresponder(update_corrmap_mode="first"), on_prof_frame,
@@ -4426,8 +4473,10 @@ def executor_phase(dev, card: str, k1: dict, ckpt: str) -> dict:
         _check_exec_frames("execute", ctx.final_output, EXEC_FRAMES, SIZE)
         for attempt in range(PROFILE_ATTEMPTS):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
                 ex.execute(engine_data=ed)
                 torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
             names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
             prof_k1 = sum(any(k in n for k in K1_KERNELS) for n in names)
             if not tracer_dropped("phase 23 execute", (prof_k1,), (EXEC_K1,), attempt):
@@ -6999,6 +7048,318 @@ def zoo_phase(dev, card: str, k3: dict, k4: dict, frame) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[28 zoo] phase 28 in {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
+# --- phase 30: training and the pipelines on a one-rank mesh ----------------------------
+
+TRAIN_SEED = 30
+TRAIN_BATCH = 2
+TRAIN_LATENT = 64       # 512x512 images
+TRAIN_CONTEXT = 77
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-5
+# (B, L, heads, d): SD1.5's level-0 self-attention at 512x512, the fused-QKV views of batch 2
+K1_GRAD_SHAPE = (2, 4096, 8, 40)
+# K1's gradient (FlashAttentionFn) against autograd through the plain version in f32, max
+# abs error over the largest |plain gradient|: bf16 inputs, output and gradients each round
+# by 2^-8 relative (K1's forward bar, K1_BF16_TOL, is the same share of its unit-scale
+# outputs); f32: summation order over 4096 keys
+K1_GRAD_BF16_TOL = 1e-2
+K1_GRAD_F32_TOL = 1e-4
+K1_TRAIN_LAUNCHES = 5   # a forward of the SD1.5 UNet: its five level-0 self-attentions
+# the remat run against the plain run, both f32 on the card: the recompute is the same
+# graph, but cuDNN's backward convolutions may sum in another order from run to run, and
+# AdamW turns a gradient's rounding into a step of up to about the learning rate
+# (tests/train_drift.py): losses within REMAT_LOSS_RTOL, params within two runs'
+# updates of 1.5 lr a step (AdamW's first steps) over TRAIN_STEPS
+REMAT_LOSS_RTOL = 1e-4
+REMAT_PARAM_TOL = 2 * 1.5 * TRAIN_LR * TRAIN_STEPS
+# (c): the bf16 UNet's level-0 q/k/v weight gradients through K1 (flash_wg) against the
+# plain attention's, relative norm: both are bf16 graphs that differ in the attention's
+# rounding (2^-8 a step) and carry it back through the network
+BF16_GRAD_NORM_TOL = 5e-2
+PIPE_CHAIN = (256, 4096)  # (d): the stage chain's (rows, width)
+SDXL_MIDDLE_SIZE = 32     # the SDXL middle block's activation of a 128x128 latent (1024x1024)
+
+
+def k1_grad_bound(bh: int, lq: int, lk: int, d: int, f32: bool = False,
+                  backward_only: bool = False):
+    """(ms, "bytes" | "operations"): the least time of attention's forward
+    and backward (K1's forward reckoned as ``k1_bound``; the backward
+    recomputes the logits and forms dV, dP, dQ and dK: 10 bh lq lk d
+    operations and bh lq lk exponentials, reading q, k, v and dO once and
+    writing dq, dk and dv once), or of the backward alone."""
+    kind = "f32" if f32 else "bf16"
+    eb = 4.0 if f32 else 2.0
+    ops, exps, nbytes = 10.0 * bh * lq * lk * d, float(bh * lq * lk), eb * bh * d * (3 * lq + 4 * lk)
+    if not backward_only:
+        ops, exps, nbytes = ops + 4.0 * bh * lq * lk * d, 2 * exps, nbytes + eb * bh * d * (2 * lq + 2 * lk)
+    t_bytes, t_ops, t_exp = (nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS[kind] * 1e3,
+                             exps / EXP_PER_S * 1e3)
+    t = max(t_bytes, t_ops, t_exp)
+    return (t, "bytes") if t == t_bytes else (t, "operations")
+
+
+def train_phase(dev, card: str, k1: dict) -> dict:
+    """Phase 30 (see the module docstring): K1's gradient, the full-width
+    SD1.5 training step with and without remat, the bf16 gradient through
+    flash_wg and the pipelines, on a one-rank NCCL group that it starts and
+    destroys."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from stable_renderer_tpu_torch.models.clip import SD15_CLIP_CONFIG, CLIPTextModel
+    from stable_renderer_tpu_torch.models.sampling import ModelSampling
+    from stable_renderer_tpu_torch.models.unet import (
+        SD15_UNET_CONFIG,
+        SDXL_UNET_CONFIG,
+        AttnHooks,
+        UNetModel,
+        res_block,
+        spatial_transformer,
+    )
+    from stable_renderer_tpu_torch.models.weights import flatten, nest
+    from stable_renderer_tpu_torch.ops import flash_attention as fa
+    from stable_renderer_tpu_torch.parallel import create_mesh, init_distributed
+    from stable_renderer_tpu_torch.parallel.pipeline import (
+        clip_pipeline_encode,
+        pipeline_apply,
+        stack_stage_params,
+        unet_middle_pipeline,
+    )
+    from stable_renderer_tpu_torch.parallel.train import (
+        diffusion_draws,
+        diffusion_loss,
+        diffusion_train_step,
+        make_train_state,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    if dist.is_initialized():
+        fail("phase 30: a process group is up before it starts one")
+    init_distributed()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"phase 30: backend {dist.get_backend()}, {dist.get_world_size()} ranks; want "
+             f"NCCL and 1")
+    try:
+        mesh, pp_mesh = create_mesh({"dp": 1, "tp": 1}), create_mesh({"pp": 1})
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+
+        # --- 30a. K1's gradient at the level-0 fused-QKV views ---------------------------
+        b, l, heads, d = K1_GRAD_SHAPE
+        out["k1_grad"] = []
+        for dt, tol in ((torch.bfloat16, K1_GRAD_BF16_TOL), (torch.float32, K1_GRAD_F32_TOL)):
+            f32 = dt == torch.float32
+            qkv = torch.randn((b, l, 3 * heads * d), generator=gen, device=dev).to(dt)
+            qkv.requires_grad_(True)
+            dout = torch.randn((b, l, heads * d), generator=gen, device=dev).to(dt)
+
+            def fn_grad():
+                o = fa.attention_pallas(*qkv.chunk(3, dim=-1), heads)
+                return torch.autograd.grad(o, qkv, dout)[0]
+
+            def plain_grad(x):
+                x = x.detach().requires_grad_(True)
+                q_, k_, v_ = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in x.chunk(3, -1))
+                o = fa.flash_attention_reference(q_, k_, v_).transpose(1, 2).reshape(b, l, -1)
+                return torch.autograd.grad(o, x, dout.to(x.dtype))[0]
+
+            zero_counts()
+            g = fn_grad()
+            launched = counts()[0]
+            g_ref = plain_grad(qkv.float())
+            top = g_ref.abs().max().item()
+            err = (g.float() - g_ref).abs().max().item()
+            if launched != 1 or not (math.isfinite(err) and err <= tol * top):
+                fail(f"phase 30a K1 gradient {dt}: {launched} K1 launches (want 1), max abs err "
+                     f"{err:.3e} > {tol} x {top:.3e}")
+            heads_of = [t.detach().unflatten(-1, (heads, d)).transpose(1, 2).contiguous()
+                        for t in qkv.chunk(3, dim=-1)]
+            d_heads = dout.unflatten(-1, (heads, d)).transpose(1, 2).contiguous()
+            sdpa_in = [t.clone().requires_grad_(True) for t in heads_of]
+
+            def sdpa_grad():
+                return torch.autograd.grad(F.scaled_dot_product_attention(*sdpa_in), sdpa_in,
+                                           d_heads)
+
+            flat3 = [t.reshape(b * heads, l, d) for t in (*heads_of, d_heads)]
+            row = {"shape": f"gradient b={b} l={l} heads={heads} d={d} "
+                            f"{str(dt).replace('torch.', '')} fused-QKV views (phase 30)",
+                   "route": f"{k1_route(d, f32)} forward + plain backward",
+                   "max_abs_err": err, "err_bar": tol * top, "k1_launches_a_call": launched,
+                   "ms": cuda_ms(fn_grad, 10),
+                   "backward_ms": cuda_ms(lambda: fa.attention_grad_reference(*flat3), 10),
+                   "plain_ms": cuda_ms(lambda: plain_grad(qkv), 5),
+                   "library_ms": cuda_ms(sdpa_grad, 10)}
+            row["bound_ms"], row["bound_by"] = k1_grad_bound(b * heads, l, l, d, f32)
+            row["backward_bound_ms"] = k1_grad_bound(b * heads, l, l, d, f32, True)[0]
+            k1["shapes"].append(row)
+            out["k1_grad"].append(row)
+            print(f"[30 train] (a) K1 gradient {row} (ms: forward + backward; backward_ms: the "
+                  f"plain backward alone; library: SDPA forward + backward) | {card}", flush=True)
+            del qkv, dout, g, g_ref, heads_of, d_heads, sdpa_in, flat3
+
+        # --- 30b. the full-width SD1.5 step, 3 steps without and with remat --------------
+        unet = UNetModel(SD15_UNET_CONFIG)
+        params0 = unet.init(gen, torch.float32, dev)
+        lat = torch.randn((TRAIN_BATCH, TRAIN_LATENT, TRAIN_LATENT, 4), generator=gen, device=dev)
+        ctx = torch.randn((TRAIN_BATCH, TRAIN_CONTEXT, SD15_UNET_CONFIG.context_dim),
+                          generator=gen, device=dev)
+        sig = torch.as_tensor(ModelSampling().sigmas, dtype=torch.float32, device=dev)
+        dgen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+        draws = [diffusion_draws(dgen, TRAIN_BATCH, (TRAIN_LATENT, TRAIN_LATENT, 4),
+                                 sig.shape[0], device=dev) for _ in range(TRAIN_STEPS)]
+        runs = {}
+        for remat in (False, True):
+            st, opt = make_train_state(unet, params0, learning_rate=TRAIN_LR)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, step_ms, launches = [], [], []
+            for t, eps in draws:
+                zero_counts()
+                t0 = time.perf_counter()
+                st, loss = diffusion_train_step(unet, opt, st, sig, lat, ctx, t, eps, remat=remat,
+                                                mesh=mesh)
+                losses.append(loss.item())
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(counts()[0])
+            runs[remat] = {"state": st, "losses": losses, "step_ms": step_ms,
+                           "k1_launches": launches,
+                           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        p0, plain, rem = flatten(params0), runs[False], runs[True]
+        q0 = "input_blocks.1.1.transformer_blocks.0.attn1.to_q.weight"
+        for remat, run in runs.items():
+            st, pf = run["state"], flatten(run["state"].params)
+            moved = {k: (pf[k] - p0[k]).abs().max().item() for k in ("out.2.weight", q0)}
+            want_k1 = K1_TRAIN_LAUNCHES * (2 if remat else 1)
+            if not (all(math.isfinite(x) for x in run["losses"]) and st.step == TRAIN_STEPS
+                    and st.opt_state.count == TRAIN_STEPS
+                    and all(m > 0.5 * TRAIN_LR for m in moved.values())
+                    and run["k1_launches"] == [want_k1] * TRAIN_STEPS):
+                fail(f"phase 30b remat={remat}: losses {run['losses']}, step {st.step}, "
+                     f"params moved {moved} (want > {0.5 * TRAIN_LR}: an AdamW step), K1 "
+                     f"launches a step {run['k1_launches']} (want {want_k1})")
+            run["moved"] = moved
+        pf, rf = flatten(plain["state"].params), flatten(rem["state"].params)
+        remat_err = max((pf[k] - rf[k]).abs().max().item() for k in pf)
+        loss_err = max(abs(a - b_) / abs(a) for a, b_ in zip(plain["losses"], rem["losses"]))
+        if not (remat_err <= REMAT_PARAM_TOL and loss_err <= REMAT_LOSS_RTOL):
+            fail(f"phase 30b: remat against plain params max abs {remat_err:.3e} (tol "
+                 f"{REMAT_PARAM_TOL:.1e}), losses relative {loss_err:.3e} (tol {REMAT_LOSS_RTOL})")
+        out["step"] = {r: {k: v for k, v in run.items() if k != "state"}
+                       for r, run in (("plain", plain), ("remat", rem))}
+        out["step"]["remat_params_max_abs"] = remat_err
+        out["step"]["remat_losses_max_rel"] = loss_err
+        k1["launches_a_frame"]["SD1.5 f32 train step, batch 2 at 512x512"] = plain["k1_launches"][0]
+        k1["launches_a_frame"]["... with remat"] = rem["k1_launches"][0]
+        print(f"[30 train] (b) SD1.5 f32 (TF32 off) AdamW step at lr {TRAIN_LR}, batch "
+              f"{TRAIN_BATCH}, {TRAIN_LATENT}x{TRAIN_LATENT} latents, context {TRAIN_CONTEXT}: "
+              f"losses {plain['losses']}, step ms {plain['step_ms']}, K1 a step "
+              f"{plain['k1_launches']}, max memory {plain['max_memory_gb']:.2f} GB; with remat "
+              f"losses {rem['losses']}, step ms {rem['step_ms']}, K1 a step {rem['k1_launches']}, "
+              f"max memory {rem['max_memory_gb']:.2f} GB; remat against plain params max abs "
+              f"{remat_err:.3e} (tol {REMAT_PARAM_TOL:.1e}), losses {loss_err:.2e}; moved "
+              f"{plain['moved']} | {card}", flush=True)
+        del runs, plain, rem, pf, rf, st, opt
+
+        # --- 30c. the bf16 gradient through flash_wg against the plain attention --------
+        live = {k: v.to(torch.bfloat16).requires_grad_(True) for k, v in p0.items()}
+        del params0, p0
+        level0 = [k for k in live if k.endswith(("attn1.to_q.weight", "attn1.to_k.weight",
+                                                 "attn1.to_v.weight"))
+                  and (k.startswith(("input_blocks.1.", "input_blocks.2.", "output_blocks.9.",
+                                     "output_blocks.10.", "output_blocks.11.")))]
+        t, eps = draws[0]
+        grads, k1_bf16 = {}, {}
+        saved_min = fa.FLASH_MIN_KV_LEN
+        for route in ("k1", "plain"):
+            fa.FLASH_MIN_KV_LEN = saved_min if route == "k1" else 1 << 40
+            try:
+                zero_counts()
+                loss = diffusion_loss(unet, nest(live, ""), sig.bfloat16(), lat.bfloat16(),
+                                      ctx.bfloat16(), t, eps.bfloat16())
+                grads[route] = torch.autograd.grad(loss, [live[k] for k in level0])
+                k1_bf16[route] = counts()[0]
+            finally:
+                fa.FLASH_MIN_KV_LEN = saved_min
+        num = sum(((a.float() - b_.float()) ** 2).sum() for a, b_ in zip(grads["k1"],
+                                                                          grads["plain"]))
+        den = sum((b_.float() ** 2).sum() for b_ in grads["plain"])
+        rel = math.sqrt(num.item() / den.item())
+        if not (len(level0) == 15 and k1_bf16 == {"k1": K1_TRAIN_LAUNCHES, "plain": 0}
+                and math.isfinite(rel) and rel <= BF16_GRAD_NORM_TOL and den.item() > 0):
+            fail(f"phase 30c: {len(level0)} level-0 q/k/v weights (want 15), K1 launches "
+                 f"{k1_bf16}, relative norm {rel:.3e} (tol {BF16_GRAD_NORM_TOL})")
+        out["bf16_grad"] = {"rel_norm": rel, "k1_launches": k1_bf16}
+        print(f"[30 train] (c) bf16 diffusion_loss gradient, level-0 attn1 q/k/v weights (15): "
+              f"through K1 (flash_wg, {k1_bf16['k1']} launches) against the plain attention "
+              f"({k1_bf16['plain']}): relative norm {rel:.3e} (tol {BF16_GRAD_NORM_TOL}) | "
+              f"{card}", flush=True)
+        del live, grads, lat, ctx, draws, unet
+
+        # --- 30d. the pipelines on {"pp": 1}, against their sequential forms ------------
+        pipes = {}
+        rows_, width = PIPE_CHAIN
+        stage = {"w": torch.randn((width, width), generator=gen, device=dev) / math.sqrt(width),
+                 "b": torch.randn(width, generator=gen, device=dev) * 0.1}
+        xs = torch.randn((rows_, width), generator=gen, device=dev)
+
+        def chain_stage(p, a):
+            return torch.tanh(a @ p["w"] + p["b"]) + a
+
+        stacked = stack_stage_params([stage])
+        cases = {"pipeline_apply": (lambda: pipeline_apply(chain_stage, stacked, xs, pp_mesh),
+                                    lambda: chain_stage(stage, xs))}
+        clip = CLIPTextModel(SD15_CLIP_CONFIG)
+        cparams = clip.init(gen, torch.float32, dev)
+        tokens = torch.randint(0, SD15_CLIP_CONFIG.vocab_size, (TRAIN_BATCH, TRAIN_CONTEXT),
+                               generator=gen, device=dev)
+        cases["clip_pipeline_encode"] = (lambda: clip_pipeline_encode(clip, cparams, tokens,
+                                                                      pp_mesh),
+                                         lambda: clip.apply(cparams, tokens))
+        xl = UNetModel(SDXL_UNET_CONFIG)
+        mp = xl.init(gen, torch.bfloat16, dev)["middle_block"]
+        c = SDXL_UNET_CONFIG.model_channels * SDXL_UNET_CONFIG.channel_mult[-1]
+        hx = torch.randn((TRAIN_BATCH, SDXL_MIDDLE_SIZE, SDXL_MIDDLE_SIZE, c), generator=gen,
+                         device=dev).bfloat16()
+        emb = torch.randn((TRAIN_BATCH, SDXL_UNET_CONFIG.time_embed_dim), generator=gen,
+                          device=dev).bfloat16()
+        xctx = torch.randn((TRAIN_BATCH, TRAIN_CONTEXT, SDXL_UNET_CONFIG.context_dim),
+                           generator=gen, device=dev).bfloat16()
+
+        def middle_seq():
+            h_, _ = spatial_transformer(mp["1"], res_block(mp["0"], hx, emb), xctx,
+                                        SDXL_UNET_CONFIG.heads_for(c),
+                                        SDXL_UNET_CONFIG.middle_depth(), 0, AttnHooks())
+            return res_block(mp["2"], h_, emb)
+
+        cases["unet_middle_pipeline"] = (lambda: unet_middle_pipeline(
+            xl, {"middle_block": mp}, hx, emb, xctx, pp_mesh), middle_seq)
+        with torch.no_grad():
+            for name, (piped, seq) in cases.items():
+                zero_counts()
+                got, want = piped(), seq()
+                if not same_bits(got, want) or not torch.isfinite(got.float()).all():
+                    fail(f"phase 30d {name}: the one-rank pipeline differs from its sequential "
+                         f"form: max abs {(got.float() - want.float()).abs().max().item():.3e}")
+                pipes[name] = {"shape": list(got.shape), "dtype": str(got.dtype),
+                               "k1_launches": counts()[0], "ms": cuda_ms(piped, 5),
+                               "sequential_ms": cuda_ms(seq, 5)}
+        out["pipelines"] = pipes
+        print(f"[30 train] (d) on {{'pp': 1}}, each bit for bit against its sequential form: "
+              f"{json.dumps(pipes)} (SDXL middle: depth {SDXL_UNET_CONFIG.middle_depth()}, "
+              f"{SDXL_MIDDLE_SIZE}x{SDXL_MIDDLE_SIZE} of a 128x128 latent, bf16) | {card}",
+              flush=True)
+        del mp, cparams, stage, stacked, cases
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[30 train] phase 30 in {out['phase_s']:.1f} s | {card}", flush=True)
     return out
 
 

@@ -5,7 +5,8 @@ The two packages share the checkpoint layout (Linear (out, in), Conv
 no renaming: ``params_from_numpy`` carries any tree across (the UNet, the
 towers, the CLIP vision tower, the style adapter, PhotoMaker's projections
 and FuseModule). ``gligen_from_numpy`` rebuilds a GLIGEN patch, whose
-fusers and PositionNet are trees held by an object.
+fusers and PositionNet are trees held by an object. ``train_state_from_numpy``
+carries a training state (params, optax's AdamW state, step) across.
 """
 
 from __future__ import annotations
@@ -55,3 +56,23 @@ def gligen_from_numpy(fusers, fuser_heads, position_net, key_dim: int, device=No
     return Gligen([params_from_numpy(f, device, dtype) for f in fusers],
                   [int(h) for h in fuser_heads], params_from_numpy(position_net, device, dtype),
                   int(key_dim))
+
+
+def train_state_from_numpy(state, device=None):
+    """A JAX ``TrainState`` (``parallel/train.py``) as numpy leaves -> the
+    port's: the params by ``params_from_numpy``, optax's AdamW state
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())`` as
+    ``AdamWState(count, mu, nu)``, the step as an int. A JAX run can then
+    continue in the port (``diffusion_train_step``)."""
+    from stable_renderer_tpu_torch.parallel.train import AdamWState, TrainState
+
+    params, opt_state, step = state
+    adam, *empty = opt_state
+    if any(len(e) for e in empty) or not {"count", "mu", "nu"} <= set(adam._fields):
+        raise ValueError("want optax.adamw's state: (ScaleByAdamState, EmptyState(), "
+                         "EmptyState())")
+    dev = resolve_device(device)
+    return TrainState(_convert(params, dev, None),
+                      AdamWState(int(np.asarray(adam.count)), _convert(adam.mu, dev, None),
+                                 _convert(adam.nu, dev, None)),
+                      int(np.asarray(step)))

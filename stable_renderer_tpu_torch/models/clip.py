@@ -69,15 +69,7 @@ class CLIPTextModel:
 
         n_layers = cfg.num_layers if clip_skip == -1 else cfg.num_layers + 1 + clip_skip
         for i in range(n_layers):
-            lp = tm["encoder"]["layers"][str(i)]
-            h = layer_norm(lp["layer_norm1"], x)
-            q = linear(lp["self_attn"]["q_proj"], h)
-            k = linear(lp["self_attn"]["k_proj"], h)
-            v = linear(lp["self_attn"]["v_proj"], h)
-            h = attention(q, k, v, cfg.num_heads, mask=causal)
-            x = x + linear(lp["self_attn"]["out_proj"], h)
-            h = gelu_quick(linear(lp["mlp"]["fc1"], layer_norm(lp["layer_norm2"], x)))
-            x = x + linear(lp["mlp"]["fc2"], h)
+            x = encoder_layer(tm["encoder"]["layers"][str(i)], x, cfg.num_heads, causal)
         if not final_norm:
             return x
         return layer_norm(tm["final_layer_norm"], x)
@@ -121,6 +113,19 @@ class CLIPTextModel:
             "encoder": {"layers": layers},
             "final_layer_norm": norm(h),
         }}
+
+
+def encoder_layer(lp: dict, x: torch.Tensor, heads: int, causal: torch.Tensor) -> torch.Tensor:
+    """One pre-norm CLIP encoder layer: causal self-attention, then the
+    quick-gelu MLP, each with its residual."""
+    h = layer_norm(lp["layer_norm1"], x)
+    q = linear(lp["self_attn"]["q_proj"], h)
+    k = linear(lp["self_attn"]["k_proj"], h)
+    v = linear(lp["self_attn"]["v_proj"], h)
+    h = attention(q, k, v, heads, mask=causal)
+    x = x + linear(lp["self_attn"]["out_proj"], h)
+    h = gelu_quick(linear(lp["mlp"]["fc1"], layer_norm(lp["layer_norm2"], x)))
+    return x + linear(lp["mlp"]["fc2"], h)
 
 
 def _causal_mask(length: int, device) -> torch.Tensor:

@@ -204,8 +204,8 @@ def make_denoiser(
                     return hooks.mid(x, layer)
                 return torch.cat([hooks.mid(x[:batch], layer), x[batch:]], 0)
 
-        # no post wrapper without a user post hook: a tensor-parallel block
-        # takes any post hook for one that needs every head
+        # no post wrapper without a user post hook: under tensor parallelism a
+        # post hook costs an all-gather of every head
         return AttnHooks(pre=pre, post=None if hooks.post is None else post, attn=attn, mid=mid,
                          **passthru)
 

@@ -98,8 +98,8 @@ def group_hooks(user: AttnHooks, groups: int, batch: int, use_cfg: bool,
         def mid(x, layer):
             return torch.cat([user.mid(g, layer) for g in split(x)] + [x[nc:]], 0)
 
-    # no post wrapper without a user post hook: a tensor-parallel block
-    # takes any post hook for one that needs every head
+    # no post wrapper without a user post hook: under tensor parallelism a
+    # post hook costs an all-gather of every head
     return AttnHooks(pre=pre, post=None if user.post is None else post, attn=attn, mid=mid,
                      **passthru)
 

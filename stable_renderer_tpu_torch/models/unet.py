@@ -34,7 +34,7 @@ from stable_renderer_tpu_torch.models.layers import (
     timestep_embedding,
     upsample_nearest_2x,
 )
-from stable_renderer_tpu_torch.parallel.mesh import active_tp
+from stable_renderer_tpu_torch.parallel.mesh import active_tp, copy_to_tp, reduce_from_tp
 
 
 @dataclass(frozen=True)
@@ -206,13 +206,26 @@ def res_block(p: dict, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 def _row_linear(p: dict, x: torch.Tensor, tp) -> torch.Tensor:
     """``linear`` of a row-parallel weight: under tensor parallelism the
     rank's (out, in / t) shard times its share of ``x``, summed over the tp
-    ranks in f32, then the bias added once."""
+    ranks in f32 (``reduce_from_tp``), then the bias added once."""
     if tp is None:
         return linear(p, x)
-    part = torch.nn.functional.linear(x, p["weight"].to(x.dtype)).float()
-    tp.all_reduce_(part)
+    part = reduce_from_tp(torch.nn.functional.linear(x, p["weight"].to(x.dtype)).float(), tp)
     b = p.get("bias")
     return (part if b is None else part + b.float()).to(x.dtype)
+
+
+def _gather_heads(x: torch.Tensor, tp) -> torch.Tensor:
+    """Every rank's head share of (B, L, H/t * D) ``x``, concatenated in
+    head order over the tp ranks: (B, L, H * D)."""
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(tp.size)]
+    torch.distributed.all_gather(parts, x.contiguous(), group=tp.group)
+    return torch.cat(parts, -1)
+
+
+def _own_heads(x: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's head share of (B, L, H * D) ``x``."""
+    cols = x.shape[-1] // tp.size
+    return x.narrow(-1, tp.rank * cols, cols)
 
 
 def _local_heads(heads: int, tp) -> int:
@@ -240,23 +253,27 @@ def basic_transformer_block(
     shards (``parallel.sharding.apply_param_sharding``): q/k/v and the GEGLU
     input give the rank's heads and MLP columns, attention runs over
     ``heads / t`` heads, and the attention outputs and the MLP output are
-    row-parallel products summed over the ranks. The ``pre`` hook sees the
-    contexts (whole rows) and ``attn`` the rank's heads; ``post`` and
-    ``attn_all`` would see a share of the heads and raise."""
+    row-parallel products summed over the ranks (Megatron's pair:
+    ``copy_to_tp`` on the column-parallel inputs, ``reduce_from_tp`` on the
+    row-parallel outputs, so a gradient is summed over the ranks). The
+    ``pre`` hook sees the contexts (whole rows) and ``attn`` the rank's
+    heads; ``attn_all`` and ``post`` see every head, all-gathered over the
+    ranks in head order, and the rank keeps its share of what they
+    return."""
     tp = active_tp()
+    heads_all = heads
     heads = _local_heads(heads, tp)
     n = layer_norm(p["norm1"], x)
     if disable_self_attn:
+        ctx_t = copy_to_tp(context, tp)
         for name, norm in (("attn1", "norm2"), ("attn2", "norm3")):
             a = p[name]
-            q, k, v = (linear(a["to_q"], n), linear(a["to_k"], context),
-                       linear(a["to_v"], context))
+            n = copy_to_tp(n, tp)
+            q, k, v = (linear(a["to_q"], n), linear(a["to_k"], ctx_t), linear(a["to_v"], ctx_t))
             x = x + _row_linear(a["to_out"]["0"], attention(q, k, v, heads), tp)
             n = layer_norm(p[norm], x)
-        return x + _row_linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"], n), tp)
-    if tp is not None and (hooks.post is not None or hooks.attn_all is not None):
-        raise ValueError("a post or attn_all attention hook needs every head, and under tensor "
-                         "parallelism a rank holds a share of them")
+        return x + _row_linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"],
+                                                         copy_to_tp(n, tp)), tp)
     q_ctx = k_ctx = v_ctx = n
     if hooks.pre is not None:
         q_ctx, k_ctx, v_ctx = hooks.pre(q_ctx, k_ctx, v_ctx, layer_idx)
@@ -266,18 +283,23 @@ def basic_transformer_block(
     if q_ctx is k_ctx and k_ctx is v_ctx:
         # fused QKV: one (L, C) x (C, 3C) product instead of three
         w_qkv = torch.cat([a1["to_q"]["weight"], a1["to_k"]["weight"], a1["to_v"]["weight"]], 0)
-        q, k, v = linear({"weight": w_qkv}, q_ctx).chunk(3, dim=-1)
+        q, k, v = linear({"weight": w_qkv}, copy_to_tp(q_ctx, tp)).chunk(3, dim=-1)
     else:
-        q = linear(a1["to_q"], q_ctx)
-        k = linear(a1["to_k"], k_ctx)
-        v = linear(a1["to_v"], v_ctx)
+        q = linear(a1["to_q"], copy_to_tp(q_ctx, tp))
+        k = linear(a1["to_k"], copy_to_tp(k_ctx, tp))
+        v = linear(a1["to_v"], copy_to_tp(v_ctx, tp))
     if hooks.attn is not None:
         attn_out = hooks.attn(q, k, v, heads, layer_idx)
+    elif hooks.attn_all is not None and tp is not None:
+        attn_out = _own_heads(hooks.attn_all(*(_gather_heads(t, tp) for t in (q, k, v)),
+                                             heads_all, layer_idx), tp)
     elif hooks.attn_all is not None:
         attn_out = hooks.attn_all(q, k, v, heads, layer_idx)
     else:
         attn_out = attention(q, k, v, heads)
-    if hooks.post is not None:
+    if hooks.post is not None and tp is not None:
+        attn_out = _own_heads(hooks.post(_gather_heads(attn_out, tp), layer_idx), tp)
+    elif hooks.post is not None:
         attn_out = hooks.post(attn_out, layer_idx)
     x = x + _row_linear(a1["to_out"]["0"], attn_out, tp)
 
@@ -290,15 +312,15 @@ def basic_transformer_block(
     ctx_k = ctx_v = context
     if hooks.pre_cross is not None:
         n, ctx_k, ctx_v = hooks.pre_cross(n, ctx_k, ctx_v, layer_idx)
-    q = linear(a2["to_q"], n)
+    q = linear(a2["to_q"], copy_to_tp(n, tp))
     if ctx_k is ctx_v:
         w_kv = torch.cat([a2["to_k"]["weight"], a2["to_v"]["weight"]], 0)
-        k, v = linear({"weight": w_kv}, ctx_k).chunk(2, dim=-1)
+        k, v = linear({"weight": w_kv}, copy_to_tp(ctx_k, tp)).chunk(2, dim=-1)
     else:
-        k, v = linear(a2["to_k"], ctx_k), linear(a2["to_v"], ctx_v)
+        k, v = linear(a2["to_k"], copy_to_tp(ctx_k, tp)), linear(a2["to_v"], copy_to_tp(ctx_v, tp))
     x = x + _row_linear(a2["to_out"]["0"], attention(q, k, v, heads), tp)
 
-    n = layer_norm(p["norm3"], x)
+    n = copy_to_tp(layer_norm(p["norm3"], x), tp)
     return x + _row_linear(p["ff"]["net"]["2"], geglu(p["ff"]["net"]["0"], n), tp)
 
 

@@ -16,6 +16,14 @@ design. Routes, by dtype, for CUDA tensors:
 CPU tensors take the plain einsum-softmax ``flash_attention_reference``.
 Nothing on the card falls back: an input the kernels do not take raises.
 
+The gradient: the JAX package has no backward Pallas kernel, and its
+training step differentiates the plain einsum-softmax. Here, with grad mode
+on and an input that requires grad, both wrappers go through
+``FlashAttentionFn``: its forward is K1, launched as without grad, and its
+backward the plain softmax gradient (``attention_grad_reference``),
+recomputed from the saved q, k and v. A raw launch under grad raises, so
+no path drops the gradient through K1 (whose output has no ``grad_fn``).
+
 ``attention_pallas`` keeps the JAX package's routing rule: attention whose
 K/V sequence is shorter than 2048 goes to the plain path (short
 self-attention and cross-attention against 77 text tokens), longer K/V to
@@ -33,6 +41,9 @@ import torch
 FLASH_MIN_KV_LEN = 2048  # ops/flash_attention.py:165 routing threshold
 MAX_HEAD_DIM = 512
 ALIGN_ELEMS = 8  # 16 bytes of bf16: the granule of the kernels' row copies (cp.async, TMA)
+# the plain backward's f32 logits a block of the batch-head axis at most: at
+# SD1.5's level 0, (16, 4096^2) is one block of 1 GiB; SDXL's (20, 4096^2) two
+GRAD_LOGIT_BYTES = 1 << 30
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -42,6 +53,78 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(w, v)
+
+
+def attention_grad_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             dout: torch.Tensor) -> tuple:
+    """The gradient of ``flash_attention_reference`` over (BH, L, D): dq,
+    dk, dv for the output gradient ``dout`` (BH, Lq, D), in q's, k's and
+    v's types. The softmax is recomputed in f32 a block of the batch-head
+    axis at a time, so that no block's logits pass GRAD_LOGIT_BYTES; the
+    row term sum(dP * P) is sum(dO * O) with O recomputed in f32."""
+    bh, lq, d = q.shape
+    lk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    step = max(1, GRAD_LOGIT_BYTES // (lq * lk * 4))
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    for i in range(0, bh, step):
+        qs, ks, vs, gs = (t[i:i + step].float() for t in (q, k, v, dout))
+        p = torch.softmax(torch.matmul(qs, ks.transpose(-1, -2)) * scale, dim=-1)
+        dv[i:i + step] = torch.matmul(p.transpose(-1, -2), gs)
+        delta = (gs * torch.matmul(p, vs)).sum(-1, keepdim=True)
+        ds = torch.matmul(gs, vs.transpose(-1, -2)).sub_(delta).mul_(p)
+        del p
+        dq[i:i + step] = torch.matmul(ds, ks) * scale
+        dk[i:i + step] = torch.matmul(ds.transpose(-1, -2), qs) * scale
+    return dq, dk, dv
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _no_grad_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """A raw K1 launch writes an output with no ``grad_fn``: under grad it
+    would drop the gradient through attention, so it raises."""
+    if _wants_grad(q, k, v):
+        raise RuntimeError("flash_attention: a raw K1 launch under grad mode would drop the "
+                           "gradient; differentiate through FlashAttentionFn")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K1 with the plain softmax gradient. ``apply(q, k, v, layout)``:
+
+    * ``"bhld"``: (BH, L, D) in, (BH, Lq, D) out (``flash_attention``);
+    * ``"blhd"``: (B, L, H, D) views in, (B, Lq, H*D) out (``attention_pallas``'s
+      bf16 route on the fused-QKV chunks, read in place).
+
+    The forward launches K1 on CUDA tensors and runs the plain version on
+    CPU tensors; the backward is ``attention_grad_reference`` on the saved
+    inputs (no log-sum-exp is saved)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout: str):
+        ctx.layout = layout
+        ctx.save_for_backward(q, k, v)
+        if layout == "blhd":
+            if q.device.type == "cpu":
+                out = flash_attention_reference(*(t.transpose(1, 2) for t in (q, k, v)))
+                return out.transpose(1, 2).flatten(2)
+            return _launch_bf16(q, k, v)
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        if ctx.layout == "blhd":
+            b, lq, h, d = q.shape
+            heads = [t.transpose(1, 2).reshape(b * h, -1, d)
+                     for t in (q, k, v, dout.reshape(b, lq, h, d))]
+            grads = attention_grad_reference(*heads)
+            dq, dk, dv = (g.view(b, h, -1, d).transpose(1, 2) for g in grads)
+        else:
+            dq, dk, dv = attention_grad_reference(q, k, v, dout)
+        return dq, dk, dv, None
 
 
 def needs_copy(shape, strides, data_ptr: int, elem_bytes: int = 2) -> bool:
@@ -88,6 +171,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _launch_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  variant: int = -1) -> torch.Tensor:
     """The bf16 tensor-core kernel on (B, L, H, D) views -> (B, Lq, H*D)."""
+    _no_grad_launch(q, k, v)
     from stable_renderer_tpu_torch.kernels import _build
 
     q, k, v = (t.contiguous() if needs_copy(t.shape, t.stride(), t.data_ptr()) else t
@@ -118,6 +202,7 @@ def _launch_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The f32 FMA-pipe kernels on (BH, L, D) -> (BH, Lq, D), on contiguous
     copies."""
+    _no_grad_launch(q, k, v)
     from stable_renderer_tpu_torch.kernels import _build
 
     q, k, v = (t.contiguous() for t in (q, k, v))
@@ -143,7 +228,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Non-causal attention over a merged batch-head axis: (BH, Lq, D) x
     (BH, Lk, D) -> (BH, Lq, D). CUDA tensors launch a kernel (bf16: the
     tensor-core kernels, which take strided views; f32: the FMA-pipe
-    kernels, on contiguous copies); CPU tensors take the plain version."""
+    kernels, on contiguous copies); CPU tensors take the plain version.
+    Under grad (grad mode on, an input requiring grad) both go through
+    ``FlashAttentionFn``, whose backward is the plain gradient."""
+    if _wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, "bhld")
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -168,13 +257,17 @@ def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: i
     K/V length >= 2048 goes to the kernel; shorter to the plain einsum-softmax
     (where the logits tensor is small). On the card, bf16 reads q, k and v as
     they lie (the UNet's are column chunks of one fused QKV product) and
-    writes (B, L, H*D) without a layout copy."""
+    writes (B, L, H*D) without a layout copy. Under grad the kernel routes
+    (on the CPU too, with the plain forward) go through ``FlashAttentionFn``
+    (K1 forward, plain backward)."""
     b, lq, hd = q.shape
     d = hd // heads
     lk = k.shape[1]
     if lk >= FLASH_MIN_KV_LEN and q.device.type == "cuda" and q.dtype == torch.bfloat16:
         qh, kh, vh = (t.unflatten(-1, (heads, d)) for t in (q, k, v))
         _check(qh, kh, vh)
+        if _wants_grad(qh, kh, vh):
+            return FlashAttentionFn.apply(qh, kh, vh, "blhd")
         return _launch_bf16(qh, kh, vh)
     qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
     if lk < FLASH_MIN_KV_LEN:

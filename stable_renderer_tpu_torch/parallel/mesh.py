@@ -17,8 +17,10 @@ tensors: the kernels take no DTensor.
 rows, the whole-batch draws it takes its rows of, and the collectives the
 frame path needs (sums, minima, row gathers, the stage shift). Each is the
 identity on an axis of one rank, so a one-rank mesh computes what no mesh
-computes. ``tp_context`` / ``dp_context`` carry the tensor-parallel group and
-the frame shard into the UNet and the sampler for the length of one render:
+computes. ``copy_to_tp`` / ``reduce_from_tp`` are Megatron's pair of
+tensor-parallel collectives, differentiable, for the training step.
+``tp_context`` / ``dp_context`` carry the tensor-parallel group and the
+frame shard into the UNet and the sampler for the length of one render:
 nothing is left set after it.
 """
 
@@ -228,6 +230,55 @@ class FrameShard:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return got
+
+
+# --- Megatron's pair of tensor-parallel collectives, differentiable --------------------
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the gradient summed over the tp ranks backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard: FrameShard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.shard.all_reduce_(grad.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The sum over the tp ranks forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, shard: FrameShard):
+        return shard.all_reduce_(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tp(x: torch.Tensor, shard: Optional[FrameShard]) -> torch.Tensor:
+    """``x`` entering column-parallel products over ``shard``'s group: the
+    same tensor forward, and under grad a node whose backward all-reduces
+    the gradient, which each rank holds only for its share of the columns.
+    Without grad (or without a group) ``x`` itself."""
+    if shard is None or shard.size == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToTP.apply(x, shard)
+
+
+def reduce_from_tp(x: torch.Tensor, shard: Optional[FrameShard]) -> torch.Tensor:
+    """The sum over ``shard``'s group of each rank's row-parallel partial
+    product ``x``: in place without grad (the serving path), under grad a
+    node whose backward passes the gradient through unchanged."""
+    if shard is None or shard.size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromTP.apply(x, shard)
+    return shard.all_reduce_(x)
 
 
 def frame_sharding(mesh, axis: str = "dp") -> FrameShard:

@@ -135,6 +135,32 @@ def test_attention_pallas_copies_an_unaligned_view(cuda_device):
     assert (out.float() - _plain_packed(q, k, v, 8).float()).abs().max().item() < K1_BF16_TOL
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, chip_smoke.K1_GRAD_BF16_TOL),
+                                       (torch.float32, chip_smoke.K1_GRAD_F32_TOL)])
+@pytest.mark.parametrize("b,l,heads,d", [(2, 4096, 8, 40), (1, 2100, 2, 64)])
+def test_k1_gradient_on_the_card(cuda_device, dtype, tol, b, l, heads, d):
+    """Under grad, attention_pallas on the fused-QKV views goes through
+    FlashAttentionFn: one K1 launch (flash_wg in bf16, an f32 route in
+    f32), and the q/k/v gradients within chip_smoke's phase 30 bar of
+    autograd through the plain version in f32."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    qkv = torch.randn((b, l, 3 * heads * d), generator=g, device=cuda_device).to(dtype)
+    qkv.requires_grad_(True)
+    dout = torch.randn((b, l, heads * d), generator=g, device=cuda_device).to(dtype)
+    before = tfa.flash_attention.launches
+    (got,) = torch.autograd.grad(tfa.attention_pallas(*qkv.chunk(3, dim=-1), heads), qkv, dout)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    ref_in = qkv.detach().float().requires_grad_(True)
+    q, k, v = (t.unflatten(-1, (heads, d)).transpose(1, 2) for t in ref_in.chunk(3, dim=-1))
+    ref = tfa.flash_attention_reference(q, k, v).transpose(1, 2).reshape(b, l, heads * d)
+    (want,) = torch.autograd.grad(ref, ref_in, dout.float())
+    top = want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol * top
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        tfa._launch_bf16(*(t.unflatten(-1, (heads, d)) for t in qkv.chunk(3, dim=-1)))
+
+
 # head dims for the tile variants: each runs at every one it takes (the
 # small route's, the mid route's 80 and 160 and padded ones, the wide route's)
 VARIANT_HEAD_DIMS = (40, 80, 100, 160, 200, 256, 512)

@@ -158,11 +158,17 @@ def test_tp_unet_controlnet_render_and_cache(tmp_path):
     residuals against the port's unsharded ones; the tp-only render (no
     corresponder hooks) against JAX's render(mesh=mesh8) and the port's
     one-process render; compute_params' cache kept for one mesh and dropped
-    by a new UNet tree; a post hook raises; a mesh shape that does not cover
-    the world raises."""
+    by a new UNet tree; hooks that need every head (gathered over tp): the
+    UNet with a post hook that mixes the heads, and a CFG denoiser with SAG
+    over a model patch's attn_all, against JAX's unsharded ones; a mesh
+    shape that does not cover the world raises."""
     from test_torch_controlnet import perturbed_controlnet
 
     from stable_renderer_tpu.models import TINY_UNET_CONFIG, UNetModel
+    from stable_renderer_tpu.models.layers import attention as jattention
+    from stable_renderer_tpu.models.sampling import ModelSampling
+    from stable_renderer_tpu.models.sampling.cfg import make_denoiser as make_jdenoiser
+    from stable_renderer_tpu.models.unet import AttnHooks as JHooks
     from stable_renderer_tpu.parallel import apply_param_sharding as japply
     from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
 
@@ -188,11 +194,26 @@ def test_tp_unet_controlnet_render_and_cache(tmp_path):
         ctl = ControlNet(ControlNetConfig(unet=pipe.unet.config)).apply(
             cn_params, *(torch.from_numpy(a) for a in (x, hint, t, ctx)))
     control = [r for k in sorted(ctl) for r in ctl[k] if r is not None]
+    jp = jax.tree_util.tree_map(jnp.asarray, jpipe.unet_params)
+    post_out = np.asarray(jax.jit(lambda p, a, b, c: junet.apply(p, a, b, c, hooks=JHooks(
+        post=lambda vals, layer: vals + (0.1 + 0.05 * layer) * jnp.flip(vals, -1))))(
+        jp, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx)))
+    sag = (0.8, 2.0, 2)  # the tiny UNet's middle transformer is layer 2
+    cond, uncond = ctx[:2], rng.standard_normal((2, 7, TINY_UNET_CONFIG.context_dim)).astype(
+        np.float32)
+    ms = ModelSampling()
+    sigma = np.float32(ms.sigmas[500])
+    sag_out = np.asarray(jax.jit(make_jdenoiser(
+        junet, jp, jnp.asarray(cond), jnp.asarray(uncond), jnp.asarray(ms.log_sigmas),
+        cfg_scale=2.0, sag=sag, hooks=JHooks(attn_all=lambda q, k, v, heads, layer: jattention(
+            q, k * 0.5, v, heads))))(jnp.asarray(x[:2]), jnp.asarray(sigma)))
 
     outs = launch(rank_tp, 2, tmp_path, dict(
         pipe=pipeline_payload(pipe), ed={k: torch.from_numpy(v) for k, v in arrays.items()},
         x=torch.from_numpy(x), t=torch.from_numpy(t), ctx=torch.from_numpy(ctx),
-        hint=torch.from_numpy(hint), cn_params=cn_params))
+        hint=torch.from_numpy(hint), cn_params=cn_params, cond=torch.from_numpy(cond),
+        uncond=torch.from_numpy(uncond), log_sigmas=torch.from_numpy(ms.log_sigmas), sag=sag,
+        x_sag=torch.from_numpy(x[:2]), sigma=torch.tensor(sigma)))
     for o in outs:
         assert "does not cover 2 ranks" in o["cover_error"]
         assert o["q_rows"] == TINY_UNET_CONFIG.model_channels // 2
@@ -204,7 +225,9 @@ def test_tp_unet_controlnet_render_and_cache(tmp_path):
         np.testing.assert_allclose(o["render"].numpy(), ref, **MESH_TOL)
         np.testing.assert_allclose(o["render"].numpy(), jref, **JAX_TOL)
         assert o["cache"] == (True, True)
-        assert "needs every head" in o["post_error"]
+        np.testing.assert_allclose(o["post"].numpy(), post_out, atol=5e-4, rtol=0)
+        assert np.abs(post_out - unet_out).max() > 1e-2  # the hook acted
+        np.testing.assert_allclose(o["sag_attn_all"].numpy(), sag_out, atol=5e-4, rtol=0)
     _same_on_every_rank(outs, "render")
 
 

@@ -1,4 +1,6 @@
-"""Rank programs of the port's multi-rank tests (tests/test_torch_mesh.py).
+"""Rank programs of the port's multi-rank tests (tests/test_torch_mesh.py,
+tests/test_torch_mesh_stream_ring.py, tests/test_torch_train_mesh.py,
+tests/test_torch_pipeline.py).
 
 ``launch`` runs one function on ``world`` spawned processes joined in a gloo
 group on a file store under the test's temporary directory (no TCP port, so
@@ -97,7 +99,9 @@ def _mesh(shape: dict):
 
 def rank_tp(rank: int, world: int, d: dict) -> dict:
     """Tensor parallelism on {"dp": 1, "tp": world}: the UNet and a
-    ControlNet forward, the tp-only render and compute_params' cache."""
+    ControlNet forward, the tp-only render and compute_params' cache; the
+    UNet with a post hook that mixes heads, and a denoiser with SAG over a
+    model patch's attn_all (hooks that see every head)."""
     from stable_renderer_tpu_torch.data.engine_data import EngineData
     from stable_renderer_tpu_torch.models.controlnet import ControlNet, ControlNetConfig
     from stable_renderer_tpu_torch.models.unet import AttnHooks
@@ -128,12 +132,27 @@ def rank_tp(rank: int, world: int, d: dict) -> dict:
     pipe.unet_params = dict(pipe.unet_params)
     u3, _ = pipe._tp_params(mesh, "tp")
     out["cache"] = (u1 is u2, u3 is not u1)
-    try:
-        with tp_context(tp), torch.no_grad():
-            pipe.unet.apply(local, x, t, ctx, hooks=AttnHooks(post=lambda vals, layer: vals))
-    except ValueError as e:
-        out["post_error"] = str(e)
+    from stable_renderer_tpu_torch.models.sampling.cfg import make_denoiser
+
+    den = make_denoiser(pipe.unet, local, d["cond"], d["uncond"], d["log_sigmas"],
+                        cfg_scale=2.0, hooks=AttnHooks(attn_all=half_keys_attn_all),
+                        sag=d["sag"])
+    with tp_context(tp), torch.no_grad():
+        out["post"] = pipe.unet.apply(local, x, t, ctx, hooks=AttnHooks(post=mix_heads_post))
+        out["sag_attn_all"] = den(d["x_sag"], d["sigma"])
     return out
+
+
+def mix_heads_post(vals, layer):
+    """A post hook that mixes the heads (each column with its mirror)."""
+    return vals + (0.1 + 0.05 * layer) * vals.flip(-1)
+
+
+def half_keys_attn_all(q, k, v, heads, layer):
+    """A model patch's attn_all: attention with the keys halved."""
+    from stable_renderer_tpu_torch.models.layers import attention
+
+    return attention(q, k * 0.5, v, heads)
 
 
 def rank_render(rank: int, world: int, d: dict) -> dict:
@@ -240,3 +259,91 @@ def rank_ring_corrmap(rank: int, world: int, d: dict) -> dict:
             out["corrmap"][(mode, masked)] = (m.values, m.written)
     return out
 
+
+
+# --- training and the pipelines (ROADMAP 1.14b) ------------------------------------------
+
+
+def rank_train(rank: int, world: int, d: dict) -> dict:
+    """``diffusion_train_step`` on ``d["shape"]``'s mesh for each case
+    (name, remat, backward): the rank's params after the steps, the losses,
+    the step and the calls of K1's plain backward, which ``"noop"`` swaps
+    for one that returns zero gradients (and still counts its calls). The
+    level-0 self-attention takes FlashAttentionFn (``d["min_kv"]``)."""
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+    from stable_renderer_tpu_torch.ops import flash_attention as fa
+    from stable_renderer_tpu_torch.parallel import apply_param_sharding
+    from stable_renderer_tpu_torch.parallel.train import diffusion_train_step, make_train_state
+
+    calls = []
+    plain = fa.attention_grad_reference
+
+    def counted(*a):
+        calls.append(a[0].shape)
+        return plain(*a)
+
+    def noop(q, k, v, dout):
+        calls.append(q.shape)
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+
+    fa.FLASH_MIN_KV_LEN = d["min_kv"]
+    mesh = _mesh(d["shape"])
+    unet = UNetModel(d["config"])
+    out = {}
+    for name, remat, backward in d["cases"]:
+        fa.attention_grad_reference = counted if backward == "plain" else noop
+        calls.clear()
+        st, opt = make_train_state(unet, apply_param_sharding(d["params"], mesh),
+                                   learning_rate=d["lr"])
+        losses = []
+        for t, eps in d["draws"]:
+            st, loss = diffusion_train_step(unet, opt, st, d["sigmas"], d["latents"],
+                                            d["context"], t, eps, remat=remat, mesh=mesh)
+            losses.append(float(loss))
+        out[name] = {"params": st.params, "losses": losses, "step": st.step,
+                     "grad_calls": len(calls)}
+    return out
+
+
+def mlp_stage(p, x):
+    """tests/test_pipeline_parallel.py's stage: tanh(x w + b) + x."""
+    return torch.tanh(x @ p["w"] + p["b"]) + x
+
+
+def pytree_stage(p, act):
+    x, skip = act
+    return torch.tanh(x @ p["w"] + p["b"]) + skip, skip + 1.0
+
+
+def rank_pipeline(rank: int, world: int, d: dict) -> dict:
+    """Each case (name, kind, mesh shape, inputs, keyword arguments) through
+    pipeline_apply / clip_pipeline_encode / unet_middle_pipeline on its
+    mesh; a case that raises ValueError gives its message."""
+    from stable_renderer_tpu_torch.models.clip import CLIPTextModel
+    from stable_renderer_tpu_torch.models.unet import UNetModel
+    from stable_renderer_tpu_torch.parallel.pipeline import (
+        clip_pipeline_encode,
+        pipeline_apply,
+        stack_stage_params,
+        unet_middle_pipeline,
+    )
+
+    meshes, out = {}, {}
+    for name, kind, shape, a, kw in d["cases"]:
+        key = tuple(shape.items())
+        if key not in meshes:
+            meshes[key] = _mesh(shape)
+        mesh = meshes[key]
+        try:
+            if kind in ("mlp", "pytree"):
+                out[name] = pipeline_apply(mlp_stage if kind == "mlp" else pytree_stage,
+                                           stack_stage_params(a["stages"]), a["x"], mesh, **kw)
+            elif kind == "clip":
+                out[name] = clip_pipeline_encode(CLIPTextModel(a["config"]), a["params"],
+                                                 a["tokens"], mesh, **kw)
+            else:
+                out[name] = unet_middle_pipeline(UNetModel(a["config"]), a["params"], a["h"],
+                                                 a["emb"], a["ctx"], mesh, **kw)
+        except ValueError as e:
+            out[name] = str(e)
+    return out
