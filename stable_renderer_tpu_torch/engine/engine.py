@@ -173,7 +173,8 @@ class Engine:
 
     def run(self) -> None:
         """The frame loop; with ``SR_TPU_PROFILE=<dir>`` set, under a
-        torch.profiler trace written there (utils/timer.py:trace)."""
+        torch.profiler trace written there (utils/timer.py:trace), which
+        holds the frames' ``sr.*`` spans."""
         import contextlib
         import os
 
@@ -221,14 +222,17 @@ class Engine:
                 if self.max_frames is not None and self.RuntimeManager.FrameCount >= self.max_frames:
                     break
                 self.beforeFrameBegin()
-                for m in sorted(self._managers, key=lambda m: m.FrameBeginFuncOrder):
-                    self._contained(m, "on_frame_begin")
-                self.beforeFrameRun()
-                for m in sorted(self._managers, key=lambda m: m.FrameRunFuncOrder):
-                    self._contained(m, "on_frame_run")
-                self.beforeFrameEnd()
-                for m in sorted(self._managers, key=lambda m: m.FrameEndFuncOrder):
-                    self._contained(m, "on_frame_end")
+                # the frame's span opens after the user's first hook, which
+                # may start or stop a profiler at the frame boundary
+                with self.RenderManager.timer.frame(self.RuntimeManager.FrameCount):
+                    for m in sorted(self._managers, key=lambda m: m.FrameBeginFuncOrder):
+                        self._contained(m, "on_frame_begin")
+                    self.beforeFrameRun()
+                    for m in sorted(self._managers, key=lambda m: m.FrameRunFuncOrder):
+                        self._contained(m, "on_frame_run")
+                    self.beforeFrameEnd()
+                    for m in sorted(self._managers, key=lambda m: m.FrameEndFuncOrder):
+                        self._contained(m, "on_frame_end")
         finally:
             self.beforeRelease()
             for m in sorted(self._managers, key=lambda m: m.ReleaseFuncOrder):

@@ -28,6 +28,7 @@ from stable_renderer_tpu_torch.data.framebuffers import GBuffer
 from stable_renderer_tpu_torch.device import resolve_device
 from stable_renderer_tpu_torch.engine.render_exec import _draw_pass, _pack_arrays
 from stable_renderer_tpu_torch.ops.postprocess import apply_lights, defer_render, post_process
+from stable_renderer_tpu_torch.utils.timer import stage
 
 
 @torch.no_grad()
@@ -66,18 +67,19 @@ def frame_step(
     pipeline at each call, and a state built before a mesh change is
     resharded by ``_render_stream`` (its stage count tells)."""
     dev = bg_noise.device
-    gbuf = GBuffer.empty(height, width, device=dev)
-    zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
-    proj = torch.as_tensor(proj, dtype=torch.float32).to(dev)
-    for d, (uniforms, corr_size, vertex_fn, fragment_fn) in zip(draws, draw_sigs):
-        gbuf, zbuf = _draw_pass(
-            gbuf, zbuf, d["buffers"], torch.as_tensor(d["mv"], dtype=torch.float32).to(dev),
-            proj, uniforms, height, width, diffuse=d["diffuse"], noise=d["noise"],
-            corrmap_values=d["corrmap"], corrmap_size=corr_size, fragment_fn=fragment_fn,
-            vertex_fn=vertex_fn,
-        )
+    with stage("raster"):
+        gbuf = GBuffer.empty(height, width, device=dev)
+        zbuf = torch.ones((height, width), dtype=torch.float32, device=dev)
+        proj = torch.as_tensor(proj, dtype=torch.float32).to(dev)
+        for d, (uniforms, corr_size, vertex_fn, fragment_fn) in zip(draws, draw_sigs):
+            gbuf, zbuf = _draw_pass(
+                gbuf, zbuf, d["buffers"], torch.as_tensor(d["mv"], dtype=torch.float32).to(dev),
+                proj, uniforms, height, width, diffuse=d["diffuse"], noise=d["noise"],
+                corrmap_values=d["corrmap"], corrmap_size=corr_size, fragment_fn=fragment_fn,
+                vertex_fn=vertex_fn,
+            )
+        pack = _pack_arrays(gbuf, bg_noise)
 
-    pack = _pack_arrays(gbuf, bg_noise)
     display = gbuf.color
     images = new_stream_state = new_stream_kv = None
     if run_diffusion and (stream_state is not None or stream_init):
@@ -106,14 +108,15 @@ def frame_step(
         rgb = images[-1]  # display the latest frame (renderManager.py:1017-1021)
         display = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
 
-    if lights is not None:
-        lights = torch.as_tensor(lights, dtype=torch.float32).to(dev)
-        display = apply_lights(display, gbuf.normal, gbuf.pos, lights)
-    display = defer_render(display, gbuf.id, is_baking=is_baking and not run_diffusion)
-    if apply_post:
-        display = post_process(display, pp)
-    if to_uint8:
-        display = display_to_uint8(display)
+    with stage("post"):
+        if lights is not None:
+            lights = torch.as_tensor(lights, dtype=torch.float32).to(dev)
+            display = apply_lights(display, gbuf.normal, gbuf.pos, lights)
+        display = defer_render(display, gbuf.id, is_baking=is_baking and not run_diffusion)
+        if apply_post:
+            display = post_process(display, pp)
+        if to_uint8:
+            display = display_to_uint8(display)
     return display, gbuf, pack, images, new_stream_state, new_stream_kv
 
 

@@ -377,9 +377,10 @@ class RenderManager(Manager):
                 corresponder = dm.corresponder
                 n = len(self._pending) + 1
                 env = self._env_tuple()
-                sprite_ids, ctx, nctx, y_cond, y_uncond = pipe.prepare_conditioning(
-                    dict(self._sprites), env, n, image_size=(h, w)
-                )
+                with self.timer.stage("conditioning"):
+                    sprite_ids, ctx, nctx, y_cond, y_uncond = pipe.prepare_conditioning(
+                        dict(self._sprites), env, n, image_size=(h, w)
+                    )
                 sigmas = pipe.scheduler_sigmas()
                 # the sampler's generator, seeded with the integer of the JAX
                 # package's per-frame key [0, (seed + frame) & 0xFFFFFFFF]
@@ -504,7 +505,8 @@ class RenderManager(Manager):
         if host is None:
             frame = display.numpy()
         else:
-            done.synchronize()
+            with self.timer.stage("present_wait", sync=True):
+                done.synchronize()
             frame = host.numpy().copy()  # the buffer goes back to the ring
             self._free_host.append(host)
         self.engine.WindowManager.present(frame, frame_index)

@@ -102,6 +102,7 @@ from stable_renderer_tpu_torch.parallel.mesh import (
     tp_context,
 )
 from stable_renderer_tpu_torch.parallel.sharding import apply_param_sharding
+from stable_renderer_tpu_torch.utils.timer import staged
 from stable_renderer_tpu_torch.workflow.config import ControlNetSpec, RenderConfig
 
 
@@ -336,6 +337,7 @@ class DiffusionPipeline:
     def _use_taesd(self) -> bool:
         return self.config.realtime_taesd and self.taesd is not None
 
+    @staged("vae_encode")
     def _encode(self, vae_params: dict, color: torch.Tensor, vae_dtype) -> torch.Tensor:
         """[0, 1] colour (N, H, W, 3) -> the f32 latent: TAESD takes the
         colour as it is, the VAE takes it in [-1, 1]; both in ``vae_dtype``."""
@@ -343,6 +345,7 @@ class DiffusionPipeline:
             return self.taesd.encode(self.taesd_params, color.to(vae_dtype)).float()
         return self.vae.encode(vae_params, (color * 2.0 - 1.0).to(vae_dtype)).float()
 
+    @staged("vae_decode")
     def _decode(self, vae_params: dict, latent: torch.Tensor, vae_dtype) -> torch.Tensor:
         """Latent -> f32 pixels in [0, 1] (TAESD's decode clamps itself)."""
         if self._use_taesd():

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from stable_renderer_tpu_torch.device import to_device
 from stable_renderer_tpu_torch.models.unet import PATCH_HOOKS, AttnHooks, UNetModel
+from stable_renderer_tpu_torch.utils.timer import staged
 
 
 def timestep_from_sigma(log_sigmas: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -209,6 +210,7 @@ def make_denoiser(
         return AttnHooks(pre=pre, post=None if hooks.post is None else post, attn=attn, mid=mid,
                          **passthru)
 
+    @staged("unet")
     def denoise(x: torch.Tensor, sigma) -> torch.Tensor:
         sigma = torch.as_tensor(sigma, dtype=torch.float32).cpu()
         b = x.shape[0]

@@ -26,6 +26,7 @@ from stable_renderer_tpu_torch.models.sampling.cfg import (
     _params_dtype, calculate_denoised, timestep_from_sigma, unet_extras)
 from stable_renderer_tpu_torch.models.sampling.scene_cond import _tile_to, group_hooks
 from stable_renderer_tpu_torch.models.unet import AttnHooks, UNetModel
+from stable_renderer_tpu_torch.utils.timer import staged
 
 
 @dataclass(frozen=True)
@@ -107,6 +108,7 @@ def make_cond_denoiser(
     y_b, extra = unet_extras(y_cond, y_uncond, concat_latent, nf, int(use_cfg),
                            compute_dtype)
 
+    @staged("unet")
     def denoise(x: torch.Tensor, sigma) -> torch.Tensor:
         b, h, w, _ = x.shape
         sigma = torch.as_tensor(sigma, dtype=torch.float32).cpu()

@@ -18,6 +18,7 @@ import torch
 from stable_renderer_tpu_torch.models.sampling.cfg import (
     _params_dtype, calculate_denoised, timestep_from_sigma, unet_extras)
 from stable_renderer_tpu_torch.models.unet import PATCH_HOOKS, AttnHooks, UNetModel
+from stable_renderer_tpu_torch.utils.timer import staged
 
 
 def sprite_masks(
@@ -137,6 +138,7 @@ def make_scene_denoiser(
     y, extra = unet_extras(y_cond, y_uncond, concat_latent, s1, int(use_cfg),
                            compute_dtype)
 
+    @staged("unet")
     def denoise(x: torch.Tensor, sigma) -> torch.Tensor:
         sigma = torch.as_tensor(sigma, dtype=torch.float32).cpu()
         t = timestep_from_sigma(log_sigmas, sigma)

@@ -44,6 +44,7 @@ from stable_renderer_tpu_torch.ops.math import (
     group_weighted_average_by_id,
 )
 from stable_renderer_tpu_torch.parallel.mesh import FrameShard, active_dp, randn_frames
+from stable_renderer_tpu_torch.utils.timer import staged
 
 
 def broadcast_kv_injection(
@@ -83,6 +84,7 @@ def latent_vertex_ids(id_maps: torch.Tensor, height: int, width: int):
     return small[..., 3], valid
 
 
+@staged("correspond")
 def vertex_average_injection(
     latent: torch.Tensor,    # (B, h, w, C)
     id_maps: torch.Tensor,   # (B, H, W, 4)

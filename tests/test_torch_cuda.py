@@ -665,6 +665,41 @@ def test_engine_presents_pinned_readbacks_in_order(cuda_device, monkeypatch, dep
     assert not (torch.from_numpy(presented[0][1]) == torch.from_numpy(presented[1][1])).all()
 
 
+def test_host_sync_counter_matches_host_syncs(cuda_device):
+    """The tracer's host-sync count for one sequential engine frame, recorded
+    by a profiler, equals chip_smoke.host_syncs' count for that frame (a run
+    of one frame more, less a run of one frame fewer) plus the present's
+    event wait, which the debug mode does not see; the trace marks each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_renderer_tpu_torch.engine.pipeline import DiffusionPipeline
+    from stable_renderer_tpu_torch.ops.correspondence import OverlapCorresponder
+    from stable_renderer_tpu_torch.utils.timer import SYNC_MARK
+
+    pipe = DiffusionPipeline.from_random(tiny=True, device=cuda_device)
+    corr = OverlapCorresponder(vertex_segments=4096, update_corrmap=False)
+    frame = 3  # the present pipeline (depth 2) is full: the frame waits for frame 1's copy
+    chip_smoke.run_engine(pipe, 64, frame + 1, corr)  # every cache warm
+
+    def syncs(frames: int) -> int:
+        return sum(chip_smoke.host_syncs(
+            lambda: chip_smoke.run_engine(pipe, 64, frames, corr)).values())
+
+    want = syncs(frame + 1) - syncs(frame)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_frame(eng, when):
+        if when == "begin" and eng.RuntimeManager.FrameCount == frame:
+            prof.start()
+
+    eng, _ = chip_smoke.run_engine(pipe, 64, frame + 1, corr, on_frame=on_frame)
+    prof.stop()
+    counted = eng.RenderManager.timer.host_syncs
+    assert want > 0 and counted["present_wait"] == 1
+    assert sum(counted.values()) == want + 1, dict(counted)
+    assert sum(1 for e in prof.events() if e.name == SYNC_MARK) == want + 1
+
+
 @pytest.mark.parametrize("n,l,heads,d", [(4, 1024, 8, 40), (3, 1024, 8, 80), (16, 256, 8, 160)])
 def test_cross_frame_attention_folds_into_k1(cuda_device, n, l, heads, d):
     """All-frames attention on the card: the batch folds into the query
